@@ -9,7 +9,10 @@ modules it needs).
 Ported so far: Reed–Solomon erasure coding (`ceph_tpu_torch.ec`), whose
 GF(2^8) matrix product is a CUDA kernel written for `sm_90a`
 (`ec/csrc/gf_matmul.cu`), and its benchmark CLI
-(`ceph_tpu_torch.cli.ec_benchmark`).
+(`ceph_tpu_torch.cli.ec_benchmark`); CRUSH placement for straw2 maps
+(`ceph_tpu_torch.core`, `.crush`, `.osd`: the PG→OSD pipeline and
+`osd.pipeline.PoolMapper`), whose rule interpreter is a CUDA kernel
+(`crush/csrc/crush_rule.cu`).  `ceph_tpu_torch.build` builds the kernels.
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`); see `ceph_tpu_torch.device.resolve_device`.

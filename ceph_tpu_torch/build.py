@@ -1,0 +1,114 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each kernel is one source `<module>/csrc/<name>.cu` of this package (see
+SOURCES), with a plain C interface and no PyTorch header, so a build
+takes seconds.  It is compiled, at first use, into
+`ceph_tpu_torch/build/lib<name>-<hash>.so`; the hash covers the source,
+the headers (`*.cuh`) beside it and the flags, so an edited source builds
+anew.  `build_all()` starts one nvcc per source at once and waits for
+them all.
+
+The build needs the CUDA toolkit (`nvcc` on PATH, or under CUDA_HOME,
+default /usr/local/cuda).  A failed build raises with nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parent
+BUILD_DIR = PACKAGE / "build"
+SOURCES = ("ec/csrc/gf_matmul.cu", "crush/csrc/crush_rule.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    path = home / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (not on PATH, nor under CUDA_HOME): the CUDA "
+            "kernels build only where the CUDA toolkit is installed"
+        )
+    return str(path)
+
+
+def library_path(source: str) -> Path:
+    """Where `source` (a path under the package, e.g.
+    "ec/csrc/gf_matmul.cu") builds to."""
+    src = PACKAGE / source
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(source: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    lib = library_path(source)
+    if lib.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(PACKAGE / source)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    return proc, tmp, lib
+
+
+def _finish(source: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, lib = job
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc {source} failed (rc {proc.returncode}):"
+                           f"\n{err}")
+    os.replace(tmp, lib)
+
+
+def build(source: str) -> Path:
+    """Compile `source` unless it is built already; returns the
+    library's path."""
+    _finish(source, _start(source))
+    return library_path(source)
+
+
+def build_all() -> dict[str, Path]:
+    """Build every source of SOURCES, one nvcc each, all started together;
+    returns {source: library path}.  Every job is waited for before the
+    first failure is raised."""
+    jobs = {source: _start(source) for source in SOURCES}
+    errors = []
+    for source, job in jobs.items():
+        try:
+            _finish(source, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {source: library_path(source) for source in SOURCES}
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The built library of `source`, building it first if needed."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(source)))
+        _LIBS[source] = lib
+    return lib

@@ -1,0 +1,405 @@
+// crush_do_rule for one placement seed: the per-lane body of the CRUSH
+// rule kernel (crush_rule.cu), written once as __host__ __device__ code.
+//
+// nvcc builds it into the kernel; a C++ compiler builds the same file for
+// the host with the two qualifiers defined empty
+// (-D__host__= -D__device__=), which is how the CPU tests hold it against
+// the JAX package.  The control flow is the C interpreter's
+// (reference src/crush/mapper.c, as ceph_tpu/native/crush.cpp follows it:
+// straw2_choose :221, choose_firstn :287, choose_indep :387, do_rule
+// :481), read over the flat structure-of-arrays map of
+// ceph_tpu_torch/crush/soa.py: no containers, no heap, no recursion.
+// Retries are loops bounded by the tunables; chooseleaf's inner pick is a
+// second function (leaf_firstn / leaf_indep).
+//
+// Scope: straw2 buckets, no legacy local retries (the wrapper's plan pass,
+// crush/mapper.py::compile_rule, refuses other maps before a launch).
+
+#pragma once
+
+#include <stdint.h>
+
+#define CRUSH_HD __host__ __device__
+
+namespace crush_rule {
+
+constexpr int32_t ITEM_NONE = 0x7fffffff;
+constexpr int32_t ITEM_UNDEF = 0x7ffffffe;
+constexpr int RMAX_CAP = 32;  // longest result row a lane can hold
+
+// rule step opcodes (reference src/crush/crush.h:52-70)
+enum {
+    OP_TAKE = 1, OP_CHOOSE_FIRSTN = 2, OP_CHOOSE_INDEP = 3, OP_EMIT = 4,
+    OP_CHOOSELEAF_FIRSTN = 6, OP_CHOOSELEAF_INDEP = 7,
+    OP_SET_CHOOSE_TRIES = 8, OP_SET_CHOOSELEAF_TRIES = 9,
+    OP_SET_CHOOSELEAF_VARY_R = 12, OP_SET_CHOOSELEAF_STABLE = 13,
+};
+
+// outcome of one descent (the status codes of mapper_jax._descend_impl)
+enum { FOUND = 1, SKIP = 2, EMPTY = 3 };
+
+// The map, flat.  Slot b holds bucket id -1-b; rows are padded to
+// max_size items.  u32 fields are read as their bit patterns.
+struct Map {
+    const int32_t* btype;         // [B]
+    const int32_t* size;          // [B]
+    const int32_t* items;         // [B, S]
+    const uint32_t* pos_weights;  // [P, B, S] choose_args weight-sets
+    const int32_t* arg_ids;       // [B, S] ids hashed by straw2
+    const uint32_t* weight;       // [weight_len] OSD reweights (16.16)
+    const int64_t* rh_lh;         // [258] crush_ln tables
+    const int64_t* ll;            // [256]
+    int32_t n_buckets, max_size, positions, max_devices, max_depth;
+    int32_t weight_len;
+};
+
+struct Rule {
+    const int32_t* steps;  // [n_steps, 3]: op, arg1, arg2
+    int32_t n_steps, result_max;
+    int32_t choose_total_tries, chooseleaf_descend_once;
+    int32_t chooseleaf_vary_r, chooseleaf_stable;
+};
+
+// -- rjenkins (reference src/crush/hash.c) ---------------------------------
+
+CRUSH_HD inline void mix(uint32_t& a, uint32_t& b, uint32_t& c) {
+    a -= b; a -= c; a ^= c >> 13;
+    b -= c; b -= a; b ^= a << 8;
+    c -= a; c -= b; c ^= b >> 13;
+    a -= b; a -= c; a ^= c >> 12;
+    b -= c; b -= a; b ^= a << 16;
+    c -= a; c -= b; c ^= b >> 5;
+    a -= b; a -= c; a ^= c >> 3;
+    b -= c; b -= a; b ^= a << 10;
+    c -= a; c -= b; c ^= b >> 15;
+}
+
+constexpr uint32_t HASH_SEED = 1315423911u;
+
+CRUSH_HD inline uint32_t hash2(uint32_t a, uint32_t b) {
+    uint32_t h = HASH_SEED ^ a ^ b, x = 231232, y = 1232;
+    mix(a, b, h);
+    mix(x, a, h);
+    mix(b, y, h);
+    return h;
+}
+
+CRUSH_HD inline uint32_t hash3(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t h = HASH_SEED ^ a ^ b ^ c, x = 231232, y = 1232;
+    mix(a, b, h);
+    mix(c, x, h);
+    mix(y, a, h);
+    mix(b, x, h);
+    mix(y, c, h);
+    return h;
+}
+
+// -- crush_ln: 2^44 * log2(xin + 1) (reference src/crush/mapper.c:247) ----
+
+CRUSH_HD inline int64_t crush_ln(const Map& m, uint32_t xin) {
+    uint64_t x = (uint64_t)xin + 1;
+    uint64_t iexpon = 15;
+    if ((x & 0x18000) == 0) {  // x < 0x8000: normalise to [0x8000, 0x10000)
+        uint32_t v = (uint32_t)x;
+        int fl = 0;  // floor(log2(x))
+        if (v >= (1u << 8)) { fl += 8; v >>= 8; }
+        if (v >= (1u << 4)) { fl += 4; v >>= 4; }
+        if (v >= (1u << 2)) { fl += 2; v >>= 2; }
+        if (v >= (1u << 1)) { fl += 1; }
+        x <<= 15 - fl;
+        iexpon = (uint64_t)fl;
+    }
+    int k = (int)(x >> 8) - 128;  // RH/LH row, in [0, 128]
+    uint64_t rh = (uint64_t)m.rh_lh[2 * k];
+    uint64_t lh = (uint64_t)m.rh_lh[2 * k + 1];
+    uint64_t xl64 = (x * rh) >> 48;  // u64 wraparound, as in C
+    uint64_t ll = (uint64_t)m.ll[xl64 & 0xff];
+    return (int64_t)((iexpon << 44) + ((lh + ll) >> (48 - 12 - 32)));
+}
+
+// -- the straw2 draw (reference src/crush/mapper.c:334-384) ---------------
+// draw_i = (crush_ln(hash3(x, id_i, r) & 0xffff) - 2^48) / w_i, truncated
+// toward zero (S64_MIN where w_i = 0); the first maximum wins.
+
+CRUSH_HD inline int32_t straw2_choose(const Map& m, int slot, uint32_t x,
+                                      int32_t r, int position) {
+    const int64_t row = (int64_t)slot * m.max_size;
+    const int pos = position < m.positions - 1 ? position : m.positions - 1;
+    const uint32_t* w =
+        m.pos_weights + ((int64_t)pos * m.n_buckets + slot) * m.max_size;
+    const int n = m.size[slot];
+    int high = 0;
+    int64_t high_draw = 0;
+    for (int i = 0; i < n; i++) {
+        int64_t draw = INT64_MIN;
+        if (w[i]) {
+            uint32_t u = hash3(x, (uint32_t)m.arg_ids[row + i], (uint32_t)r)
+                         & 0xffff;
+            draw = (crush_ln(m, u) - 0x1000000000000LL) / (int64_t)w[i];
+        }
+        if (i == 0 || draw > high_draw) {
+            high = i;
+            high_draw = draw;
+        }
+    }
+    return m.items[row + high];
+}
+
+// reference src/crush/mapper.c:424-438
+CRUSH_HD inline bool is_out(const Map& m, int32_t item, uint32_t x) {
+    if (item >= m.weight_len) return true;
+    uint32_t w = m.weight[item];
+    if (w >= 0x10000) return false;
+    if (w == 0) return true;
+    return (hash2(x, (uint32_t)item) & 0xffff) >= w;
+}
+
+// Walk from bucket `start` with one r until an item of `type` emerges
+// (the retry_bucket descent of reference src/crush/mapper.c:507-555 /
+// 710-771).  FOUND sets *item; SKIP is C's skip_rep (an out-of-range or
+// dangling item, a device of the wrong type, or a walk deeper than the
+// map); EMPTY is an empty bucket on the way.
+CRUSH_HD inline int descend(const Map& m, int32_t start, uint32_t x,
+                            int32_t r, int position, int type,
+                            int32_t* item) {
+    int32_t in = start;
+    for (int level = 0; level <= m.max_depth; level++) {
+        const int slot = -1 - in;
+        if (m.size[slot] == 0) return EMPTY;
+        const int32_t it = straw2_choose(m, slot, x, r, position);
+        if (it >= m.max_devices) return SKIP;
+        int itemtype = 0;
+        if (it < 0) {
+            if (-1 - it >= m.n_buckets) return SKIP;
+            itemtype = m.btype[-1 - it];
+        }
+        if (itemtype == type) {
+            *item = it;
+            return FOUND;
+        }
+        if (it >= 0) return SKIP;
+        in = it;
+    }
+    return SKIP;
+}
+
+// chooseleaf firstn's inner pick (reference src/crush/mapper.c:573-588):
+// one device under `bucket`, colliding against out2[0, outpos).
+CRUSH_HD inline bool leaf_firstn(const Map& m, int32_t bucket, uint32_t x,
+                                 int32_t r0, int outpos, const int32_t* out2,
+                                 int tries, int32_t* leaf) {
+    for (int ftotal = 0;;) {
+        int32_t item;
+        const int st = descend(m, bucket, x, r0 + ftotal, outpos, 0, &item);
+        if (st == SKIP) return false;
+        if (st == FOUND) {
+            bool collide = false;
+            for (int i = 0; i < outpos; i++)
+                if (out2[i] == item) { collide = true; break; }
+            if (!collide && !is_out(m, item, x)) {
+                *leaf = item;
+                return true;
+            }
+        }
+        if (++ftotal >= tries) return false;
+    }
+}
+
+// crush_choose_firstn from outpos 0 (reference src/crush/mapper.c:460-648;
+// no local retries).  Returns the number of items placed in out[]; out2[]
+// holds the chooseleaf leaves beside them.
+CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
+                                  int numrep, int type, int32_t* out,
+                                  int32_t* out2, int count, int tries,
+                                  int recurse_tries, bool leafy, int vary_r,
+                                  int stable) {
+    int outpos = 0;
+    for (int rep = 0; rep < numrep && count > 0; rep++) {
+        for (int ftotal = 0;;) {
+            const int32_t r = rep + ftotal;
+            int32_t item;
+            const int st = descend(m, bucket, x, r, outpos, type, &item);
+            if (st == SKIP) break;
+            bool fail = true;
+            int32_t leaf = item;
+            if (st == FOUND) {
+                bool collide = false;
+                for (int i = 0; i < outpos; i++)
+                    if (out[i] == item) { collide = true; break; }
+                bool reject = false;
+                if (!collide && leafy && item < 0) {
+                    const int32_t sub_r = vary_r ? (r >> (vary_r - 1)) : 0;
+                    reject = !leaf_firstn(m, item, x,
+                                          (stable ? 0 : outpos) + sub_r,
+                                          outpos, out2, recurse_tries, &leaf);
+                }
+                if (!collide && !reject && type == 0)
+                    reject = is_out(m, item, x);
+                fail = collide || reject;
+            }
+            if (!fail) {
+                out[outpos] = item;
+                out2[outpos] = leaf;
+                outpos++;
+                count--;
+                break;
+            }
+            if (++ftotal >= tries) break;
+        }
+    }
+    return outpos;
+}
+
+// chooseleaf indep's inner pick (reference src/crush/mapper.c:784-798):
+// one device under `bucket` for slot `rep`; ITEM_NONE if none.
+CRUSH_HD inline int32_t leaf_indep(const Map& m, int32_t bucket, uint32_t x,
+                                   int rep, int32_t parent_r, int numrep,
+                                   int tries) {
+    for (int ftotal = 0; ftotal < tries; ftotal++) {
+        int32_t item;
+        const int st = descend(m, bucket, x, rep + parent_r + numrep * ftotal,
+                               rep, 0, &item);
+        if (st == SKIP) return ITEM_NONE;
+        if (st == FOUND && !is_out(m, item, x)) return item;
+    }
+    return ITEM_NONE;
+}
+
+// crush_choose_indep from outpos 0 (reference src/crush/mapper.c:655-843):
+// breadth-first over `left` positional slots, ITEM_NONE where none.
+CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
+                                  int left, int numrep, int type,
+                                  int32_t* out, int32_t* out2, int tries,
+                                  int recurse_tries, bool leafy) {
+    const int endpos = left;
+    for (int rep = 0; rep < endpos; rep++) out[rep] = out2[rep] = ITEM_UNDEF;
+    for (int ftotal = 0; left > 0 && ftotal < tries; ftotal++) {
+        for (int rep = 0; rep < endpos; rep++) {
+            if (out[rep] != ITEM_UNDEF) continue;
+            const int32_t r = rep + numrep * ftotal;
+            int32_t item;
+            const int st = descend(m, bucket, x, r, 0, type, &item);
+            if (st == EMPTY) continue;
+            if (st == SKIP) {
+                out[rep] = out2[rep] = ITEM_NONE;
+                left--;
+                continue;
+            }
+            bool collide = false;
+            for (int i = 0; i < endpos; i++)
+                if (out[i] == item) { collide = true; break; }
+            if (collide) continue;
+            if (leafy) {
+                // a device is written to out2 before its is_out check
+                // (reference src/crush/mapper.c:799-801)
+                out2[rep] = item < 0 ? leaf_indep(m, item, x, rep, r, numrep,
+                                                  recurse_tries)
+                                     : item;
+                if (out2[rep] == ITEM_NONE) continue;
+            }
+            if (type == 0 && is_out(m, item, x)) continue;
+            out[rep] = item;
+            left--;
+        }
+    }
+    for (int rep = 0; rep < endpos; rep++) {
+        if (out[rep] == ITEM_UNDEF) out[rep] = ITEM_NONE;
+        if (out2[rep] == ITEM_UNDEF) out2[rep] = ITEM_NONE;
+    }
+}
+
+// crush_do_rule (reference src/crush/mapper.c:900-1105).  Writes up to
+// rule.result_max (<= RMAX_CAP) items to result; returns how many.
+CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
+                            int32_t* result) {
+    const int result_max = rule.result_max;
+    int32_t buf_a[RMAX_CAP], buf_b[RMAX_CAP], leaves[RMAX_CAP];
+    int32_t* w = buf_a;
+    int32_t* o = buf_b;
+    int wsize = 0, rlen = 0;
+    int choose_tries = rule.choose_total_tries + 1;
+    int leaf_tries = 0;
+    int vary_r = rule.chooseleaf_vary_r;
+    int stable = rule.chooseleaf_stable;
+
+    for (int s = 0; s < rule.n_steps; s++) {
+        const int op = rule.steps[3 * s];
+        const int arg1 = rule.steps[3 * s + 1];
+        const int arg2 = rule.steps[3 * s + 2];
+        switch (op) {
+        case OP_TAKE:
+            if ((arg1 >= 0 && arg1 < m.max_devices) ||
+                (arg1 < 0 && -1 - arg1 < m.n_buckets)) {
+                w[0] = arg1;
+                wsize = 1;
+            }
+            break;
+        case OP_SET_CHOOSE_TRIES:
+            if (arg1 > 0) choose_tries = arg1;
+            break;
+        case OP_SET_CHOOSELEAF_TRIES:
+            if (arg1 > 0) leaf_tries = arg1;
+            break;
+        case OP_SET_CHOOSELEAF_VARY_R:
+            if (arg1 >= 0) vary_r = arg1;
+            break;
+        case OP_SET_CHOOSELEAF_STABLE:
+            if (arg1 >= 0) stable = arg1;
+            break;
+        case OP_CHOOSE_FIRSTN:
+        case OP_CHOOSELEAF_FIRSTN:
+        case OP_CHOOSE_INDEP:
+        case OP_CHOOSELEAF_INDEP: {
+            if (wsize == 0) break;
+            const bool firstn =
+                op == OP_CHOOSE_FIRSTN || op == OP_CHOOSELEAF_FIRSTN;
+            const bool leafy =
+                op == OP_CHOOSELEAF_FIRSTN || op == OP_CHOOSELEAF_INDEP;
+            int osize = 0;
+            for (int i = 0; i < wsize; i++) {
+                int numrep = arg1;
+                if (numrep <= 0) {
+                    numrep += result_max;
+                    if (numrep <= 0) continue;
+                }
+                const int32_t src = w[i];
+                if (src >= 0 || -1 - src >= m.n_buckets) continue;
+                if (firstn) {
+                    const int recurse_tries =
+                        leaf_tries ? leaf_tries
+                                   : (rule.chooseleaf_descend_once
+                                          ? 1 : choose_tries);
+                    osize += choose_firstn(
+                        m, src, x, numrep, arg2, o + osize, leaves + osize,
+                        result_max - osize, choose_tries, recurse_tries,
+                        leafy, vary_r, stable);
+                } else {
+                    const int out_size = numrep < result_max - osize
+                                             ? numrep : result_max - osize;
+                    choose_indep(m, src, x, out_size, numrep, arg2,
+                                 o + osize, leaves + osize, choose_tries,
+                                 leaf_tries ? leaf_tries : 1, leafy);
+                    osize += out_size;
+                }
+            }
+            if (leafy)
+                for (int i = 0; i < osize; i++) o[i] = leaves[i];
+            int32_t* t = w;
+            w = o;
+            o = t;
+            wsize = osize;
+            break;
+        }
+        case OP_EMIT:
+            for (int i = 0; i < wsize && rlen < result_max; i++)
+                result[rlen++] = w[i];
+            wsize = 0;
+            break;
+        default:
+            break;
+        }
+    }
+    return rlen;
+}
+
+}  // namespace crush_rule

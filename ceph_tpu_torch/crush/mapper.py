@@ -1,0 +1,529 @@
+"""The CRUSH rule interpreter on the card: crush_do_rule for a batch of
+placement seeds.
+
+Port of `ceph_tpu/crush/mapper_jax.py` (and `mapper_ref.find_rule`).  The
+JAX package unrolls each (map, rule) into an XLA program with a bounded
+candidate window and a loop-kernel rescue for the lanes the window could
+not decide.  The port has one exact path:
+
+- `compile_rule` is the plan pass: it checks that the map and rule are in
+  scope (straw2 buckets, no legacy local retries) and freezes the rule's
+  steps and tunables into a `RuleProgram`;
+- `crush_rule_cuda` launches the hand-written kernel
+  (`crush/csrc/crush_rule.cu`, one thread per seed, the C interpreter's
+  control flow) and counts its launches;
+- `crush_rule_plain` computes the same function in lane-vectorised torch
+  int64 ops (each retry loop a `while` over the still-active lanes), and
+  counts the straw2 draws each lane made;
+- `map_rule` dispatches on where the seeds lie: a CPU tensor goes to the
+  plain version, a CUDA tensor to the kernel (or the call raises).
+
+Inputs are u32 values: seeds and reweights may be given in any integer
+dtype (int32 holds their bit patterns).  Rows are int32 [N, result_max],
+padded with ITEM_NONE, as `compile_rule`'s fn returns them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch import build
+from ceph_tpu_torch.core.intmath import div_trunc_s64
+from ceph_tpu_torch.core.lntable import crush_ln, ln_tables
+from ceph_tpu_torch.core.rjenkins import M32, crush_hash32_2, crush_hash32_3
+from ceph_tpu_torch.crush.soa import CrushArrays, DeviceArrays
+from ceph_tpu_torch.crush.types import (
+    ITEM_NONE,
+    ITEM_UNDEF,
+    BucketAlg,
+    CrushMap,
+    RuleOp,
+)
+
+RMAX_CAP = 32  # the kernel's longest row (crush_rule.cuh)
+BLOCK = 1 << 24  # seeds per kernel launch (map_rule)
+PLAIN_CHUNK = 65536  # seeds per pass of the plain version: bounds its
+                     # [chunk, max_size] temporaries
+S64_MIN = -(2**63)
+
+# descent outcomes (crush_rule.cuh)
+_DESCENDING, _FOUND, _SKIP, _EMPTY = 0, 1, 2, 3
+
+_CHOOSE_OPS = (RuleOp.CHOOSE_FIRSTN, RuleOp.CHOOSELEAF_FIRSTN,
+               RuleOp.CHOOSE_INDEP, RuleOp.CHOOSELEAF_INDEP)
+
+
+def find_rule(map_: CrushMap, ruleset: int, type_: int, size: int) -> int:
+    """reference src/crush/mapper.c:41-54."""
+    for i, r in enumerate(map_.rules):
+        if (
+            r is not None
+            and r.ruleset == ruleset
+            and r.type == type_
+            and r.min_size <= size <= r.max_size
+        ):
+            return i
+    return -1
+
+
+@dataclass(frozen=True)
+class RuleProgram:
+    """One rule of one map, ready for the kernel and its plain version."""
+
+    ruleno: int
+    result_max: int
+    steps: np.ndarray  # int32 [n_steps, 3]: op, arg1, arg2
+    choose_total_tries: int
+    chooseleaf_descend_once: int
+    chooseleaf_vary_r: int
+    chooseleaf_stable: int
+    _steps_dev: dict = field(default_factory=dict, compare=False, repr=False)
+
+    def steps_on(self, device: torch.device) -> torch.Tensor:
+        """The steps as an int32 tensor on `device`, uploaded once."""
+        t = self._steps_dev.get(device)
+        if t is None:
+            t = torch.from_numpy(self.steps.reshape(-1).copy()).to(device)
+            self._steps_dev[device] = t
+        return t
+
+
+def compile_rule(A: CrushArrays, ruleno: int, result_max: int) -> RuleProgram:
+    """The plan pass.  Raises NotImplementedError for what the port does
+    not map yet: a bucket that is not straw2, or the legacy local-retry
+    tunables (which the JAX kernel refuses too)."""
+    for a in sorted(set(int(a) for a in np.asarray(A.alg)) - {0}):
+        if a != BucketAlg.STRAW2:
+            raise NotImplementedError(
+                f"bucket alg {BucketAlg(a).name.lower()}: not yet ported")
+    t = A.tunables
+    if t.choose_local_tries or t.choose_local_fallback_tries:
+        raise NotImplementedError(
+            "legacy local-retry tunables: not yet ported")
+    if not 0 <= ruleno < len(A.rules) or A.rules[ruleno] is None:
+        raise ValueError(f"no rule {ruleno}")
+    if result_max < 1:
+        raise ValueError(f"result_max {result_max} < 1")
+    steps = [(int(op), int(a1), int(a2)) for op, a1, a2 in
+             A.rules[ruleno].steps]
+    for op, a1, _ in steps:
+        if op in (RuleOp.SET_CHOOSE_LOCAL_TRIES,
+                  RuleOp.SET_CHOOSE_LOCAL_FALLBACK_TRIES) and a1 > 0:
+            raise NotImplementedError(
+                "legacy local-retry rule steps: not yet ported")
+    return RuleProgram(
+        ruleno=ruleno, result_max=result_max,
+        steps=np.asarray(steps, np.int32).reshape(-1, 3),
+        choose_total_tries=t.choose_total_tries,
+        chooseleaf_descend_once=t.chooseleaf_descend_once,
+        chooseleaf_vary_r=t.chooseleaf_vary_r,
+        chooseleaf_stable=t.chooseleaf_stable,
+    )
+
+
+def u32_bits(t: torch.Tensor) -> torch.Tensor:
+    """u32 values of any integer dtype -> int32 with the same bits."""
+    t = t.long() & M32
+    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
+
+
+def _weight_vector(weight: torch.Tensor) -> torch.Tensor:
+    """An empty reweight vector marks every device out, as [0] does."""
+    if weight.numel() == 0:
+        return torch.zeros(1, dtype=weight.dtype, device=weight.device)
+    return weight
+
+
+# -- the plain version --------------------------------------------------------
+
+def _place(dst: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
+           vals: torch.Tensor, n: torch.Tensor) -> None:
+    """dst[rows, at + j] = vals[:, j] for j < n, where it fits.  dst has a
+    spare last column that takes the writes that do not (torch's scatter
+    has no drop mode)."""
+    width = dst.shape[1] - 1
+    col = torch.arange(vals.shape[1], device=dst.device)
+    idx = at[:, None] + col
+    keep = (col < n[:, None]) & (idx < width)
+    sub = dst[rows]
+    sub.scatter_(1, torch.where(keep, idx, width),
+                 torch.where(keep, vals, ITEM_NONE))
+    dst[rows] = sub
+
+
+class _Lanes:
+    """One chunk of seeds through the rule, lane-vectorised.  Every method
+    takes `lanes`, the chunk indices of the lanes it works on, and
+    per-lane tensors aligned with them; the control flow is
+    crush_rule.cuh's, with each loop run over the lanes still in it."""
+
+    def __init__(self, T: DeviceArrays, x: torch.Tensor,
+                 weight: torch.Tensor):
+        self.T = T
+        self.x = x
+        self.weight = weight
+        self.draws = torch.zeros_like(x)
+        self.col_s = torch.arange(T.max_size, device=x.device)
+
+    def straw2(self, lanes, slot, r, pos):
+        """reference src/crush/mapper.c:334-384, for bucket `slot` per lane."""
+        T = self.T
+        w = T.pos_weights[pos.clamp(max=T.positions - 1), slot].long() & M32
+        live = (w > 0) & (self.col_s < T.size[slot, None])
+        u = crush_hash32_3(self.x[lanes, None], T.arg_ids[slot],
+                           r[:, None]) & 0xFFFF
+        draw = div_trunc_s64(crush_ln(u) - (1 << 48), w.clamp(min=1))
+        draw = draw.masked_fill(~live, S64_MIN)
+        # the first maximum wins
+        first = torch.where(draw == draw.amax(1, keepdim=True), self.col_s,
+                            T.max_size).amin(1)
+        self.draws.index_add_(0, lanes, live.sum(1))
+        return T.items[slot, first].long()
+
+    def is_out(self, lanes, item):
+        """reference src/crush/mapper.c:424-438."""
+        D = self.weight.numel()
+        w = self.weight[item.clamp(0, D - 1)]
+        frac = (crush_hash32_2(self.x[lanes], item) & 0xFFFF) >= w
+        return (item >= D) | ((w < 0x10000) & ((w == 0) | frac))
+
+    def descend(self, lanes, start, r, pos, target):
+        """crush_rule.cuh::descend: (item, status) per lane."""
+        T = self.T
+        item = start.clone()
+        status = torch.full_like(start, _DESCENDING)
+        for _ in range(T.max_depth + 1):
+            a = (status == _DESCENDING).nonzero()[:, 0]
+            if a.numel() == 0:
+                break
+            slot = -1 - item[a]
+            nxt = self.straw2(lanes[a], slot, r[a], pos[a])
+            is_b = nxt < 0
+            dangling = is_b & (-1 - nxt >= T.n_buckets)
+            ntype = torch.where(
+                is_b, T.btype[(-1 - nxt).clamp(0, T.n_buckets - 1)].long(), 0)
+            st = torch.where(ntype == target, _FOUND,
+                             torch.where(is_b, _DESCENDING, _SKIP))
+            st = torch.where((nxt >= T.max_devices) | dangling, _SKIP, st)
+            st = torch.where(T.size[slot] == 0, _EMPTY, st)
+            item[a] = torch.where(st == _EMPTY, item[a], nxt)
+            status[a] = st
+        status[status == _DESCENDING] = _SKIP
+        return item, status
+
+    def leaf_firstn(self, lanes, bucket, r0, outpos, out2, tries):
+        """crush_rule.cuh::leaf_firstn: (ok, leaf) per lane."""
+        k = lanes.numel()
+        col = torch.arange(out2.shape[1], device=lanes.device)
+        ok = torch.zeros(k, dtype=torch.bool, device=lanes.device)
+        leaf = torch.full_like(bucket, ITEM_NONE)
+        ftotal = torch.zeros_like(bucket)
+        pend = torch.ones_like(ok)
+        while True:
+            a = pend.nonzero()[:, 0]
+            if a.numel() == 0:
+                return ok, leaf
+            item, st = self.descend(lanes[a], bucket[a], r0[a] + ftotal[a],
+                                    outpos[a], 0)
+            collide = ((out2[a] == item[:, None])
+                       & (col < outpos[a, None])).any(1)
+            good = (st == _FOUND) & ~collide & ~self.is_out(lanes[a], item)
+            ok[a[good]] = True
+            leaf[a[good]] = item[good]
+            fail = ~good & (st != _SKIP)
+            ftotal[a[fail]] += 1
+            pend[a] = fail & (ftotal[a] < tries)
+
+    def choose_firstn(self, lanes, src, count, *, numrep, target, leafy,
+                      tries, recurse_tries, vary_r, stable, width):
+        """crush_rule.cuh::choose_firstn: (out, out2, n placed) per lane."""
+        k = lanes.numel()
+        dev = lanes.device
+        col = torch.arange(width, device=dev)
+        out = torch.full((k, width), ITEM_NONE, dtype=torch.long, device=dev)
+        out2 = out.clone()
+        outpos = torch.zeros(k, dtype=torch.long, device=dev)
+        count = count.clone()
+        for rep in range(numrep):
+            pend = count > 0
+            ftotal = torch.zeros_like(outpos)
+            while True:
+                a = pend.nonzero()[:, 0]
+                if a.numel() == 0:
+                    break
+                r = rep + ftotal[a]
+                item, st = self.descend(lanes[a], src[a], r, outpos[a],
+                                        target)
+                found = st == _FOUND
+                collide = found & ((out[a] == item[:, None])
+                                   & (col < outpos[a, None])).any(1)
+                reject = torch.zeros_like(found)
+                leaf = item.clone()
+                if leafy:
+                    b = (found & ~collide & (item < 0)).nonzero()[:, 0]
+                    if b.numel():
+                        ab = a[b]
+                        sub_r = r[b] >> (vary_r - 1) if vary_r else 0
+                        r0 = (0 if stable else outpos[ab]) + sub_r
+                        ok, lf = self.leaf_firstn(
+                            lanes[ab], item[b], r0 + torch.zeros_like(ab),
+                            outpos[ab], out2[ab], recurse_tries)
+                        reject[b] = ~ok
+                        leaf[b] = lf
+                if target == 0:
+                    reject |= (found & ~collide & ~reject
+                               & self.is_out(lanes[a], item))
+                placed = found & ~collide & ~reject
+                p = a[placed]
+                out[p, outpos[p]] = item[placed]
+                out2[p, outpos[p]] = leaf[placed]
+                outpos[p] += 1
+                count[p] -= 1
+                fail = (st == _EMPTY) | (found & ~placed)
+                ftotal[a[fail]] += 1
+                pend[a] = fail & (ftotal[a] < tries)
+        return out, out2, outpos
+
+    def leaf_indep(self, lanes, bucket, rep, parent_r, numrep, tries):
+        """crush_rule.cuh::leaf_indep: the leaf per lane, or ITEM_NONE."""
+        res = torch.full_like(bucket, ITEM_NONE)
+        pend = torch.ones_like(bucket, dtype=torch.bool)
+        pos = torch.full_like(bucket, rep)
+        for ftotal in range(tries):
+            a = pend.nonzero()[:, 0]
+            if a.numel() == 0:
+                break
+            item, st = self.descend(lanes[a], bucket[a],
+                                    rep + parent_r[a] + numrep * ftotal,
+                                    pos[a], 0)
+            good = (st == _FOUND) & ~self.is_out(lanes[a], item)
+            res[a[good]] = item[good]
+            pend[a] = ~good & (st != _SKIP)
+        return res
+
+    def choose_indep(self, lanes, src, out_size, *, numrep, target, leafy,
+                     tries, recurse_tries, width):
+        """crush_rule.cuh::choose_indep: (out, out2) per lane."""
+        dev = lanes.device
+        col = torch.arange(width, device=dev)
+        out = torch.where(col < out_size[:, None], ITEM_UNDEF, ITEM_NONE)
+        out2 = out.clone()
+        zero = torch.zeros_like(src)
+        for ftotal in range(tries):
+            todo_any = False
+            for rep in range(width):
+                a = (out[:, rep] == ITEM_UNDEF).nonzero()[:, 0]
+                if a.numel() == 0:
+                    continue
+                todo_any = True
+                r = zero[a] + rep + numrep * ftotal
+                item, st = self.descend(lanes[a], src[a], r, zero[a], target)
+                skip = a[st == _SKIP]
+                out[skip, rep] = ITEM_NONE
+                out2[skip, rep] = ITEM_NONE
+                go = (st == _FOUND) & ~(out[a] == item[:, None]).any(1)
+                if leafy:
+                    dv = go & (item >= 0)
+                    out2[a[dv], rep] = item[dv]
+                    b = (go & (item < 0)).nonzero()[:, 0]
+                    if b.numel():
+                        lf = self.leaf_indep(lanes[a[b]], item[b], rep, r[b],
+                                             numrep, recurse_tries)
+                        out2[a[b], rep] = lf
+                        go[b] = lf != ITEM_NONE
+                if target == 0:
+                    go &= ~self.is_out(lanes[a], item)
+                out[a[go], rep] = item[go]
+            if not todo_any:
+                break
+        out[out == ITEM_UNDEF] = ITEM_NONE
+        out2[out2 == ITEM_UNDEF] = ITEM_NONE
+        return out, out2
+
+    def run(self, prog: RuleProgram) -> torch.Tensor:
+        """crush_rule.cuh::do_rule for every lane of the chunk."""
+        T = self.T
+        K = self.x.numel()
+        dev = self.x.device
+        RMAX = prog.result_max
+        all_lanes = torch.arange(K, device=dev)
+        result = torch.full((K, RMAX + 1), ITEM_NONE, dtype=torch.long,
+                            device=dev)
+        rlen = torch.zeros(K, dtype=torch.long, device=dev)
+        w = torch.full((K, RMAX), ITEM_NONE, dtype=torch.long, device=dev)
+        wsize = torch.zeros_like(rlen)
+        choose_tries = prog.choose_total_tries + 1
+        leaf_tries = 0
+        vary_r = prog.chooseleaf_vary_r
+        stable = prog.chooseleaf_stable
+        for op, arg1, arg2 in prog.steps.tolist():
+            if op == RuleOp.TAKE:
+                if (0 <= arg1 < T.max_devices) or (
+                        arg1 < 0 and -1 - arg1 < T.n_buckets):
+                    w[:, 0] = arg1
+                    wsize[:] = 1
+            elif op == RuleOp.SET_CHOOSE_TRIES:
+                if arg1 > 0:
+                    choose_tries = arg1
+            elif op == RuleOp.SET_CHOOSELEAF_TRIES:
+                if arg1 > 0:
+                    leaf_tries = arg1
+            elif op == RuleOp.SET_CHOOSELEAF_VARY_R:
+                if arg1 >= 0:
+                    vary_r = arg1
+            elif op == RuleOp.SET_CHOOSELEAF_STABLE:
+                if arg1 >= 0:
+                    stable = arg1
+            elif op in _CHOOSE_OPS:
+                has = wsize > 0  # a lane without sources keeps w as it is
+                firstn = op in (RuleOp.CHOOSE_FIRSTN,
+                                RuleOp.CHOOSELEAF_FIRSTN)
+                leafy = op in (RuleOp.CHOOSELEAF_FIRSTN,
+                               RuleOp.CHOOSELEAF_INDEP)
+                o = torch.full((K, RMAX + 1), ITEM_NONE, dtype=torch.long,
+                               device=dev)
+                osize = torch.zeros_like(rlen)
+                numrep = arg1 if arg1 > 0 else arg1 + RMAX
+                width = min(max(numrep, 1), RMAX)
+                for i in range(int(wsize.max()) if numrep > 0 else 0):
+                    src = w[:, i]
+                    ok = (i < wsize) & (src < 0) & (-1 - src < T.n_buckets)
+                    room = torch.clamp(RMAX - osize, max=numrep)
+                    a = (ok & (room > 0)).nonzero()[:, 0]
+                    if a.numel() == 0:
+                        continue
+                    if firstn:
+                        recurse_tries = leaf_tries or (
+                            1 if prog.chooseleaf_descend_once
+                            else choose_tries)
+                        out, out2, n = self.choose_firstn(
+                            a, src[a], RMAX - osize[a], numrep=numrep,
+                            target=arg2, leafy=leafy, tries=choose_tries,
+                            recurse_tries=recurse_tries, vary_r=vary_r,
+                            stable=stable, width=width)
+                    else:
+                        n = room[a]
+                        out, out2 = self.choose_indep(
+                            a, src[a], n, numrep=numrep, target=arg2,
+                            leafy=leafy, tries=choose_tries,
+                            recurse_tries=leaf_tries or 1, width=width)
+                    _place(o, a, osize[a], out2 if leafy else out, n)
+                    osize[a] += n
+                w = torch.where(has[:, None], o[:, :RMAX], w)
+                wsize = torch.where(has, osize, wsize)
+            elif op == RuleOp.EMIT:
+                _place(result, all_lanes, rlen, w, wsize)
+                rlen = torch.clamp(rlen + wsize, max=RMAX)
+                wsize = torch.zeros_like(wsize)
+        return result[:, :RMAX].to(torch.int32)
+
+
+def crush_rule_plain(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
+                     weight: torch.Tensor):
+    """The plain PyTorch version of the kernel, on any device.
+
+    x: seeds [N]; weight: OSD reweights [D] (u32 values, any integer
+    dtype), on T's device.  Returns (rows int32 [N, result_max], draws
+    int64 [N]): the straw2 draws each lane made (items with a nonzero
+    weight in every bucket it drew from)."""
+    x = x.reshape(-1).long() & M32
+    weight = _weight_vector(weight.reshape(-1).long() & M32)
+    rows, draws = [], []
+    for i in range(0, x.numel(), PLAIN_CHUNK):
+        lanes = _Lanes(T, x[i:i + PLAIN_CHUNK], weight)
+        rows.append(lanes.run(prog))
+        draws.append(lanes.draws)
+    if not rows:
+        return (torch.empty((0, prog.result_max), dtype=torch.int32,
+                            device=x.device),
+                torch.empty(0, dtype=torch.long, device=x.device))
+    return torch.cat(rows), torch.cat(draws)
+
+
+# -- the kernel ---------------------------------------------------------------
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("crush/csrc/crush_rule.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.crush_rule_launch.argtypes = (
+        [p] * 9 + [i] * 12 + [p, ctypes.c_longlong, p, p])
+    lib.crush_rule_launch.restype = i
+    lib.crush_rule_error_string.argtypes = [i]
+    lib.crush_rule_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def crush_rule_cuda(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
+                    weight: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel once: seeds x int32 [N] (u32 bit patterns) and
+    reweights int32 [D] on T's card -> int32 rows [N, result_max].  Runs
+    on the current stream, unsynchronised.  `crush_rule_cuda.launches`
+    counts the launches."""
+    dev = T.device
+    if dev.type != "cuda" or x.device != dev or weight.device != dev:
+        raise ValueError(
+            f"crush_rule_cuda: map on {dev}, seeds on {x.device}, weights "
+            f"on {weight.device}; all must be on one CUDA device")
+    if x.dtype != torch.int32 or weight.dtype != torch.int32:
+        raise TypeError("crush_rule_cuda: int32 seeds and weights expected "
+                        "(u32 bit patterns)")
+    if x.dim() != 1 or weight.dim() != 1 or weight.numel() == 0:
+        raise ValueError("crush_rule_cuda: seeds [N] and weights [D >= 1] "
+                         "expected")
+    if not (x.is_contiguous() and weight.is_contiguous()):
+        raise ValueError("crush_rule_cuda: contiguous tensors expected")
+    if prog.result_max > RMAX_CAP:
+        raise ValueError(f"crush_rule_cuda: result_max {prog.result_max} > "
+                         f"{RMAX_CAP}, the kernel's longest row")
+    out = torch.empty((x.numel(), prog.result_max), dtype=torch.int32,
+                      device=dev)
+    if x.numel() == 0:
+        return out
+    rh_lh, ll = ln_tables(dev)
+    steps = prog.steps_on(dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.crush_rule_launch(
+            T.btype.data_ptr(), T.size.data_ptr(), T.items.data_ptr(),
+            T.pos_weights.data_ptr(), T.arg_ids.data_ptr(),
+            weight.data_ptr(), rh_lh.data_ptr(), ll.data_ptr(),
+            steps.data_ptr(), T.n_buckets, T.max_size, T.positions,
+            T.max_devices, T.max_depth, weight.numel(), len(prog.steps),
+            prog.result_max, prog.choose_total_tries,
+            prog.chooseleaf_descend_once, prog.chooseleaf_vary_r,
+            prog.chooseleaf_stable, x.data_ptr(), x.numel(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.crush_rule_error_string(rc).decode()
+        raise RuntimeError(f"crush_rule kernel launch failed: {msg}")
+    crush_rule_cuda.launches += 1
+    return out
+
+
+crush_rule_cuda.launches = 0
+
+
+def map_rule(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
+             weight: torch.Tensor) -> torch.Tensor:
+    """The rule's rows for seeds x on T's device: int32 [N, result_max].
+    On the card, one kernel launch per block of up to BLOCK seeds; on the
+    CPU, the plain version."""
+    if x.device != T.device or weight.device != T.device:
+        raise ValueError(f"seeds on {x.device}, weights on {weight.device}, "
+                         f"map on {T.device}")
+    if x.device.type == "cpu":
+        return crush_rule_plain(T, prog, x, weight)[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x = u32_bits(x.reshape(-1))
+    weight = u32_bits(_weight_vector(weight.reshape(-1)))
+    blocks = [crush_rule_cuda(T, prog, x[i:i + BLOCK], weight)
+              for i in range(0, max(x.numel(), 1), BLOCK)]
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks)

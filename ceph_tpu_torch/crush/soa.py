@@ -1,0 +1,210 @@
+"""Structure-of-arrays CrushMap for the rule kernel.
+
+A copy of `ceph_tpu/crush/soa.py`, plus `to_device`.  The C reference walks
+pointer-linked bucket structs per PG (reference src/crush/crush.h:354-461).
+The frozen form is a padded array bundle: one row per bucket slot (slot b
+holds bucket id -1-b), items/weights padded to the max bucket size with a
+size vector for masking.  `build_arrays` freezes a map on the host (numpy);
+`to_device` uploads the fields the rule kernel and its plain version read,
+once per map.
+
+Padding policy: item/weight rows pad with 0 (masked lanes never win a draw:
+zero weight => S64_MIN draw in straw2, 0 straw in straw, excluded by the size
+mask elsewhere).  Tree node arrays pad to the largest node count.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+
+import torch
+
+from ceph_tpu_torch.crush.types import BucketAlg, CrushMap, Tunables
+
+
+@dataclass(frozen=True)
+class CrushArrays:
+    """Frozen SoA view of a CrushMap, numpy-held (`to_device` uploads)."""
+
+    # static metadata
+    n_buckets: int  # B: bucket slots
+    max_size: int  # S: padded item axis
+    max_nodes: int  # NN: padded tree-node axis
+    positions: int  # P: choose_args weight-set positions (>=1)
+    max_devices: int
+    max_depth: int  # longest bucket->bucket chain (for loop bounds)
+    tunables: Tunables
+    rules: tuple  # tuple of Rule (static step data)
+
+    # per-bucket arrays
+    alg: np.ndarray  # [B] i32
+    btype: np.ndarray  # [B] i32
+    size: np.ndarray  # [B] i32
+    bucket_weight: np.ndarray  # [B] u32 (sum of item weights)
+    items: np.ndarray  # [B,S] i32
+    weights: np.ndarray  # [B,S] u32  (16.16)
+    sum_weights: np.ndarray  # [B,S] u32  (list prefix sums)
+    straws: np.ndarray  # [B,S] u32  (straw scalers)
+    node_weights: np.ndarray  # [B,NN] u32 (tree heap)
+    num_nodes: np.ndarray  # [B] i32
+    # choose_args (defaults mirror weights/items)
+    pos_weights: np.ndarray  # [P,B,S] u32
+    arg_ids: np.ndarray  # [B,S] i32
+
+    def __hash__(self):
+        return id(self)
+
+    def __eq__(self, other):
+        return self is other
+
+
+def _map_depth(m: CrushMap) -> int:
+    """Longest chain of nested buckets (loop bound for descents)."""
+    depth: dict[int, int] = {}
+
+    def d(bid: int) -> int:
+        if bid >= 0:
+            return 0
+        if bid in depth:
+            return depth[bid]
+        depth[bid] = 1  # guard cycles
+        b = m.buckets.get(bid)
+        if b is None:
+            return 1
+        depth[bid] = 1 + max((d(i) for i in b.items), default=0)
+        return depth[bid]
+
+    return max((d(b) for b in m.buckets), default=1)
+
+
+def build_arrays(
+    m: CrushMap, choose_args: Any | int | str | None = None,
+) -> CrushArrays:
+    """Freeze a CrushMap (+ optionally one named choose_args set) to SoA."""
+    if isinstance(choose_args, (int, str)):
+        choose_args = m.choose_args.get(choose_args)
+
+    B = m.max_buckets
+    S = max((b.size for b in m.buckets.values()), default=1) or 1
+    NN = 2
+    for b in m.buckets.values():
+        if b.alg == BucketAlg.TREE and b.node_weights:
+            NN = max(NN, len(b.node_weights))
+    P = 1
+    if choose_args is not None:
+        for ws in choose_args.weight_sets.values():
+            P = max(P, len(ws))
+
+    alg = np.zeros(B, np.int32)
+    btype = np.zeros(B, np.int32)
+    size = np.zeros(B, np.int32)
+    bw = np.zeros(B, np.uint32)
+    items = np.zeros((B, S), np.int32)
+    weights = np.zeros((B, S), np.uint32)
+    sumw = np.zeros((B, S), np.uint32)
+    straws = np.zeros((B, S), np.uint32)
+    nodew = np.zeros((B, NN), np.uint32)
+    nnodes = np.zeros(B, np.int32)
+    arg_ids = np.zeros((B, S), np.int32)
+
+    for bid, b in m.buckets.items():
+        slot = -1 - bid
+        alg[slot] = int(b.alg)
+        btype[slot] = b.type
+        size[slot] = b.size
+        bw[slot] = b.weight & 0xFFFFFFFF
+        items[slot, : b.size] = b.items
+        weights[slot, : b.size] = b.weights
+        arg_ids[slot, : b.size] = b.items
+        if b.alg == BucketAlg.LIST:
+            if b.sum_weights is None:
+                b.finalize_derived(m.tunables.straw_calc_version)
+            sumw[slot, : b.size] = b.sum_weights
+        elif b.alg == BucketAlg.TREE:
+            if b.node_weights is None:
+                b.finalize_derived(m.tunables.straw_calc_version)
+            nw = b.node_weights or []
+            nodew[slot, : len(nw)] = nw
+            nnodes[slot] = len(nw)
+        elif b.alg == BucketAlg.STRAW:
+            if b.straws is None:
+                b.finalize_derived(m.tunables.straw_calc_version)
+            straws[slot, : b.size] = b.straws
+
+    pos_weights = np.broadcast_to(weights, (P, B, S)).copy()
+    if choose_args is not None:
+        for bid, ws in choose_args.weight_sets.items():
+            slot = -1 - bid
+            n = m.buckets[bid].size
+            for p in range(P):
+                row = ws[min(p, len(ws) - 1)]
+                pos_weights[p, slot, :n] = row
+        for bid, ids in choose_args.ids.items():
+            slot = -1 - bid
+            n = m.buckets[bid].size
+            arg_ids[slot, :n] = ids
+
+    return CrushArrays(
+        n_buckets=B,
+        max_size=S,
+        max_nodes=NN,
+        positions=P,
+        max_devices=m.max_devices,
+        max_depth=_map_depth(m),
+        tunables=m.tunables,
+        rules=tuple(m.rules),
+        alg=alg,
+        btype=btype,
+        size=size,
+        bucket_weight=bw,
+        items=items,
+        weights=weights,
+        sum_weights=sumw,
+        straws=straws,
+        node_weights=nodew,
+        num_nodes=nnodes,
+        pos_weights=pos_weights,
+        arg_ids=arg_ids,
+    )
+
+
+@dataclass(frozen=True)
+class DeviceArrays:
+    """The fields of a CrushArrays that the rule kernel reads, as int32
+    tensors on one device (u32 fields hold their bit patterns), with the
+    sizes they need.  pos_weights is [P, B, S]; items and arg_ids [B, S]."""
+
+    btype: torch.Tensor
+    size: torch.Tensor
+    items: torch.Tensor
+    pos_weights: torch.Tensor
+    arg_ids: torch.Tensor
+    n_buckets: int
+    max_size: int
+    positions: int
+    max_devices: int
+    max_depth: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.items.device
+
+
+def to_device(A: CrushArrays, device) -> DeviceArrays:
+    """Upload the kernel's fields of `A` to `device`, once per map."""
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
+
+    return DeviceArrays(
+        btype=put(A.btype), size=put(A.size), items=put(A.items),
+        pos_weights=put(A.pos_weights), arg_ids=put(A.arg_ids),
+        n_buckets=A.n_buckets, max_size=A.max_size, positions=A.positions,
+        max_devices=A.max_devices, max_depth=A.max_depth,
+    )

@@ -20,8 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from ceph_tpu_torch import build
 from ceph_tpu_torch.device import resolve_device
-from ceph_tpu_torch.ec import build
 from ceph_tpu_torch.ec.gf import GF_MUL_TABLE, gf_device_tables
 from ceph_tpu_torch.ec.interface import _to_tensor
 
@@ -77,7 +77,7 @@ def gf_matmul_plain(M, data: torch.Tensor) -> torch.Tensor:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("gf_matmul")
+    lib = build.load("ec/csrc/gf_matmul.cu")
     lib.gf_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int,

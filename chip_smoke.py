@@ -5,10 +5,12 @@
 
 Run from the root of the repository, on a machine with one NVIDIA H100
 and the CUDA toolkit.  It builds every kernel from the sources in the
-checkout, holds each kernel against its plain PyTorch version, drives the
-erasure-coding path through the entry points a user calls (the corpus
-profiles, RS(8,4) encode/decode at full size, the benchmark CLI), and
-prints one JSON object per phase.  Any failure raises and exits non-zero.
+checkout (one nvcc per source, all at once), holds each kernel against
+its plain PyTorch version, drives the erasure-coding path (the corpus
+profiles, RS(8,4) encode/decode at full size, the benchmark CLI) and the
+placement path (the placement corpus, then BASELINE configs 2 and 5
+through `PoolMapper`) through the entry points a user calls, and prints
+one JSON object per phase.  Any failure raises and exits non-zero.
 
 The line before the last is the kernels line (each kernel's launches on
 the main path, its time, bound and plain-version time); the last line is
@@ -30,8 +32,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ceph_tpu_torch import build
 from ceph_tpu_torch.cli import ec_benchmark
-from ceph_tpu_torch.ec import build, create_erasure_code
+from ceph_tpu_torch.crush import mapper
+from ceph_tpu_torch.crush.types import ITEM_NONE
+from ceph_tpu_torch.ec import create_erasure_code
 from ceph_tpu_torch.ec.rs import decode_plan
 from ceph_tpu_torch.ec.torch_backend import (
     gf_matmul_cuda,
@@ -39,8 +44,14 @@ from ceph_tpu_torch.ec.torch_backend import (
     product_tables,
 )
 
+from ceph_tpu_torch.osd.carry import osdmap_from_reference
+from ceph_tpu_torch.osd.osdmap import build_hierarchical
+from ceph_tpu_torch.osd.pipeline import PoolMapper
+from ceph_tpu_torch.osd.types import PgPool, PoolType
+
 ROOT = Path(__file__).resolve().parent
 CORPUS = ROOT / "tests" / "data" / "ec_corpus.json"
+PLACEMENT_CORPUS = ROOT / "tests" / "data" / "placement_corpus.json"
 RS_ENTRIES = (
     "rs_k8m4_reed_sol_van",
     "rs_k6m2_reed_sol_r6_op",
@@ -51,6 +62,7 @@ RS_ENTRIES = (
 # H100 SXM5 data sheet); its name as torch reports it
 H100_SXM = "NVIDIA H100 80GB HBM3"
 H100_SXM_BW = 3.35e12
+H100_SMS, SCHEDULERS_PER_SM, WARP = 132, 4, 32  # issue slots per clock
 RUNS = 25  # timed runs per measurement (median reported)
 MiB = 1 << 20
 
@@ -77,21 +89,22 @@ def peak_bandwidth(name: str) -> tuple[float, str]:
     return H100_SXM_BW, "H100 SXM, 3.35 TB/s"
 
 
-def counted(expected: int, what: str, fn):
+def counted(expected: int, what: str, fn, kernel=gf_matmul_cuda):
     """Run fn() with the kernel's launch count set to 0 just before and
     read just after; fail unless it launched exactly `expected` times."""
-    gf_matmul_cuda.launches = 0
+    kernel.launches = 0
     out = fn()
-    launches = gf_matmul_cuda.launches
+    launches = kernel.launches
     check(launches == expected,
           f"{what}: {launches} kernel launches, expected {expected}")
     return out, launches
 
 
-def time_ms(fn, flush: torch.Tensor, runs: int = RUNS) -> float:
+def time_ms(fn, flush: torch.Tensor, runs: int = RUNS,
+            warmup: int = 3) -> float:
     """Median device time of fn() in ms, CUDA events around each run, with
     the L2 cache flushed before each (a caller's stripes arrive cold)."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
@@ -128,11 +141,14 @@ def phase_device() -> dict:
 
 # -- phase 2: build -----------------------------------------------------------
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Every kernel source, one nvcc each, started together."""
     t0 = time.perf_counter()
-    lib = build.build("gf_matmul")
+    libs = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib.relative_to(ROOT))})
+          "libraries": {src: str(lib.relative_to(ROOT))
+                        for src, lib in libs.items()}})
+    return libs
 
 
 # -- phase 3: kernel vs plain version -----------------------------------------
@@ -344,6 +360,267 @@ def phase_cli() -> dict:
     return launches
 
 
+# -- placement: the rule kernel on the card ----------------------------------
+
+CONFIGS = {
+    # BASELINE.json configs 2 and 5, built as bench.py::build_map builds
+    # them: hosts of 8 OSDs, racks of 16 hosts, one replicated size-3 pool
+    # with chooseleaf firstn over host
+    "config2": (100_000, 1024),
+    "config5": (10_000_000, 10_000),
+}
+OSD_PER_HOST = 8
+PLAIN_BLOCK = 1 << 20  # seeds of config 5 the plain version is held to
+
+
+def bench_map(n_pgs: int, n_osds: int):
+    n_host = max(1, n_osds // OSD_PER_HOST)
+    pool = PgPool(type=PoolType.REPLICATED, size=3, crush_rule=0,
+                  pg_num=n_pgs, pgp_num=n_pgs)
+    return build_hierarchical(n_host, OSD_PER_HOST,
+                              n_rack=max(1, n_host // 16), pool=pool)
+
+
+def rule_inputs(pm: PoolMapper, n: int):
+    """The kernel's inputs on the main path for the first n PGs of the
+    pool: (seeds, reweights), u32 values in int64 on the card."""
+    ps = torch.arange(n, device=pm.device)
+    return pm.placement_seeds(ps), pm.rule_weights()
+
+
+def kernel_vs_plain(pm: PoolMapper, n: int):
+    """crush_rule_cuda against crush_rule_plain on the main path's inputs;
+    returns (max_abs_err, draws per lane of the plain version)."""
+    x, w = rule_inputs(pm, n)
+    got = mapper.crush_rule_cuda(pm.tables, pm.prog, mapper.u32_bits(x),
+                                 mapper.u32_bits(w))
+    want, draws = mapper.crush_rule_plain(pm.tables, pm.prog, x, w)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    check(torch.equal(got, want), f"crush_rule kernel == plain ({n} PGs)")
+    return err, draws
+
+
+def phase_rule_vs_plain(dev, corpus: dict, pms: dict) -> tuple[int, dict]:
+    """Phase 1 of placement: the kernel vs its plain version on every
+    corpus map, the whole of config 2 and the first 2^20 PGs of config 5."""
+    worst, cases, draws = 0, [], {}
+    for name, entry in corpus.items():
+        pm = PoolMapper(osdmap_from_reference(entry["map"]),
+                        entry["pool_id"], device=dev)
+        err, _ = kernel_vs_plain(pm, pm.spec.pg_num)
+        worst = max(worst, err)
+        cases.append({"case": name, "pgs": pm.spec.pg_num, "equal": True})
+    for name, n in (("config2", CONFIGS["config2"][0]),
+                    ("config5", PLAIN_BLOCK)):
+        err, d = kernel_vs_plain(pms[name], n)
+        worst = max(worst, err)
+        draws[name] = d
+        cases.append({"case": name, "pgs": n, "equal": True,
+                      "draws_per_pg": d.double().mean().item()})
+    emit({"phase": "rule_vs_plain", "cases": cases, "max_abs_err": worst})
+    return worst, draws
+
+
+def placement_digest(rows) -> str:
+    h = hashlib.sha256()
+    for a in rows:
+        h.update(np.ascontiguousarray(a, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def phase_placement_corpus(dev, corpus: dict) -> int:
+    """Every corpus entry's digest through PoolMapper.map_all() on the
+    card: one launch per entry (each pool has fewer than BLOCK PGs)."""
+    maps = {name: osdmap_from_reference(e["map"])
+            for name, e in corpus.items()}
+
+    def drive():
+        for name, e in corpus.items():
+            rows = PoolMapper(maps[name], e["pool_id"], device=dev).map_all()
+            check(placement_digest(rows) == e["digest"],
+                  f"placement digest {name}")
+
+    _, n = counted(len(corpus), "placement corpus", drive,
+                   mapper.crush_rule_cuda)
+    emit({"phase": "placement_corpus", "entries": sorted(corpus),
+          "digests_equal": True, "launches": n})
+    return n
+
+
+# The instructions one straw2 draw needs at the fewest, per lane: each
+# operation of the reference draw (hash.c crush_hash32_rjenkins1_3,
+# mapper.c crush_ln, the divide and the keep-the-first-maximum compare)
+# mapped to the fewest sm_90 instructions that compute it exactly:
+# three-input IADD3 and LOP3, IMAD.WIDE for 32x32->64 products, table
+# loads from shared memory at an immediate base.  The divide is counted
+# as a multiply by a per-weight reciprocal (the JAX package's
+# magic-number constants), not the emulated divide the kernel runs.  The
+# rest of the rule (is_out's hash2, collision checks, loop control) is
+# not counted, so the bound is below the least time.
+DRAW_OPS = {
+    "loads": 2,  # the weight with its reciprocal (one 16 B load), the id
+    "hash3": 2 + 5 * 9 * 3 + 1,  # seed^a^b^c; 5 mixes of 9 steps, each
+                                 # IADD3 + SHF + LOP3; & 0xffff
+    "crush_ln": 19,  # +1 (1); normalise: FLO, 15 - f, max 0, SHF, exponent
+                     # (5); RH/LH row index (2) and one LDS.128 (1);
+                     # x * RH >> 48: IMAD.WIDE + IMAD (2); LL index (2)
+                     # and LDS.64 (1); 64-bit add (2), >> 4 (2);
+                     # + exponent << 44 (1)
+    "numerator": 2,  # 2^48 - ln, 64-bit
+    "divide": 7,  # high half of |n| x a 64-bit reciprocal (5 IMAD),
+                  # 64-bit shift (2)
+    "compare": 6,  # weight != 0; 64-bit compare (2); keep draw (2), index
+}
+OPS_PER_DRAW = sum(DRAW_OPS.values())
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def rule_bytes(pm: PoolMapper, n: int) -> int:
+    """What the kernel must move: each input read once (seeds, the map's
+    arrays, reweights, steps, crush_ln tables), each output written once."""
+    T = pm.tables
+    arrays = (T.btype, T.size, T.items, T.pos_weights, T.arg_ids)
+    return (4 * n + sum(a.numel() * 4 for a in arrays)
+            + 4 * pm.rule_weights().numel() + pm.prog.steps.nbytes
+            + (258 + 256) * 8 + 4 * n * pm.prog.result_max)
+
+
+def host_of(m, n_osd: int) -> np.ndarray:
+    """Each OSD's host bucket id (0 for an OSD in no host)."""
+    out = np.zeros(n_osd, np.int64)
+    for bid, b in m.crush.buckets.items():
+        if b.type == 1:
+            out[[i for i in b.items if i >= 0]] = bid
+    return out
+
+
+def reached_osds(m, root: int) -> np.ndarray:
+    todo, seen = [root], []
+    while todo:
+        for it in m.crush.buckets[todo.pop()].items:
+            (seen if it >= 0 else todo).append(it)
+    return np.asarray(sorted(seen))
+
+
+def sanity(name: str, m, up: torch.Tensor) -> dict:
+    """Every PG on 3 distinct OSDs of 3 distinct hosts; the per-OSD PG
+    count's stddev within 3x what osdmaptool --test-map-pgs expects
+    (sqrt(total/n * (1 - 1/n)), cli/osdmaptool.py:234-237), over the OSDs
+    the root reaches."""
+    n_osd = m.max_osd
+    check(bool((up != ITEM_NONE).all()), f"{name}: every PG has 3 OSDs")
+    srt = up.long().sort(1).values
+    check(bool((srt[:, 1:] != srt[:, :-1]).all()), f"{name}: distinct OSDs")
+    hosts = torch.from_numpy(host_of(m, n_osd)).to(up.device)[up.long()]
+    hs = hosts.sort(1).values
+    check(bool((hs[:, 1:] != hs[:, :-1]).all()), f"{name}: distinct hosts")
+    root = m.crush.rules[0].steps[0][1]
+    reach = reached_osds(m, root)
+    counts = torch.bincount(up.reshape(-1).long(), minlength=n_osd).cpu()
+    c = counts.numpy()[reach].astype(np.float64)
+    total, n = float(c.sum()), len(reach)
+    check(total == up.numel(),
+          f"{name}: every mapping lands on an OSD the root reaches")
+    avg = total // n
+    dev = float(np.sqrt(((avg - c) ** 2).mean()))
+    expected = float(np.sqrt(total / n * (1 - 1 / n)))
+    check(dev <= 3 * expected, f"{name}: stddev {dev} > 3 x {expected}")
+    return {"osds_reached": n, "stddev": dev, "expected_stddev": expected}
+
+
+def all_draws(pm: PoolMapper, n: int, draws: torch.Tensor) -> torch.Tensor:
+    """The straw2 draws every one of the pool's n PGs needs, counted by
+    the plain version; where phase 1 held it to fewer PGs, one more
+    untimed pass covers them all (and holds the kernel to it there too)."""
+    if draws.numel() == n:
+        return draws
+    x, w = rule_inputs(pm, n)
+    got = mapper.crush_rule_cuda(pm.tables, pm.prog, mapper.u32_bits(x),
+                                 mapper.u32_bits(w))
+    want, draws = mapper.crush_rule_plain(pm.tables, pm.prog, x, w)
+    check(torch.equal(got, want), f"crush_rule kernel == plain ({n} PGs)")
+    return draws
+
+
+def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
+    """Config 2 through map_all, config 5 through map_all_device: each
+    entry point called once with the launch count from 0, checked, then
+    timed (kernel, entry point, plain version) with CUDA events.  The
+    issue bound counts the draws this run's PGs need, OPS_PER_DRAW each."""
+    flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    clock = max_sm_clock_hz()
+    issue_rate = H100_SMS * SCHEDULERS_PER_SM * WARP * clock
+    res = {}
+    for name, (n_pgs, n_osds) in CONFIGS.items():
+        pm = pms[name]
+        expected = -(-n_pgs // mapper.BLOCK)
+        if name == "config2":
+            entry = pm.map_all
+            rows, n = counted(expected, name, entry, mapper.crush_rule_cuda)
+            up = torch.from_numpy(rows[0]).to(dev)
+        else:
+            entry = pm.map_all_device
+            up, n = counted(expected, name, entry, mapper.crush_rule_cuda)
+        check(tuple(up.shape) == (n_pgs, 3), f"{name}: up shape")
+        stats = sanity(name, pm.m, up)
+        x, w = rule_inputs(pm, n_pgs)
+        xb, wb = mapper.u32_bits(x), mapper.u32_bits(w)
+        kernel_ms = time_ms(
+            lambda: mapper.crush_rule_cuda(pm.tables, pm.prog, xb, wb),
+            flush, runs=7)
+        entry_ms = time_ms(entry, flush, runs=5)
+        # the entry point's first two stages on their own: the placement
+        # seeds, then map_rule (the kernel with its int32 conversions);
+        # the rest of entry_ms is the post-CRUSH stages (and, for
+        # map_all, the copy to the host)
+        ps = torch.arange(n_pgs, device=dev)
+        seeds_ms = time_ms(lambda: pm.placement_seeds(ps), flush, runs=5)
+        rule_ms = time_ms(
+            lambda: mapper.map_rule(pm.tables, pm.prog, x, w), flush, runs=5)
+        pn = draws[name].numel()  # the block the plain version was held to
+        px, pw = rule_inputs(pm, pn)
+        pxb = mapper.u32_bits(px)
+        block_ms = time_ms(
+            lambda: mapper.crush_rule_cuda(pm.tables, pm.prog, pxb, wb),
+            flush, runs=7)
+        plain_ms = time_ms(
+            lambda: mapper.crush_rule_plain(pm.tables, pm.prog, px, pw),
+            flush, runs=5, warmup=0)
+        n_draws = int(all_draws(pm, n_pgs, draws[name]).sum())
+        draws_per_pg = n_draws / n_pgs
+        ops = n_draws * OPS_PER_DRAW
+        ops_ms = ops / issue_rate * 1e3
+        nbytes = rule_bytes(pm, n_pgs)
+        bytes_ms = nbytes / peak * 1e3
+        out = {
+            "config": name, "pgs": n_pgs, "osds": n_osds, "launches": n,
+            "ms": kernel_ms, "entry_ms": entry_ms, "seeds_ms": seeds_ms,
+            "rule_ms": rule_ms,
+            "mappings_per_s": n_pgs / (kernel_ms * 1e-3),
+            "entry_mappings_per_s": n_pgs / (entry_ms * 1e-3),
+            "plain_pgs": pn, "plain_ms": plain_ms, "block_ms": block_ms,
+            "draws": n_draws, "draws_per_pg": draws_per_pg,
+            "ops_per_draw": OPS_PER_DRAW, "draw_ops": DRAW_OPS,
+            "max_sm_clock_hz": clock,
+            "ops_ms": ops_ms, "hbm_bytes": nbytes, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_share": max(ops_ms, bytes_ms) / kernel_ms,
+            "library_ms": None, **stats,
+        }
+        emit(dict(phase="placement_main", **out))
+        res[name] = out
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -351,16 +628,27 @@ def main() -> int:
     dev = torch.device("cuda")
     info = phase_device()
     phase_build()
-    err = phase_kernel_vs_plain(dev)
 
-    # the main path, path by path: each counted from 0 (see counted())
+    # erasure coding: kernel vs plain, then the main path, path by path,
+    # each counted from 0 (see counted())
+    err = phase_kernel_vs_plain(dev)
     by_path = {"corpus": phase_corpus(dev)}
     res = phase_main_path(dev, info["peak_bw"])
     by_path.update({key: r["launches"] for key, r in res.items()})
     by_path.update({f"cli_{w}": n for w, n in phase_cli().items()})
+
+    # placement: the same, for the rule kernel
+    corpus = {e["name"]: e for e in
+              json.loads(PLACEMENT_CORPUS.read_text())["entries"]}
+    pms = {name: PoolMapper(bench_map(*shape), 0, device=dev)
+           for name, shape in CONFIGS.items()}
+    rule_err, draws = phase_rule_vs_plain(dev, corpus, pms)
+    rule_paths = {"placement_corpus": phase_placement_corpus(dev, corpus)}
+    pres = phase_placement_main(dev, pms, draws, info["peak_bw"])
+    rule_paths.update({key: r["launches"] for key, r in pres.items()})
     torch.cuda.synchronize()
 
-    b = res["b"]
+    b, c5 = res["b"], pres["config5"]
     emit({"kernels": [{
         "name": "gf_matmul",
         "route": "cuda",
@@ -379,6 +667,30 @@ def main() -> int:
         "shapes": {key: {f: r[f] for f in ("ms", "plain_ms", "copy_ms",
                                            "bound_ms", "gb_per_s")}
                    for key, r in res.items()},
+    }, {
+        "name": "crush_rule",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/crush/csrc/crush_rule.cu",
+        "replaces": "ceph_tpu/crush/mapper_jax.py::compile_rule (XLA)",
+        "equal": rule_err == 0,
+        "launches": sum(rule_paths.values()),
+        "launches_by_path": rule_paths,
+        "max_abs_err": rule_err,
+        # config 5 (10M PGs); plain_ms is on its first plain_pgs PGs,
+        # beside the kernel's time on the same block (block_ms)
+        "ms": c5["ms"],
+        "plain_ms": c5["plain_ms"],
+        "plain_pgs": c5["plain_pgs"],
+        "block_ms": c5["block_ms"],
+        "bound_ms": c5["bound_ms"],
+        "bound_by": c5["bound_by"],
+        "library_ms": None,
+        "shapes": {key: {f: r[f] for f in (
+            "pgs", "ms", "entry_ms", "seeds_ms", "rule_ms",
+            "mappings_per_s", "plain_pgs",
+            "plain_ms", "block_ms", "draws", "draws_per_pg", "ops_per_draw",
+            "ops_ms", "bytes_ms", "bound_ms", "bound_by")}
+                   for key, r in pres.items()},
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -325,9 +325,14 @@ def test_port_imports_neither_jax_nor_ceph_tpu():
 
 
 def test_importing_the_port_loads_no_jax():
-    """In a fresh interpreter (this one has jax from conftest)."""
+    """In a fresh interpreter (this one has jax from conftest): every
+    module of the port, and chip_smoke.py."""
     code = (
-        "import sys, ceph_tpu_torch.ec, ceph_tpu_torch.cli.ec_benchmark\n"
+        "import importlib, pkgutil, runpy, sys, ceph_tpu_torch\n"
+        "for mod in pkgutil.walk_packages(ceph_tpu_torch.__path__,\n"
+        "                                 'ceph_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu')]\n"
         "print(bad)\n"
