@@ -6,7 +6,9 @@ takes seconds.  It is compiled, at first use, into
 `ceph_tpu_torch/build/lib<name>-<hash>.so`; the hash covers the source,
 the headers (`*.cuh`) beside it and the flags, so an edited source builds
 anew.  `build_all()` starts one nvcc per source at once and waits for
-them all.
+them all.  ptxas reports each kernel's registers, stack, spills and
+static shared memory (-Xptxas=-v); the report is kept beside the library
+(`ptxas_report`).
 
 The build needs the CUDA toolkit (`nvcc` on PATH, or under CUDA_HOME,
 default /usr/local/cuda).  A failed build raises with nvcc's stderr.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,7 +29,7 @@ BUILD_DIR = PACKAGE / "build"
 SOURCES = ("ec/csrc/gf_matmul.cu", "crush/csrc/crush_rule.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -74,11 +77,12 @@ def _finish(source: str, job) -> None:
     if job is None:
         return
     proc, tmp, lib = job
-    _, err = proc.communicate()
+    out, err = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc {source} failed (rc {proc.returncode}):"
                            f"\n{err}")
+    lib.with_suffix(".ptxas").write_text(out + err)
     os.replace(tmp, lib)
 
 
@@ -103,6 +107,30 @@ def build_all() -> dict[str, Path]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return {source: library_path(source) for source in SOURCES}
+
+
+def ptxas_report(source: str) -> dict[str, dict]:
+    """What ptxas said of each kernel of the built `source`: {entry
+    function: {"registers", "stack", "spill_stores", "spill_loads",
+    "smem"}} (bytes; smem is the static shared memory of a block)."""
+    text = library_path(source).with_suffix(".ptxas").read_text()
+    out: dict[str, dict] = {}
+    name = None
+    for line in text.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+            out.setdefault(name, {"smem": 0})
+        elif name and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", line)):
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+            if s := re.search(r"(\d+) bytes smem", line):
+                out[name]["smem"] = int(s.group(1))
+    return out
 
 
 def load(source: str) -> ctypes.CDLL:

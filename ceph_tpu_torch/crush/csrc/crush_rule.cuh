@@ -7,10 +7,17 @@
 // the JAX package.  The control flow is the C interpreter's
 // (reference src/crush/mapper.c, as ceph_tpu/native/crush.cpp follows it:
 // straw2_choose :221, choose_firstn :287, choose_indep :387, do_rule
-// :481), read over the flat structure-of-arrays map of
-// ceph_tpu_torch/crush/soa.py: no containers, no heap, no recursion.
-// Retries are loops bounded by the tunables; chooseleaf's inner pick is a
-// second function (leaf_firstn / leaf_indep).
+// :481), read over the packed bucket records of
+// ceph_tpu_torch/crush/soa.py::pack_buckets: no containers, no heap, no
+// recursion.  Retries are loops bounded by the tunables; chooseleaf's
+// inner pick is a second function (leaf_firstn / leaf_indep).
+//
+// Where the two builds differ, it is only in where a load comes from.  On
+// the card the crush_ln tables and the staged prefix of the records sit
+// in the block's dynamic shared memory (crush_smem, filled by the
+// kernel, which points Map::staged at its records), the rest is read
+// through the read-only path; on the host they are the buffers the Map
+// points at (Map::staged a copy of the prefix).
 //
 // Scope: straw2 buckets, no legacy local retries (the wrapper's plan pass,
 // crush/mapper.py::compile_rule, refuses other maps before a launch).
@@ -38,18 +45,39 @@ enum {
 // outcome of one descent (the status codes of mapper_jax._descend_impl)
 enum { FOUND = 1, SKIP = 2, EMPTY = 3 };
 
-// The map, flat.  Slot b holds bucket id -1-b; rows are padded to
-// max_size items.  u32 fields are read as their bit patterns.
+// One straw2 draw's inputs (soa.py RECORD): the id it hashes, its weight
+// and the weight's reciprocal, magic = m | l << 56 (soa.py
+// magic_div_consts; 0 where the weight is 0).
+struct alignas(16) Record {
+    int32_t arg_id;
+    uint32_t weight;
+    uint64_t magic;
+};
+
+// The first 16 bytes of a bucket slot's 32-byte header (soa.py HEADER):
+// items[offset, offset + size); the records of weight-set position p at
+// positions * offset + p * size.
+struct Bucket {
+    int32_t offset, size, type, alg;
+};
+
+constexpr int HEADER_WORDS = 8;
+// the crush_ln tables in 16-byte words: RH/LH (129 rows of one pair),
+// then LL (256 entries, two a word)
+constexpr int LN_ROWS = 129, LL_WORDS = 128, LN_WORDS = LN_ROWS + LL_WORDS;
+
+// The map, packed.  Slot b holds bucket id -1-b.  u32 fields are read as
+// their bit patterns.
 struct Map {
-    const int32_t* btype;         // [B]
-    const int32_t* size;          // [B]
-    const int32_t* items;         // [B, S]
-    const uint32_t* pos_weights;  // [P, B, S] choose_args weight-sets
-    const int32_t* arg_ids;       // [B, S] ids hashed by straw2
-    const uint32_t* weight;       // [weight_len] OSD reweights (16.16)
-    const int64_t* rh_lh;         // [258] crush_ln tables
-    const int64_t* ll;            // [256]
-    int32_t n_buckets, max_size, positions, max_devices, max_depth;
+    const int32_t* headers;  // [n_buckets, HEADER_WORDS]
+    const Record* records;   // [R]
+    const Record* staged;    // a copy of records[0, n_staged): shared memory
+                             // on the card
+    const int32_t* items;    // [sum of sizes]
+    const uint32_t* weight;  // [weight_len] OSD reweights (16.16)
+    const int64_t* rh_lh;    // [258] crush_ln tables
+    const int64_t* ll;       // [256]
+    int32_t n_staged, n_buckets, positions, max_devices, max_depth;
     int32_t weight_len;
 };
 
@@ -59,6 +87,82 @@ struct Rule {
     int32_t choose_total_tries, chooseleaf_descend_once;
     int32_t chooseleaf_vary_r, chooseleaf_stable;
 };
+
+#ifdef __CUDACC__
+// [LN_WORDS] crush_ln tables, then [n_staged] records (crush_rule.cu)
+extern __shared__ uint4 crush_smem[];
+#endif
+
+// -- loads ----------------------------------------------------------------
+
+CRUSH_HD inline Bucket bucket(const Map& m, int slot) {
+#ifdef __CUDA_ARCH__
+    const int4 h = __ldg(
+        reinterpret_cast<const int4*>(m.headers + HEADER_WORDS * slot));
+    return {h.x, h.y, h.z, h.w};
+#else
+    const int32_t* h = m.headers + HEADER_WORDS * slot;
+    return {h[0], h[1], h[2], h[3]};
+#endif
+}
+
+CRUSH_HD inline Record record(const Map& m, int i) {
+    if (i < m.n_staged) return m.staged[i];
+#ifdef __CUDA_ARCH__
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(m.records) + i);
+    return {(int32_t)v.x, v.y, (uint64_t)v.z | (uint64_t)v.w << 32};
+#else
+    return m.records[i];
+#endif
+}
+
+CRUSH_HD inline int32_t item_at(const Map& m, int i) {
+#ifdef __CUDA_ARCH__
+    return __ldg(m.items + i);
+#else
+    return m.items[i];
+#endif
+}
+
+// row k of the RH/LH table: (RH, LH), one 16-byte load on the card
+CRUSH_HD inline void ln_row(const Map& m, int k, uint64_t& rh,
+                            uint64_t& lh) {
+#ifdef __CUDA_ARCH__
+    const ulonglong2 v = reinterpret_cast<const ulonglong2*>(crush_smem)[k];
+    rh = v.x;
+    lh = v.y;
+#else
+    rh = (uint64_t)m.rh_lh[2 * k];
+    lh = (uint64_t)m.rh_lh[2 * k + 1];
+#endif
+}
+
+CRUSH_HD inline uint64_t ln_ll(const Map& m, int j) {
+#ifdef __CUDA_ARCH__
+    return reinterpret_cast<const unsigned long long*>(
+        crush_smem + LN_ROWS)[j];
+#else
+    return (uint64_t)m.ll[j];
+#endif
+}
+
+// the high 64 bits of a 64 x 64-bit product
+CRUSH_HD inline uint64_t mulhi64(uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+    return __umul64hi(a, b);
+#else
+    return (uint64_t)(((unsigned __int128)a * b) >> 64);
+#endif
+}
+
+// floor(log2(v)) for v >= 1
+CRUSH_HD inline int log2_floor(uint32_t v) {
+#ifdef __CUDA_ARCH__
+    return 31 - __clz(v);
+#else
+    return 31 - __builtin_clz(v);
+#endif
+}
 
 // -- rjenkins (reference src/crush/hash.c) ---------------------------------
 
@@ -96,53 +200,58 @@ CRUSH_HD inline uint32_t hash3(uint32_t a, uint32_t b, uint32_t c) {
 
 // -- crush_ln: 2^44 * log2(xin + 1) (reference src/crush/mapper.c:247) ----
 
+// xin <= 0xffff, so x = xin + 1 fits 32 bits: the reference's u64
+// normalisation (x < 0x8000: shift up to [0x8000, 0x10000), iexpon =
+// floor(log2 x)) is done in 32 bits and without a branch, iexpon being
+// min(floor(log2 x), 15).
 CRUSH_HD inline int64_t crush_ln(const Map& m, uint32_t xin) {
-    uint64_t x = (uint64_t)xin + 1;
-    uint64_t iexpon = 15;
-    if ((x & 0x18000) == 0) {  // x < 0x8000: normalise to [0x8000, 0x10000)
-        uint32_t v = (uint32_t)x;
-        int fl = 0;  // floor(log2(x))
-        if (v >= (1u << 8)) { fl += 8; v >>= 8; }
-        if (v >= (1u << 4)) { fl += 4; v >>= 4; }
-        if (v >= (1u << 2)) { fl += 2; v >>= 2; }
-        if (v >= (1u << 1)) { fl += 1; }
-        x <<= 15 - fl;
-        iexpon = (uint64_t)fl;
-    }
-    int k = (int)(x >> 8) - 128;  // RH/LH row, in [0, 128]
-    uint64_t rh = (uint64_t)m.rh_lh[2 * k];
-    uint64_t lh = (uint64_t)m.rh_lh[2 * k + 1];
-    uint64_t xl64 = (x * rh) >> 48;  // u64 wraparound, as in C
-    uint64_t ll = (uint64_t)m.ll[xl64 & 0xff];
-    return (int64_t)((iexpon << 44) + ((lh + ll) >> (48 - 12 - 32)));
+    uint32_t x = xin + 1;
+    const int fl = log2_floor(x);
+    const int iexpon = fl < 15 ? fl : 15;
+    x <<= 15 - iexpon;
+    const int k = (int)(x >> 8) - 128;  // RH/LH row, in [0, 128]
+    uint64_t rh, lh;
+    ln_row(m, k, rh, lh);
+    const uint64_t xl64 = ((uint64_t)x * rh) >> 48;  // u64 wraparound, as in C
+    const uint64_t ll = ln_ll(m, (int)(xl64 & 0xff));
+    return (int64_t)(((uint64_t)iexpon << 44) +
+                     ((lh + ll) >> (48 - 12 - 32)));
 }
 
 // -- the straw2 draw (reference src/crush/mapper.c:334-384) ---------------
 // draw_i = (crush_ln(hash3(x, id_i, r) & 0xffff) - 2^48) / w_i, truncated
-// toward zero (S64_MIN where w_i = 0); the first maximum wins.
+// toward zero (S64_MIN where w_i = 0); the first maximum wins.  The
+// numerator is -n with 0 <= n = 2^48 - crush_ln <= 2^48, so draw_i is
+// -floor(n / w_i), and floor(n / w_i) = floor(n * m_i / 2^(49 + l_i)) with
+// the record's reciprocal: the high half of (n << 15) * m_i, shifted
+// right by l_i.  The draw is kept as q_i = -draw_i (UINT64_MAX where
+// w_i = 0), and the first minimum of q wins.
 
-CRUSH_HD inline int32_t straw2_choose(const Map& m, int slot, uint32_t x,
-                                      int32_t r, int position) {
-    const int64_t row = (int64_t)slot * m.max_size;
+// floor((2^48 - ln) / w) for 0 <= ln <= 2^48, from w's magic word
+CRUSH_HD inline uint64_t straw2_quotient(int64_t ln, uint64_t magic) {
+    const uint64_t n = 0x1000000000000ULL - (uint64_t)ln;
+    return mulhi64(n << 15, magic & 0x00ffffffffffffffULL) >> (magic >> 56);
+}
+
+CRUSH_HD inline int32_t straw2_choose(const Map& m, const Bucket& b,
+                                      uint32_t x, int32_t r, int position) {
     const int pos = position < m.positions - 1 ? position : m.positions - 1;
-    const uint32_t* w =
-        m.pos_weights + ((int64_t)pos * m.n_buckets + slot) * m.max_size;
-    const int n = m.size[slot];
+    const int base = m.positions * b.offset + pos * b.size;
     int high = 0;
-    int64_t high_draw = 0;
-    for (int i = 0; i < n; i++) {
-        int64_t draw = INT64_MIN;
-        if (w[i]) {
-            uint32_t u = hash3(x, (uint32_t)m.arg_ids[row + i], (uint32_t)r)
-                         & 0xffff;
-            draw = (crush_ln(m, u) - 0x1000000000000LL) / (int64_t)w[i];
+    uint64_t high_q = UINT64_MAX;
+    for (int i = 0; i < b.size; i++) {
+        const Record rec = record(m, base + i);
+        uint64_t q = UINT64_MAX;
+        if (rec.weight) {
+            const uint32_t u =
+                hash3(x, (uint32_t)rec.arg_id, (uint32_t)r) & 0xffff;
+            q = straw2_quotient(crush_ln(m, u), rec.magic);
         }
-        if (i == 0 || draw > high_draw) {
-            high = i;
-            high_draw = draw;
-        }
+        const bool better = q < high_q;
+        high = better ? i : high;
+        high_q = better ? q : high_q;
     }
-    return m.items[row + high];
+    return item_at(m, b.offset + high);
 }
 
 // reference src/crush/mapper.c:424-438
@@ -158,27 +267,27 @@ CRUSH_HD inline bool is_out(const Map& m, int32_t item, uint32_t x) {
 // (the retry_bucket descent of reference src/crush/mapper.c:507-555 /
 // 710-771).  FOUND sets *item; SKIP is C's skip_rep (an out-of-range or
 // dangling item, a device of the wrong type, or a walk deeper than the
-// map); EMPTY is an empty bucket on the way.
+// map); EMPTY is an empty bucket on the way.  Each level reads one
+// header: the one that gave the child's type is the next level's.
 CRUSH_HD inline int descend(const Map& m, int32_t start, uint32_t x,
                             int32_t r, int position, int type,
                             int32_t* item) {
-    int32_t in = start;
+    Bucket b = bucket(m, -1 - start);
     for (int level = 0; level <= m.max_depth; level++) {
-        const int slot = -1 - in;
-        if (m.size[slot] == 0) return EMPTY;
-        const int32_t it = straw2_choose(m, slot, x, r, position);
+        if (b.size == 0) return EMPTY;
+        const int32_t it = straw2_choose(m, b, x, r, position);
         if (it >= m.max_devices) return SKIP;
-        int itemtype = 0;
-        if (it < 0) {
-            if (-1 - it >= m.n_buckets) return SKIP;
-            itemtype = m.btype[-1 - it];
-        }
-        if (itemtype == type) {
+        if (it >= 0) {
+            if (type != 0) return SKIP;
             *item = it;
             return FOUND;
         }
-        if (it >= 0) return SKIP;
-        in = it;
+        if (-1 - it >= m.n_buckets) return SKIP;
+        b = bucket(m, -1 - it);
+        if (b.type == type) {
+            *item = it;
+            return FOUND;
+        }
     }
     return SKIP;
 }
@@ -400,6 +509,15 @@ CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
         }
     }
     return rlen;
+}
+
+// One seed's row: row[0, result_max), padded with ITEM_NONE.
+CRUSH_HD inline void map_seed(const Map& m, const Rule& rule, uint32_t x,
+                              int32_t* row) {
+    int32_t res[RMAX_CAP];
+    const int got = do_rule(m, rule, x, res);
+    for (int j = 0; j < rule.result_max; j++)
+        row[j] = j < got ? res[j] : ITEM_NONE;
 }
 
 }  // namespace crush_rule

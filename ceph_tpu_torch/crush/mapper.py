@@ -11,7 +11,9 @@ not decide.  The port has one exact path:
   steps and tunables into a `RuleProgram`;
 - `crush_rule_cuda` launches the hand-written kernel
   (`crush/csrc/crush_rule.cu`, one thread per seed, the C interpreter's
-  control flow) and counts its launches;
+  control flow over the map's packed records, a persistent grid) and
+  counts its launches; `launch_plan` and `staged_records` are what it
+  sizes the launch and the shared-memory staging from;
 - `crush_rule_plain` computes the same function in lane-vectorised torch
   int64 ops (each retry loop a `while` over the still-active lanes), and
   counts the straw2 draws each lane made;
@@ -46,6 +48,7 @@ from ceph_tpu_torch.crush.types import (
 )
 
 RMAX_CAP = 32  # the kernel's longest row (crush_rule.cuh)
+RECORD_BYTES = 16  # one packed record (crush_rule.cuh Record)
 BLOCK = 1 << 24  # seeds per kernel launch (map_rule)
 PLAIN_CHUNK = 65536  # seeds per pass of the plain version: bounds its
                      # [chunk, max_size] temporaries
@@ -452,19 +455,76 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("crush/csrc/crush_rule.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.crush_rule_launch.argtypes = (
-        [p] * 9 + [i] * 12 + [p, ctypes.c_longlong, p, p])
+        [p] * 7 + [i] * 13 + [p, ctypes.c_longlong, p, p])
     lib.crush_rule_launch.restype = i
+    lib.crush_rule_plan.argtypes = [p]
+    lib.crush_rule_plan.restype = i
     lib.crush_rule_error_string.argtypes = [i]
     lib.crush_rule_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().crush_rule_error_string(rc).decode()
+        raise RuntimeError(f"crush_rule {what} failed: {msg}")
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """What the build and the card give the kernel, from
+    `crush_rule_plan`."""
+
+    registers: int  # per thread
+    local_bytes: int  # per thread: the work vectors and any spills
+    static_smem: int  # per block
+    threads: int  # the occupancy calculator's block size
+    blocks_per_sm: int  # resident at that size, crush_ln tables staged
+    smem_per_sm: int
+    smem_optin: int  # the most one block may take
+    smem_reserved: int  # per block, by the system
+    sms: int
+    table_bytes: int  # shared memory of the crush_ln tables
+
+    @property
+    def stage_budget(self) -> int:
+        """Records a block may stage without losing a resident block."""
+        per_block = (self.smem_per_sm // self.blocks_per_sm
+                     - self.smem_reserved)
+        room = min(per_block, self.smem_optin) - self.static_smem \
+            - self.table_bytes
+        return max(room, 0) // RECORD_BYTES
+
+
+@functools.cache
+def launch_plan(device_index: int) -> LaunchPlan:
+    """The kernel's LaunchPlan on one card."""
+    out = (ctypes.c_int * 10)()
+    with torch.cuda.device(device_index):
+        _check(_lib().crush_rule_plan(ctypes.addressof(out)), "plan")
+    return LaunchPlan(*out)
+
+
+def staged_records(T: DeviceArrays, plan: LaunchPlan) -> int:
+    """How many records (a prefix) a block stages in shared memory: all
+    of the map when they fit the plan's budget, else the most whole
+    breadth-first levels that do."""
+    total = T.records.shape[0]
+    budget = plan.stage_budget
+    if total <= budget:
+        return total
+    return max((e for e in T.level_ends if e <= budget), default=0)
+
+
 def crush_rule_cuda(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
-                    weight: torch.Tensor) -> torch.Tensor:
+                    weight: torch.Tensor, stage: int | None = None
+                    ) -> torch.Tensor:
     """Launch the kernel once: seeds x int32 [N] (u32 bit patterns) and
     reweights int32 [D] on T's card -> int32 rows [N, result_max].  Runs
-    on the current stream, unsynchronised.  `crush_rule_cuda.launches`
-    counts the launches."""
+    on the current stream, unsynchronised.  `stage` is the number of
+    records each block copies to shared memory (None: `staged_records`;
+    every choice gives the same rows).  `crush_rule_cuda.launches` counts
+    the launches."""
     dev = T.device
     if dev.type != "cuda" or x.device != dev or weight.device != dev:
         raise ValueError(
@@ -486,23 +546,29 @@ def crush_rule_cuda(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
     if x.numel() == 0:
         return out
     rh_lh, ll = ln_tables(dev)
+    for t in (T.records, rh_lh, ll):
+        if t.data_ptr() % 16:
+            raise ValueError("crush_rule_cuda: records and crush_ln tables "
+                             "must be 16-byte aligned")
+    plan = launch_plan(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    n_staged = staged_records(T, plan) if stage is None else stage
+    if not 0 <= n_staged <= T.records.shape[0]:
+        raise ValueError(f"crush_rule_cuda: stage {n_staged} outside "
+                         f"[0, {T.records.shape[0]}]")
     steps = prog.steps_on(dev)
-    lib = _lib()
     with torch.cuda.device(dev):
-        rc = lib.crush_rule_launch(
-            T.btype.data_ptr(), T.size.data_ptr(), T.items.data_ptr(),
-            T.pos_weights.data_ptr(), T.arg_ids.data_ptr(),
-            weight.data_ptr(), rh_lh.data_ptr(), ll.data_ptr(),
-            steps.data_ptr(), T.n_buckets, T.max_size, T.positions,
+        _check(_lib().crush_rule_launch(
+            T.headers.data_ptr(), T.records.data_ptr(),
+            T.packed_items.data_ptr(), weight.data_ptr(), rh_lh.data_ptr(),
+            ll.data_ptr(), steps.data_ptr(), T.n_buckets, T.positions,
             T.max_devices, T.max_depth, weight.numel(), len(prog.steps),
             prog.result_max, prog.choose_total_tries,
             prog.chooseleaf_descend_once, prog.chooseleaf_vary_r,
-            prog.chooseleaf_stable, x.data_ptr(), x.numel(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        msg = lib.crush_rule_error_string(rc).decode()
-        raise RuntimeError(f"crush_rule kernel launch failed: {msg}")
+            prog.chooseleaf_stable, n_staged, plan.threads, x.data_ptr(),
+            x.numel(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        ), "kernel launch")
     crush_rule_cuda.launches += 1
     return out
 

@@ -5,8 +5,11 @@ pointer-linked bucket structs per PG (reference src/crush/crush.h:354-461).
 The frozen form is a padded array bundle: one row per bucket slot (slot b
 holds bucket id -1-b), items/weights padded to the max bucket size with a
 size vector for masking.  `build_arrays` freezes a map on the host (numpy);
-`to_device` uploads the fields the rule kernel and its plain version read,
-once per map.
+`pack_buckets` lays the straw2 draw's inputs out for the rule kernel
+(`crush/csrc/crush_rule.cuh`): one 16-byte record per item and weight-set
+position, bucket by bucket in breadth-first order from the rules' roots,
+with a header per bucket slot.  `to_device` uploads the padded fields the
+plain version reads and the packed ones the kernel reads, once per map.
 
 Padding policy: item/weight rows pad with 0 (masked lanes never win a draw:
 zero weight => S64_MIN draw in straw2, 0 straw in straw, excluded by the size
@@ -22,7 +25,7 @@ import numpy as np
 
 import torch
 
-from ceph_tpu_torch.crush.types import BucketAlg, CrushMap, Tunables
+from ceph_tpu_torch.crush.types import BucketAlg, CrushMap, RuleOp, Tunables
 
 
 @dataclass(frozen=True)
@@ -171,17 +174,136 @@ def build_arrays(
     )
 
 
+def magic_div_consts(w: int) -> tuple[int, int]:
+    """Invariant-divisor constants for the straw2 draw (a copy of
+    `ceph_tpu/crush/mapper_jax.py::_magic_div_consts`):
+    floor(n / w) == (n * m) >> (49 + l) for all 0 <= n <= 2^48, where
+    l = ceil(log2 w) and m = ceil(2^(49+l) / w).  It holds because
+    m * w - 2^(49+l) < w <= 2^l.  m < 2^50 and l <= 32 for a u32 w."""
+    assert w >= 1
+    l = max(0, (int(w) - 1).bit_length())
+    m = -((-(1 << (49 + l))) // int(w))  # ceil division
+    return m, l
+
+
+MAGIC_SHIFT = 56  # a record's magic word: m | l << MAGIC_SHIFT (0 for w = 0)
+
+# one straw2 draw's inputs, read with one 16-byte load
+RECORD = np.dtype([("arg_id", "<i4"), ("weight", "<u4"), ("magic", "<u8")])
+# a bucket slot's header, 32 bytes: the kernel reads the first 16 (item
+# offset, size, type, alg); `spare` is room for a legacy algorithm's
+# per-bucket word (uniform's item weight, a tree's node offset)
+HEADER = np.dtype([("offset", "<i4"), ("size", "<i4"), ("type", "<i4"),
+                   ("alg", "<i4"), ("spare", "<i4"), ("pad", "<i4", (3,))])
+
+
+def magic_words(w: np.ndarray) -> np.ndarray:
+    """The packed magic word of each u32 weight: m | l << MAGIC_SHIFT."""
+    w = np.asarray(w, np.uint64)
+    uniq, inv = np.unique(w, return_inverse=True)
+    words = np.zeros(len(uniq), np.uint64)
+    for i, v in enumerate(uniq.tolist()):
+        if v:
+            m, l = magic_div_consts(v)
+            words[i] = m | l << MAGIC_SHIFT
+    return words[inv].reshape(w.shape)
+
+
+@dataclass(frozen=True)
+class PackedBuckets:
+    """The rule kernel's view of a map (numpy).
+
+    headers[slot] (HEADER): `offset` is the bucket's first index into
+    `items`; its records for weight-set position p are
+    records[positions * offset + p * size + i], i < size.  Buckets are laid
+    out breadth first from the roots the rules take, so the levels every
+    lane visits come first; `level_ends[d]` counts the records of levels
+    0..d, the prefixes the kernel may stage in shared memory."""
+
+    headers: np.ndarray  # [B] HEADER
+    records: np.ndarray  # [positions * sum(size)] RECORD
+    items: np.ndarray  # [sum(size)] i32
+    level_ends: tuple  # records through each breadth-first level
+
+
+def _bfs_levels(A: CrushArrays) -> list[list[int]]:
+    """Bucket slots by breadth-first level from the rules' TAKE roots;
+    the slots no root reaches follow as one last level."""
+    B = A.n_buckets
+    live = [s for s in range(B) if A.size[s] > 0]
+    seen: set[int] = set()
+    level = []
+    for r in A.rules:
+        for op, a1, _ in (r.steps if r is not None else ()):
+            s = -1 - int(a1)
+            if op == RuleOp.TAKE and a1 < 0 and s < B and A.size[s] > 0 \
+                    and s not in seen:
+                seen.add(s)
+                level.append(s)
+    levels = []
+    while level:
+        levels.append(level)
+        nxt = []
+        for s in level:
+            for it in A.items[s, : A.size[s]]:
+                c = -1 - int(it)
+                if it < 0 and c < B and A.size[c] > 0 and c not in seen:
+                    seen.add(c)
+                    nxt.append(c)
+        level = nxt
+    rest = [s for s in live if s not in seen]
+    if rest:
+        levels.append(rest)
+    return levels
+
+
+def pack_buckets(A: CrushArrays) -> PackedBuckets:
+    """Lay out A's buckets for the rule kernel (see PackedBuckets)."""
+    P = A.positions
+    headers = np.zeros(A.n_buckets, HEADER)
+    headers["type"] = A.btype
+    headers["alg"] = A.alg
+    items, recs, level_ends = [], [], []
+    offset = 0
+    for level in _bfs_levels(A):
+        for s in level:
+            n = int(A.size[s])
+            headers[s]["offset"] = offset
+            headers[s]["size"] = n
+            items.append(A.items[s, :n])
+            r = np.zeros((P, n), RECORD)
+            r["arg_id"] = A.arg_ids[s, :n]
+            r["weight"] = A.pos_weights[:, s, :n]
+            recs.append(r.reshape(-1))
+            offset += n
+        level_ends.append(P * offset)
+    records = np.concatenate(recs) if recs else np.zeros(0, RECORD)
+    records["magic"] = magic_words(records["weight"])
+    return PackedBuckets(
+        headers=headers, records=records,
+        items=(np.concatenate(items).astype(np.int32) if items
+               else np.zeros(0, np.int32)),
+        level_ends=tuple(level_ends),
+    )
+
+
 @dataclass(frozen=True)
 class DeviceArrays:
-    """The fields of a CrushArrays that the rule kernel reads, as int32
-    tensors on one device (u32 fields hold their bit patterns), with the
-    sizes they need.  pos_weights is [P, B, S]; items and arg_ids [B, S]."""
+    """A map on one device: the padded fields of a CrushArrays that the
+    plain version reads, as int32 tensors (u32 fields hold their bit
+    patterns; pos_weights is [P, B, S], items and arg_ids [B, S]), and the
+    kernel's PackedBuckets (headers int32 [B, 8], records int32 [R, 4],
+    packed_items int32 [sum(size)]), with the sizes they need."""
 
     btype: torch.Tensor
     size: torch.Tensor
     items: torch.Tensor
     pos_weights: torch.Tensor
     arg_ids: torch.Tensor
+    headers: torch.Tensor
+    records: torch.Tensor
+    packed_items: torch.Tensor
+    level_ends: tuple
     n_buckets: int
     max_size: int
     positions: int
@@ -202,9 +324,13 @@ def to_device(A: CrushArrays, device) -> DeviceArrays:
             a = a.view(np.int32)
         return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
 
+    pk = pack_buckets(A)
     return DeviceArrays(
         btype=put(A.btype), size=put(A.size), items=put(A.items),
         pos_weights=put(A.pos_weights), arg_ids=put(A.arg_ids),
+        headers=put(pk.headers.view(np.int32).reshape(-1, 8)),
+        records=put(pk.records.view(np.int32).reshape(-1, 4)),
+        packed_items=put(pk.items), level_ends=pk.level_ends,
         n_buckets=A.n_buckets, max_size=A.max_size, positions=A.positions,
         max_devices=A.max_devices, max_depth=A.max_depth,
     )

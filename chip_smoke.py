@@ -5,8 +5,10 @@
 
 Run from the root of the repository, on a machine with one NVIDIA H100
 and the CUDA toolkit.  It builds every kernel from the sources in the
-checkout (one nvcc per source, all at once), holds each kernel against
-its plain PyTorch version, drives the erasure-coding path (the corpus
+checkout (one nvcc per source, all at once) and prints what ptxas
+reports of each, holds each kernel against its plain PyTorch version (the
+rule kernel both with the shared-memory staging its wrapper chooses and
+with none), drives the erasure-coding path (the corpus
 profiles, RS(8,4) encode/decode at full size, the benchmark CLI) and the
 placement path (the placement corpus, then BASELINE configs 2 and 5
 through `PoolMapper`) through the entry points a user calls, and prints
@@ -142,12 +144,27 @@ def phase_device() -> dict:
 # -- phase 2: build -----------------------------------------------------------
 
 def phase_build() -> dict:
-    """Every kernel source, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together; then what
+    each kernel is built with: ptxas's registers, stack (local bytes),
+    spills and static shared memory, the dynamic shared memory of a
+    block (gf_matmul: S KiB of tables, S = 8 at RS(8,4); crush_rule: the
+    crush_ln tables and 16 B per staged record, placement_main prints
+    the total) and the rule kernel's launch plan (`mapper.launch_plan`)."""
     t0 = time.perf_counter()
     libs = build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    kernels = {}
+    for src in libs:
+        kernels.update(build.ptxas_report(src))
+    plan = vars(mapper.launch_plan(torch.cuda.current_device()))
+    emit({"phase": "build", "seconds": seconds,
           "libraries": {src: str(lib.relative_to(ROOT))
-                        for src, lib in libs.items()}})
+                        for src, lib in libs.items()},
+          "kernels": kernels, "crush_rule_plan": plan,
+          "dynamic_smem_per_block": {
+              "gf_matmul_rs84": 8 * 256 * 4,
+              "crush_rule_tables": plan["table_bytes"],
+              "crush_rule_per_staged_record": mapper.RECORD_BYTES}})
     return libs
 
 
@@ -388,22 +405,37 @@ def rule_inputs(pm: PoolMapper, n: int):
     return pm.placement_seeds(ps), pm.rule_weights()
 
 
+def rule_kernel_checked(pm: PoolMapper, x, w, want, n: int) -> int:
+    """crush_rule_cuda on seeds x, with the wrapper's staging and with
+    staging forced to 0 (every record read from global memory), each held
+    element for element to the plain version's rows `want`; returns the
+    max abs error (0)."""
+    err = 0
+    for stage in (None, 0):
+        got = mapper.crush_rule_cuda(pm.tables, pm.prog, mapper.u32_bits(x),
+                                     mapper.u32_bits(w), stage=stage)
+        torch.cuda.synchronize()
+        if got.numel():
+            err = max(err, int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want),
+              f"crush_rule kernel == plain ({n} PGs, stage {stage})")
+    return err
+
+
 def kernel_vs_plain(pm: PoolMapper, n: int):
-    """crush_rule_cuda against crush_rule_plain on the main path's inputs;
-    returns (max_abs_err, draws per lane of the plain version)."""
+    """crush_rule_cuda against crush_rule_plain on the main path's inputs
+    (both staging paths); returns (max_abs_err, draws per lane of the
+    plain version)."""
     x, w = rule_inputs(pm, n)
-    got = mapper.crush_rule_cuda(pm.tables, pm.prog, mapper.u32_bits(x),
-                                 mapper.u32_bits(w))
     want, draws = mapper.crush_rule_plain(pm.tables, pm.prog, x, w)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-    check(torch.equal(got, want), f"crush_rule kernel == plain ({n} PGs)")
-    return err, draws
+    return rule_kernel_checked(pm, x, w, want, n), draws
 
 
 def phase_rule_vs_plain(dev, corpus: dict, pms: dict) -> tuple[int, dict]:
-    """Phase 1 of placement: the kernel vs its plain version on every
-    corpus map, the whole of config 2 and the first 2^20 PGs of config 5."""
+    """Phase 1 of placement: the kernel (with the wrapper's staging and
+    with none) vs its plain version on every corpus map, the whole of
+    config 2 and the first 2^20 PGs of config 5 (all_draws holds it to
+    the rest)."""
     worst, cases, draws = 0, [], {}
     for name, entry in corpus.items():
         pm = PoolMapper(osdmap_from_reference(entry["map"]),
@@ -473,6 +505,10 @@ DRAW_OPS = {
     "compare": 6,  # weight != 0; 64-bit compare (2); keep draw (2), index
 }
 OPS_PER_DRAW = sum(DRAW_OPS.values())
+# A second reading beside the bound: hash3's IADD3/SHF/LOP3 alone, on the
+# 64 INT32 lanes per clock of an sm_90 SM (the bound prices them at the
+# issue rate of 128)
+INT_LANES = 64
 
 
 def max_sm_clock_hz() -> float:
@@ -485,9 +521,10 @@ def max_sm_clock_hz() -> float:
 
 def rule_bytes(pm: PoolMapper, n: int) -> int:
     """What the kernel must move: each input read once (seeds, the map's
-    arrays, reweights, steps, crush_ln tables), each output written once."""
+    packed headers, records and items, reweights, steps, crush_ln
+    tables), each output written once."""
     T = pm.tables
-    arrays = (T.btype, T.size, T.items, T.pos_weights, T.arg_ids)
+    arrays = (T.headers, T.records, T.packed_items)
     return (4 * n + sum(a.numel() * 4 for a in arrays)
             + 4 * pm.rule_weights().numel() + pm.prog.steps.nbytes
             + (258 + 256) * 8 + 4 * n * pm.prog.result_max)
@@ -539,14 +576,13 @@ def sanity(name: str, m, up: torch.Tensor) -> dict:
 def all_draws(pm: PoolMapper, n: int, draws: torch.Tensor) -> torch.Tensor:
     """The straw2 draws every one of the pool's n PGs needs, counted by
     the plain version; where phase 1 held it to fewer PGs, one more
-    untimed pass covers them all (and holds the kernel to it there too)."""
+    untimed pass covers them all (and holds the kernel to it there too,
+    on both staging paths)."""
     if draws.numel() == n:
         return draws
     x, w = rule_inputs(pm, n)
-    got = mapper.crush_rule_cuda(pm.tables, pm.prog, mapper.u32_bits(x),
-                                 mapper.u32_bits(w))
     want, draws = mapper.crush_rule_plain(pm.tables, pm.prog, x, w)
-    check(torch.equal(got, want), f"crush_rule kernel == plain ({n} PGs)")
+    rule_kernel_checked(pm, x, w, want, n)
     return draws
 
 
@@ -598,6 +634,21 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
         draws_per_pg = n_draws / n_pgs
         ops = n_draws * OPS_PER_DRAW
         ops_ms = ops / issue_rate * 1e3
+        int_pipe_ms = (n_draws * DRAW_OPS["hash3"]
+                       / (H100_SMS * INT_LANES * clock) * 1e3)
+        # the staging split: the wrapper's, beside none and all of the map
+        # (where a block may hold it), timed in the same way
+        plan = mapper.launch_plan(torch.cuda.current_device())
+        staged = mapper.staged_records(pm.tables, plan)
+        total = pm.tables.records.shape[0]
+        fits = (plan.table_bytes + plan.static_smem
+                + total * mapper.RECORD_BYTES <= plan.smem_optin)
+        stage_ms = {
+            label: time_ms(
+                lambda st=st: mapper.crush_rule_cuda(
+                    pm.tables, pm.prog, xb, wb, stage=st), flush, runs=7)
+            for label, st in (("none", 0), ("all", total))
+            if st != staged and (label == "none" or fits)}
         nbytes = rule_bytes(pm, n_pgs)
         bytes_ms = nbytes / peak * 1e3
         out = {
@@ -610,7 +661,12 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
             "draws": n_draws, "draws_per_pg": draws_per_pg,
             "ops_per_draw": OPS_PER_DRAW, "draw_ops": DRAW_OPS,
             "max_sm_clock_hz": clock,
-            "ops_ms": ops_ms, "hbm_bytes": nbytes, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "int_pipe_ms": int_pipe_ms,
+            "staged_records": staged, "records": total,
+            "smem_per_block": plan.table_bytes + plan.static_smem
+            + staged * mapper.RECORD_BYTES,
+            "threads": plan.threads, "ms_by_stage": stage_ms,
+            "hbm_bytes": nbytes, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bound_share": max(ops_ms, bytes_ms) / kernel_ms,
@@ -671,7 +727,7 @@ def main() -> int:
         "name": "crush_rule",
         "route": "cuda",
         "source": "ceph_tpu_torch/crush/csrc/crush_rule.cu",
-        "replaces": "ceph_tpu/crush/mapper_jax.py::compile_rule (XLA)",
+        "replaces": "ceph_tpu/crush/mapper_jax.py:1529::compile_rule (XLA)",
         "equal": rule_err == 0,
         "launches": sum(rule_paths.values()),
         "launches_by_path": rule_paths,
@@ -689,7 +745,8 @@ def main() -> int:
             "pgs", "ms", "entry_ms", "seeds_ms", "rule_ms",
             "mappings_per_s", "plain_pgs",
             "plain_ms", "block_ms", "draws", "draws_per_pg", "ops_per_draw",
-            "ops_ms", "bytes_ms", "bound_ms", "bound_by")}
+            "ops_ms", "int_pipe_ms", "bytes_ms", "bound_ms", "bound_by",
+            "staged_records", "records", "ms_by_stage")}
                    for key, r in pres.items()},
     }]})
     emit({"ok": True, "device": {

@@ -106,3 +106,78 @@ def test_div_trunc_s64_negative_numerators():
         got.numpy(), jax_intmath.div_trunc_s64(a, w))
     assert all(intmath.div_trunc_int(int(p), int(q)) == int(g)
                for p, q, g in zip(a[:64], w[:64], got[:64]))
+
+
+def _magic_test_weights() -> np.ndarray:
+    """The weight set of tests/test_core_numerics.py's magic-division
+    test: 1..511, powers of two, 2^k +- 1, 1000 random u32 weights."""
+    rng = np.random.default_rng(1234)
+    return np.concatenate([
+        np.arange(1, 512),
+        (2 ** np.arange(0, 32, dtype=np.int64)),
+        (2 ** np.arange(1, 32, dtype=np.int64)) - 1,
+        (2 ** np.arange(1, 32, dtype=np.int64)) + 1,
+        rng.integers(1, 2**32, 1000),
+    ]).astype(np.int64)
+
+
+def test_magic_div_consts_equal_jax_package():
+    from ceph_tpu.crush.mapper_jax import _magic_div_consts
+
+    from ceph_tpu_torch.crush import soa
+
+    ws = _magic_test_weights()
+    words = soa.magic_words(ws.astype(np.uint64))
+    for w, word in zip(ws.tolist(), words.tolist()):
+        m, l = _magic_div_consts(w)
+        assert soa.magic_div_consts(w) == (m, l)
+        assert m < 1 << 50 and l <= 32
+        assert word == m | l << soa.MAGIC_SHIFT
+    assert soa.magic_words(np.zeros(3, np.uint64)).tolist() == [0, 0, 0]
+
+
+def _packed_cases():
+    from test_torch_crush_mapper import CASES
+
+    return sorted(CASES)
+
+
+@pytest.mark.parametrize("name", _packed_cases())
+def test_packed_records_read_back_to_padded_arrays(name):
+    """soa.pack_buckets' headers, records and items give back the padded
+    CrushArrays fields, every weight-set position included; the buckets
+    lie breadth first from the rules' roots, level_ends on level bounds."""
+    from test_torch_crush_mapper import port_case
+
+    from ceph_tpu_torch.crush import soa
+    from ceph_tpu_torch.crush.types import RuleOp
+
+    A, prog, _, _ = port_case(name)
+    pk = soa.pack_buckets(A)
+    P = A.positions
+    assert pk.records.dtype.itemsize == 16
+    assert pk.headers.dtype.itemsize == 32
+    np.testing.assert_array_equal(pk.headers["size"], A.size)
+    np.testing.assert_array_equal(pk.headers["type"], A.btype)
+    np.testing.assert_array_equal(pk.headers["alg"], A.alg)
+    assert len(pk.records) == P * int(A.size.sum())
+    for s in range(A.n_buckets):
+        off, n = int(pk.headers[s]["offset"]), int(A.size[s])
+        np.testing.assert_array_equal(pk.items[off:off + n], A.items[s, :n])
+        for p in range(P):
+            rec = pk.records[P * off + p * n: P * off + (p + 1) * n]
+            np.testing.assert_array_equal(rec["arg_id"], A.arg_ids[s, :n])
+            np.testing.assert_array_equal(rec["weight"],
+                                          A.pos_weights[p, s, :n])
+            np.testing.assert_array_equal(
+                rec["magic"], soa.magic_words(A.pos_weights[p, s, :n]))
+    # breadth first: the rule's root in the first level (with the other
+    # rules' roots), level_ends on bucket bounds
+    root = -1 - next(int(a1) for op, a1, _ in prog.steps
+                     if op == RuleOp.TAKE)
+    assert P * int(pk.headers[root]["offset"]) < pk.level_ends[0]
+    starts = {P * int(pk.headers[s]["offset"])
+              for s in range(A.n_buckets) if A.size[s]}
+    assert set(pk.level_ends[:-1]) <= starts
+    assert pk.level_ends[-1] == len(pk.records)
+    assert list(pk.level_ends) == sorted(pk.level_ends)
