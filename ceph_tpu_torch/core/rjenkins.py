@@ -9,7 +9,9 @@ runs on Python ints (the host hashes below).
 
 The hashes broadcast: arguments may be tensors of any integer dtype (a
 negative bucket id hashes as id & 0xffffffff, as C's cast to u32 does),
-numpy arrays or Python ints.  They return int64 tensors.
+numpy arrays or Python ints.  They return int64 tensors.  `hash2_int`,
+`hash3_int` and `hash4_int` are the same hashes on Python ints, for the
+host oracle.
 """
 
 from __future__ import annotations
@@ -108,6 +110,42 @@ def crush_hash32_5(a, b, c, d, e) -> torch.Tensor:
     y, c, h = _mix(y, c, h)
     d, x, h = _mix(d, x, h)
     y, e, h = _mix(y, e, h)
+    return h
+
+
+def hash2_int(a: int, b: int) -> int:
+    """crush_hash32_2 of two u32 Python ints, as a Python int (the host
+    oracle's form, crush/mapper_ref.py)."""
+    a, b = a & M32, b & M32
+    h = HASH_SEED ^ a ^ b
+    a, b, h = _mix(a, b, h)
+    x, a, h = _mix(_X, a, h)
+    b, y, h = _mix(b, _Y, h)
+    return h
+
+
+def hash3_int(a: int, b: int, c: int) -> int:
+    """crush_hash32_3 on Python ints."""
+    a, b, c = a & M32, b & M32, c & M32
+    h = HASH_SEED ^ a ^ b ^ c
+    a, b, h = _mix(a, b, h)
+    c, x, h = _mix(c, _X, h)
+    y, a, h = _mix(_Y, a, h)
+    b, x, h = _mix(b, x, h)
+    y, c, h = _mix(y, c, h)
+    return h
+
+
+def hash4_int(a: int, b: int, c: int, d: int) -> int:
+    """crush_hash32_4 on Python ints."""
+    a, b, c, d = a & M32, b & M32, c & M32, d & M32
+    h = HASH_SEED ^ a ^ b ^ c ^ d
+    a, b, h = _mix(a, b, h)
+    c, d, h = _mix(c, d, h)
+    a, x, h = _mix(a, _X, h)
+    y, b, h = _mix(_Y, b, h)
+    c, x, h = _mix(c, x, h)
+    y, d, h = _mix(y, d, h)
     return h
 
 

@@ -5,9 +5,10 @@
 // It replaces the XLA programs of ceph_tpu/crush/mapper_jax.py that the
 // JAX package traces for every (map, rule): the straw2 draw
 // (_straw2_choose, _straw2_rows, _ln_fn), the descent (_descend_rows,
-// _descend_impl), the exact choose loops (_choose_firstn_one,
-// _leaf_firstn, _choose_indep_one, _leaf_indep), _is_out and the
-// interpreter of compile_rule's fn.  None of them was a Pallas kernel.
+// _descend_impl), the legacy bucket draws (_straw_choose, _list_choose,
+// _tree_choose, _perm_choose, _bucket_choose), the exact choose loops
+// (_choose_firstn_one, _leaf_firstn, _choose_indep_one, _leaf_indep),
+// _is_out and the interpreter of compile_rule's fn.  None of them was a Pallas kernel.
 // The fast candidate window and its loop-kernel rescue are not carried
 // over: they exist because XLA needs static shapes, and a per-lane
 // interpreter with real loops is exact by itself.
@@ -124,7 +125,7 @@ int crush_rule_plan(int* out) {
 // n_staged records a block), and never more than the seeds need.
 int crush_rule_launch(
     const int32_t* headers, const int32_t* records, const int32_t* items,
-    const uint32_t* weight, const int64_t* rh_lh, const int64_t* ll,
+    const uint32_t* nodes, const uint32_t* weight, const int64_t* rh_lh, const int64_t* ll,
     const int32_t* steps, int n_buckets, int positions, int max_devices,
     int max_depth, int weight_len, int n_steps, int result_max,
     int choose_total_tries, int chooseleaf_descend_once,
@@ -153,7 +154,7 @@ int crush_rule_launch(
                       reinterpret_cast<const crush_rule::Record*>(records),
                       nullptr, items, weight, rh_lh, ll, n_staged,
                       n_buckets, positions, max_devices, max_depth,
-                      weight_len};
+                      weight_len, nodes};
     crush_rule::Rule rule{steps, n_steps, result_max, choose_total_tries,
                           chooseleaf_descend_once, chooseleaf_vary_r,
                           chooseleaf_stable};

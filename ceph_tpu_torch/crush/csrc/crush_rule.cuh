@@ -19,8 +19,10 @@
 // through the read-only path; on the host they are the buffers the Map
 // points at (Map::staged a copy of the prefix).
 //
-// Scope: straw2 buckets, no legacy local retries (the wrapper's plan pass,
-// crush/mapper.py::compile_rule, refuses other maps before a launch).
+// Scope: every bucket algorithm (straw2, and the legacy straw, list, tree
+// and uniform draws, bucket_choose), no legacy local retries (the
+// wrapper's plan pass, crush/mapper.py::compile_rule, refuses those maps
+// before a launch).
 
 #pragma once
 
@@ -45,9 +47,15 @@ enum {
 // outcome of one descent (the status codes of mapper_jax._descend_impl)
 enum { FOUND = 1, SKIP = 2, EMPTY = 3 };
 
-// One straw2 draw's inputs (soa.py RECORD): the id it hashes, its weight
+// bucket algorithms (reference src/crush/crush.h crush_algorithm)
+enum { ALG_UNIFORM = 1, ALG_LIST = 2, ALG_TREE = 3, ALG_STRAW = 4,
+       ALG_STRAW2 = 5 };
+
+// One draw's inputs (soa.py RECORD).  straw2: the id it hashes, its weight
 // and the weight's reciprocal, magic = m | l << 56 (soa.py
-// magic_div_consts; 0 where the weight is 0).
+// magic_div_consts; 0 where the weight is 0).  The legacy algorithms
+// ignore choose_args: arg_id is the bucket's own item, weight its own
+// weight, magic straw's straw or list's sum_weights entry.
 struct alignas(16) Record {
     int32_t arg_id;
     uint32_t weight;
@@ -56,7 +64,8 @@ struct alignas(16) Record {
 
 // The first 16 bytes of a bucket slot's 32-byte header (soa.py HEADER):
 // items[offset, offset + size); the records of weight-set position p at
-// positions * offset + p * size.
+// positions * offset + p * size.  A tree's node weights are
+// nodes[spare, spare + num_nodes), from the header's second 16 bytes.
 struct Bucket {
     int32_t offset, size, type, alg;
 };
@@ -79,6 +88,7 @@ struct Map {
     const int64_t* ll;       // [256]
     int32_t n_staged, n_buckets, positions, max_devices, max_depth;
     int32_t weight_len;
+    const uint32_t* nodes;   // the tree buckets' node weights
 };
 
 struct Rule {
@@ -103,6 +113,26 @@ CRUSH_HD inline Bucket bucket(const Map& m, int slot) {
 #else
     const int32_t* h = m.headers + HEADER_WORDS * slot;
     return {h[0], h[1], h[2], h[3]};
+#endif
+}
+
+// a tree bucket's node weights: (offset into m.nodes, num_nodes)
+CRUSH_HD inline void tree_header(const Map& m, int slot, int& off, int& nn) {
+    const int32_t* h = m.headers + HEADER_WORDS * slot + 4;
+#ifdef __CUDA_ARCH__
+    off = __ldg(h);
+    nn = __ldg(h + 1);
+#else
+    off = h[0];
+    nn = h[1];
+#endif
+}
+
+CRUSH_HD inline uint32_t node_at(const Map& m, int i) {
+#ifdef __CUDA_ARCH__
+    return __ldg(m.nodes + i);
+#else
+    return m.nodes[i];
 #endif
 }
 
@@ -164,6 +194,15 @@ CRUSH_HD inline int log2_floor(uint32_t v) {
 #endif
 }
 
+// the number of trailing zero bits of v >= 1
+CRUSH_HD inline int ctz(uint32_t v) {
+#ifdef __CUDA_ARCH__
+    return __ffs(v) - 1;
+#else
+    return __builtin_ctz(v);
+#endif
+}
+
 // -- rjenkins (reference src/crush/hash.c) ---------------------------------
 
 CRUSH_HD inline void mix(uint32_t& a, uint32_t& b, uint32_t& c) {
@@ -195,6 +234,18 @@ CRUSH_HD inline uint32_t hash3(uint32_t a, uint32_t b, uint32_t c) {
     mix(y, a, h);
     mix(b, x, h);
     mix(y, c, h);
+    return h;
+}
+
+CRUSH_HD inline uint32_t hash4(uint32_t a, uint32_t b, uint32_t c,
+                               uint32_t d) {
+    uint32_t h = HASH_SEED ^ a ^ b ^ c ^ d, x = 231232, y = 1232;
+    mix(a, b, h);
+    mix(c, d, h);
+    mix(a, x, h);
+    mix(y, b, h);
+    mix(c, x, h);
+    mix(y, d, h);
     return h;
 }
 
@@ -254,6 +305,98 @@ CRUSH_HD inline int32_t straw2_choose(const Map& m, const Bucket& b,
     return item_at(m, b.offset + high);
 }
 
+// -- the legacy draws ------------------------------------------------------
+// They ignore choose_args and the position (reference src/crush/mapper.c
+// crush_bucket_choose passes a weight set to straw2 only), so they read
+// the records of position 0, which hold the bucket's own items and
+// weights.
+
+// straw (reference src/crush/mapper.c:227-245): the largest
+// (hash3(x, item, r) & 0xffff) * straw wins, the first on a tie.
+CRUSH_HD inline int32_t straw_choose(const Map& m, const Bucket& b,
+                                     uint32_t x, int32_t r) {
+    const int base = m.positions * b.offset;
+    int high = 0;
+    uint64_t high_draw = 0;
+    for (int i = 0; i < b.size; i++) {
+        const Record rec = record(m, base + i);
+        const uint64_t draw =
+            (uint64_t)(hash3(x, (uint32_t)rec.arg_id, (uint32_t)r) & 0xffff) *
+            rec.magic;
+        const bool better = i == 0 || draw > high_draw;
+        high = better ? i : high;
+        high_draw = better ? draw : high_draw;
+    }
+    return item_at(m, b.offset + high);
+}
+
+// list (reference src/crush/mapper.c:141-164): from the tail, the first
+// item whose scaled hash falls under its weight; else the head.
+CRUSH_HD inline int32_t list_choose(const Map& m, const Bucket& b,
+                                    int32_t id, uint32_t x, int32_t r) {
+    const int base = m.positions * b.offset;
+    for (int i = b.size - 1; i >= 0; i--) {
+        const Record rec = record(m, base + i);
+        const uint64_t w =
+            ((uint64_t)(hash4(x, (uint32_t)rec.arg_id, (uint32_t)r,
+                              (uint32_t)id) & 0xffff) * rec.magic) >> 16;
+        if (w < rec.weight) return rec.arg_id;
+    }
+    return item_at(m, b.offset);
+}
+
+// tree (reference src/crush/mapper.c:195-222): down the node-weight heap
+// from the root, num_nodes >> 1, to an odd (leaf) node.
+CRUSH_HD inline int32_t tree_choose(const Map& m, const Bucket& b,
+                                    int32_t id, uint32_t x, int32_t r) {
+    int off, nn;
+    tree_header(m, -1 - id, off, nn);
+    uint32_t n = (uint32_t)nn >> 1;
+    while (n && !(n & 1)) {
+        const uint64_t t =
+            ((uint64_t)hash4(x, n, (uint32_t)r, (uint32_t)id) *
+             node_at(m, off + n)) >> 32;
+        const uint32_t half = 1u << (ctz(n) - 1);
+        n = t < node_at(m, off + n - half) ? n - half : n + half;
+    }
+    return item_at(m, b.offset + (n >> 1));
+}
+
+// uniform (reference src/crush/mapper.c:73-131): items[perm[r % size]],
+// perm the Fisher-Yates shuffle seeded by x whose step p swaps positions
+// p and p + hash3(x, id, p) % (size - p) (p < size - 1).  perm[pr] is
+// final after step pr, so only steps 0..pr matter, and they are traced
+// backward from pr: the position whose starting value step pr brings to
+// pr, then each earlier step that swapped it in.  One hash per step, and
+// no permutation in memory, whatever the bucket's size.  (The C keeps the
+// permutation between calls of one crush_do_rule; the item it returns is
+// the same.)
+CRUSH_HD inline int32_t uniform_choose(const Map& m, const Bucket& b,
+                                       int32_t id, uint32_t x, int32_t r) {
+    const uint32_t size = (uint32_t)b.size;
+    const uint32_t pr = (uint32_t)r % size;
+    uint32_t q = pr;
+    if (pr + 1 < size) q += hash3(x, (uint32_t)id, pr) % (size - pr);
+    for (uint32_t p = pr; p-- > 0;)
+        if (p + hash3(x, (uint32_t)id, p) % (size - p) == q) q = p;
+    return item_at(m, b.offset + (int)q);
+}
+
+// crush_bucket_choose (reference src/crush/mapper.c:387-418) for bucket
+// `id` with header b
+CRUSH_HD inline int32_t bucket_choose(const Map& m, const Bucket& b,
+                                      int32_t id, uint32_t x, int32_t r,
+                                      int position) {
+    switch (b.alg) {
+    case ALG_STRAW2: return straw2_choose(m, b, x, r, position);
+    case ALG_STRAW: return straw_choose(m, b, x, r);
+    case ALG_LIST: return list_choose(m, b, id, x, r);
+    case ALG_TREE: return tree_choose(m, b, id, x, r);
+    case ALG_UNIFORM: return uniform_choose(m, b, id, x, r);
+    default: return item_at(m, b.offset);
+    }
+}
+
 // reference src/crush/mapper.c:424-438
 CRUSH_HD inline bool is_out(const Map& m, int32_t item, uint32_t x) {
     if (item >= m.weight_len) return true;
@@ -269,13 +412,22 @@ CRUSH_HD inline bool is_out(const Map& m, int32_t item, uint32_t x) {
 // dangling item, a device of the wrong type, or a walk deeper than the
 // map); EMPTY is an empty bucket on the way.  Each level reads one
 // header: the one that gave the child's type is the next level's.
+// An indep descent (numrep > 0) draws from a uniform bucket whose size
+// numrep divides with r_uniform in place of r (reference
+// src/crush/mapper.c:716-721); *r_last gets the r of the last draw.
 CRUSH_HD inline int descend(const Map& m, int32_t start, uint32_t x,
                             int32_t r, int position, int type,
-                            int32_t* item) {
-    Bucket b = bucket(m, -1 - start);
+                            int32_t* item, int numrep = 0,
+                            int32_t r_uniform = 0, int32_t* r_last = nullptr) {
+    int32_t id = start;
+    Bucket b = bucket(m, -1 - id);
     for (int level = 0; level <= m.max_depth; level++) {
         if (b.size == 0) return EMPTY;
-        const int32_t it = straw2_choose(m, b, x, r, position);
+        const int32_t rb = numrep > 0 && b.alg == ALG_UNIFORM &&
+                                   b.size % numrep == 0
+                               ? r_uniform : r;
+        if (r_last) *r_last = rb;
+        const int32_t it = bucket_choose(m, b, id, x, rb, position);
         if (it >= m.max_devices) return SKIP;
         if (it >= 0) {
             if (type != 0) return SKIP;
@@ -283,7 +435,8 @@ CRUSH_HD inline int descend(const Map& m, int32_t start, uint32_t x,
             return FOUND;
         }
         if (-1 - it >= m.n_buckets) return SKIP;
-        b = bucket(m, -1 - it);
+        id = it;
+        b = bucket(m, -1 - id);
         if (b.type == type) {
             *item = it;
             return FOUND;
@@ -367,7 +520,8 @@ CRUSH_HD inline int32_t leaf_indep(const Map& m, int32_t bucket, uint32_t x,
     for (int ftotal = 0; ftotal < tries; ftotal++) {
         int32_t item;
         const int st = descend(m, bucket, x, rep + parent_r + numrep * ftotal,
-                               rep, 0, &item);
+                               rep, 0, &item, numrep,
+                               rep + parent_r + (numrep + 1) * ftotal);
         if (st == SKIP) return ITEM_NONE;
         if (st == FOUND && !is_out(m, item, x)) return item;
     }
@@ -385,9 +539,10 @@ CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
     for (int ftotal = 0; left > 0 && ftotal < tries; ftotal++) {
         for (int rep = 0; rep < endpos; rep++) {
             if (out[rep] != ITEM_UNDEF) continue;
-            const int32_t r = rep + numrep * ftotal;
-            int32_t item;
-            const int st = descend(m, bucket, x, r, 0, type, &item);
+            int32_t item, r;
+            const int st = descend(m, bucket, x, rep + numrep * ftotal, 0,
+                                   type, &item, numrep,
+                                   rep + (numrep + 1) * ftotal, &r);
             if (st == EMPTY) continue;
             if (st == SKIP) {
                 out[rep] = out2[rep] = ITEM_NONE;

@@ -7,8 +7,8 @@ candidate window and a loop-kernel rescue for the lanes the window could
 not decide.  The port has one exact path:
 
 - `compile_rule` is the plan pass: it checks that the map and rule are in
-  scope (straw2 buckets, no legacy local retries) and freezes the rule's
-  steps and tunables into a `RuleProgram`;
+  scope (every bucket algorithm, no legacy local retries) and freezes the
+  rule's steps and tunables into a `RuleProgram`;
 - `crush_rule_cuda` launches the hand-written kernel
   (`crush/csrc/crush_rule.cu`, one thread per seed, the C interpreter's
   control flow over the map's packed records, a persistent grid) and
@@ -16,7 +16,8 @@ not decide.  The port has one exact path:
   sizes the launch and the shared-memory staging from;
 - `crush_rule_plain` computes the same function in lane-vectorised torch
   int64 ops (each retry loop a `while` over the still-active lanes), and
-  counts the straw2 draws each lane made;
+  counts the straw2 draws each lane made (or, by algorithm, the hash
+  calls of its draws);
 - `map_rule` dispatches on where the seeds lie: a CPU tensor goes to the
   plain version, a CUDA tensor to the kernel (or the call raises).
 
@@ -37,7 +38,12 @@ import torch
 from ceph_tpu_torch import build
 from ceph_tpu_torch.core.intmath import div_trunc_s64
 from ceph_tpu_torch.core.lntable import crush_ln, ln_tables
-from ceph_tpu_torch.core.rjenkins import M32, crush_hash32_2, crush_hash32_3
+from ceph_tpu_torch.core.rjenkins import (
+    M32,
+    crush_hash32_2,
+    crush_hash32_3,
+    crush_hash32_4,
+)
 from ceph_tpu_torch.crush.soa import CrushArrays, DeviceArrays
 from ceph_tpu_torch.crush.types import (
     ITEM_NONE,
@@ -48,6 +54,7 @@ from ceph_tpu_torch.crush.types import (
 )
 
 RMAX_CAP = 32  # the kernel's longest row (crush_rule.cuh)
+N_ALGS = 6  # BucketAlg values index the hash counts (0 is no algorithm)
 RECORD_BYTES = 16  # one packed record (crush_rule.cuh Record)
 BLOCK = 1 << 24  # seeds per kernel launch (map_rule)
 PLAIN_CHUNK = 65536  # seeds per pass of the plain version: bounds its
@@ -97,13 +104,9 @@ class RuleProgram:
 
 
 def compile_rule(A: CrushArrays, ruleno: int, result_max: int) -> RuleProgram:
-    """The plan pass.  Raises NotImplementedError for what the port does
-    not map yet: a bucket that is not straw2, or the legacy local-retry
-    tunables (which the JAX kernel refuses too)."""
-    for a in sorted(set(int(a) for a in np.asarray(A.alg)) - {0}):
-        if a != BucketAlg.STRAW2:
-            raise NotImplementedError(
-                f"bucket alg {BucketAlg(a).name.lower()}: not yet ported")
+    """The plan pass.  Raises NotImplementedError for the legacy
+    local-retry tunables and rule steps (which the JAX kernel refuses too;
+    the host oracle, `crush/mapper_ref.py`, maps them)."""
     t = A.tunables
     if t.choose_local_tries or t.choose_local_fallback_tries:
         raise NotImplementedError(
@@ -170,8 +173,17 @@ class _Lanes:
         self.T = T
         self.x = x
         self.weight = weight
-        self.draws = torch.zeros_like(x)
+        # hash calls of each lane's draws, by bucket algorithm
+        self.hashes = torch.zeros((x.numel(), N_ALGS), dtype=torch.long,
+                                  device=x.device)
         self.col_s = torch.arange(T.max_size, device=x.device)
+
+    def _count(self, alg, lanes, n):
+        self.hashes[:, alg].index_add_(0, lanes, n)
+
+    def _first(self, hit):
+        """The first column where `hit` holds per row (max_size if none)."""
+        return torch.where(hit, self.col_s, self.T.max_size).amin(1)
 
     def straw2(self, lanes, slot, r, pos):
         """reference src/crush/mapper.c:334-384, for bucket `slot` per lane."""
@@ -183,10 +195,106 @@ class _Lanes:
         draw = div_trunc_s64(crush_ln(u) - (1 << 48), w.clamp(min=1))
         draw = draw.masked_fill(~live, S64_MIN)
         # the first maximum wins
-        first = torch.where(draw == draw.amax(1, keepdim=True), self.col_s,
-                            T.max_size).amin(1)
-        self.draws.index_add_(0, lanes, live.sum(1))
+        first = self._first(draw == draw.amax(1, keepdim=True))
+        self._count(BucketAlg.STRAW2, lanes, live.sum(1))
         return T.items[slot, first].long()
+
+    # The legacy draws ignore choose_args and the position: they hash the
+    # bucket's own items and read its own weights (reference
+    # src/crush/mapper.c:387-418 passes a weight set to straw2 only).
+
+    def straw(self, lanes, slot, r):
+        """reference src/crush/mapper.c:227-245."""
+        T = self.T
+        live = self.col_s < T.size[slot, None]
+        u = crush_hash32_3(self.x[lanes, None], T.items[slot],
+                           r[:, None]) & 0xFFFF
+        draw = (u * (T.straws[slot].long() & M32)).masked_fill(~live, -1)
+        first = self._first(draw == draw.amax(1, keepdim=True))
+        self._count(BucketAlg.STRAW, lanes, live.sum(1))
+        return T.items[slot, first].long()
+
+    def list_(self, lanes, slot, r):
+        """reference src/crush/mapper.c:141-164: the last item whose
+        scaled hash falls under its weight, else the first."""
+        T = self.T
+        size = T.size[slot].long()
+        live = self.col_s < size[:, None]
+        u = crush_hash32_4(self.x[lanes, None], T.items[slot], r[:, None],
+                           -1 - slot[:, None]) & 0xFFFF
+        w = (u * (T.sum_weights[slot].long() & M32)) >> 16
+        hit = live & (w < (T.weights[slot].long() & M32))
+        last = torch.where(hit, self.col_s, -1).amax(1)
+        self._count(BucketAlg.LIST, lanes,
+                    torch.where(last >= 0, size - last, size))
+        return T.items[slot, last.clamp(min=0)].long()
+
+    def tree(self, lanes, slot, r):
+        """reference src/crush/mapper.c:195-222: down the node-weight heap
+        to an odd node."""
+        T = self.T
+        nw = T.node_weights[slot].long() & M32
+        n = (T.num_nodes[slot].long() >> 1)
+        x = self.x[lanes]
+        bid = -1 - slot
+        while True:
+            a = ((n > 0) & (n & 1 == 0)).nonzero()[:, 0]
+            if a.numel() == 0:
+                break
+            na = n[a]
+            h = crush_hash32_4(x[a], na, r[a], bid[a])
+            w = nw[a, na]
+            # (h * w) >> 32 for u32 h, w, without overflowing int64
+            hi, lo = (h >> 16) * w, (h & 0xFFFF) * w
+            t = (hi >> 16) + ((((hi & 0xFFFF) << 16) + lo) >> 32)
+            half = (na & -na) >> 1
+            left = na - half
+            n[a] = torch.where(t < nw[a, left], left, na + half)
+            self._count(BucketAlg.TREE, lanes[a], torch.ones_like(a))
+        return T.items[slot, n >> 1].long()
+
+    def uniform(self, lanes, slot, r):
+        """reference src/crush/mapper.c:73-131: items[perm[r % size]],
+        with perm[pr] traced backward through the Fisher-Yates steps
+        0..pr, as crush_rule.cuh::uniform_choose does."""
+        T = self.T
+        size = T.size[slot].long().clamp(min=1)
+        bid = -1 - slot
+        x = self.x[lanes]
+        pr = r % size
+        q = pr.clone()
+        a = (pr + 1 < size).nonzero()[:, 0]
+        if a.numel():
+            q[a] += crush_hash32_3(x[a], bid[a], pr[a]) % (size[a] - pr[a])
+        self._count(BucketAlg.UNIFORM, lanes[a], torch.ones_like(a))
+        for p in range(int(pr.max()) - 1 if pr.numel() else -1, -1, -1):
+            a = (p < pr).nonzero()[:, 0]
+            h = crush_hash32_3(x[a], bid[a], p) % (size[a] - p)
+            q[a] = torch.where(p + h == q[a], p, q[a])
+            self._count(BucketAlg.UNIFORM, lanes[a], torch.ones_like(a))
+        return T.items[slot, q].long()
+
+    def choose(self, lanes, slot, r, pos):
+        """crush_rule.cuh::bucket_choose: the draw of bucket `slot`'s
+        algorithm, per lane."""
+        alg = self.T.alg[slot]
+        item = torch.empty_like(slot, dtype=torch.long)
+        for a in alg.unique().tolist():
+            sel = (alg == a).nonzero()[:, 0]
+            ln, sl, rr = lanes[sel], slot[sel], r[sel]
+            if a == BucketAlg.STRAW2:
+                item[sel] = self.straw2(ln, sl, rr, pos[sel])
+            elif a == BucketAlg.STRAW:
+                item[sel] = self.straw(ln, sl, rr)
+            elif a == BucketAlg.LIST:
+                item[sel] = self.list_(ln, sl, rr)
+            elif a == BucketAlg.TREE:
+                item[sel] = self.tree(ln, sl, rr)
+            elif a == BucketAlg.UNIFORM:
+                item[sel] = self.uniform(ln, sl, rr)
+            else:
+                item[sel] = self.T.items[sl, 0].long()
+        return item
 
     def is_out(self, lanes, item):
         """reference src/crush/mapper.c:424-438."""
@@ -195,17 +303,29 @@ class _Lanes:
         frac = (crush_hash32_2(self.x[lanes], item) & 0xFFFF) >= w
         return (item >= D) | ((w < 0x10000) & ((w == 0) | frac))
 
-    def descend(self, lanes, start, r, pos, target):
-        """crush_rule.cuh::descend: (item, status) per lane."""
+    def descend(self, lanes, start, r, pos, target, numrep=0, r_uniform=None):
+        """crush_rule.cuh::descend: (item, status, r of the last draw) per
+        lane.  With numrep > 0 (indep), a uniform bucket whose size numrep
+        divides draws with r_uniform."""
         T = self.T
         item = start.clone()
         status = torch.full_like(start, _DESCENDING)
+        r_last = r.clone()
         for _ in range(T.max_depth + 1):
             a = (status == _DESCENDING).nonzero()[:, 0]
             if a.numel() == 0:
                 break
             slot = -1 - item[a]
-            nxt = self.straw2(lanes[a], slot, r[a], pos[a])
+            rb = r[a]
+            if numrep > 0:
+                uni = ((T.alg[slot] == BucketAlg.UNIFORM)
+                       & (T.size[slot] % numrep == 0))
+                rb = torch.where(uni, r_uniform[a], rb)
+            r_last[a] = rb
+            nonempty = T.size[slot] > 0
+            nxt = torch.full_like(slot, ITEM_NONE, dtype=torch.long)
+            ne = nonempty.nonzero()[:, 0]
+            nxt[ne] = self.choose(lanes[a[ne]], slot[ne], rb[ne], pos[a[ne]])
             is_b = nxt < 0
             dangling = is_b & (-1 - nxt >= T.n_buckets)
             ntype = torch.where(
@@ -213,11 +333,11 @@ class _Lanes:
             st = torch.where(ntype == target, _FOUND,
                              torch.where(is_b, _DESCENDING, _SKIP))
             st = torch.where((nxt >= T.max_devices) | dangling, _SKIP, st)
-            st = torch.where(T.size[slot] == 0, _EMPTY, st)
+            st = torch.where(nonempty, st, _EMPTY)
             item[a] = torch.where(st == _EMPTY, item[a], nxt)
             status[a] = st
         status[status == _DESCENDING] = _SKIP
-        return item, status
+        return item, status, r_last
 
     def leaf_firstn(self, lanes, bucket, r0, outpos, out2, tries):
         """crush_rule.cuh::leaf_firstn: (ok, leaf) per lane."""
@@ -231,8 +351,8 @@ class _Lanes:
             a = pend.nonzero()[:, 0]
             if a.numel() == 0:
                 return ok, leaf
-            item, st = self.descend(lanes[a], bucket[a], r0[a] + ftotal[a],
-                                    outpos[a], 0)
+            item, st, _ = self.descend(lanes[a], bucket[a],
+                                       r0[a] + ftotal[a], outpos[a], 0)
             collide = ((out2[a] == item[:, None])
                        & (col < outpos[a, None])).any(1)
             good = (st == _FOUND) & ~collide & ~self.is_out(lanes[a], item)
@@ -260,8 +380,8 @@ class _Lanes:
                 if a.numel() == 0:
                     break
                 r = rep + ftotal[a]
-                item, st = self.descend(lanes[a], src[a], r, outpos[a],
-                                        target)
+                item, st, _ = self.descend(lanes[a], src[a], r, outpos[a],
+                                           target)
                 found = st == _FOUND
                 collide = found & ((out[a] == item[:, None])
                                    & (col < outpos[a, None])).any(1)
@@ -301,9 +421,9 @@ class _Lanes:
             a = pend.nonzero()[:, 0]
             if a.numel() == 0:
                 break
-            item, st = self.descend(lanes[a], bucket[a],
-                                    rep + parent_r[a] + numrep * ftotal,
-                                    pos[a], 0)
+            item, st, _ = self.descend(
+                lanes[a], bucket[a], rep + parent_r[a] + numrep * ftotal,
+                pos[a], 0, numrep, rep + parent_r[a] + (numrep + 1) * ftotal)
             good = (st == _FOUND) & ~self.is_out(lanes[a], item)
             res[a[good]] = item[good]
             pend[a] = ~good & (st != _SKIP)
@@ -324,8 +444,10 @@ class _Lanes:
                 if a.numel() == 0:
                     continue
                 todo_any = True
-                r = zero[a] + rep + numrep * ftotal
-                item, st = self.descend(lanes[a], src[a], r, zero[a], target)
+                item, st, r = self.descend(
+                    lanes[a], src[a], zero[a] + rep + numrep * ftotal,
+                    zero[a], target, numrep,
+                    zero[a] + rep + (numrep + 1) * ftotal)
                 skip = a[st == _SKIP]
                 out[skip, rep] = ITEM_NONE
                 out2[skip, rep] = ITEM_NONE
@@ -427,24 +549,30 @@ class _Lanes:
 
 
 def crush_rule_plain(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
-                     weight: torch.Tensor):
+                     weight: torch.Tensor, by_alg: bool = False):
     """The plain PyTorch version of the kernel, on any device.
 
     x: seeds [N]; weight: OSD reweights [D] (u32 values, any integer
     dtype), on T's device.  Returns (rows int32 [N, result_max], draws
     int64 [N]): the straw2 draws each lane made (items with a nonzero
-    weight in every bucket it drew from)."""
+    weight in every bucket it drew from).  With by_alg, draws is
+    [N, N_ALGS]: column a counts the hash calls of the lane's draws from
+    buckets of algorithm a (BucketAlg), column STRAW2 the straw2 draws;
+    a straw draw hashes every item, a list draw the items it scans, a tree
+    draw once a level, a uniform draw once a Fisher-Yates step."""
     x = x.reshape(-1).long() & M32
     weight = _weight_vector(weight.reshape(-1).long() & M32)
     rows, draws = [], []
     for i in range(0, x.numel(), PLAIN_CHUNK):
         lanes = _Lanes(T, x[i:i + PLAIN_CHUNK], weight)
         rows.append(lanes.run(prog))
-        draws.append(lanes.draws)
+        draws.append(lanes.hashes if by_alg
+                     else lanes.hashes[:, BucketAlg.STRAW2])
     if not rows:
         return (torch.empty((0, prog.result_max), dtype=torch.int32,
                             device=x.device),
-                torch.empty(0, dtype=torch.long, device=x.device))
+                torch.empty((0, N_ALGS) if by_alg else 0, dtype=torch.long,
+                            device=x.device))
     return torch.cat(rows), torch.cat(draws)
 
 
@@ -455,7 +583,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("crush/csrc/crush_rule.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.crush_rule_launch.argtypes = (
-        [p] * 7 + [i] * 13 + [p, ctypes.c_longlong, p, p])
+        [p] * 8 + [i] * 13 + [p, ctypes.c_longlong, p, p])
     lib.crush_rule_launch.restype = i
     lib.crush_rule_plan.argtypes = [p]
     lib.crush_rule_plan.restype = i
@@ -560,7 +688,8 @@ def crush_rule_cuda(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
     with torch.cuda.device(dev):
         _check(_lib().crush_rule_launch(
             T.headers.data_ptr(), T.records.data_ptr(),
-            T.packed_items.data_ptr(), weight.data_ptr(), rh_lh.data_ptr(),
+            T.packed_items.data_ptr(), T.nodes.data_ptr(),
+            weight.data_ptr(), rh_lh.data_ptr(),
             ll.data_ptr(), steps.data_ptr(), T.n_buckets, T.positions,
             T.max_devices, T.max_depth, weight.numel(), len(prog.steps),
             prog.result_max, prog.choose_total_tries,

@@ -5,10 +5,11 @@ pointer-linked bucket structs per PG (reference src/crush/crush.h:354-461).
 The frozen form is a padded array bundle: one row per bucket slot (slot b
 holds bucket id -1-b), items/weights padded to the max bucket size with a
 size vector for masking.  `build_arrays` freezes a map on the host (numpy);
-`pack_buckets` lays the straw2 draw's inputs out for the rule kernel
+`pack_buckets` lays the draws' inputs out for the rule kernel
 (`crush/csrc/crush_rule.cuh`): one 16-byte record per item and weight-set
 position, bucket by bucket in breadth-first order from the rules' roots,
-with a header per bucket slot.  `to_device` uploads the padded fields the
+with a header per bucket slot and the tree buckets' node weights beside
+them.  `to_device` uploads the padded fields the
 plain version reads and the packed ones the kernel reads, once per map.
 
 Padding policy: item/weight rows pad with 0 (masked lanes never win a draw:
@@ -188,13 +189,19 @@ def magic_div_consts(w: int) -> tuple[int, int]:
 
 MAGIC_SHIFT = 56  # a record's magic word: m | l << MAGIC_SHIFT (0 for w = 0)
 
-# one straw2 draw's inputs, read with one 16-byte load
+# one draw's inputs, read with one 16-byte load.  straw2: the id it
+# hashes, its weight and the weight's magic word.  The legacy algorithms
+# ignore choose_args, so their records hold the bucket's own items and
+# weights, and `magic` holds the algorithm's word: straw's straw, list's
+# sum_weights entry (0 for tree and uniform)
 RECORD = np.dtype([("arg_id", "<i4"), ("weight", "<u4"), ("magic", "<u8")])
 # a bucket slot's header, 32 bytes: the kernel reads the first 16 (item
-# offset, size, type, alg); `spare` is room for a legacy algorithm's
-# per-bucket word (uniform's item weight, a tree's node offset)
+# offset, size, type, alg) for every bucket and the second 16 only for a
+# tree: `spare` is the offset of its node weights in `nodes`, `num_nodes`
+# their count
 HEADER = np.dtype([("offset", "<i4"), ("size", "<i4"), ("type", "<i4"),
-                   ("alg", "<i4"), ("spare", "<i4"), ("pad", "<i4", (3,))])
+                   ("alg", "<i4"), ("spare", "<i4"), ("num_nodes", "<i4"),
+                   ("pad", "<i4", (2,))])
 
 
 def magic_words(w: np.ndarray) -> np.ndarray:
@@ -223,6 +230,7 @@ class PackedBuckets:
     headers: np.ndarray  # [B] HEADER
     records: np.ndarray  # [positions * sum(size)] RECORD
     items: np.ndarray  # [sum(size)] i32
+    nodes: np.ndarray  # [sum of the trees' num_nodes] u32 node weights
     level_ends: tuple  # records through each breadth-first level
 
 
@@ -263,26 +271,43 @@ def pack_buckets(A: CrushArrays) -> PackedBuckets:
     headers = np.zeros(A.n_buckets, HEADER)
     headers["type"] = A.btype
     headers["alg"] = A.alg
-    items, recs, level_ends = [], [], []
-    offset = 0
+    items, recs, nodes, level_ends = [], [], [], []
+    offset = n_nodes = 0
     for level in _bfs_levels(A):
         for s in level:
             n = int(A.size[s])
+            alg = int(A.alg[s])
             headers[s]["offset"] = offset
             headers[s]["size"] = n
             items.append(A.items[s, :n])
             r = np.zeros((P, n), RECORD)
-            r["arg_id"] = A.arg_ids[s, :n]
-            r["weight"] = A.pos_weights[:, s, :n]
+            if alg == BucketAlg.STRAW2:
+                r["arg_id"] = A.arg_ids[s, :n]
+                r["weight"] = A.pos_weights[:, s, :n]
+                r["magic"] = magic_words(r["weight"])
+            else:
+                r["arg_id"] = A.items[s, :n]
+                r["weight"] = A.weights[s, :n]
+                if alg == BucketAlg.STRAW:
+                    r["magic"] = A.straws[s, :n]
+                elif alg == BucketAlg.LIST:
+                    r["magic"] = A.sum_weights[s, :n]
+            if alg == BucketAlg.TREE:
+                nn = int(A.num_nodes[s])
+                headers[s]["spare"] = n_nodes
+                headers[s]["num_nodes"] = nn
+                nodes.append(A.node_weights[s, :nn])
+                n_nodes += nn
             recs.append(r.reshape(-1))
             offset += n
         level_ends.append(P * offset)
-    records = np.concatenate(recs) if recs else np.zeros(0, RECORD)
-    records["magic"] = magic_words(records["weight"])
     return PackedBuckets(
-        headers=headers, records=records,
+        headers=headers,
+        records=np.concatenate(recs) if recs else np.zeros(0, RECORD),
         items=(np.concatenate(items).astype(np.int32) if items
                else np.zeros(0, np.int32)),
+        nodes=(np.concatenate(nodes).astype(np.uint32) if nodes
+               else np.zeros(0, np.uint32)),
         level_ends=tuple(level_ends),
     )
 
@@ -291,18 +316,27 @@ def pack_buckets(A: CrushArrays) -> PackedBuckets:
 class DeviceArrays:
     """A map on one device: the padded fields of a CrushArrays that the
     plain version reads, as int32 tensors (u32 fields hold their bit
-    patterns; pos_weights is [P, B, S], items and arg_ids [B, S]), and the
+    patterns; pos_weights is [P, B, S], items, arg_ids, weights,
+    sum_weights and straws [B, S], node_weights [B, NN]), and the
     kernel's PackedBuckets (headers int32 [B, 8], records int32 [R, 4],
-    packed_items int32 [sum(size)]), with the sizes they need."""
+    packed_items int32 [sum(size)], nodes int32 [at least 1]), with the
+    sizes they need."""
 
+    alg: torch.Tensor
     btype: torch.Tensor
     size: torch.Tensor
     items: torch.Tensor
     pos_weights: torch.Tensor
     arg_ids: torch.Tensor
+    weights: torch.Tensor
+    sum_weights: torch.Tensor
+    straws: torch.Tensor
+    node_weights: torch.Tensor
+    num_nodes: torch.Tensor
     headers: torch.Tensor
     records: torch.Tensor
     packed_items: torch.Tensor
+    nodes: torch.Tensor
     level_ends: tuple
     n_buckets: int
     max_size: int
@@ -326,11 +360,16 @@ def to_device(A: CrushArrays, device) -> DeviceArrays:
 
     pk = pack_buckets(A)
     return DeviceArrays(
-        btype=put(A.btype), size=put(A.size), items=put(A.items),
-        pos_weights=put(A.pos_weights), arg_ids=put(A.arg_ids),
+        alg=put(A.alg), btype=put(A.btype), size=put(A.size),
+        items=put(A.items), pos_weights=put(A.pos_weights),
+        arg_ids=put(A.arg_ids), weights=put(A.weights),
+        sum_weights=put(A.sum_weights), straws=put(A.straws),
+        node_weights=put(A.node_weights), num_nodes=put(A.num_nodes),
         headers=put(pk.headers.view(np.int32).reshape(-1, 8)),
         records=put(pk.records.view(np.int32).reshape(-1, 4)),
-        packed_items=put(pk.items), level_ends=pk.level_ends,
+        packed_items=put(pk.items),
+        nodes=put(pk.nodes if len(pk.nodes) else np.zeros(1, np.uint32)),
+        level_ends=pk.level_ends,
         n_buckets=A.n_buckets, max_size=A.max_size, positions=A.positions,
         max_devices=A.max_devices, max_depth=A.max_depth,
     )

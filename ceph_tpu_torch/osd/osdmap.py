@@ -2,17 +2,20 @@
 
 The port of `ceph_tpu/osd/osdmap.py`'s state (reference src/osd/OSDMap.{h,cc}):
 per-OSD state/weight/primary-affinity vectors, pools, pg_temp/primary_temp,
-pg_upmap/pg_upmap_items, their mutators and the map builders.  The batched
-pipeline (ceph_tpu_torch.osd.pipeline) consumes `frozen_vectors()`.  The
-per-PG host pipeline of the JAX package (`_pg_to_raw_osds` ...
-`pg_to_up_acting_osds`, `clean_pg_upmaps`) is not ported yet.
+pg_upmap/pg_upmap_items, their mutators, the map builders and the per-PG
+host pipeline (`_pg_to_raw_osds` ... `pg_to_up_acting_osds`, reference
+src/osd/OSDMap.cc:2435-2715) over the host oracle `crush/mapper_ref.py`,
+which the CLIs' single-PG paths use.  The batched pipeline
+(ceph_tpu_torch.osd.pipeline) consumes `frozen_vectors()`.
+`clean_pg_upmaps` waits for the balancer's port.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ceph_tpu_torch.crush.types import BucketAlg, CrushMap, Tunables
+from ceph_tpu_torch.crush import mapper_ref
+from ceph_tpu_torch.crush.types import BucketAlg, CrushMap, ITEM_NONE, Tunables
 from ceph_tpu_torch.osd.types import PgId, PgPool, PoolType
 
 # osd_state flags (reference src/include/rados.h:125-132)
@@ -115,6 +118,179 @@ class OSDMap:
 
     def get_pg_pool(self, pool_id: int) -> PgPool | None:
         return self.pools.get(pool_id)
+
+    # -- the 5-stage pipeline (host reference) -----------------------------
+    def _pg_to_raw_osds(self, pool: PgPool, pg: PgId) -> tuple[list[int], int]:
+        """reference src/osd/OSDMap.cc:2435-2453."""
+        pps = pool.raw_pg_to_pps(pg)
+        size = pool.size
+        ruleno = mapper_ref.find_rule(
+            self.crush, pool.crush_rule, int(pool.type), size
+        )
+        osds: list[int] = []
+        if ruleno >= 0:
+            # choose_args_get_with_fallback semantics (reference
+            # src/crush/CrushWrapper.h:1451-1457): pool id, else -1
+            ca = self.crush.choose_args.get(
+                pg.pool, self.crush.choose_args.get(-1)
+            )
+            osds = mapper_ref.do_rule(
+                self.crush, ruleno, pps, size, self.osd_weight,
+                choose_args=ca,
+            )
+        self._remove_nonexistent_osds(pool, osds)
+        return osds, pps
+
+    def _remove_nonexistent_osds(self, pool: PgPool, osds: list[int]) -> None:
+        """reference src/osd/OSDMap.cc:2412-2433."""
+        if pool.can_shift_osds():
+            osds[:] = [o for o in osds if self.exists(o)]
+        else:
+            for i, o in enumerate(osds):
+                if not self.exists(o) and o != ITEM_NONE:
+                    osds[i] = ITEM_NONE
+
+    def _apply_upmap(self, pool: PgPool, raw_pg: PgId, raw: list[int]) -> None:
+        """reference src/osd/OSDMap.cc:2465-2509."""
+        pg = pool.raw_pg_to_pg(raw_pg)
+        p = self.pg_upmap.get(pg)
+        if p is not None:
+            for osd in p:
+                if (
+                    osd != ITEM_NONE and 0 <= osd < self.max_osd
+                    and self.osd_weight[osd] == 0
+                ):
+                    return  # reject explicit mapping with out target
+            raw[:] = list(p)
+        q = self.pg_upmap_items.get(pg)
+        if q is not None:
+            for frm, to in q:
+                exists = False
+                pos = -1
+                for i, osd in enumerate(raw):
+                    if osd == to:
+                        exists = True
+                        break
+                    if osd == frm and pos < 0 and not (
+                        to != ITEM_NONE and 0 <= to < self.max_osd
+                        and self.osd_weight[to] == 0
+                    ):
+                        pos = i
+                if not exists and pos >= 0:
+                    raw[pos] = to
+
+    def _raw_to_up_osds(self, pool: PgPool, raw: list[int]) -> list[int]:
+        """reference src/osd/OSDMap.cc:2512-2535."""
+        if pool.can_shift_osds():
+            return [o for o in raw if self.exists(o) and not self.is_down(o)]
+        return [
+            o if (self.exists(o) and not self.is_down(o)) else ITEM_NONE
+            for o in raw
+        ]
+
+    @staticmethod
+    def _pick_primary(osds: list[int]) -> int:
+        """reference src/osd/OSDMap.cc:2455-2463."""
+        for o in osds:
+            if o != ITEM_NONE:
+                return o
+        return -1
+
+    def _apply_primary_affinity(
+        self, seed: int, pool: PgPool, osds: list[int], primary: int
+    ) -> int:
+        """reference src/osd/OSDMap.cc:2537-2590.  Mutates osds (shift for
+        replicated pools); returns the new primary."""
+        pa = self.osd_primary_affinity
+        if pa is None:
+            return primary
+        if not any(
+            o != ITEM_NONE and pa[o] != DEFAULT_PRIMARY_AFFINITY for o in osds
+        ):
+            return primary
+        pos = -1
+        for i, o in enumerate(osds):
+            if o == ITEM_NONE:
+                continue
+            a = pa[o]
+            if a < MAX_PRIMARY_AFFINITY and (
+                int(mapper_ref._h2(seed, o)) >> 16
+            ) >= a:
+                if pos < 0:
+                    pos = i
+            else:
+                pos = i
+                break
+        if pos < 0:
+            return primary
+        primary = osds[pos]
+        if pool.can_shift_osds() and pos > 0:
+            for i in range(pos, 0, -1):
+                osds[i] = osds[i - 1]
+            osds[0] = primary
+        return primary
+
+    def _get_temp_osds(self, pool: PgPool, pg: PgId) -> tuple[list[int], int]:
+        """reference src/osd/OSDMap.cc:2592-2623."""
+        pg = pool.raw_pg_to_pg(pg)
+        temp_pg: list[int] = []
+        p = self.pg_temp.get(pg)
+        if p is not None:
+            for o in p:
+                if not self.exists(o) or self.is_down(o):
+                    if not pool.can_shift_osds():
+                        temp_pg.append(ITEM_NONE)
+                else:
+                    temp_pg.append(o)
+        temp_primary = self.primary_temp.get(pg, -1)
+        if temp_primary == -1 and temp_pg:
+            for o in temp_pg:
+                if o != ITEM_NONE:
+                    temp_primary = o
+                    break
+        return temp_pg, temp_primary
+
+    def pg_to_raw_osds(self, pg: PgId) -> tuple[list[int], int]:
+        pool = self.get_pg_pool(pg.pool)
+        if pool is None:
+            return [], -1
+        raw, _ = self._pg_to_raw_osds(pool, pg)
+        return raw, self._pick_primary(raw)
+
+    def pg_to_raw_up(self, pg: PgId) -> tuple[list[int], int]:
+        """reference src/osd/OSDMap.cc:2648-2664."""
+        pool = self.get_pg_pool(pg.pool)
+        if pool is None:
+            return [], -1
+        raw, pps = self._pg_to_raw_osds(pool, pg)
+        self._apply_upmap(pool, pg, raw)
+        up = self._raw_to_up_osds(pool, raw)
+        primary = self._pick_primary(raw)
+        primary = self._apply_primary_affinity(pps, pool, up, primary)
+        return up, primary
+
+    def _pg_to_up_acting_osds(
+        self, pg: PgId, raw_pg_to_pg: bool = True
+    ) -> tuple[list[int], int, list[int], int]:
+        """reference src/osd/OSDMap.cc:2667-2715.  Returns
+        (up, up_primary, acting, acting_primary)."""
+        pool = self.get_pg_pool(pg.pool)
+        if pool is None or (not raw_pg_to_pg and pg.seed >= pool.pg_num):
+            return [], -1, [], -1
+        acting, acting_primary = self._get_temp_osds(pool, pg)
+        raw, pps = self._pg_to_raw_osds(pool, pg)
+        self._apply_upmap(pool, pg, raw)
+        up = self._raw_to_up_osds(pool, raw)
+        up_primary = self._pick_primary(up)
+        up_primary = self._apply_primary_affinity(pps, pool, up, up_primary)
+        if not acting:
+            acting = list(up)
+            if acting_primary == -1:
+                acting_primary = up_primary
+        return up, up_primary, acting, acting_primary
+
+    def pg_to_up_acting_osds(self, pg: PgId):
+        return self._pg_to_up_acting_osds(pg, raw_pg_to_pg=False)
 
     # -- freezing for the pipeline --------------------------------------------
     def frozen_vectors(self) -> dict[str, np.ndarray]:

@@ -186,7 +186,7 @@ def _pick(v: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return v.gather(1, i.clamp(0, v.shape[1] - 1)[:, None])[:, 0]
 
 
-def _first_not_none(v: torch.Tensor) -> torch.Tensor:
+def first_not_none(v: torch.Tensor) -> torch.Tensor:
     """_pick_primary (reference src/osd/OSDMap.cc:2455-2463)."""
     i = _first_index(v != ITEM_NONE)
     return torch.where(i < v.shape[1], _pick(v, i), -1)
@@ -338,7 +338,7 @@ class PoolMapper:
             up = _compact(raw, alive)
         else:
             up = torch.where(alive, raw, ITEM_NONE)
-        up_primary = _first_not_none(up)
+        up_primary = first_not_none(up)
 
         # -- stage 5: primary affinity (reference src/osd/OSDMap.cc:2537)
         if self.with_primary_affinity:
@@ -388,7 +388,7 @@ class PoolMapper:
             else:
                 filt = torch.where(t_alive, trow, ITEM_NONE)
                 t_n = tlen.clamp(min=0)
-            t_primary = torch.where(pt >= 0, pt, _first_not_none(filt))
+            t_primary = torch.where(pt >= 0, pt, first_not_none(filt))
             use_temp = (tlen >= 0) & (t_n > 0)
             acting = torch.where(use_temp[:, None], filt, up)
             acting_primary = torch.where(
@@ -404,7 +404,14 @@ class PoolMapper:
         return tuple(t.to(torch.int32).cpu().numpy() for t in out)
 
     def map_all(self):
-        return self.map_batch(np.arange(self.spec.pg_num))
+        """`map_batch` of every PG of the pool."""
+        return tuple(t.cpu().numpy() for t in self.map_all_tensors())
+
+    def map_all_tensors(self):
+        """(up, up_primary, acting, acting_primary) of every PG of the
+        pool, int32 tensors left on the mapper's device."""
+        ps = torch.arange(self.spec.pg_num, device=self.device)
+        return tuple(t.to(torch.int32) for t in self._rows(ps))
 
     def map_all_device(self) -> torch.Tensor:
         """`up` rows [pg_num, W] of every PG of the pool, as an int32

@@ -11,8 +11,11 @@ rule kernel both with the shared-memory staging its wrapper chooses and
 with none), drives the erasure-coding path (the corpus
 profiles, RS(8,4) encode/decode at full size, the benchmark CLI) and the
 placement path (the placement corpus, then BASELINE configs 2 and 5
-through `PoolMapper`) through the entry points a user calls, and prints
-one JSON object per phase.  Any failure raises and exits non-zero.
+through `PoolMapper`, then the legacy bucket draws on maps of config 5's
+shape, then the placement CLIs `crushtool --test` and `osdmaptool
+--test-map-pgs` on configs 1, 2 and 5) through the entry points a user
+calls, and prints one JSON object per phase.  Any failure raises and
+exits non-zero.
 
 The line before the last is the kernels line (each kernel's launches on
 the main path, its time, bound and plain-version time); the last line is
@@ -22,12 +25,15 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -35,9 +41,11 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import build
-from ceph_tpu_torch.cli import ec_benchmark
-from ceph_tpu_torch.crush import mapper
-from ceph_tpu_torch.crush.types import ITEM_NONE
+from ceph_tpu_torch.cli import crushtool, ec_benchmark, osdmaptool
+from ceph_tpu_torch.core import reduce
+from ceph_tpu_torch.crush import mapper, soa
+from ceph_tpu_torch.crush.codec import encode_crushmap
+from ceph_tpu_torch.crush.types import ITEM_NONE, BucketAlg
 from ceph_tpu_torch.ec import create_erasure_code
 from ceph_tpu_torch.ec.rs import decode_plan
 from ceph_tpu_torch.ec.torch_backend import (
@@ -46,7 +54,8 @@ from ceph_tpu_torch.ec.torch_backend import (
     product_tables,
 )
 
-from ceph_tpu_torch.osd.carry import osdmap_from_reference
+from ceph_tpu_torch.osd.carry import crush_from_reference, osdmap_from_reference
+from ceph_tpu_torch.osd.io import save_osdmap
 from ceph_tpu_torch.osd.osdmap import build_hierarchical
 from ceph_tpu_torch.osd.pipeline import PoolMapper
 from ceph_tpu_torch.osd.types import PgPool, PoolType
@@ -54,6 +63,9 @@ from ceph_tpu_torch.osd.types import PgPool, PoolType
 ROOT = Path(__file__).resolve().parent
 CORPUS = ROOT / "tests" / "data" / "ec_corpus.json"
 PLACEMENT_CORPUS = ROOT / "tests" / "data" / "placement_corpus.json"
+LEGACY_CASES = ROOT / "tests" / "data" / "legacy_rule_cases.json"
+CLI_CORPUS = ROOT / "tests" / "data" / "cli_corpus.json"
+LEGACY_MAP = ROOT / "tests" / "data" / "legacy_crushmap.txt"
 RS_ENTRIES = (
     "rs_k8m4_reed_sol_van",
     "rs_k6m2_reed_sol_r6_op",
@@ -405,20 +417,20 @@ def rule_inputs(pm: PoolMapper, n: int):
     return pm.placement_seeds(ps), pm.rule_weights()
 
 
-def rule_kernel_checked(pm: PoolMapper, x, w, want, n: int) -> int:
+def rule_kernel_checked(T, prog, x, w, want, what: str) -> int:
     """crush_rule_cuda on seeds x, with the wrapper's staging and with
     staging forced to 0 (every record read from global memory), each held
     element for element to the plain version's rows `want`; returns the
     max abs error (0)."""
     err = 0
     for stage in (None, 0):
-        got = mapper.crush_rule_cuda(pm.tables, pm.prog, mapper.u32_bits(x),
+        got = mapper.crush_rule_cuda(T, prog, mapper.u32_bits(x),
                                      mapper.u32_bits(w), stage=stage)
         torch.cuda.synchronize()
         if got.numel():
             err = max(err, int((got.long() - want.long()).abs().max()))
         check(torch.equal(got, want),
-              f"crush_rule kernel == plain ({n} PGs, stage {stage})")
+              f"crush_rule kernel == plain ({what}, stage {stage})")
     return err
 
 
@@ -428,7 +440,8 @@ def kernel_vs_plain(pm: PoolMapper, n: int):
     plain version)."""
     x, w = rule_inputs(pm, n)
     want, draws = mapper.crush_rule_plain(pm.tables, pm.prog, x, w)
-    return rule_kernel_checked(pm, x, w, want, n), draws
+    return rule_kernel_checked(pm.tables, pm.prog, x, w, want,
+                               f"{n} PGs"), draws
 
 
 def phase_rule_vs_plain(dev, corpus: dict, pms: dict) -> tuple[int, dict]:
@@ -450,8 +463,20 @@ def phase_rule_vs_plain(dev, corpus: dict, pms: dict) -> tuple[int, dict]:
         draws[name] = d
         cases.append({"case": name, "pgs": n, "equal": True,
                       "draws_per_pg": d.double().mean().item()})
+    err, names = legacy_cases(dev)
+    worst = max(worst, err)
+    cases.append({"case": "legacy_cases", "names": names, "equal": True,
+                  "equal_to_jax_rows": True})
+    err, legacy = legacy_config5(dev)
+    worst = max(worst, err)
+    for alg in LEGACY_ALGS:
+        for label, n in (("block", LEGACY_X), ("all", C5_X)):
+            if label in legacy[alg]:
+                cases.append({"case": f"config5_{alg}_hosts", "x": n,
+                              "equal": True,
+                              "hashes_by_alg": legacy[alg][label]})
     emit({"phase": "rule_vs_plain", "cases": cases, "max_abs_err": worst})
-    return worst, draws
+    return worst, draws, legacy
 
 
 def placement_digest(rows) -> str:
@@ -519,15 +544,14 @@ def max_sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def rule_bytes(pm: PoolMapper, n: int) -> int:
+def rule_bytes(T, prog, n_weights: int, n: int) -> int:
     """What the kernel must move: each input read once (seeds, the map's
-    packed headers, records and items, reweights, steps, crush_ln
-    tables), each output written once."""
-    T = pm.tables
-    arrays = (T.headers, T.records, T.packed_items)
+    packed headers, records, items and tree nodes, reweights, steps,
+    crush_ln tables), each output written once."""
+    arrays = (T.headers, T.records, T.packed_items, T.nodes)
     return (4 * n + sum(a.numel() * 4 for a in arrays)
-            + 4 * pm.rule_weights().numel() + pm.prog.steps.nbytes
-            + (258 + 256) * 8 + 4 * n * pm.prog.result_max)
+            + 4 * n_weights + prog.steps.nbytes
+            + (258 + 256) * 8 + 4 * n * prog.result_max)
 
 
 def host_of(m, n_osd: int) -> np.ndarray:
@@ -582,7 +606,7 @@ def all_draws(pm: PoolMapper, n: int, draws: torch.Tensor) -> torch.Tensor:
         return draws
     x, w = rule_inputs(pm, n)
     want, draws = mapper.crush_rule_plain(pm.tables, pm.prog, x, w)
-    rule_kernel_checked(pm, x, w, want, n)
+    rule_kernel_checked(pm.tables, pm.prog, x, w, want, f"{n} PGs")
     return draws
 
 
@@ -649,7 +673,8 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
                     pm.tables, pm.prog, xb, wb, stage=st), flush, runs=7)
             for label, st in (("none", 0), ("all", total))
             if st != staged and (label == "none" or fits)}
-        nbytes = rule_bytes(pm, n_pgs)
+        nbytes = rule_bytes(pm.tables, pm.prog, pm.rule_weights().numel(),
+                            n_pgs)
         bytes_ms = nbytes / peak * 1e3
         out = {
             "config": name, "pgs": n_pgs, "osds": n_osds, "launches": n,
@@ -677,6 +702,229 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
     return res
 
 
+# -- the legacy bucket draws --------------------------------------------------
+
+LEGACY_ALGS = ("straw", "list", "tree", "uniform")
+LEGACY_X = 1 << 20  # seeds (crushtool x) each legacy map is checked and
+                    # timed on; straw's map is checked on all of config 5
+C5_X = CONFIGS["config5"][0]
+# The instructions of one hash call of each legacy draw at the fewest,
+# counted as DRAW_OPS counts straw2's: hash3 is 137 without its & 0xffff,
+# hash4 2 + 6 mixes x 9 x 3 = 164; a 16 B record load where the draw
+# reads one; a u16 x u32 or u32 x u32 product is one IMAD.WIDE.U32.
+LEGACY_OPS = {
+    # load, hash3 & 0xffff (138), product, 64-bit compare (2) and keep (2)
+    "straw": 1 + 138 + 1 + 4,
+    # load, hash4 & 0xffff (165), product, 64-bit >> 16 (2), compare (2),
+    # branch
+    "list": 1 + 165 + 1 + 2 + 2 + 1,
+    # two node loads, hash4, product (its high word is the >> 32), the
+    # level step: trailing zeros (2), 1 << (h - 1) (2), n - half, compare,
+    # select (3), loop test
+    "tree": 2 + 164 + 1 + 7 + 1,
+    # hash3, u32 % (size - p): the reciprocal sequence (I2F, MUFU.RCP,
+    # F2I, 3 IMAD, IMAD.HI, 2 ISETP, 2 IADD3, 2 SEL: 14), compare and
+    # select (2), loop counter (2)
+    "uniform": 137 + 14 + 4,
+}
+
+
+def legacy_map(alg: str):
+    """Config 5's shape with `alg` hosts, as the port's crushtool builds
+    it: `crushtool --build --num_osds 10000 host <alg> 8 rack straw2 16
+    root straw2 0` (1250 hosts of 8 OSDs under 79 racks)."""
+    return crushtool.build_map(10000, [("host", alg, 8), ("rack", "straw2", 16),
+                                       ("root", "straw2", 0)])
+
+
+def legacy_cases(dev) -> tuple[int, list]:
+    """The kernel (both staging paths) == the plain version == the JAX
+    package's stored rows, on the legacy cases of
+    tests/test_torch_crush_legacy.py."""
+    err, cases = 0, []
+    for e in json.loads(LEGACY_CASES.read_text())["cases"]:
+        cm = crush_from_reference(e["map"])
+        A = soa.build_arrays(cm, cm.choose_args.get(e["choose_args"]))
+        T = soa.to_device(A, dev)
+        prog = mapper.compile_rule(A, e["ruleno"], e["result_max"])
+        x = torch.tensor(e["xs"], dtype=torch.long, device=dev)
+        w = torch.tensor(e["weights"], dtype=torch.long, device=dev)
+        want, _ = mapper.crush_rule_plain(T, prog, x, w)
+        check(want.cpu().tolist() == e["rows"],
+              f"legacy case {e['name']}: plain == JAX package")
+        err = max(err, rule_kernel_checked(T, prog, x, w, want,
+                                           f"legacy case {e['name']}"))
+        cases.append(e["name"])
+    return err, cases
+
+
+def legacy_config5(dev) -> tuple[int, dict]:
+    """Each legacy algorithm's config-5-shaped map: the kernel (both
+    staging paths) == the plain version on the first LEGACY_X seeds, and
+    for straw on all of config 5's.  Returns the maps' tables and the
+    plain version's hash counts by algorithm for each block."""
+    err, res = 0, {}
+    for alg in LEGACY_ALGS:
+        A = soa.build_arrays(legacy_map(alg))
+        T = soa.to_device(A, dev)
+        prog = mapper.compile_rule(A, 0, 3)
+        w = torch.full((A.max_devices,), 0x10000, dtype=torch.long,
+                       device=dev)
+        blocks = {"block": LEGACY_X}
+        if alg == "straw":
+            blocks["all"] = C5_X
+        res[alg] = {"tables": T, "prog": prog, "weights": w}
+        for label, n in blocks.items():
+            x = torch.arange(n, dtype=torch.long, device=dev)
+            want, hashes = mapper.crush_rule_plain(T, prog, x, w,
+                                                   by_alg=True)
+            err = max(err, rule_kernel_checked(T, prog, x, w, want,
+                                               f"{alg} hosts, {n} x"))
+            res[alg][label] = hashes.sum(0).tolist()
+        check(res[alg]["block"][int(BucketAlg[alg.upper()])] > 0,
+              f"{alg} hosts: the plain version drew from them")
+    return err, res
+
+
+def phase_legacy_main(dev, legacy: dict, peak: float) -> dict:
+    """Each legacy map's kernel time on its first LEGACY_X seeds (straw's
+    also on all of config 5's), beside its bound: the hash calls the
+    plain version counted, LEGACY_OPS each, and the straw2 draws of the
+    racks and the root, OPS_PER_DRAW each, over the issue rate; or the
+    bytes it must move, whichever is larger."""
+    flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    clock = max_sm_clock_hz()
+    issue_rate = H100_SMS * SCHEDULERS_PER_SM * WARP * clock
+    out = {}
+    for alg in LEGACY_ALGS:
+        r = legacy[alg]
+        T, prog, w = r["tables"], r["prog"], r["weights"]
+        wb = mapper.u32_bits(w)
+        for label in ("block", "all"):
+            if label not in r:
+                continue
+            n = LEGACY_X if label == "block" else C5_X
+            x = torch.arange(n, dtype=torch.long, device=dev)
+            xb = mapper.u32_bits(x)
+            ms = time_ms(lambda: mapper.crush_rule_cuda(T, prog, xb, wb),
+                         flush, runs=7)
+            hashes = r[label]
+            a = int(BucketAlg[alg.upper()])
+            ops = (hashes[BucketAlg.STRAW2] * OPS_PER_DRAW
+                   + hashes[a] * LEGACY_OPS[alg])
+            ops_ms = ops / issue_rate * 1e3
+            bytes_ms = rule_bytes(T, prog, w.numel(), n) / peak * 1e3
+            bound = max(ops_ms, bytes_ms)
+            row = {"x": n, "ms": ms, "mappings_per_s": n / (ms * 1e-3),
+                   "legacy_hashes": hashes[a],
+                   "legacy_hashes_per_x": hashes[a] / n,
+                   "straw2_draws": hashes[BucketAlg.STRAW2],
+                   "ops_per_hash": LEGACY_OPS[alg], "ops_ms": ops_ms,
+                   "bytes_ms": bytes_ms, "bound_ms": bound,
+                   "bound_by": "operations" if ops_ms >= bytes_ms
+                   else "bytes", "bound_share": bound / ms}
+            if label == "block":
+                row["plain_ms"] = time_ms(
+                    lambda: mapper.crush_rule_plain(T, prog, x, w),
+                    flush, runs=1, warmup=0)
+            out[alg if label == "block" else f"{alg}_all"] = row
+    emit({"phase": "legacy_main", "clock_hz": clock, "rows": out})
+    return out
+
+
+# -- the placement CLIs --------------------------------------------------------
+
+def run_cli(tool, argv: list[str]) -> tuple[str, float]:
+    """(stdout, seconds) of one CLI run through its main(argv); stderr is
+    kept apart and shown if the run fails."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool.main(list(argv))
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{tool.__name__} {' '.join(argv)}: rc {rc}, "
+          f"{err.getvalue()[-2000:]}")
+    return out.getvalue(), seconds
+
+
+def cli_counts(text: str, pattern: str) -> dict[int, int]:
+    return {int(i): int(c) for i, c in re.findall(pattern, text)}
+
+
+def phase_cli_placement(dev, pms: dict) -> dict:
+    """The placement CLIs through their main(argv), on the card (their
+    default device), each counted from 0: BASELINE config 1 (`crushtool
+    --test`), config 1's test on a map of straw hosts, a test of
+    tests/data/legacy_crushmap.txt and BASELINE config 2
+    (`osdmaptool --test-map-pgs`), each stdout's sha256 equal to the JAX
+    CLIs' (tests/data/cli_corpus.json); then config 5 through both, the
+    per-OSD counts each prints equal to the osd_histogram of
+    map_all_device's rows.  One launch per (rule, numrep) pass or pool."""
+    want = json.loads(CLI_CORPUS.read_text())["stdout_sha256"]
+    test1 = ["-i", "m", "--test", "--num-rep", "3", "--min-x", "0",
+             "--max-x", "1023", "--show-statistics", "--show-utilization"]
+    build1 = ["--build", "--num_osds", "32", "host", "{alg}", "4", "root",
+              "straw2", "0", "-o", "m"]
+    m5 = pms["config5"].m
+    res = {}
+    with tempfile.TemporaryDirectory() as d, contextlib.chdir(d):
+        def hashed(name, setup, tool, argv, launches, pgs):
+            setup()
+            (text, sec), n = counted(launches, f"CLI {name}",
+                                     lambda: run_cli(tool, argv),
+                                     mapper.crush_rule_cuda)
+            digest = hashlib.sha256(text.encode()).hexdigest()
+            check(digest == want[name], f"CLI {name}: stdout sha256 "
+                  f"{digest} != the JAX CLI's {want[name]}")
+            res[name] = {"launches": n, "seconds": sec,
+                         "mappings_per_s": pgs / sec,
+                         "sha256_equal": True}
+
+        for name, alg in (("config1", "straw2"),
+                          ("config1_straw_hosts", "straw")):
+            hashed(name, lambda alg=alg: run_cli(
+                crushtool, [a.format(alg=alg) for a in build1]),
+                crushtool, test1, 1, 1024)
+        hashed("legacy_text", lambda: run_cli(
+            crushtool, ["-c", str(LEGACY_MAP), "-o", "legacy"]),
+            crushtool, ["-i", "legacy", "--test", "--num-rep", "3",
+                        "--max-x", "1023", "--show-mappings",
+                        "--show-statistics"], 2, 2 * 1024)
+        hashed("config2", lambda: save_osdmap(bench_map(*CONFIGS["config2"]),
+                                              "m2"),
+               osdmaptool, ["m2", "--test-map-pgs", "--pool", "0"], 1,
+               CONFIGS["config2"][0])
+
+        # config 5: the tester's x are the pool's placement seeds with
+        # --pool-id 0 (pps = hash2(ps, pool) for ps < pg_num = pgp_num)
+        hist = reduce.osd_histogram(pms["config5"].map_all_device(),
+                                    m5.max_osd, dtype=torch.int64).cpu()
+        with open("c5crush", "wb") as f:
+            f.write(encode_crushmap(m5.crush))
+        save_osdmap(m5, "c5")
+        for name, tool, argv, pattern in (
+                ("config5_crushtool", crushtool,
+                 ["-i", "c5crush", "--test", "--num-rep", "3", "--min-x",
+                  "0", "--max-x", str(C5_X - 1), "--pool-id", "0",
+                  "--show-statistics", "--show-utilization"],
+                 r"\n  device (\d+):\t\t stored : (\d+)\t"),
+                ("config5_osdmaptool", osdmaptool,
+                 ["c5", "--test-map-pgs", "--pool", "0"],
+                 r"\nosd\.(\d+)\t(\d+)\t")):
+            (text, sec), n = counted(1, f"CLI {name}",
+                                     lambda: run_cli(tool, argv),
+                                     mapper.crush_rule_cuda)
+            got = cli_counts(text, pattern)
+            check(len(got) > 0 and all(hist[i] == c for i, c in got.items())
+                  and sum(got.values()) == int(hist.sum()),
+                  f"CLI {name}: per-OSD counts == map_all_device's")
+            res[name] = {"launches": n, "seconds": sec,
+                         "mappings_per_s": C5_X / sec,
+                         "osds_printed": len(got), "counts_equal": True}
+    emit({"phase": "cli_placement", "commands": res})
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -698,10 +946,14 @@ def main() -> int:
               json.loads(PLACEMENT_CORPUS.read_text())["entries"]}
     pms = {name: PoolMapper(bench_map(*shape), 0, device=dev)
            for name, shape in CONFIGS.items()}
-    rule_err, draws = phase_rule_vs_plain(dev, corpus, pms)
+    rule_err, draws, legacy = phase_rule_vs_plain(dev, corpus, pms)
     rule_paths = {"placement_corpus": phase_placement_corpus(dev, corpus)}
     pres = phase_placement_main(dev, pms, draws, info["peak_bw"])
     rule_paths.update({key: r["launches"] for key, r in pres.items()})
+    lres = phase_legacy_main(dev, legacy, info["peak_bw"])
+    cres = phase_cli_placement(dev, pms)
+    rule_paths.update({f"cli_{key}": r["launches"]
+                       for key, r in cres.items()})
     torch.cuda.synchronize()
 
     b, c5 = res["b"], pres["config5"]
@@ -748,6 +1000,14 @@ def main() -> int:
             "ops_ms", "int_pipe_ms", "bytes_ms", "bound_ms", "bound_by",
             "staged_records", "records", "ms_by_stage")}
                    for key, r in pres.items()},
+        # the legacy draws on config-5-shaped maps: kernel ms, bound and
+        # the share of the bound reached, per algorithm
+        "legacy": {key: {f: r[f] for f in (
+            "x", "ms", "plain_ms", "legacy_hashes", "ops_per_hash",
+            "bound_ms", "bound_by", "bound_share") if f in r}
+                   for key, r in lres.items()},
+        "cli": {key: {f: r[f] for f in ("seconds", "mappings_per_s")}
+                for key, r in cres.items()},
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,355 @@
+"""The port's placement CLIs against the JAX package's, byte for byte.
+
+Each case is a list of steps, each one `crushtool` or `osdmaptool` argv.
+The steps run in-process through `ceph_tpu.cli.*.main` in one empty
+directory and through `ceph_tpu_torch.cli.*.main` (with `--device cpu`
+where a step maps) in another.  Every step's stdout, stderr and exit code,
+and at the end every file either directory holds, must be identical.  The
+cases follow tests/test_cli.py.  `--createsimple` stamps the wall clock
+into the map, so both tools' clocks are pinned.
+
+tests/data/cli_corpus.json holds the sha256 of the JAX CLIs' stdout for
+the commands `chip_smoke.py` runs on the card (BASELINE.json configs 1 and
+2, config 1's test on a map of straw hosts, and a test of
+tests/data/legacy_crushmap.txt); `python tests/test_torch_cli.py`
+rewrites it, and the tests here check that the JAX CLIs still print what
+it holds.
+"""
+
+import contextlib
+import hashlib
+import io
+import json
+import os
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from ceph_tpu.cli import crushtool as jax_crushtool  # noqa: E402
+from ceph_tpu.cli import osdmaptool as jax_osdmaptool  # noqa: E402
+from ceph_tpu_torch.cli import crushtool, osdmaptool  # noqa: E402
+
+CORPUS = ROOT / "tests" / "data" / "cli_corpus.json"
+CLOCK = (1700000000, 123456789)  # the pinned wall clock of --createsimple
+
+TOOLS = {"jax": {"crushtool": jax_crushtool, "osdmaptool": jax_osdmaptool},
+         "port": {"crushtool": crushtool, "osdmaptool": osdmaptool}}
+
+# a map of uniform, list and tree hosts of unequal weights under a straw
+# root, with a replicated and an erasure rule (chip_smoke.py runs it on
+# the card too)
+LEGACY_MAP = ROOT / "tests" / "data" / "legacy_crushmap.txt"
+TEXT_MAP = LEGACY_MAP.read_text()
+
+CONF = """[global]
+\tosd pool default size = 3
+[osd.0]
+\thost = a
+\track = r0
+[osd.1]
+\thost = a
+\track = r0
+[osd.2]
+\thost = b
+\track = r1
+[osd.3]
+\thost = c
+\track = r1
+"""
+
+# (tool, argv, maps): `maps` steps get --device cpu in front on the port
+C, O = "crushtool", "osdmaptool"
+BUILD8 = (C, ["--build", "--num_osds", "8", "host", "straw2", "2", "root",
+              "straw2", "0", "-o", "m"], False)
+CREATE16 = (O, ["om", "--createsimple", "16", "--pg-bits", "4",
+                "--with-default-pool"], False)
+
+CASES = {
+    "crushtool_help": [(C, ["--help"], False)],
+    "crushtool_missing_argument": [(C, ["-i"], False)],
+    "crushtool_no_input": [(C, [], False)],
+    "crushtool_unknown_alg": [(C, ["--build", "--num_osds", "4", "host",
+                                   "bogus", "2"], False)],
+    "build_tree_text": [(C, ["--build", "--num_osds", "8", "host", "straw2",
+                             "2", "root", "straw2", "0", "-o",
+                             "built.txt"], False),
+                        (C, ["-i", "built.txt", "--tree"], False)],
+    "build_print_tree": [(C, ["--build", "--num_osds", "6", "host", "list",
+                              "3", "root", "straw", "0"], False)],
+    "compile_decompile_round_trip": [
+        BUILD8, (C, ["-d", "m", "-o", "m.txt"], False),
+        (C, ["-c", "m.txt", "-o", "m2"], False), (C, ["-d", "m2"], False)],
+    "compile_legacy_text": [
+        ("write", "legacy.txt", TEXT_MAP),
+        (C, ["-c", "legacy.txt", "-o", "legacy"], False),
+        (C, ["-d", "legacy"], False),
+        (C, ["-i", "legacy", "--test", "--show-mappings", "--max-x", "40",
+             "--num-rep", "3"], True),
+        (C, ["-i", "legacy", "--test", "--rule", "1", "--num-rep", "4",
+             "--max-x", "60", "--show-mappings", "--show-bad-mappings"],
+         True)],
+    "test_statistics_utilization": [
+        BUILD8, (C, ["-i", "m", "--test", "--num-rep", "3", "--min-x", "0",
+                     "--max-x", "255", "--show-statistics",
+                     "--show-utilization"], True)],
+    "test_mappings_pool_id": [
+        BUILD8, (C, ["-i", "m", "--test", "--num-rep", "2", "--max-x", "31",
+                     "--pool-id", "7", "--show-mappings"], True)],
+    "test_bad_mappings": [
+        (C, ["--build", "--num_osds", "4", "host", "straw2", "2", "root",
+             "straw2", "0", "-o", "m"], False),
+        (C, ["-i", "m", "--test", "--num-rep", "3", "--max-x", "63",
+             "--show-bad-mappings"], True)],
+    "test_simulate": [
+        (C, ["--build", "--num_osds", "4", "root", "straw2", "0", "-o", "m"],
+         False),
+        (C, ["-i", "m", "--test", "--num-rep", "2", "--max-x", "31",
+             "--simulate", "--show-mappings", "--show-statistics"], True)],
+    "test_weight_utilization_all": [
+        BUILD8, (C, ["-i", "m", "--test", "--num-rep", "3", "--max-x", "127",
+                     "-w", "3", "0.5", "-w", "5", "0", "--show-statistics",
+                     "--show-utilization-all"], True)],
+    "test_choose_tries": [
+        BUILD8, (C, ["-i", "m", "--test", "--num-rep", "3", "--max-x", "63",
+                     "-w", "2", "0", "--show-choose-tries"], True)],
+    "test_backend_ref": [
+        BUILD8, (C, ["-i", "m", "--test", "--num-rep", "3", "--max-x", "63",
+                     "--backend", "ref", "--show-mappings"], False)],
+    "straw_host_map": [
+        (C, ["--build", "--num_osds", "32", "host", "straw", "4", "root",
+             "straw2", "0", "-o", "m"], False),
+        (C, ["-i", "m", "--test", "--num-rep", "3", "--max-x", "255",
+             "--show-statistics", "--show-utilization"], True)],
+    "uniform_tree_list_hosts": [
+        (C, ["--build", "--num_osds", "24", "host", "uniform", "4", "rack",
+             "tree", "3", "root", "list", "0", "-o", "m"], False),
+        (C, ["-i", "m", "--test", "--num-rep", "3", "--max-x", "127",
+             "--show-mappings", "--show-statistics"], True)],
+    "reweight_item": [
+        BUILD8, (C, ["-i", "m", "--reweight-item", "osd.3", "2.5", "-o",
+                     "m3.txt"], False),
+        (C, ["-i", "m3.txt", "--tree"], False)],
+    "osdmaptool_no_args": [(O, [], False)],
+    "osdmaptool_help": [(O, ["--help"], False)],
+    "osdmaptool_no_filename": [(O, ["--print"], False)],
+    "osdmaptool_missing_file": [(O, ["nope", "--print"], False)],
+    "createsimple_print_tree": [
+        CREATE16, (O, ["om", "--print"], False), (O, ["om", "--tree"], False),
+        (O, ["om", "--dump", "json"], False),
+        (O, ["om", "--createsimple", "4"], False)],
+    "test_map_pgs": [CREATE16, (O, ["om", "--mark-up-in", "--test-map-pgs"],
+                                True)],
+    "test_map_pgs_dump": [
+        (O, ["om", "--createsimple", "8", "--pg-bits", "3",
+             "--with-default-pool"], False),
+        (O, ["om", "--mark-up-in", "--test-map-pgs-dump"], True),
+        (O, ["om", "--mark-up-in", "--mark-out", "3",
+             "--test-map-pgs-dump-all"], True)],
+    "test_map_pg_and_object": [
+        CREATE16, (O, ["om", "--test-map-pg", "1.5"], False),
+        (O, ["om", "--test-map-object", "foo", "--pool", "1"], False),
+        (O, ["om", "--test-map-object", "bar"], False)],
+    "import_crush_then_map": [
+        CREATE16,
+        (C, ["--build", "--num_osds", "16", "node", "straw2", "4", "root",
+             "straw2", "0", "-o", "cf.txt"], False),
+        (O, ["om", "--import-crush", "cf.txt"], False),
+        (O, ["om", "--mark-up-in", "--test-map-pgs", "--pool", "1"], True),
+        (O, ["om", "--export-crush", "cm"], False),
+        (C, ["-d", "cm"], False)],
+    "adjust_crush_weight_save": [
+        CREATE16, (O, ["om", "--adjust-crush-weight", "0:2.5,3:0", "--save"],
+                   False),
+        (O, ["om", "--mark-up-in", "--test-map-pgs"], True)],
+    "create_from_conf": [
+        ("write", "ceph.conf", CONF),
+        (O, ["om", "--create-from-conf", "-c", "ceph.conf",
+             "--with-default-pool"], False),
+        (O, ["om", "--tree"], False),
+        (O, ["om", "--mark-up-in", "--test-map-pgs"], True)],
+}
+
+
+def run_step(pkg: str, tool: str, argv: list[str], maps: bool):
+    """(rc, stdout, stderr) of one step of `pkg`'s tool, in the cwd."""
+    if pkg == "port" and maps:
+        argv = ["--device", "cpu"] + argv
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = TOOLS[pkg][tool].main(list(argv))
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue(), err.getvalue()
+
+
+def run_case(pkg: str, steps, where: Path, monkeypatch) -> list:
+    monkeypatch.chdir(where)
+    monkeypatch.setattr(TOOLS[pkg]["osdmaptool"], "_now_utime",
+                        lambda: CLOCK)
+    got = []
+    for step in steps:
+        if step[0] == "write":
+            (where / step[1]).write_text(step[2])
+            continue
+        got.append(run_step(pkg, *step))
+    return got
+
+
+def files(where: Path) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(where.iterdir())}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_port_cli_equals_jax_cli(name, tmp_path, monkeypatch):
+    jd, pd = tmp_path / "jax", tmp_path / "port"
+    jd.mkdir()
+    pd.mkdir()
+    want = run_case("jax", CASES[name], jd, monkeypatch)
+    got = run_case("port", CASES[name], pd, monkeypatch)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert g == w, f"step {i}"
+    assert files(pd) == files(jd)
+
+
+@pytest.mark.parametrize("argv, flag", [
+    (["om", "--upmap", "out.txt"], "--upmap"),
+    (["om", "--upmap-cleanup", "-"], "--upmap-cleanup"),
+    (["om", "--health"], "--health"),
+    (["om", "--apply-incremental", "inc"], "--apply-incremental"),
+])
+def test_osdmaptool_refuses_what_waits(argv, flag, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    rc, out, err = run_step("port", "osdmaptool", argv, False)
+    assert rc != 0 and out == ""
+    assert f"{flag}: not yet ported" in err
+
+
+@pytest.mark.parametrize("argv", [["-i", "m", "explain", "3"],
+                                  ["-i", "m", "--locate-divergence"]])
+def test_crushtool_refuses_what_waits(argv, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    run_step("port", *BUILD8)
+    rc, out, err = run_step("port", "crushtool", argv, False)
+    assert rc != 0 and "not yet ported" in err
+
+
+def test_crushtool_cpu_device_is_the_plain_version(tmp_path, monkeypatch):
+    """Without a card the torch backend needs --device cpu: the default
+    is the card, and a missing one is an error, not a move to the host."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.chdir(tmp_path)
+    run_step("port", *BUILD8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_step("port", "crushtool", ["-i", "m", "--test", "--max-x", "3"],
+                 False)
+
+
+# -- the corpus of chip_smoke.py's CLI commands ---------------------------
+
+def corpus_commands() -> dict:
+    """name -> steps: setup steps, then the step whose stdout is hashed.
+    A ("config2", path) step saves BASELINE config 2's map."""
+    test1 = ["-i", "m", "--test", "--num-rep", "3", "--min-x", "0",
+             "--max-x", "1023", "--show-statistics", "--show-utilization"]
+    return {
+        "config1": [(C, ["--build", "--num_osds", "32", "host", "straw2",
+                         "4", "root", "straw2", "0", "-o", "m"]),
+                    (C, test1)],
+        "config1_straw_hosts": [(C, ["--build", "--num_osds", "32", "host",
+                                     "straw", "4", "root", "straw2", "0",
+                                     "-o", "m"]),
+                                (C, test1)],
+        "config2": [("config2", "m"),
+                    (O, ["m", "--test-map-pgs", "--pool", "0"])],
+        "legacy_text": [(C, ["-c", str(LEGACY_MAP), "-o", "legacy"]),
+                        (C, ["-i", "legacy", "--test", "--num-rep", "3",
+                             "--max-x", "1023", "--show-mappings",
+                             "--show-statistics"])],
+    }
+
+
+def save_config2(pkg: str, path: str) -> None:
+    """BASELINE config 2 (bench.py::build_map(100000, 1024)): 128 hosts of
+    8 OSDs under 8 racks, one size-3 pool of 100k PGs."""
+    if pkg == "jax":
+        from ceph_tpu.osd.io import save_osdmap
+        from ceph_tpu.osd.osdmap import build_hierarchical
+        from ceph_tpu.osd.types import PgPool, PoolType
+    else:
+        from ceph_tpu_torch.osd.io import save_osdmap
+        from ceph_tpu_torch.osd.osdmap import build_hierarchical
+        from ceph_tpu_torch.osd.types import PgPool, PoolType
+    pool = PgPool(type=PoolType.REPLICATED, size=3, crush_rule=0,
+                  pg_num=100000, pgp_num=100000)
+    save_osdmap(build_hierarchical(128, 8, n_rack=8, pool=pool), path)
+
+
+def corpus_stdout(pkg: str, steps, maps: bool = False) -> str:
+    """The last step's stdout, in the cwd."""
+    for step in steps:
+        if step[0] == "config2":
+            save_config2(pkg, step[1])
+            continue
+        rc, out, err = run_step(pkg, step[0], step[1], maps)
+        assert rc == 0, err
+    return out
+
+
+def sha(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def _stored() -> dict:
+    return json.loads(CORPUS.read_text())["stdout_sha256"]
+
+
+def test_corpus_holds_every_command():
+    assert sorted(_stored()) == sorted(corpus_commands())
+
+
+@pytest.mark.parametrize("name", sorted(corpus_commands()))
+def test_corpus_is_the_jax_clis(name, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    assert sha(corpus_stdout("jax", corpus_commands()[name])) == \
+        _stored()[name]
+
+
+@pytest.mark.parametrize("name", sorted(corpus_commands()))
+def test_port_cli_prints_the_corpus(name, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    got = corpus_stdout("port", corpus_commands()[name], maps=True)
+    assert sha(got) == _stored()[name]
+
+
+def write_corpus() -> None:
+    """Rewrite tests/data/cli_corpus.json from the JAX CLIs."""
+    import tempfile
+
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    hashes = {}
+    for name, steps in corpus_commands().items():
+        with tempfile.TemporaryDirectory() as d:
+            cwd = os.getcwd()
+            os.chdir(d)
+            try:
+                hashes[name] = sha(corpus_stdout("jax", steps))
+            finally:
+                os.chdir(cwd)
+        print(name, hashes[name])
+    CORPUS.write_text(json.dumps({
+        "about": "sha256 of the JAX CLIs' stdout for chip_smoke.py's CLI "
+                 "commands (tests/test_torch_cli.py::corpus_commands); "
+                 "written by `python tests/test_torch_cli.py`",
+        "stdout_sha256": hashes}, indent=1) + "\n")
+
+
+if __name__ == "__main__":
+    write_corpus()

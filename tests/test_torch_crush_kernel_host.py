@@ -48,7 +48,7 @@ SHIM = r"""
 
 extern "C" void crush_rule_host(
     const int32_t* headers, const int32_t* records, const int32_t* items,
-    const uint32_t* weight, const int64_t* rh_lh, const int64_t* ll,
+    const uint32_t* nodes, const uint32_t* weight, const int64_t* rh_lh, const int64_t* ll,
     const int32_t* steps, int n_buckets, int positions, int max_devices,
     int max_depth, int weight_len, int n_steps, int result_max,
     int choose_total_tries, int chooseleaf_descend_once,
@@ -61,7 +61,7 @@ extern "C" void crush_rule_host(
     memcpy(staged, recs, sizeof(Record) * n_staged);
     crush_rule::Map m{headers, recs, staged, items, weight, rh_lh, ll,
                       n_staged, n_buckets, positions, max_devices,
-                      max_depth, weight_len};
+                      max_depth, weight_len, nodes};
     crush_rule::Rule rule{steps, n_steps, result_max, choose_total_tries,
                           chooseleaf_descend_once, chooseleaf_vary_r,
                           chooseleaf_stable};
@@ -110,7 +110,7 @@ def body(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     p, i = ctypes.c_void_p, ctypes.c_int
     so.crush_rule_host.argtypes = (
-        [p] * 7 + [i] * 12 + [p, ctypes.c_longlong, p])
+        [p] * 8 + [i] * 12 + [p, ctypes.c_longlong, p])
     so.crush_rule_host.restype = None
     so.straw2_draws_host.argtypes = [p, ctypes.c_longlong, ctypes.c_uint32,
                                      ctypes.c_uint64, p, p]
@@ -128,13 +128,15 @@ def run_body(so, A, prog, xs: np.ndarray, weight: np.ndarray,
     headers = np.ascontiguousarray(pk.headers.view(np.int32))
     records = np.ascontiguousarray(pk.records.view(np.int32))
     items = np.ascontiguousarray(pk.items, np.int32)
+    nodes = np.ascontiguousarray(pk.nodes if len(pk.nodes) else [0],
+                                 np.uint32)
     assert 0 <= stage <= len(pk.records)
     xs = np.ascontiguousarray(xs, np.uint32)
     weight = np.ascontiguousarray(weight if len(weight) else [0], np.uint32)
     out = np.empty((len(xs), prog.result_max), np.int32)
     so.crush_rule_host(
         headers.ctypes.data, records.ctypes.data, items.ctypes.data,
-        weight.ctypes.data, RH_LH_TBL.ctypes.data, LL_TBL.ctypes.data,
+        nodes.ctypes.data, weight.ctypes.data, RH_LH_TBL.ctypes.data, LL_TBL.ctypes.data,
         prog.steps.ctypes.data, A.n_buckets, A.positions, A.max_devices,
         A.max_depth, len(weight), len(prog.steps), prog.result_max,
         prog.choose_total_tries, prog.chooseleaf_descend_once,

@@ -372,13 +372,20 @@ def test_plain_chunks_agree():
 @pytest.mark.parametrize("alg", [BucketAlg.UNIFORM, BucketAlg.LIST,
                                  BucketAlg.TREE, BucketAlg.STRAW])
 def test_legacy_bucket_algs_raise(alg):
+    """The legacy bucket algorithms no longer raise: compile_rule takes
+    them, and the plain version maps them as mapper_ref does (the legacy
+    cases themselves are in tests/test_torch_crush_legacy.py)."""
     m, root = build_flat(6, alg)
     r = m.make_replicated_rule(root, 0)
     pm = crush_from_reference(crush_dict(m))
-    with pytest.raises(NotImplementedError,
-                       match=f"bucket alg {alg.name.lower()}: not yet "
-                             "ported"):
-        mapper.compile_rule(soa.build_arrays(pm), r, 3)
+    prog = mapper.compile_rule(soa.build_arrays(pm), r, 3)
+    xs = xs_for(N_X)
+    rows, _ = mapper.crush_rule_plain(
+        soa.to_device(soa.build_arrays(pm), "cpu"), prog,
+        torch.from_numpy(xs.astype(np.int64)),
+        torch.full((6,), 0x10000, dtype=torch.long))
+    want = [do_rule(m, r, int(x), 3, [0x10000] * 6) for x in xs]
+    assert rows.tolist() == want
 
 
 def test_legacy_local_tries_raise():

@@ -324,6 +324,17 @@ def test_port_imports_neither_jax_nor_ceph_tpu():
     assert not bad, bad
 
 
+# modules the walk below must reach (the placement CLIs' slice among them)
+PORT_MODULES = (
+    "ceph_tpu_torch.cli.crushtool", "ceph_tpu_torch.cli.osdmaptool",
+    "ceph_tpu_torch.core.reduce", "ceph_tpu_torch.crush.codec",
+    "ceph_tpu_torch.crush.compiler", "ceph_tpu_torch.crush.mapper_ref",
+    "ceph_tpu_torch.crush.tester", "ceph_tpu_torch.osd.codec",
+    "ceph_tpu_torch.osd.conf", "ceph_tpu_torch.osd.io",
+    "ceph_tpu_torch.osd.print", "ceph_tpu_torch.utils.crc32c",
+)
+
+
 def test_importing_the_port_loads_no_jax():
     """In a fresh interpreter (this one has jax from conftest): every
     module of the port, and chip_smoke.py."""
@@ -333,10 +344,11 @@ def test_importing_the_port_loads_no_jax():
         "                                 'ceph_tpu_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        f"missing = [m for m in {PORT_MODULES!r} if m not in sys.modules]\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu')]\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
