@@ -13,6 +13,11 @@ src/tools/osdmaptool.cc), plus `--device cuda|cpu`.
     osdmaptool mapfile --mark-up-in / --mark-out N / --mark-up N
     osdmaptool mapfile --adjust-crush-weight osd:weight[,..] [--save]
     osdmaptool mapfile --export-crush f / --import-crush f
+    osdmaptool mapfile --upmap out [--upmap-deviation D] [--upmap-max N]
+                        [--upmap-pool name] [--save]
+    osdmaptool mapfile --upmap-cleanup [f]
+    osdmaptool mapfile --apply-incremental incfile   (extension: applies
+                        binary OSDMap::Incremental epoch deltas in order)
 
 Map files are the reference binary wire format (JSON also read, see
 ceph_tpu_torch.osd.io).  `--test-map-pgs` maps each pool with one
@@ -21,8 +26,10 @@ ceph_tpu_torch.osd.io).  `--test-map-pgs` maps each pool with one
 src/tools/osdmaptool.cc:630-755) and reduces the rows on the device to
 the per-OSD counts and the size histogram; `--backend ref` maps PG by PG
 with the host oracle, as `--test-map-pg` and `--test-map-object` do.
-`--upmap`, `--upmap-cleanup` (the balancer), `--health` and
-`--apply-incremental` are not yet ported: they exit 1 and say so.
+`--upmap` runs the balancer (`balancer.calc_pg_upmaps`, its "sets"
+backend with the PGs mapped through `PoolMapper`, or through the host
+pipeline with `--backend ref`).  `--health` is not yet ported: it exits
+1 and says so.
 
     python -m ceph_tpu_torch.cli.osdmaptool om --test-map-pgs --device cpu
 """
@@ -39,7 +46,6 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.core import reduce
-from ceph_tpu_torch.crush.codec import decode_crushmap
 from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.osd.osdmap import OSDMap, build_simple
 from ceph_tpu_torch.osd.pipeline import PoolMapper, first_not_none
@@ -132,24 +138,6 @@ def _map_pool(m: OSDMap, pool_id: int, backend: str, device=None):
         upp[ps] = up_pr
         actp[ps] = a_pr
     return tuple(torch.from_numpy(v) for v in (acting, actp, up, upp))
-
-
-def _next_epoch(m: OSDMap, crush: bytes = b"") -> None:
-    """What applying an Incremental that carries nothing, or only a new
-    crush map, does to m (reference src/osd/OSDMap.cc:2061; the JAX
-    package's `osd/incremental.py::apply_incremental`, not yet ported):
-    the epoch advances, `modified` takes the Incremental's zero stamp and
-    the crush blob, if any, replaces the map's crush."""
-    m.epoch += 1
-    wire = getattr(m, "wire", None)
-    if wire is None:
-        wire = m.wire = {"pools": {}}
-    wire["modified"] = (0, 0)
-    if crush:
-        m.crush = decode_crushmap(crush)
-        wire["crush_raw"] = crush
-        wire["crush_obj"] = m.crush
-        wire["crush_version"] = wire.get("crush_version", 1) + 1
 
 
 def test_map_pgs(
@@ -338,6 +326,14 @@ def main(argv: list[str] | None = None) -> int:
     backend = "torch"
     device = None
     refused: list[str] = []  # flags of modules not yet ported
+    upmap = False
+    upmap_cleanup = False
+    upmap_file = "-"
+    upmap_deviation = 5
+    upmap_max = 10
+    upmap_pools: list[str] = []
+    incrementals: list[str] = []
+    aggressive = True  # osd_calc_pg_upmaps_aggressively default
     save = False
     export_crush = None
     import_crush = None
@@ -405,13 +401,19 @@ def main(argv: list[str] | None = None) -> int:
             backend = v
         elif (v := p.witharg("--device")) is not None:
             device = v
-        elif p.witharg("--upmap") is not None:
-            refused.append("--upmap")
-        elif p.witharg("--upmap-cleanup") is not None:
-            refused.append("--upmap-cleanup")
-        elif (p.withint("--upmap-max", "--upmap-deviation") is not None
-              or p.witharg("--upmap-pool") is not None):
-            pass  # options of --upmap
+        elif (v := p.witharg("--upmap")) is not None:
+            upmap = True
+            upmap_cleanup = True
+            upmap_file = v
+        elif (v := p.witharg("--upmap-cleanup")) is not None:
+            upmap_cleanup = True
+            upmap_file = v
+        elif (v := p.withint("--upmap-max")) is not None:
+            upmap_max = v
+        elif (v := p.withint("--upmap-deviation")) is not None:
+            upmap_deviation = v
+        elif (v := p.witharg("--upmap-pool")) is not None:
+            upmap_pools.append(v)
         elif p.flag("--save"):
             save = True
         elif (v := p.witharg("--export-crush")) is not None:
@@ -420,11 +422,17 @@ def main(argv: list[str] | None = None) -> int:
             import_crush = v
         elif (v := p.witharg("--adjust-crush-weight")) is not None:
             adjust_crush_weight = v
-        elif p.witharg("--apply-incremental") is not None:
-            refused.append("--apply-incremental")
+        elif (v := p.witharg("--apply-incremental")) is not None:
+            incrementals.append(v)
         elif p.peek().split("=", 1)[0].replace("-", "_") == \
                 "__osd_calc_pg_upmaps_aggressively":
-            p.i += 1  # an option of --upmap
+            a = p.peek()
+            p.i += 1
+            if "=" in a:
+                aggressive = a.split("=", 1)[1].lower() not in (
+                    "false", "0", "no")
+            else:
+                aggressive = True
         elif (v := p.withint("--osd-pool-default-size")) is not None:
             default_pool_size = v
         elif not p.peek().startswith("-"):
@@ -445,6 +453,10 @@ def main(argv: list[str] | None = None) -> int:
     if backend not in ("torch", "jax", "ref"):
         print(f"{ME}: unknown backend '{backend}'", file=sys.stderr)
         return 1
+    if (upmap or upmap_cleanup) and upmap_deviation < 1:
+        print("upmap-deviation must be >= 1", file=sys.stderr)
+        print(USAGE, end="", file=sys.stderr)
+        return 1
 
     if fn is None:
         print(f"{ME}: must specify osdmap filename", file=sys.stderr)
@@ -455,6 +467,7 @@ def main(argv: list[str] | None = None) -> int:
 
     m: OSDMap | None = None
     modified = False
+    write_out = False
 
     if not createsimple and not create_from_conf and not clobber:
         if not os.path.exists(fn):
@@ -506,6 +519,21 @@ def main(argv: list[str] | None = None) -> int:
         modified = True
     assert m is not None
 
+    for incfile in incrementals:
+        from ceph_tpu_torch.osd.incremental import (
+            apply_incremental,
+            decode_incremental,
+        )
+
+        with open(incfile, "rb") as f:
+            inc = decode_incremental(f.read())
+        m = apply_incremental(m, inc)
+        print(
+            f"{ME}: applied incremental epoch {inc.epoch} from {incfile}",
+            file=sys.stderr,
+        )
+        write_out = True  # the delta already carries the new epoch
+
     if mark_up_in:
         print("marking all OSDs up and in")
         cwf = _crush_weightf_map(m)
@@ -530,6 +558,11 @@ def main(argv: list[str] | None = None) -> int:
         m.osd_state[marked_in] |= 0b01  # set_weight marks EXISTS
 
     if adjust_crush_weight:
+        from ceph_tpu_torch.osd.incremental import (
+            Incremental,
+            apply_incremental,
+        )
+
         for spec in adjust_crush_weight.split(","):
             if ":" not in spec:
                 print(f"{ME}: use ':' as separator of osd id and its weight",
@@ -541,13 +574,100 @@ def main(argv: list[str] | None = None) -> int:
             m.crush.adjust_item_weight(osd_id, int(new_weight * 0x10000))
             print(f"Adjusted osd.{osd_id} CRUSH weight to {_g(new_weight)}")
             if save:
-                _next_epoch(m)
+                m = apply_incremental(m, Incremental(epoch=m.epoch + 1))
                 modified = True
+
+    upmap_fd = None
+    if upmap or upmap_cleanup:
+        if upmap_file != "-":
+            upmap_fd = open(upmap_file, "w")
+            print(f"writing upmap command output to: {upmap_file}")
+
+    def emit_upmap(lines: list[str]):
+        out = upmap_fd or sys.stdout
+        for ln in lines:
+            print(ln, file=out)
+
+    if upmap_cleanup:
+        print("checking for upmap cleanups")
+        cancelled, remapped = m.clean_pg_upmaps()
+        lines = [f"ceph osd rm-pg-upmap-items {pg}" for pg in cancelled]
+        for pg, items in remapped.items():
+            pairs = " ".join(f"{f} {t}" for f, t in items)
+            lines.append(f"ceph osd pg-upmap-items {pg} {pairs}")
+        if lines:  # clean_pg_upmaps already mutated m
+            emit_upmap(lines)
+            m.epoch += 1
+
+    if upmap:
+        from ceph_tpu_torch.balancer import calc_pg_upmaps
+
+        print(f"upmap, max-count {upmap_max}, max deviation "
+              f"{upmap_deviation}")
+        pool_ids: list[int] = []
+        if upmap_pools:
+            for name in upmap_pools:
+                found = [pid for pid, n in m.pool_name.items() if n == name]
+                if not found:
+                    print(f" pool {name} does not exist", file=sys.stderr)
+                    return 1
+                pool_ids += found
+            print(f" limiting to pools {upmap_pools} ({pool_ids})")
+        else:
+            pool_ids = sorted(m.pools)
+        if not pool_ids:
+            print("No pools available")
+        else:
+            print("pools " + " ".join(
+                m.pool_name.get(i, str(i)) for i in pool_ids
+            ) + " ")
+            total_did = 0
+            left = upmap_max
+            lines: list[str] = []
+            saved_items = {pg: list(v) for pg, v in m.pg_upmap_items.items()}
+            for pid in pool_ids:
+                res = calc_pg_upmaps(
+                    m,
+                    max_deviation=upmap_deviation,
+                    max_iter=left,
+                    only_pools={pid},
+                    use_tpu=(backend != "ref"),
+                    aggressive=aggressive,
+                    device=device,
+                )
+                for pg in sorted(res.old_pg_upmap_items):
+                    lines.append(f"ceph osd rm-pg-upmap-items {pg}")
+                for pg, items in sorted(res.new_pg_upmap_items.items()):
+                    pairs = " ".join(f"{f} {t}" for f, t in items)
+                    lines.append(f"ceph osd pg-upmap-items {pg} {pairs}")
+                total_did += res.num_changed
+                left -= res.num_changed
+                if left <= 0:
+                    break
+            print(f"prepared {total_did}/{upmap_max} changes")
+            if total_did > 0:
+                emit_upmap(lines)
+                if save:
+                    m.epoch += 1
+                    modified = True
+                else:
+                    # reference only applies pending_inc when saving
+                    m.pg_upmap_items = saved_items
+            else:
+                print("Unable to find further optimization, or distribution"
+                      " is already perfect")
+
+    if upmap_fd is not None:
+        upmap_fd.close()
 
     if import_crush:
         from ceph_tpu_torch.crush.codec import (
             encode_crushmap,
             looks_like_crushmap,
+        )
+        from ceph_tpu_torch.osd.incremental import (
+            Incremental,
+            apply_incremental,
         )
         from ceph_tpu_torch.osd.io import load_crush_text
 
@@ -559,7 +679,9 @@ def main(argv: list[str] | None = None) -> int:
                   f"osdmap max_osd {m.max_osd}", file=sys.stderr)
             return 1
         blob = raw if looks_like_crushmap(raw) else encode_crushmap(cw)
-        _next_epoch(m, blob)
+        inc = Incremental(epoch=m.epoch + 1)
+        inc.crush = blob
+        m = apply_incremental(m, inc)
         print(f"{ME}: imported {len(blob)} byte crush map from "
               f"{import_crush}")
         modified = True
@@ -619,9 +741,10 @@ def main(argv: list[str] | None = None) -> int:
         )
 
     no_action = not (
-        do_print or tree or modified or export_crush
+        do_print or tree or modified or write_out or export_crush
         or import_crush or test_map_pg or test_map_object
-        or test_map_pgs_mode or adjust_crush_weight
+        or test_map_pgs_mode or adjust_crush_weight or upmap
+        or upmap_cleanup
     )
     if no_action:
         print(f"{ME}: no action specified?", file=sys.stderr)
@@ -652,7 +775,7 @@ def main(argv: list[str] | None = None) -> int:
         else:
             print_tree_plain(m, sys.stdout)
 
-    if modified:
+    if modified or write_out:
         from ceph_tpu_torch.osd.io import save_osdmap
 
         if "modified" in getattr(m, "wire", {}) and (createsimple

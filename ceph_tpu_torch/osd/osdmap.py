@@ -7,7 +7,6 @@ host pipeline (`_pg_to_raw_osds` ... `pg_to_up_acting_osds`, reference
 src/osd/OSDMap.cc:2435-2715) over the host oracle `crush/mapper_ref.py`,
 which the CLIs' single-PG paths use.  The batched pipeline
 (ceph_tpu_torch.osd.pipeline) consumes `frozen_vectors()`.
-`clean_pg_upmaps` waits for the balancer's port.
 """
 
 from __future__ import annotations
@@ -291,6 +290,74 @@ class OSDMap:
 
     def pg_to_up_acting_osds(self, pg: PgId):
         return self._pg_to_up_acting_osds(pg, raw_pg_to_pg=False)
+
+    # -- upmap hygiene -----------------------------------------------------
+    def clean_pg_upmaps(self) -> tuple[list[PgId], dict[PgId, list]]:
+        """Drop invalid/no-op pg_upmap{,_items} entries (reference
+        OSDMap::check_pg_upmaps + clean_pg_upmaps, src/osd/OSDMap.cc:2003).
+        Returns (cancelled pgs, simplified items).  Mutates self."""
+        from ceph_tpu_torch.balancer.crush_analysis import (
+            get_rule_weight_osd_map,
+        )
+
+        to_cancel: list[PgId] = []
+        to_remap: dict[PgId, list] = {}
+        rule_weight_cache: dict[int, dict[int, float]] = {}
+        for pg in sorted(set(self.pg_upmap) | set(self.pg_upmap_items)):
+            pool = self.get_pg_pool(pg.pool)
+            if pool is None or pg.seed >= pool.pg_num:
+                to_cancel.append(pg)
+                continue
+            raw, _ = self._pg_to_raw_osds(pool, pg)
+            up = list(raw)
+            self._apply_upmap(pool, pg, up)
+            real = [o for o in up if o != ITEM_NONE]
+            if len(real) != len(set(real)):  # duplicate targets
+                to_cancel.append(pg)
+                continue
+            ruleno = mapper_ref.find_rule(
+                self.crush, pool.crush_rule, int(pool.type), pool.size
+            )
+            wm = rule_weight_cache.get(ruleno)
+            if wm is None and ruleno >= 0:
+                wm = get_rule_weight_osd_map(self.crush, ruleno)
+                rule_weight_cache[ruleno] = wm
+            bad = False
+            for osd in real:
+                if wm is not None and osd not in wm:
+                    bad = True  # moved out of the rule's crush tree
+                    break
+                if self.is_out(osd):
+                    bad = True
+                    break
+            if bad:
+                to_cancel.append(pg)
+                continue
+            p = self.pg_upmap.get(pg)
+            if p is not None and list(raw) == list(p):
+                to_cancel.append(pg)  # redundant full remap
+                continue
+            items = self.pg_upmap_items.get(pg)
+            if items is not None:
+                newmap = [
+                    (frm, to)
+                    for frm, to in items
+                    if frm in raw
+                    and not (
+                        to != ITEM_NONE and 0 <= to < self.max_osd
+                        and self.osd_weight[to] == 0
+                    )
+                ]
+                if not newmap:
+                    to_cancel.append(pg)
+                elif newmap != list(items):
+                    to_remap[pg] = newmap
+        for pg in to_cancel:
+            self.pg_upmap.pop(pg, None)
+            self.pg_upmap_items.pop(pg, None)
+        for pg, items in to_remap.items():
+            self.pg_upmap_items[pg] = items
+        return to_cancel, to_remap
 
     # -- freezing for the pipeline --------------------------------------------
     def frozen_vectors(self) -> dict[str, np.ndarray]:

@@ -35,7 +35,7 @@ from ceph_tpu_torch.osd.osdmap import (
     MAX_PRIMARY_AFFINITY,
     OSDMap,
 )
-from ceph_tpu_torch.osd.types import FLAG_HASHPSPOOL
+from ceph_tpu_torch.osd.types import FLAG_HASHPSPOOL, PgId
 
 
 @dataclass(frozen=True)
@@ -204,15 +204,19 @@ class PoolMapper:
     runs the rule's plain version.  The map's CRUSH arrays, the per-OSD
     vectors and the overlays are uploaded once here; `refresh_dev`
     re-reads the per-OSD vectors after the map's OSD state changes.
+    With `overlays=False` no overlay is frozen or uploaded: the mapper
+    maps the map as if it had none (the balancer's and `map_all_device`'s
+    form; callers scatter in `overlay_fixup_rows`).
     """
 
-    def __init__(self, m: OSDMap, pool_id: int, device=None):
+    def __init__(self, m: OSDMap, pool_id: int, device=None,
+                 overlays: bool = True):
         self.device = resolve_device(device)
         self.m = m
         self.pool_id = pool_id
         ca = m.crush.choose_args.get(pool_id, m.crush.choose_args.get(-1))
         self.arrays = build_arrays(m.crush, ca)
-        self.ov = build_overlays(m, pool_id)
+        self.ov = build_overlays(m, pool_id) if overlays else Overlays()
         self.spec = PoolSpec.for_pool(
             m, pool_id, extra_width=self.ov.extra_width
         )
@@ -415,11 +419,13 @@ class PoolMapper:
 
     def map_all_device(self) -> torch.Tensor:
         """`up` rows [pg_num, W] of every PG of the pool, as an int32
-        tensor left on the mapper's device.  Overlays are not applied
-        here: a map with overlays raises (callers correct those PGs
-        themselves, as the JAX package's callers do)."""
+        tensor left on the mapper's device, without the overlays: a
+        mapper that froze some raises (build it with overlays=False;
+        callers scatter in `overlay_fixup_rows`, as the JAX package's
+        callers do)."""
         if self.ov.any:
-            raise ValueError("map_all_device is an overlay-free path")
+            raise ValueError("map_all_device is an overlay-free path: "
+                             "build the PoolMapper with overlays=False")
         ps = torch.arange(self.spec.pg_num, device=self.device)
         return self._up(ps, {})[0].to(torch.int32)
 
@@ -429,6 +435,25 @@ class PoolMapper:
         removal), NONE-padded."""
         _, raw = self._raw(self._seeds(seeds))
         return raw.to(torch.int32).cpu().numpy()
+
+
+def overlay_fixup_rows(m: OSDMap, pool_id: int, width: int):
+    """Host-exact `up` rows for the PGs of `pool_id` that carry a
+    pg_upmap / pg_upmap_items entry: (seeds int64[K], rows int32[K,
+    width]), both empty when the pool has none.  The overlay-free paths
+    (`map_all_device` of a mapper built with overlays=False, and the
+    balancer's membership builds) scatter these few rows of the host
+    pipeline in, equal to what the overlay stages compute."""
+    n = m.pools[pool_id].pg_num
+    seeds = sorted({
+        pg.seed for pg in list(m.pg_upmap) + list(m.pg_upmap_items)
+        if pg.pool == pool_id and pg.seed < n
+    })
+    rows = np.full((len(seeds), width), ITEM_NONE, np.int32)
+    for i, s in enumerate(seeds):
+        up, _, _, _ = m.pg_to_up_acting_osds(PgId(pool_id, s))
+        rows[i, : min(len(up), width)] = up[:width]
+    return np.asarray(seeds, np.int64), rows
 
 
 def map_cluster(m: OSDMap, device=None) -> dict[int, tuple]:

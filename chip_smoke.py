@@ -13,7 +13,10 @@ profiles, RS(8,4) encode/decode at full size, the benchmark CLI) and the
 placement path (the placement corpus, then BASELINE configs 2 and 5
 through `PoolMapper`, then the legacy bucket draws on maps of config 5's
 shape, then the placement CLIs `crushtool --test` and `osdmaptool
---test-map-pgs` on configs 1, 2 and 5) through the entry points a user
+--test-map-pgs` on configs 1, 2 and 5, and `osdmaptool --upmap` on config
+2) and the upmap balancer (`calc_pg_upmaps` on config 2 with every
+backend, then three device_loop rounds of config 5, the rebalance of
+BASELINE.json's north-star workload) through the entry points a user
 calls, and prints one JSON object per phase.  Any failure raises and
 exits non-zero.
 
@@ -26,6 +29,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import hashlib
 import io
 import json
@@ -41,6 +45,8 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import build
+from ceph_tpu_torch.balancer import calc_pg_upmaps, state, upmap
+from ceph_tpu_torch.balancer.crush_analysis import get_rule_weight_osd_map
 from ceph_tpu_torch.cli import crushtool, ec_benchmark, osdmaptool
 from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.crush import mapper, soa
@@ -65,6 +71,7 @@ CORPUS = ROOT / "tests" / "data" / "ec_corpus.json"
 PLACEMENT_CORPUS = ROOT / "tests" / "data" / "placement_corpus.json"
 LEGACY_CASES = ROOT / "tests" / "data" / "legacy_rule_cases.json"
 CLI_CORPUS = ROOT / "tests" / "data" / "cli_corpus.json"
+BALANCER_CORPUS = ROOT / "tests" / "data" / "balancer_corpus.json"
 LEGACY_MAP = ROOT / "tests" / "data" / "legacy_crushmap.txt"
 RS_ENTRIES = (
     "rs_k8m4_reed_sol_van",
@@ -855,12 +862,14 @@ def phase_cli_placement(dev, pms: dict) -> dict:
     """The placement CLIs through their main(argv), on the card (their
     default device), each counted from 0: BASELINE config 1 (`crushtool
     --test`), config 1's test on a map of straw hosts, a test of
-    tests/data/legacy_crushmap.txt and BASELINE config 2
-    (`osdmaptool --test-map-pgs`), each stdout's sha256 equal to the JAX
-    CLIs' (tests/data/cli_corpus.json); then config 5 through both, the
+    tests/data/legacy_crushmap.txt, BASELINE config 2
+    (`osdmaptool --test-map-pgs`) and the balancer on it (`osdmaptool
+    --upmap`), each stdout's sha256 (and the upmap file's) equal to the
+    JAX CLIs' (tests/data/cli_corpus.json); then config 5 through both, the
     per-OSD counts each prints equal to the osd_histogram of
     map_all_device's rows.  One launch per (rule, numrep) pass or pool."""
-    want = json.loads(CLI_CORPUS.read_text())["stdout_sha256"]
+    corpus = json.loads(CLI_CORPUS.read_text())
+    want, want_files = corpus["stdout_sha256"], corpus["file_sha256"]
     test1 = ["-i", "m", "--test", "--num-rep", "3", "--min-x", "0",
              "--max-x", "1023", "--show-statistics", "--show-utilization"]
     build1 = ["--build", "--num_osds", "32", "host", "{alg}", "4", "root",
@@ -876,9 +885,14 @@ def phase_cli_placement(dev, pms: dict) -> dict:
             digest = hashlib.sha256(text.encode()).hexdigest()
             check(digest == want[name], f"CLI {name}: stdout sha256 "
                   f"{digest} != the JAX CLI's {want[name]}")
+            for f, fsha in want_files.get(name, {}).items():
+                got = hashlib.sha256(Path(f).read_bytes()).hexdigest()
+                check(got == fsha, f"CLI {name}: {f} sha256 {got} != the "
+                      f"JAX CLI's {fsha}")
             res[name] = {"launches": n, "seconds": sec,
                          "mappings_per_s": pgs / sec,
-                         "sha256_equal": True}
+                         "sha256_equal": True,
+                         "files_equal": sorted(want_files.get(name, {}))}
 
         for name, alg in (("config1", "straw2"),
                           ("config1_straw_hosts", "straw")):
@@ -894,6 +908,10 @@ def phase_cli_placement(dev, pms: dict) -> dict:
                                               "m2"),
                osdmaptool, ["m2", "--test-map-pgs", "--pool", "0"], 1,
                CONFIGS["config2"][0])
+        # the balancer's CLI: the "sets" backend, its PGs mapped once
+        hashed("config2_upmap", lambda: None, osdmaptool,
+               ["m2", "--upmap", "upmap.txt", "--upmap-deviation", "5",
+                "--upmap-max", "10"], 1, CONFIGS["config2"][0])
 
         # config 5: the tester's x are the pool's placement seeds with
         # --pool-id 0 (pps = hash2(ps, pool) for ps < pg_num = pgp_num)
@@ -925,6 +943,240 @@ def phase_cli_placement(dev, pms: dict) -> dict:
     return res
 
 
+# -- the upmap balancer ----------------------------------------------------------
+
+def reweighted(m, n_osds: int, seed: int):
+    """bench.py::bench_rebalance's reweight: 2 % of the OSDs to 0.85,
+    chosen by default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    for o in rng.choice(n_osds, max(1, n_osds // 50), replace=False):
+        m.osd_weight[int(o)] = int(0x10000 * 0.85)
+    return m
+
+
+def plan_digest(m) -> str:
+    """bench.py::_plan_digest: order-independent digest of the plan."""
+    h = hashlib.sha256()
+    for pg in sorted(m.pg_upmap_items):
+        h.update(repr((pg, m.pg_upmap_items[pg])).encode())
+    return h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def stage_times():
+    """Times, with CUDA events, each DeviceState build and each
+    device_loop plan inside the calc_pg_upmaps calls of the block: yields
+    a dict of lists of ms, {"build": [...], "plan": [...]}."""
+    times = {"build": [], "plan": []}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            end.synchronize()
+            times[key].append(start.elapsed_time(end))
+            return out
+        return run
+
+    build_cls, plan_fn = state.DeviceState, upmap._loop_plan
+
+    class TimedDeviceState(build_cls):
+        __init__ = timed("build", build_cls.__init__)
+
+    state.DeviceState = TimedDeviceState
+    upmap._loop_plan = timed("plan", plan_fn)
+    try:
+        yield times
+    finally:
+        state.DeviceState, upmap._loop_plan = build_cls, plan_fn
+
+
+def osd_targets(m):
+    """calc_pg_upmaps's per-OSD weights and PGs per weight for a map of
+    one pool: ({osd: weight}, pgs_per_weight)."""
+    pool = m.pools[0]
+    weight = {}
+    for o, w in get_rule_weight_osd_map(m.crush, 0).items():
+        adjusted = m.get_weightf(o) * w if o < m.max_osd else 0.0
+        if adjusted != 0.0:
+            weight[o] = adjusted
+    return weight, pool.size * pool.pg_num / sum(weight.values())
+
+
+def overlay_counts(m, dev) -> np.ndarray:
+    """Per-OSD PG counts of the map with its upmaps, through PoolMapper
+    (overlays on), on the card."""
+    up = PoolMapper(m, 0, device=dev).map_all_tensors()[0]
+    return reduce.osd_histogram(up, m.max_osd,
+                                dtype=torch.int64).cpu().numpy()
+
+
+def replay_round(r, before: np.ndarray, weight: dict, ppw: float):
+    """tests/test_multichip.py::test_moves_osd_disjoint_and_individually_
+    improving on one calc_pg_upmaps result: within every plan round no
+    OSD is touched twice, and each move improves the objective on its
+    own against the counts at its round's start.  Returns the counts
+    after the moves."""
+    counts = before.copy()
+    by_round: dict[int, list] = {}
+    for pg, frm, to, rnd in r.moves:
+        by_round.setdefault(rnd, []).append((pg, frm, to))
+    for rnd in sorted(by_round):
+        touched: set[int] = set()
+        for pg, frm, to in by_round[rnd]:
+            check(frm not in touched and to not in touched,
+                  f"plan round {rnd}: OSD touched twice ({frm}->{to})")
+            touched |= {frm, to}
+            delta = 2 * ((counts[to] - weight[to] * ppw)
+                         - (counts[frm] - weight[frm] * ppw)) + 2
+            check(delta < 0, f"plan round {rnd}: move {pg} {frm}->{to} "
+                  f"does not improve ({delta})")
+        for _, frm, to in by_round[rnd]:
+            counts[frm] -= 1
+            counts[to] += 1
+    osds = sorted(weight)
+    d = counts[osds] - np.asarray([weight[o] for o in osds]) * ppw
+    check(abs(float(np.sum(d * d)) - r.stddev) < 1e-6
+          and abs(float(np.max(np.abs(d))) - r.max_deviation) < 1e-6,
+          "replayed counts give the plan's stddev and max_deviation")
+    return counts
+
+
+def rebalance_config5(dev, c5: dict, check_each: bool):
+    """bench.py::bench_rebalance on config 5: three device_loop rounds
+    sharing one mapper cache.  Each round is counted from 0 (one rule
+    kernel launch, the DeviceState build).  With check_each, each round
+    is replayed against the counts of the map with its upmaps mapped on
+    the card before and after (outside the counted window)."""
+    m = reweighted(bench_map(c5["pgs"], c5["osds"]), c5["osds"],
+                   c5["reweight_seed"])
+    weight, ppw = osd_targets(m)
+    cache: dict = {}
+    rounds, digests = [], []
+    before = overlay_counts(m, dev) if check_each else None
+    for entry in c5["rounds"]:
+        c0 = dict(upmap.COUNTERS)
+        with stage_times() as st:
+            t0 = time.perf_counter()
+            r, n = counted(1, f"config5 round rng {entry['rng']}",
+                           lambda: calc_pg_upmaps(
+                               m, max_deviation=c5["max_deviation"],
+                               max_iter=c5["max_iter"],
+                               rng=np.random.default_rng(entry["rng"]),
+                               device_cache=cache, device=dev,
+                               **c5["kwargs"]),
+                           mapper.crush_rule_cuda)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        delta = {k: upmap.COUNTERS[k] - c0[k] for k in c0}
+        digests.append(plan_digest(m))
+        row = {"rng": entry["rng"], "wall_s": wall,
+               "build_ms": st["build"], "plan_ms": st["plan"],
+               # the rest of the round: host work around the two (the
+               # rule weight map, the domain table, the readback)
+               "other_ms": wall * 1e3 - sum(st["build"]) - sum(st["plan"]),
+               "launches": n, "loop_rounds": delta["rounds"],
+               "host_syncs": delta["plan_host_syncs"],
+               "changes": r.num_changed, "stddev": r.stddev,
+               "max_deviation": r.max_deviation,
+               "readback_reverts": delta["plan_readback_reverts"],
+               "upmap_items": len(m.pg_upmap_items),
+               "digest": digests[-1]}
+        if check_each:
+            check(delta["plan_readback_reverts"] == 0,
+                  "config5: no readback reverts")
+            check(len(r.moves) == r.num_changed > 0,
+                  "config5: the plan changed something and its audit "
+                  "trail holds every change")
+            after = overlay_counts(m, dev)
+            check(np.array_equal(replay_round(r, before, weight, ppw),
+                                 after),
+                  "config5: the balanced map's per-OSD counts through "
+                  "PoolMapper == the plan's final counts")
+            before = after
+        rounds.append(row)
+    return m, rounds, digests
+
+
+def phase_balancer_main(dev) -> dict:
+    """calc_pg_upmaps on the card.  Config 2 (100k PGs / 1024 OSDs, 2 %
+    reweighted) on the four backends, each plan's digest equal to the
+    JAX package's (tests/data/balancer_corpus.json).  Then config 5
+    (10M PGs / 10k OSDs): three device_loop rounds, their digests equal
+    to the JAX package's, every round replayed (OSD-disjoint, each move
+    improving, no readback revert, the mapped counts equal to the
+    plan's), stddev not rising across rounds, clean_pg_upmaps cancelling
+    nothing, and a second fresh run giving the same plan."""
+    corpus = json.loads(BALANCER_CORPUS.read_text())
+    launches, res = {}, {"config2": {}}
+    c2 = corpus["config2"]
+    for name, entry in c2["backends"].items():
+        m = reweighted(bench_map(c2["pgs"], c2["osds"]), c2["osds"],
+                       c2["reweight_seed"])
+        c0 = dict(upmap.COUNTERS)
+        with stage_times() as st:
+            t0 = time.perf_counter()
+            r, n = counted(1, f"config2 {name}", lambda: calc_pg_upmaps(
+                m, max_deviation=c2["max_deviation"],
+                max_iter=c2["max_iter"], rng=np.random.default_rng(c2["rng"]),
+                device=dev, **entry["kwargs"]), mapper.crush_rule_cuda)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        digest = plan_digest(m)
+        check(digest == entry["digest"], f"config2 {name}: plan digest "
+              f"{digest} != the JAX package's {entry['digest']}")
+        check(r.num_changed == entry["num_changed"]
+              and abs(r.stddev - entry["stddev"]) <= 1e-9,
+              f"config2 {name}: changes and stddev == the JAX package's")
+        launches[f"balancer_config2_{name}"] = n
+        res["config2"][name] = {
+            "wall_s": wall, "build_ms": st["build"], "plan_ms": st["plan"],
+            "launches": n, "changes": r.num_changed, "stddev": r.stddev,
+            "max_deviation": r.max_deviation, "digest": digest,
+            "digest_equal": True,
+            "counters": {k: upmap.COUNTERS[k] - c0[k] for k in c0}}
+
+    c5 = corpus["config5"]
+    torch.cuda.reset_peak_memory_stats()
+    m, rounds, digests = rebalance_config5(dev, c5, check_each=True)
+    peak = torch.cuda.max_memory_allocated()
+    for i, (row, entry) in enumerate(zip(rounds, c5["rounds"])):
+        check(row["digest"] == entry["digest"],
+              f"config5 round {i}: plan digest {row['digest']} != the JAX "
+              f"package's {entry['digest']}")
+        launches[f"balancer_config5_round{i}"] = row["launches"]
+    for a, b in zip(rounds, rounds[1:]):
+        check(b["stddev"] <= a["stddev"], "config5: stddev does not rise "
+              "across rounds")
+    cancelled, remapped = copy.deepcopy(m).clean_pg_upmaps()
+    check(not cancelled and not remapped,
+          f"config5: clean_pg_upmaps cancels nothing ({len(cancelled)} "
+          f"cancelled, {len(remapped)} simplified)")
+    _, again, digests2 = rebalance_config5(dev, c5, check_each=False)
+    check(digests2 == digests, "config5: a second fresh run gives the "
+          "same plans")
+    res["config5"] = {"pgs": c5["pgs"], "osds": c5["osds"],
+                      "rounds": rounds, "second_run_wall_s":
+                      [r["wall_s"] for r in again],
+                      "digests_equal_jax": True, "digest_stable": True,
+                      "clean_pg_upmaps_cancelled": 0,
+                      "peak_device_bytes": peak}
+    for r in rounds:
+        print(f"config5 round rng {r['rng']}: wall {r['wall_s']:.3f} s, "
+              f"build {r['build_ms']} ms ({r['launches']} crush_rule "
+              f"launch), plan {r['plan_ms']} ms, other {r['other_ms']:.3f} "
+              f"ms, {r['loop_rounds']} plan "
+              f"rounds, {r['host_syncs']} host syncs, {r['changes']} "
+              f"changes, stddev {r['stddev']!r}, max_deviation "
+              f"{r['max_deviation']!r}", flush=True)
+    print(f"config5 peak device memory {peak} bytes", flush=True)
+    emit(dict(phase="balancer_main", **res))
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -954,6 +1206,8 @@ def main() -> int:
     cres = phase_cli_placement(dev, pms)
     rule_paths.update({f"cli_{key}": r["launches"]
                        for key, r in cres.items()})
+    bal_paths, bres = phase_balancer_main(dev)
+    rule_paths.update(bal_paths)
     torch.cuda.synchronize()
 
     b, c5 = res["b"], pres["config5"]
@@ -1008,6 +1262,11 @@ def main() -> int:
                    for key, r in lres.items()},
         "cli": {key: {f: r[f] for f in ("seconds", "mappings_per_s")}
                 for key, r in cres.items()},
+        # the rebalance rounds of config 5: the launches of each round's
+        # DeviceState build (one per pool) and the plan's host syncs
+        "balancer_config5": [{f: r[f] for f in (
+            "wall_s", "build_ms", "plan_ms", "launches", "loop_rounds",
+            "host_syncs", "changes")} for r in bres["config5"]["rounds"]],
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

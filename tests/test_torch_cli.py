@@ -3,17 +3,18 @@
 Each case is a list of steps, each one `crushtool` or `osdmaptool` argv.
 The steps run in-process through `ceph_tpu.cli.*.main` in one empty
 directory and through `ceph_tpu_torch.cli.*.main` (with `--device cpu`
-where a step maps) in another.  Every step's stdout, stderr and exit code,
+where a step maps) in another; an ("inc", map, file, fn) step writes the
+Incremental fn(map) with `ceph_tpu`'s encoder, for `--apply-incremental`.  Every step's stdout, stderr and exit code,
 and at the end every file either directory holds, must be identical.  The
 cases follow tests/test_cli.py.  `--createsimple` stamps the wall clock
 into the map, so both tools' clocks are pinned.
 
 tests/data/cli_corpus.json holds the sha256 of the JAX CLIs' stdout for
 the commands `chip_smoke.py` runs on the card (BASELINE.json configs 1 and
-2, config 1's test on a map of straw hosts, and a test of
-tests/data/legacy_crushmap.txt); `python tests/test_torch_cli.py`
-rewrites it, and the tests here check that the JAX CLIs still print what
-it holds.
+2, config 1's test on a map of straw hosts, a test of
+tests/data/legacy_crushmap.txt, and `osdmaptool --upmap` on config 2, with
+the upmap file it writes); `python tests/test_torch_cli.py` rewrites it,
+and the tests here check that the JAX CLIs still print what it holds.
 """
 
 import contextlib
@@ -31,6 +32,12 @@ sys.path.insert(0, str(ROOT))
 
 from ceph_tpu.cli import crushtool as jax_crushtool  # noqa: E402
 from ceph_tpu.cli import osdmaptool as jax_osdmaptool  # noqa: E402
+from ceph_tpu.osd.incremental import (  # noqa: E402
+    Incremental,
+    encode_incremental,
+)
+from ceph_tpu.osd.io import load_osdmap as jax_load_osdmap  # noqa: E402
+from ceph_tpu.osd.types import PgId  # noqa: E402
 from ceph_tpu_torch.cli import crushtool, osdmaptool  # noqa: E402
 
 CORPUS = ROOT / "tests" / "data" / "cli_corpus.json"
@@ -67,6 +74,43 @@ BUILD8 = (C, ["--build", "--num_osds", "8", "host", "straw2", "2", "root",
               "straw2", "0", "-o", "m"], False)
 CREATE16 = (O, ["om", "--createsimple", "16", "--pg-bits", "4",
                 "--with-default-pool"], False)
+# CREATE16 with 4 hosts of 4 OSDs (crushtool --build) imported
+HOSTS16 = [CREATE16,
+           (C, ["--build", "--num_osds", "16", "host", "straw2", "4",
+                "root", "straw2", "0", "-o", "h16"], False),
+           (O, ["om", "--import-crush", "h16", "--mark-up-in", "--save"],
+            False)]
+
+
+def stale_upmaps(m):
+    """An Incremental that leaves pool 1 with upmap entries
+    `clean_pg_upmaps` must drop or simplify: a pair whose `from` is not
+    in the raw row, a full remap equal to the raw row, a valid pair with
+    a stale one after it, and an OSD marked out under a pair."""
+    raw = {ps: m.pg_to_raw_osds(PgId(1, ps))[0] for ps in range(4)}
+    free = [o for o in range(m.max_osd) if o not in raw[2]]
+    inc = Incremental(epoch=m.epoch + 1)
+    inc.new_pg_upmap_items = {
+        PgId(1, 0): [(99, 5)],
+        PgId(1, 2): [(raw[2][0], free[0]), (77, free[1])],
+        PgId(1, 3): [(raw[3][1], 15)],
+    }
+    inc.new_pg_upmap = {PgId(1, 1): list(raw[1])}
+    inc.new_weight = {15: 0}
+    return inc
+
+
+def reweight_and_temp(m):
+    """An Incremental with a reweight, a down OSD, a pg_temp and an
+    upmap pair."""
+    inc = Incremental(epoch=m.epoch + 1)
+    inc.new_weight = {3: 0x8000, 6: 0}
+    inc.new_state = {9: 2}  # XOR of OSD_UP: osd.9 goes down
+    inc.new_pg_temp = {PgId(1, 4): [1, 2, 3]}
+    inc.new_primary_temp = {PgId(1, 4): 2}
+    raw = m.pg_to_raw_osds(PgId(1, 5))[0]
+    inc.new_pg_upmap_items = {PgId(1, 5): [(raw[0], 12)]}
+    return inc
 
 CASES = {
     "crushtool_help": [(C, ["--help"], False)],
@@ -165,6 +209,37 @@ CASES = {
         CREATE16, (O, ["om", "--adjust-crush-weight", "0:2.5,3:0", "--save"],
                    False),
         (O, ["om", "--mark-up-in", "--test-map-pgs"], True)],
+    "upmap_save": HOSTS16 + [
+        (O, ["om", "--upmap", "out", "--upmap-deviation", "1",
+             "--upmap-max", "20", "--save"], True),
+        (O, ["om", "--test-map-pgs"], True)],
+    "upmap_flat_ref_stdout": [
+        (O, ["om", "--createsimple", "8", "--pg-bits", "3",
+             "--with-default-pool"], False),
+        (O, ["om", "--mark-up-in", "--upmap", "-", "--upmap-deviation",
+             "1", "--upmap-max", "8", "--backend", "ref"], True),
+        (O, ["om", "--mark-up-in", "--upmap", "-", "--upmap-deviation",
+             "1", "--osd_calc_pg_upmaps_aggressively=false"], True)],
+    "upmap_pool": HOSTS16 + [
+        (O, ["om", "--upmap", "out", "--upmap-pool", "rbd",
+             "--upmap-deviation", "1", "--upmap-max", "8"], True),
+        (O, ["om", "--upmap", "out2", "--upmap-pool", "nope"], True),
+        (O, ["om", "--upmap", "out3", "--upmap-deviation", "0"], True)],
+    "upmap_cleanup_after_incremental": HOSTS16 + [
+        ("inc", "om", "inc", stale_upmaps),
+        (O, ["om", "--apply-incremental", "inc"], False),
+        (O, ["om", "--upmap-cleanup", "-"], True),
+        (O, ["om", "--upmap-cleanup", "clean.txt", "--print"], True)],
+    "apply_incremental_then_map": HOSTS16 + [
+        ("inc", "om", "inc", reweight_and_temp),
+        (O, ["om", "--apply-incremental", "inc", "--print"], False),
+        (O, ["om", "--test-map-pgs-dump-all"], True),
+        (O, ["om", "--test-map-pg", "1.4"], False)],
+    "adjust_crush_weight_then_upmap": HOSTS16 + [
+        (O, ["om", "--adjust-crush-weight", "0:2", "--save"], False),
+        (O, ["om", "--upmap", "out", "--upmap-deviation", "1",
+             "--upmap-max", "12", "--save"], True),
+        (O, ["om", "--print"], False)],
     "create_from_conf": [
         ("write", "ceph.conf", CONF),
         (O, ["om", "--create-from-conf", "-c", "ceph.conf",
@@ -196,6 +271,10 @@ def run_case(pkg: str, steps, where: Path, monkeypatch) -> list:
         if step[0] == "write":
             (where / step[1]).write_text(step[2])
             continue
+        if step[0] == "inc":
+            m = jax_load_osdmap(str(where / step[1]))
+            (where / step[2]).write_bytes(encode_incremental(step[3](m)))
+            continue
         got.append(run_step(pkg, *step))
     return got
 
@@ -217,10 +296,7 @@ def test_port_cli_equals_jax_cli(name, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, flag", [
-    (["om", "--upmap", "out.txt"], "--upmap"),
-    (["om", "--upmap-cleanup", "-"], "--upmap-cleanup"),
     (["om", "--health"], "--health"),
-    (["om", "--apply-incremental", "inc"], "--apply-incremental"),
 ])
 def test_osdmaptool_refuses_what_waits(argv, flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -269,11 +345,19 @@ def corpus_commands() -> dict:
                                 (C, test1)],
         "config2": [("config2", "m"),
                     (O, ["m", "--test-map-pgs", "--pool", "0"])],
+        "config2_upmap": [("config2", "m"),
+                          (O, ["m", "--upmap", "upmap.txt",
+                               "--upmap-deviation", "5", "--upmap-max",
+                               "10"])],
         "legacy_text": [(C, ["-c", str(LEGACY_MAP), "-o", "legacy"]),
                         (C, ["-i", "legacy", "--test", "--num-rep", "3",
                              "--max-x", "1023", "--show-mappings",
                              "--show-statistics"])],
     }
+
+
+# the files a corpus command writes whose sha256 the corpus holds too
+CORPUS_FILES = {"config2_upmap": ["upmap.txt"]}
 
 
 def save_config2(pkg: str, path: str) -> None:
@@ -303,16 +387,28 @@ def corpus_stdout(pkg: str, steps, maps: bool = False) -> str:
     return out
 
 
-def sha(text: str) -> str:
-    return hashlib.sha256(text.encode()).hexdigest()
+def sha(text: str | bytes) -> str:
+    if isinstance(text, str):
+        text = text.encode()
+    return hashlib.sha256(text).hexdigest()
+
+
+def file_hashes(name: str) -> dict:
+    """sha256 of the files corpus command `name` wrote, in the cwd."""
+    return {f: sha(Path(f).read_bytes()) for f in CORPUS_FILES.get(name, [])}
 
 
 def _stored() -> dict:
     return json.loads(CORPUS.read_text())["stdout_sha256"]
 
 
+def _stored_files() -> dict:
+    return json.loads(CORPUS.read_text())["file_sha256"]
+
+
 def test_corpus_holds_every_command():
     assert sorted(_stored()) == sorted(corpus_commands())
+    assert sorted(_stored_files()) == sorted(CORPUS_FILES)
 
 
 @pytest.mark.parametrize("name", sorted(corpus_commands()))
@@ -320,6 +416,7 @@ def test_corpus_is_the_jax_clis(name, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert sha(corpus_stdout("jax", corpus_commands()[name])) == \
         _stored()[name]
+    assert file_hashes(name) == _stored_files().get(name, {})
 
 
 @pytest.mark.parametrize("name", sorted(corpus_commands()))
@@ -327,6 +424,7 @@ def test_port_cli_prints_the_corpus(name, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     got = corpus_stdout("port", corpus_commands()[name], maps=True)
     assert sha(got) == _stored()[name]
+    assert file_hashes(name) == _stored_files().get(name, {})
 
 
 def write_corpus() -> None:
@@ -334,21 +432,24 @@ def write_corpus() -> None:
     import tempfile
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    hashes = {}
+    hashes, files = {}, {}
     for name, steps in corpus_commands().items():
         with tempfile.TemporaryDirectory() as d:
             cwd = os.getcwd()
             os.chdir(d)
             try:
                 hashes[name] = sha(corpus_stdout("jax", steps))
+                if name in CORPUS_FILES:
+                    files[name] = file_hashes(name)
             finally:
                 os.chdir(cwd)
-        print(name, hashes[name])
+        print(name, hashes[name], files.get(name, ""))
     CORPUS.write_text(json.dumps({
         "about": "sha256 of the JAX CLIs' stdout for chip_smoke.py's CLI "
-                 "commands (tests/test_torch_cli.py::corpus_commands); "
-                 "written by `python tests/test_torch_cli.py`",
-        "stdout_sha256": hashes}, indent=1) + "\n")
+                 "commands (tests/test_torch_cli.py::corpus_commands), and "
+                 "of the files they write (CORPUS_FILES); written by "
+                 "`python tests/test_torch_cli.py`",
+        "stdout_sha256": hashes, "file_sha256": files}, indent=1) + "\n")
 
 
 if __name__ == "__main__":
