@@ -10,9 +10,16 @@ src/test/erasure-code/ceph_erasure_code_benchmark.cc):
         [--erasures E | --erasures-generation exhaustive] \
         [--device cuda|cpu]
 
+Plugins: jerasure, isa, jax, example, and the layered codes with their
+parameters: clay (`-P d=`), shec (`-P c=`), lrc (`-P l=`, or `-P
+mapping=` with `-P layers=`).
+
 Prints "<seconds>\t<KiB processed>" like the reference.  `--device`
 (default cuda) is where the device engine runs; plugin jax uses it by
-default, jerasure/isa with `-P backend=torch`.
+default, the others with `-P backend=torch`.  With the device engine a
+layered code's object is put on that device once, before the timed loop
+(numpy input would run it on the host); the other plugins get the host
+bytes on every call, as the JAX CLI gives them.
 """
 
 from __future__ import annotations
@@ -22,8 +29,13 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from ceph_tpu_torch.ec import create_erasure_code
+from ceph_tpu_torch.ec.clay import ClayCode
+from ceph_tpu_torch.ec.lrc import LrcCode
+from ceph_tpu_torch.ec.shec import ShecCode
+from ceph_tpu_torch.ec.torch_backend import TorchEngine
 
 
 def _parse(argv: list[str]) -> dict:
@@ -99,6 +111,33 @@ def workload_inputs(opts: dict, n: int) -> tuple[np.ndarray, list]:
     return data, patterns
 
 
+def _engines(code) -> list:
+    """The engines a code computes with (lrc: its layers')."""
+    if hasattr(code, "layers"):
+        return [e for layer in code.layers for e in _engines(layer.code)]
+    return [getattr(code, "engine", None)]
+
+
+def object_input(code, data: np.ndarray):
+    """The object as the timed loop hands it to the code.  A layered code
+    (clay, shec, lrc) computes numpy input on the host, as the JAX package
+    does, so when every engine of it is the device engine it takes a
+    tensor on that engine's device, put there once.  The other plugins
+    take the host bytes on every call, as the JAX CLI passes them."""
+    engines = _engines(code)
+    if isinstance(code, (ClayCode, ShecCode, LrcCode)) and all(
+            isinstance(e, TorchEngine) for e in engines):
+        return torch.from_numpy(data).to(engines[0].device)
+    return data
+
+
+def _sync(data) -> None:
+    """Wait for the card, so the clock reads the work and not its
+    enqueue."""
+    if isinstance(data, torch.Tensor) and data.device.type == "cuda":
+        torch.cuda.synchronize(data.device)
+
+
 def run(opts: dict, out=None) -> float:
     out = out or sys.stdout
     profile = dict(opts["parameters"])
@@ -108,16 +147,19 @@ def run(opts: dict, out=None) -> float:
     n = k + m
     size = opts["size"]
     data, patterns = workload_inputs(opts, n)
+    data = object_input(code, data)
     want_all = set(range(n))
 
     if opts["workload"] == "encode":
         t0 = time.perf_counter()
         for _ in range(opts["iterations"]):
             code.encode(want_all, data)
+        _sync(data)
         dt = time.perf_counter() - t0
         kib = size * opts["iterations"] / 1024
     else:
         encoded = code.encode(want_all, data)
+        _sync(data)
         t0 = time.perf_counter()
         kib = 0.0
         for it in range(opts["iterations"]):
@@ -129,6 +171,7 @@ def run(opts: dict, out=None) -> float:
             if not all(i in got for i in range(k)):
                 raise RuntimeError(f"decode of {pat} lost data chunks")
             kib += size / 1024
+        _sync(data)
         dt = time.perf_counter() - t0
 
     print(f"{dt:g}\t{kib:.0f}", file=out)

@@ -9,11 +9,12 @@ Plugins:
   isa       -> reed_sol_van (isa Vandermonde) / cauchy
   jax       -> reed_sol_van matrices on the device engine by default
   example   -> toy XOR(k, m=1) code
-  clay / shec / lrc -> not yet ported (raise ErasureCodeProfileError)
+  clay / shec / lrc -> the layered codes (ec.clay / ec.shec / ec.lrc)
 
 profile["backend"] picks the per-stripe engine: `numpy` (host, the
-jerasure/isa default) or `torch` (the device engine; `jax` is accepted as
-an alias, so the JAX package's profiles carry over).
+jerasure/isa/clay/shec default) or `torch` (the device engine; `jax` is
+accepted as an alias, so the JAX package's profiles carry over).  lrc
+passes its backend and device on to its layers.
 """
 
 from __future__ import annotations
@@ -21,8 +22,11 @@ from __future__ import annotations
 import numpy as np
 
 from ceph_tpu_torch.device import resolve_device
+from ceph_tpu_torch.ec.clay import ClayCode
 from ceph_tpu_torch.ec.interface import ErasureCode, ErasureCodeProfileError
+from ceph_tpu_torch.ec.lrc import LrcCode
 from ceph_tpu_torch.ec.rs import RSErasureCode
+from ceph_tpu_torch.ec.shec import ShecCode
 
 
 def _make_jerasure(profile: dict) -> ErasureCode:
@@ -72,21 +76,14 @@ class XorExample(ErasureCode):
         return out
 
 
-def _not_yet_ported(name: str):
-    def factory(profile: dict) -> ErasureCode:
-        raise ErasureCodeProfileError(f"plugin {name!r} is not yet ported")
-
-    return factory
-
-
 _PLUGINS = {
     "jerasure": _make_jerasure,
     "isa": _make_isa,
     "jax": _make_jax,
     "example": lambda p: XorExample(),
-    "clay": _not_yet_ported("clay"),
-    "shec": _not_yet_ported("shec"),
-    "lrc": _not_yet_ported("lrc"),
+    "clay": lambda p: ClayCode(),
+    "shec": lambda p: ShecCode(),
+    "lrc": lambda p: LrcCode(),
 }
 
 
@@ -97,6 +94,10 @@ def create_erasure_code(profile: dict, device=None) -> ErasureCode:
     device = resolve_device(device)
     profile = dict(profile)
     name = profile.get("plugin", "jerasure")
+    if profile.get("strategy") is not None:  # lrc's layers come here too
+        raise ErasureCodeProfileError(
+            f"ec strategy {profile['strategy']!r} is not yet ported"
+        )
     try:
         factory = _PLUGINS[name]
     except KeyError:

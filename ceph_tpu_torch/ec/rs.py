@@ -111,10 +111,6 @@ class RSErasureCode(ErasureCode):
             raise ErasureCodeProfileError(
                 f"w={self.w}: only w=8 is supported (the reference default)"
             )
-        if profile.get("strategy") is not None:
-            raise ErasureCodeProfileError(
-                f"ec strategy {profile['strategy']!r} is not yet ported"
-            )
         if self.technique == "reed_sol_r6_op":
             if self.m != 2:
                 raise ErasureCodeProfileError(

@@ -8,8 +8,11 @@ and the CUDA toolkit.  It builds every kernel from the sources in the
 checkout (one nvcc per source, all at once) and prints what ptxas
 reports of each, holds each kernel against its plain PyTorch version (the
 rule kernel both with the shared-memory staging its wrapper chooses and
-with none), drives the erasure-coding path (the corpus
-profiles, RS(8,4) encode/decode at full size, the benchmark CLI) and the
+with none), drives the erasure-coding path (the RS corpus profiles,
+RS(8,4) encode/decode at full size, the clay, shec and lrc corpus
+profiles, BASELINE config 4's Clay(8,4,11) encode and minimum-bandwidth
+repair of every chunk at a 4 MiB stripe, the benchmark CLI on RS, clay,
+shec and lrc) and the
 placement path (the placement corpus, then BASELINE configs 2 and 5
 through `PoolMapper`, then the legacy bucket draws on maps of config 5's
 shape, then the placement CLIs `crushtool --test` and `osdmaptool
@@ -55,6 +58,7 @@ from ceph_tpu_torch.crush.types import ITEM_NONE, BucketAlg
 from ceph_tpu_torch.ec import create_erasure_code
 from ceph_tpu_torch.ec.rs import decode_plan
 from ceph_tpu_torch.ec.torch_backend import (
+    TorchEngine,
     gf_matmul_cuda,
     gf_matmul_plain,
     product_tables,
@@ -73,12 +77,21 @@ LEGACY_CASES = ROOT / "tests" / "data" / "legacy_rule_cases.json"
 CLI_CORPUS = ROOT / "tests" / "data" / "cli_corpus.json"
 BALANCER_CORPUS = ROOT / "tests" / "data" / "balancer_corpus.json"
 LEGACY_MAP = ROOT / "tests" / "data" / "legacy_crushmap.txt"
+CLAY_CONFIG4 = ROOT / "tests" / "data" / "clay_config4.json"
 RS_ENTRIES = (
     "rs_k8m4_reed_sol_van",
     "rs_k6m2_reed_sol_r6_op",
     "rs_k4m2_cauchy_good",
     "isa_k8m4_reed_sol_van",
 )
+LAYERED_ENTRIES = ("clay_k4m2_d5", "shec_k4m3_c2", "lrc_k4m2_l3")
+# BASELINE config 4, Clay(8, 4, 11): q = 4, t = 3, 64 planes.  An encode
+# is 352 engine products (per plane 3 pair decouplings on average in the
+# two live columns, one inner-MDS solve, 1.5 pair recouplings in the
+# parity column); a single-chunk repair 13 (12 pair decouplings, one
+# product-matrix solve).  The JAX package's counts are the same.
+CLAY4_ENCODE_PRODUCTS = 352
+CLAY4_REPAIR_PRODUCTS = 13
 # peak HBM bandwidth of the one card the port is measured on (NVIDIA's
 # H100 SXM5 data sheet); its name as torch reports it
 H100_SXM = "NVIDIA H100 80GB HBM3"
@@ -137,6 +150,75 @@ def time_ms(fn, flush: torch.Tensor, runs: int = RUNS,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def engine_calls():
+    """Records each product the device engine runs, as (M, data) with data
+    u8[N, S, L]: yields the list.  On CPU tensors each is one call of the
+    plain version, on CUDA tensors one kernel launch."""
+    calls, real = [], TorchEngine._run
+
+    def run(self, M, d):
+        calls.append((M, d))
+        return real(self, M, d)
+
+    TorchEngine._run = run
+    try:
+        yield calls
+    finally:
+        TorchEngine._run = real
+
+
+def cpu_products(fn) -> int:
+    """The device engine's products in fn(), run on the CPU (the plain
+    version): the launches the same calls make on the card."""
+    with engine_calls() as calls:
+        fn()
+    check(all(d.device.type == "cpu" for _, d in calls), "a CPU dry run")
+    return len(calls)
+
+
+def device_ms(fn, flush: torch.Tensor, clock_hz: float,
+              runs: int = RUNS) -> float:
+    """Median device time in ms of the kernels fn() enqueues, back to
+    back: a sleep kernel holds the stream for twice fn's enqueue time, so
+    the events time the kernels and not the host's gaps between launches
+    (the L2 is flushed before each run)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2 * enqueue_s * clock_hz) + 100_000
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def wall_ms(fn, flush: torch.Tensor, runs: int = RUNS) -> float:
+    """Median host-clock ms of fn() to its end on the card (synchronised
+    before and after), the L2 flushed before each run."""
+    fn()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -392,8 +474,204 @@ def phase_cli() -> dict:
               and float(fields[1]) == 16384 * iterations,
               f"CLI {workload}: {line}")
         lines[workload] = line
+    # the layered codes on the device engine; their launches are the
+    # products of the same command run on the CPU
+    for name, argv in (
+            ("clay_encode", ["--plugin", "clay", "-P", "k=8", "-P", "m=4",
+                             "-P", "d=11", "--workload", "encode"]),
+            ("clay_decode", ["--plugin", "clay", "-P", "k=8", "-P", "m=4",
+                             "-P", "d=11", "--workload", "decode", "-e",
+                             "2"]),
+            ("shec_decode", ["--plugin", "shec", "-P", "k=4", "-P", "m=3",
+                             "-P", "c=2", "--workload", "decode"]),
+            ("lrc_decode", ["--plugin", "lrc", "-P", "k=4", "-P", "m=2",
+                            "-P", "l=3", "--workload", "decode"])):
+        argv = argv + ["-P", "backend=torch", "--size", str(4 * MiB),
+                       "--iterations", str(iterations)]
+        expected = cpu_products(lambda: ec_benchmark.run(
+            ec_benchmark._parse(argv + ["--device", "cpu"]),
+            out=io.StringIO()))
+        buf = io.StringIO()
+        _, launches[name] = counted(
+            expected, f"CLI {name}",
+            lambda: ec_benchmark.run(
+                ec_benchmark._parse(argv + ["--device", "cuda"]), out=buf))
+        line = buf.getvalue().strip()
+        fields = line.split("\t")
+        check(launches[name] > 0 and len(fields) == 2
+              and float(fields[0]) > 0
+              and float(fields[1]) == 4096 * iterations,
+              f"CLI {name}: {line}")
+        lines[name] = line
     emit({"phase": "cli", "output": lines, "launches": launches})
     return launches
+
+
+# -- the layered codes: corpus and BASELINE config 4 --------------------------
+
+def phase_layered_corpus(dev) -> dict:
+    """The clay, shec and lrc corpus entries with backend=torch on CUDA
+    tensors: each encode digest and every decode case's digest equal to
+    the corpus.  Each code's run is counted from 0 and held to the
+    products the same run makes on the CPU."""
+    entries = {e["name"]: e
+               for e in json.loads(CORPUS.read_text())["entries"]}
+    launches, cases = {}, 0
+
+    def drive(name, device):
+        entry = entries[name]
+        code = create_erasure_code(dict(entry["profile"], backend="torch"),
+                                   device=device)
+        L, n = entry["chunk_bytes"], entry["n_chunks"]
+        data = torch.from_numpy(_data_for(name, code.k, L)).to(device)
+        enc = code.encode_chunks(data)
+        check(_digest(enc) == entry["digest"], f"{name} stripe digest")
+        for case in entry["decode"]:
+            erased = list(case["erased"])
+            avail = {i: enc[i] for i in range(n) if i not in erased}
+            dec = code.decode_chunks(set(erased), avail, L)
+            check(_digest(dec[i] for i in erased) == case["digest"],
+                  f"{name} decode {erased} digest")
+
+    for name in LAYERED_ENTRIES:
+        expected = cpu_products(lambda: drive(name, "cpu"))
+        _, launches[name] = counted(expected, f"corpus {name}",
+                                    lambda: drive(name, dev))
+        check(launches[name] > 0, f"{name}: the kernel ran")
+        cases += len(entries[name]["decode"])
+    emit({"phase": "layered_corpus", "entries": list(LAYERED_ENTRIES),
+          "decode_cases": cases, "digests_equal": True,
+          "launches": launches})
+    return launches
+
+
+def repair_helpers(code, enc, lost: int) -> dict:
+    """The d helpers' repair sub-chunks of chunk `lost`, as
+    minimum_to_repair names them, gathered on the card."""
+    need = code.minimum_to_repair({lost}, set(range(len(enc))) - {lost})
+    out = {}
+    for h, runs in need.items():
+        planes = torch.tensor(
+            [z for ind, cnt in runs for z in range(ind, ind + cnt)],
+            device=enc.device)
+        out[h] = enc[h].view(code.sub_chunk_no, -1)[planes].reshape(-1)
+    return out
+
+
+def phase_clay_repair(dev, peak: float) -> dict:
+    """BASELINE config 4, Clay(k=8, m=4, d=11) with backend=torch, at a
+    4 MiB stripe (512 KiB chunks of 64 sub-chunks of 8 KiB) and at
+    bench.py::bench_clay's 1 MiB chunks: the stripe's encode digest equal
+    to the JAX package's (tests/data/clay_config4.json); on the 4 MiB
+    stripe every lost chunk 0..11 repaired from its helpers' repair
+    sub-chunks (CUDA tensors) to the encoded chunk, each repair counted
+    from 0 (13 launches), and chunk 2's repair equal to the CPU's.
+    Then, for chunk 2 at both sizes and for the encode: wall ms (host
+    clock, synchronised), the kernels' own ms (CUDA events, launches back
+    to back), the same products through the plain version, and the
+    bytes bound."""
+    stored = json.loads(CLAY_CONFIG4.read_text())
+    code = create_erasure_code(dict(stored["profile"], backend="torch"),
+                               device=dev)
+    cpu = create_erasure_code(dict(stored["profile"], backend="torch"),
+                              device="cpu")
+    k, m, d, q = code.k, code.m, code.d, code.q
+    flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    clock = max_sm_clock_hz()
+    launches = {"encode": 0, "repair": 0}
+    rows = {}
+    for si, stripe in enumerate(stored["stripes"]):
+        Lc = stripe["chunk_bytes"]
+        label = f"{Lc >> 10}KiB_chunks"
+        data = torch.from_numpy(np.random.default_rng(
+            stripe["seed"]).integers(0, 256, (k, Lc), dtype=np.uint8)).to(dev)
+        enc, enc_n = counted(CLAY4_ENCODE_PRODUCTS,
+                             f"config 4 encode {label}",
+                             lambda: code.encode_chunks(data))
+        launches["encode"] += enc_n
+        check(_digest(enc) == stripe["digest"],
+              f"config 4 {label}: stripe digest == the JAX package's")
+        lost_all = range(k + m) if si == 0 else (2,)
+        for lost in lost_all:
+            helpers = repair_helpers(code, enc, lost)
+            got, n = counted(CLAY4_REPAIR_PRODUCTS,
+                             f"config 4 {label} repair {lost}",
+                             lambda: code.repair({lost}, helpers, Lc))
+            launches["repair"] += n
+            if lost == 2:
+                rep_n = n
+            check(torch.equal(got[lost], enc[lost]),
+                  f"config 4 {label}: chunk {lost} repaired")
+        helpers = repair_helpers(code, enc, 2)
+        read = sum(h.numel() for h in helpers.values())
+        if si == 0:
+            want = cpu.repair({2}, {h: v.cpu() for h, v in helpers.items()},
+                              Lc)
+            check(torch.equal(code.repair({2}, helpers, Lc)[2].cpu(),
+                              want[2]),
+                  "config 4: chunk 2's repair == the CPU's")
+
+        def replay(calls, plain=False):
+            tables = [code.engine._tables_for(M, dev) for M, _ in calls]
+
+            def run():
+                for (M, x), t in zip(calls, tables):
+                    if plain:
+                        gf_matmul_plain(M, x)
+                    else:
+                        gf_matmul_cuda(t, x, M.shape[0])
+            return run
+
+        # the products to replay, as (M, x); the launches are counted above
+        with engine_calls() as rep_calls:
+            code.repair({2}, helpers, Lc)
+        with engine_calls() as enc_calls:
+            code.encode_chunks(data)
+        check(len(rep_calls) == rep_n and len(enc_calls) == enc_n,
+              f"config 4 {label}: the replay holds the counted products")
+        rep_bytes = read + Lc
+        enc_bytes = (k + m) * Lc  # data read once, parity written once
+        row = {
+            "chunk_bytes": Lc, "sub_chunk_bytes": Lc // code.sub_chunk_no,
+            "repair_launches": rep_n,
+            "repair_shapes": sorted({(int(M.shape[0]), int(M.shape[1]),
+                                      int(x.shape[-1]))
+                                     for M, x in rep_calls}),
+            "repair_wall_ms": wall_ms(lambda: code.repair({2}, helpers, Lc),
+                                      flush),
+            "repair_ms": device_ms(replay(rep_calls), flush, clock),
+            "repair_plain_ms": time_ms(replay(rep_calls, True), flush,
+                                       runs=5),
+            "repair_bytes": rep_bytes,
+            "repair_bound_ms": rep_bytes / peak * 1e3,
+            "read_fraction": read / (k * Lc),
+            "encode_launches": enc_n,
+            "encode_wall_ms": wall_ms(lambda: code.encode_chunks(data),
+                                      flush, runs=7),
+            "encode_ms": device_ms(replay(enc_calls), flush, clock, runs=7),
+            "encode_plain_ms": time_ms(replay(enc_calls, True), flush,
+                                       runs=3, warmup=1),
+            "encode_bytes": enc_bytes,
+            "encode_bound_ms": enc_bytes / peak * 1e3,
+        }
+        row["repair_gb_per_s"] = k * Lc / row["repair_wall_ms"] / 1e6
+        row["encode_gb_per_s"] = k * Lc / row["encode_wall_ms"] / 1e6
+        check(abs(row["read_fraction"] - d / q / k) < 1e-12,
+              "config 4: helpers read d/q of a chunk each")
+        rows[label] = row
+        print(f"config 4 {label}: repair wall {row['repair_wall_ms']:.6f} "
+              f"ms ({row['repair_launches']} launches, kernels "
+              f"{row['repair_ms']:.6f} ms, plain {row['repair_plain_ms']:.6f}"
+              f" ms, bound {row['repair_bound_ms']:.6f} ms, "
+              f"{row['repair_gb_per_s']:.3f} GB/s, read fraction "
+              f"{row['read_fraction']:.6f}); encode wall "
+              f"{row['encode_wall_ms']:.6f} ms ({row['encode_launches']} "
+              f"launches, kernels {row['encode_ms']:.6f} ms, bound "
+              f"{row['encode_bound_ms']:.6f} ms)", flush=True)
+    emit({"phase": "clay_repair", "profile": stored["profile"],
+          "digests_equal": True, "repairs_equal": k + m + 1,
+          "equal_to_cpu": True, "launches": launches, "rows": rows})
+    return launches, rows
 
 
 # -- placement: the rule kernel on the card ----------------------------------
@@ -1045,6 +1323,31 @@ def replay_round(r, before: np.ndarray, weight: dict, ppw: float):
     return counts
 
 
+# The bytes of one device_loop plan round (balancer/upmap.py::_loop_plan)
+# per PG of w members, from its candidate pass over the int32 rows [N, w]:
+# each torch op's inputs read once and its output written once (bool 1 B,
+# int32 and float32 4 B, int64 8 B); the per-OSD and per-candidate ops
+# are not counted.  The least is the rows and the movable mask read once.
+PLAN_PASS_BYTES = {
+    "valid_m": 13,  # rows >= 0, rows < dv (4 in, 1 out each), & (2, 1)
+    "rsafe": 9 + 12,  # where(valid_m, rows, 0) (5, 4); .long() (4, 8)
+    "over_gather": 9 + 3,  # over[rsafe] (8, 1); & valid_m (2, 1)
+    "dev_gather": 12 + 9,  # dev.float()[rsafe] (8, 4); where(.., -inf)
+    "amax_argmax": 8,  # reads of the float32 rdev; per-PG outputs below
+}
+PLAN_PASS_PER_PG = 4 + 8 + 5 + 3 + 24 + 17 + 16  # amax, argmax outputs;
+# isfinite; & movable; gather of the dominant member (index, value,
+# out); where(.., dv); the scatter-min's index and values
+
+
+def plan_round_bytes(n: int, w: int) -> tuple[int, int]:
+    """(least, passes): the bytes a plan round over n PGs must move (the
+    int32 rows and the bool movable mask read once) and the bytes the
+    torch ops of its candidate pass move (PLAN_PASS_BYTES)."""
+    return n * (4 * w + 1), n * (w * sum(PLAN_PASS_BYTES.values())
+                                 + PLAN_PASS_PER_PG)
+
+
 def rebalance_config5(dev, c5: dict, check_each: bool):
     """bench.py::bench_rebalance on config 5: three device_loop rounds
     sharing one mapper cache.  Each round is counted from 0 (one rule
@@ -1101,7 +1404,7 @@ def rebalance_config5(dev, c5: dict, check_each: bool):
     return m, rounds, digests
 
 
-def phase_balancer_main(dev) -> dict:
+def phase_balancer_main(dev, peak: float) -> dict:
     """calc_pg_upmaps on the card.  Config 2 (100k PGs / 1024 OSDs, 2 %
     reweighted) on the four backends, each plan's digest equal to the
     JAX package's (tests/data/balancer_corpus.json).  Then config 5
@@ -1142,6 +1445,10 @@ def phase_balancer_main(dev) -> dict:
     c5 = corpus["config5"]
     torch.cuda.reset_peak_memory_stats()
     m, rounds, digests = rebalance_config5(dev, c5, check_each=True)
+    least, passes = plan_round_bytes(c5["pgs"], 3)
+    for r in rounds:
+        r["plan_bound_ms"] = least * r["loop_rounds"] / peak * 1e3
+        r["plan_pass_ms"] = passes * r["loop_rounds"] / peak * 1e3
     peak = torch.cuda.max_memory_allocated()
     for i, (row, entry) in enumerate(zip(rounds, c5["rounds"])):
         check(row["digest"] == entry["digest"],
@@ -1191,6 +1498,11 @@ def main() -> int:
     by_path = {"corpus": phase_corpus(dev)}
     res = phase_main_path(dev, info["peak_bw"])
     by_path.update({key: r["launches"] for key, r in res.items()})
+    by_path.update({f"layered_corpus_{name.split('_')[0]}": n
+                    for name, n in phase_layered_corpus(dev).items()})
+    clay_launches, clay_rows = phase_clay_repair(dev, info["peak_bw"])
+    by_path.update({f"clay_config4_{key}": n
+                    for key, n in clay_launches.items()})
     by_path.update({f"cli_{w}": n for w, n in phase_cli().items()})
 
     # placement: the same, for the rule kernel
@@ -1206,7 +1518,7 @@ def main() -> int:
     cres = phase_cli_placement(dev, pms)
     rule_paths.update({f"cli_{key}": r["launches"]
                        for key, r in cres.items()})
-    bal_paths, bres = phase_balancer_main(dev)
+    bal_paths, bres = phase_balancer_main(dev, info["peak_bw"])
     rule_paths.update(bal_paths)
     torch.cuda.synchronize()
 
@@ -1229,6 +1541,14 @@ def main() -> int:
         "shapes": {key: {f: r[f] for f in ("ms", "plain_ms", "copy_ms",
                                            "bound_ms", "gb_per_s")}
                    for key, r in res.items()},
+        # BASELINE config 4 (Clay(8,4,11)): a repair's and an encode's
+        # products, summed kernel ms beside the wall ms and the bound
+        "config4": {key: {f: r[f] for f in (
+            "repair_launches", "repair_shapes", "repair_ms",
+            "repair_wall_ms", "repair_plain_ms", "repair_bound_ms",
+            "repair_gb_per_s", "read_fraction", "encode_launches",
+            "encode_ms", "encode_wall_ms", "encode_plain_ms",
+            "encode_bound_ms")} for key, r in clay_rows.items()},
     }, {
         "name": "crush_rule",
         "route": "cuda",
@@ -1265,8 +1585,9 @@ def main() -> int:
         # the rebalance rounds of config 5: the launches of each round's
         # DeviceState build (one per pool) and the plan's host syncs
         "balancer_config5": [{f: r[f] for f in (
-            "wall_s", "build_ms", "plan_ms", "launches", "loop_rounds",
-            "host_syncs", "changes")} for r in bres["config5"]["rounds"]],
+            "wall_s", "build_ms", "plan_ms", "plan_bound_ms",
+            "plan_pass_ms", "launches", "loop_rounds", "host_syncs",
+            "changes")} for r in bres["config5"]["rounds"]],
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -374,9 +374,12 @@ def test_default_device_is_the_card():
     ({"plugin": "jax", "strategy": "pallas"}, "not yet ported"),
     ({"plugin": "jerasure", "strategy": "xor"}, "not yet ported"),
     ({"plugin": "jerasure", "backend": "native"}, "not yet ported"),
-    ({"plugin": "clay", "k": "4", "m": "2", "d": "5"}, "not yet ported"),
-    ({"plugin": "shec", "k": "4", "m": "3", "c": "2"}, "not yet ported"),
-    ({"plugin": "lrc", "k": "4", "m": "2", "l": "3"}, "not yet ported"),
+    ({"plugin": "clay", "k": "4", "m": "2", "d": "5", "strategy": "pallas"},
+     "not yet ported"),
+    ({"plugin": "shec", "k": "4", "m": "3", "c": "2", "strategy": "xor"},
+     "not yet ported"),
+    ({"plugin": "lrc", "k": "4", "m": "2", "l": "3", "backend": "native"},
+     "not yet ported"),
     ({"plugin": "nope"}, "unknown plugin"),
     ({"plugin": "jerasure", "backend": "tpu"}, "unknown ec backend"),
     ({"plugin": "jerasure", "technique": "liberation"}, "unknown technique"),

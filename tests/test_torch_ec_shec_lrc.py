@@ -1,0 +1,458 @@
+"""The port's SHEC and LRC codes (`ceph_tpu_torch.ec.shec`, `.lrc`) held
+against `ceph_tpu.ec.shec` and `.lrc`, byte for byte.
+
+The JAX side runs its device engine (`backend=jax, strategy=pallas`, the
+Pallas kernel in interpret mode; LRC's layers inherit it).  The port runs
+on the CPU (`device="cpu"`) with both of its engines, numpy and torch
+(whose products on a CPU tensor are the kernel's plain PyTorch version),
+on numpy arrays and on CPU tensors.
+"""
+
+import functools
+import io
+import itertools
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from ceph_tpu.ec import create_erasure_code as jax_create  # noqa: E402
+from ceph_tpu.ec import rs as jax_rs  # noqa: E402
+from ceph_tpu.ec.interface import (  # noqa: E402
+    ErasureCodeProfileError as JaxProfileError,
+)
+from ceph_tpu.ec.lrc import generate_kml as jax_kml  # noqa: E402
+from ceph_tpu.ec.shec import shec_matrix as jax_shec_matrix  # noqa: E402
+from ceph_tpu.cli import ec_benchmark as jax_cli  # noqa: E402
+from ceph_tpu_torch.cli import ec_benchmark  # noqa: E402
+from ceph_tpu_torch.ec import ErasureCodeProfileError  # noqa: E402
+from ceph_tpu_torch.ec import create_erasure_code  # noqa: E402
+from tools import ec_corpus  # noqa: E402
+from ceph_tpu_torch.ec.carry import (  # noqa: E402
+    lrc_from_reference,
+    shec_from_reference,
+)
+from ceph_tpu_torch.ec.lrc import generate_kml  # noqa: E402
+from ceph_tpu_torch.ec.shec import shec_matrix  # noqa: E402
+from ceph_tpu_torch.ec.torch_backend import TorchEngine  # noqa: E402
+
+CORPUS = ROOT / "tests" / "data" / "ec_corpus.json"
+BACKENDS = ("numpy", "torch")
+KINDS = ("numpy", "tensor")
+SHEC_GRID = [(4, 3, 2), (6, 3, 2), (8, 4, 3), (4, 2, 1)]
+LRC_LAYERED = {
+    "plugin": "lrc",
+    "mapping": "__DD__DD",
+    "layers": '[["_cDD_cDD", ""], ["cDDD____", ""], ["____cDDD", ""]]',
+}
+LRC_PROFILES = {
+    "layered": LRC_LAYERED,
+    "kml_4_2_3": {"plugin": "lrc", "k": "4", "m": "2", "l": "3"},
+    "kml_6_3_3": {"plugin": "lrc", "k": "6", "m": "3", "l": "3"},
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_decode_plans_as_found():
+    """LRC's layers decode through `ceph_tpu.ec.rs`'s process-wide plan
+    cache, whose misses the JAX package's own tests count
+    (tests/test_xor_schedule.py): leave it as this module found it, for
+    the files that run after it in the same process."""
+    saved = dict(jax_rs._DECODE_PLANS)
+    yield
+    jax_rs._DECODE_PLANS.clear()
+    jax_rs._DECODE_PLANS.update(saved)
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _as(x, kind):
+    return torch.from_numpy(np.array(x, np.uint8)) if kind == "tensor" else x
+
+
+def _obj(data: bytes, kind):
+    """An object's bytes, or the same bytes as a CPU tensor."""
+    if kind == "tensor":
+        return torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    return data
+
+
+def _assert_same(got: dict, want: dict, kind: str):
+    assert sorted(got) == sorted(want)
+    for i in want:
+        assert isinstance(got[i], torch.Tensor) == (kind == "tensor"), i
+        assert np.array_equal(_np(got[i]), _np(want[i])), i
+
+
+def _raises_or_equal(jax_fn, port_fn, exc=ValueError):
+    """Both calls raise `exc`, or both return the same value."""
+    try:
+        want = jax_fn()
+    except exc:
+        with pytest.raises(exc):
+            port_fn()
+        return None
+    return want, port_fn()
+
+
+@functools.cache
+def jax_code(profile_json: str):
+    prof = dict(json.loads(profile_json), backend="jax", strategy="pallas")
+    return jax_create(prof)
+
+
+def port_code(profile: dict, backend: str):
+    return create_erasure_code(dict(profile, backend=backend), device="cpu")
+
+
+def _shec(k, m, c, **kw):
+    return {"plugin": "shec", "k": str(k), "m": str(m), "c": str(c), **kw}
+
+
+@functools.cache
+def jax_stripe(profile_json: str, nbytes: int = 3000):
+    """(object bytes, JAX chunks {i: row}, chunk size)."""
+    code = jax_code(profile_json)
+    data = np.random.default_rng(len(profile_json)).integers(
+        0, 256, nbytes, dtype=np.uint8).tobytes()
+    enc = code.encode(set(range(code.get_chunk_count())), data)
+    return data, {i: np.asarray(v) for i, v in enc.items()}, len(enc[0])
+
+
+@functools.cache
+def jax_decode(profile_json: str, lost: tuple):
+    """The JAX code's decode of every chunk of jax_stripe's object with
+    `lost` erased, or None where it raises ValueError (computed once for
+    both input kinds: each JAX product runs the interpreted kernel)."""
+    code = jax_code(profile_json)
+    _, enc, _ = jax_stripe(profile_json)
+    n = code.get_chunk_count()
+    try:
+        return code.decode(set(range(n)),
+                           {i: enc[i] for i in range(n) if i not in lost})
+    except ValueError:
+        return None
+
+
+def check_decodes(profile_json: str, port, patterns, kind) -> int:
+    """The port's decode of every pattern equals the JAX code's, or both
+    raise; the data chunks decode_concat joins are the JAX bytes.
+    Returns how many patterns raised."""
+    _, enc, _ = jax_stripe(profile_json)
+    n = port.get_chunk_count()
+    # the data chunks: LRC's 'D' positions, else the first k
+    dpos = (getattr(port, "chunk_mapping", None) or range(n))[: port.k]
+    raised = 0
+    for lost in patterns:
+        have = {i: _as(enc[i], kind) for i in range(n) if i not in lost}
+        want = jax_decode(profile_json, lost)
+        if want is None:
+            raised += 1
+            with pytest.raises(ValueError):
+                port.decode(set(range(n)), dict(have))
+            continue
+        got = port.decode(set(range(n)), dict(have))
+        _assert_same(got, want, kind)
+        for i in lost:
+            assert np.array_equal(_np(got[i]), enc[i]), (lost, i)
+        assert port.decode_concat(dict(have)) == b"".join(
+            _np(want[i]).tobytes() for i in dpos)
+    return raised
+
+
+# -- SHEC ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("single", [False, True])
+@pytest.mark.parametrize("k,m,c", SHEC_GRID)
+def test_shec_matrix_equal(k, m, c, single):
+    assert np.array_equal(shec_matrix(k, m, c, single),
+                          jax_shec_matrix(k, m, c, single))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("k,m,c", SHEC_GRID[:3])
+def test_shec_encode_decode_equal(k, m, c, kind):
+    """Encode on both engines; decode of every pattern of up to c erasures
+    for (4,3,2), and of 8 of them for the larger codes."""
+    key = json.dumps(_shec(k, m, c))
+    j = jax_code(key)
+    data, enc, cs = jax_stripe(key)
+    n = k + m
+    for backend in BACKENDS:
+        p = port_code(_shec(k, m, c), backend)
+        assert np.array_equal(p.C, j.C)
+        _assert_same(p.encode(set(range(n)), _obj(data, kind)), enc, kind)
+    pats = [p for e in range(1, c + 1)
+            for p in itertools.combinations(range(n), e)]
+    if (k, m, c) != (4, 3, 2):
+        pats = pats[:: -(-len(pats) // 8)]
+    p = port_code(_shec(k, m, c), "torch" if kind == "tensor" else "numpy")
+    assert check_decodes(key, p, pats, kind) == 0  # c erasures always decode
+
+
+def test_shec_tensor_solve_is_one_product(monkeypatch):
+    """A tensor decode of erased data is one engine product (no host table
+    elimination), with the bytes of the JAX two-step solve."""
+    prof = _shec(6, 3, 2)
+    key = json.dumps(prof)
+    data, enc, cs = jax_stripe(key)
+    p = port_code(prof, "torch")
+    calls = []
+    real = TorchEngine.matmul
+    monkeypatch.setattr(TorchEngine, "matmul",
+                        lambda self, M, X: calls.append(M.shape)
+                        or real(self, M, X))
+    have = {i: torch.from_numpy(enc[i]) for i in range(9) if i not in (0, 4)}
+    got = p.decode({0, 4}, have)
+    assert len(calls) == 1
+    want = jax_code(key).decode({0, 4}, {i: enc[i] for i in range(9)
+                                         if i not in (0, 4)})
+    _assert_same(got, want, "tensor")
+
+
+def test_shec_minimum_to_decode_equal():
+    """Every available subset of SHEC(4,3,2), every wanted chunk and a few
+    wanted sets: the same minimum, or both raise."""
+    prof = _shec(4, 3, 2)
+    j = jax_code(json.dumps(prof))
+    p = port_code(prof, "numpy")
+    n = 7
+    wants = [{i} for i in range(n)] + [{0, 1}, {0, 5}, {4, 6}, set(range(4))]
+    compared = 0
+    for r in range(n + 1):
+        for avail in itertools.combinations(range(n), r):
+            for want in wants:
+                res = _raises_or_equal(
+                    lambda: j.minimum_to_decode(set(want), set(avail)),
+                    lambda: p.minimum_to_decode(set(want), set(avail)))
+                if res is not None:
+                    assert res[0] == res[1], (want, avail)
+                    compared += 1
+    assert compared > 300
+
+
+def test_shec_carry_matrix():
+    prof = _shec(4, 3, 2, backend="torch")
+    j = jax_code(json.dumps(_shec(4, 3, 2)))
+    p = shec_from_reference(prof, j.C, device="cpu")
+    assert np.array_equal(p.C, j.C)
+    with pytest.raises(ValueError):
+        shec_from_reference(prof, j.C[:2], device="cpu")
+    with pytest.raises(ErasureCodeProfileError):
+        shec_from_reference(LRC_LAYERED, j.C, device="cpu")
+
+
+# -- LRC ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("kml", [(4, 2, 3), (6, 3, 3), (8, 4, 6), (2, 2, 2),
+                                 (4, 2, 5), (4, 2, 0), (8, 4, 4)])
+def test_generate_kml_equal(kml):
+    res = _raises_or_equal(lambda: jax_kml(*kml), lambda: generate_kml(*kml),
+                           (JaxProfileError, ErasureCodeProfileError))
+    if res is not None:
+        assert res[0] == res[1]
+
+
+@pytest.mark.parametrize("name", sorted(LRC_PROFILES))
+def test_lrc_parse_equal(name):
+    j = jax_code(json.dumps(LRC_PROFILES[name]))
+    p = port_code(LRC_PROFILES[name], "torch")
+    assert (p.mapping, p.k, p.m, p.chunk_mapping) == (
+        j.mapping, j.k, j.m, j.chunk_mapping)
+    assert p.get_chunk_count() == j.get_chunk_count()
+    assert p.get_alignment() == j.get_alignment()
+    assert len(p.layers) == len(j.layers)
+    for pl, jl in zip(p.layers, j.layers):
+        assert (pl.chunks_map, pl.data, pl.coding) == (
+            jl.chunks_map, jl.data, jl.coding)
+        assert np.array_equal(pl.code.C, jl.code.C)
+        # the layer inherits the backend and the outer code's device
+        assert isinstance(pl.code.engine, TorchEngine)
+        assert pl.code.device == p.device == torch.device("cpu")
+
+
+def lrc_patterns(n: int) -> list[tuple]:
+    """Every pattern of 1 or 2 lost chunks, and every third triple."""
+    pats = [p for e in (1, 2) for p in itertools.combinations(range(n), e)]
+    return pats + list(itertools.combinations(range(n), 3))[::3]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name", sorted(LRC_PROFILES))
+def test_lrc_encode_decode_equal(name, kind):
+    """Encode on both engines; the fixpoint decode and decode_concat of
+    every lost chunk and every second pair."""
+    prof = LRC_PROFILES[name]
+    key = json.dumps(prof)
+    data, enc, cs = jax_stripe(key)
+    n = len(enc)
+    for backend in BACKENDS:
+        p = port_code(prof, backend)
+        _assert_same(p.encode(set(range(n)), _obj(data, kind)), enc, kind)
+    p = port_code(prof, "torch" if kind == "tensor" else "numpy")
+    pats = [(i,) for i in range(n)] + list(
+        itertools.combinations(range(n), 2))[::2]
+    check_decodes(key, p, pats, kind)
+
+
+@pytest.mark.parametrize("name", sorted(LRC_PROFILES))
+def test_lrc_minimum_to_decode_equal(name):
+    prof = LRC_PROFILES[name]
+    j = jax_code(json.dumps(prof))
+    p = port_code(prof, "numpy")
+    n = j.get_chunk_count()
+    compared = 0
+    for lost in lrc_patterns(n):
+        avail = set(range(n)) - set(lost)
+        for want in [{i} for i in range(n)] + [set(lost), {0, 1}]:
+            res = _raises_or_equal(
+                lambda: j.minimum_to_decode(set(want), set(avail)),
+                lambda: p.minimum_to_decode(set(want), set(avail)))
+            if res is not None:
+                assert res[0] == res[1], (want, avail)
+                compared += 1
+    assert compared > 50
+
+
+def test_lrc_unrecoverable_raises():
+    """tests/test_shec_lrc.py's case: losing all of {1, 2, 3} exceeds every
+    covering layer, so minimum_to_decode and decode raise on both."""
+    j = jax_code(json.dumps(LRC_LAYERED))
+    p = port_code(LRC_LAYERED, "torch")
+    avail = set(range(8)) - {1, 2, 3}
+    for code in (j, p):
+        with pytest.raises(ValueError):
+            code.minimum_to_decode({2}, avail)
+    data, enc, cs = jax_stripe(json.dumps(LRC_LAYERED))
+    have = {i: enc[i] for i in avail}
+    with pytest.raises(ValueError):
+        j.decode({2}, dict(have))
+    with pytest.raises(ValueError, match="unable to read"):
+        p.decode({2}, {i: torch.from_numpy(v) for i, v in have.items()})
+
+
+def test_lrc_layers_follow_device_and_backend():
+    p = port_code(LRC_PROFILES["kml_4_2_3"], "numpy")
+    assert all(type(layer.code.engine).__name__ == "NumpyEngine"
+               for layer in p.layers)
+    prof = dict(LRC_LAYERED, backend="jax",
+                layers='[["_cDD_cDD", "backend=numpy"], ["cDDD____", ""],'
+                       ' ["____cDDD", ""]]')
+    p = create_erasure_code(prof, device="cpu")
+    engines = [type(layer.code.engine).__name__ for layer in p.layers]
+    assert engines == ["NumpyEngine", "TorchEngine", "TorchEngine"]
+    assert p.layers[1].code.engine.device == torch.device("cpu")
+
+
+def test_lrc_carry_matrices():
+    j = jax_code(json.dumps(LRC_LAYERED))
+    Cs = [layer.code.C for layer in j.layers]
+    p = lrc_from_reference(dict(LRC_LAYERED, backend="torch"), Cs,
+                           device="cpu")
+    for pl, C in zip(p.layers, Cs):
+        assert np.array_equal(pl.code.C, C) and pl.code.C is not C
+    with pytest.raises(ValueError):
+        lrc_from_reference(LRC_LAYERED, Cs[:2], device="cpu")
+
+
+# -- the corpus and the profile errors ----------------------------------------
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("name", ["shec_k4m3_c2", "lrc_k4m2_l3"])
+def test_corpus(name, backend, kind):
+    entry = next(e for e in json.loads(CORPUS.read_text())["entries"]
+                 if e["name"] == name)
+    code = create_erasure_code(dict(entry["profile"], backend=backend),
+                               device="cpu")
+    L, n = entry["chunk_bytes"], entry["n_chunks"]
+    data = ec_corpus._data_for(name, code.k, L)
+    enc = code.encode_chunks(_as(data, kind))
+    assert ec_corpus._stripe_digest(enc) == entry["digest"]
+    assert len(entry["decode"]) >= 4
+    for case in entry["decode"]:
+        erased = case["erased"]
+        dec = code.decode_chunks(
+            set(erased), {i: enc[i] for i in range(n) if i not in erased}, L)
+        assert ec_corpus._rebuilt_digest(dec, erased) == case["digest"], \
+            erased
+
+
+@pytest.mark.parametrize("profile", [
+    _shec(4, 3, 9), _shec(4, 3, 0), _shec(4, 3, "x"),
+    _shec(4, 3, 2, technique="bogus"), _shec(4, 3, 2, w="16"),
+    {"plugin": "lrc", "k": "4", "m": "2", "l": "5"},
+    {"plugin": "lrc", "k": "4", "m": "2"},
+    {"plugin": "lrc", "mapping": "DD_"},
+    {"plugin": "lrc", "mapping": "DD_", "layers": "[[not json"},
+    {"plugin": "lrc", "mapping": "DD_", "layers": '[["DDcc", ""]]'},
+    {"plugin": "lrc", "mapping": "DD_", "layers": "[]"},
+    {"plugin": "lrc", "mapping": "DD_", "layers": '["DDc"]'},
+])
+def test_bad_profiles_raise_as_jax(profile):
+    with pytest.raises(JaxProfileError):
+        jax_create(dict(profile))
+    with pytest.raises(ErasureCodeProfileError):
+        create_erasure_code(dict(profile), device="cpu")
+
+
+@pytest.mark.parametrize("profile", [
+    _shec(4, 3, 2, strategy="bitplane"),
+    dict(LRC_LAYERED, strategy="bitplane"),
+    dict(LRC_LAYERED, layers='[["_cDD_cDD", "strategy=xor"]]'),
+])
+def test_strategy_is_not_yet_ported(profile):
+    with pytest.raises(ErasureCodeProfileError, match="not yet ported"):
+        create_erasure_code(profile, device="cpu")
+
+
+# -- the benchmark CLI --------------------------------------------------------
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("workload", ["encode", "decode"])
+@pytest.mark.parametrize("plugin,params", [
+    ("clay", ["-P", "k=8", "-P", "m=4", "-P", "d=11"]),
+    ("shec", ["-P", "k=4", "-P", "m=3", "-P", "c=2"]),
+    ("lrc", ["-P", "k=4", "-P", "m=2", "-P", "l=3"]),
+    ("lrc", ["-P", "mapping=__DD__DD", "-P",
+             "layers=" + LRC_LAYERED["layers"]]),
+], ids=["clay", "shec", "lrc_kml", "lrc_layers"])
+def test_cli_layered_plugins(plugin, params, workload, backend):
+    """`ec_benchmark --plugin clay|shec|lrc` with their parameters runs as
+    the JAX CLI does; with the device engine the object is a tensor on
+    the engine's device."""
+    argv = ["--plugin", plugin, *params, "--size", "65536", "--iterations",
+            "2", "--workload", workload, "-e", "1"]
+    out = io.StringIO()
+    opts = ec_benchmark._parse(argv + ["-P", f"backend={backend}",
+                                       "--device", "cpu"])
+    dt = ec_benchmark.run(opts, out=out)
+    seconds, kib = out.getvalue().strip().split("\t")
+    assert float(seconds) == pytest.approx(dt, rel=1e-3) and dt > 0
+    jout = io.StringIO()
+    jax_cli.run(jax_cli._parse(argv), out=jout)
+    assert kib == jout.getvalue().strip().split("\t")[1] == "128"
+    code = create_erasure_code(dict(opts["parameters"], plugin=plugin),
+                               device="cpu")
+    obj = ec_benchmark.object_input(code, np.zeros(8, np.uint8))
+    assert isinstance(obj, torch.Tensor) == (backend == "torch")
+
+
+@pytest.mark.parametrize("plugin", ["jax", "jerasure", "isa"])
+def test_cli_rs_object_stays_on_host(plugin):
+    """With the device engine an RS plugin's object stays host bytes, given
+    to every call as the JAX CLI gives it; only the layered codes get a
+    tensor on the engine's device."""
+    code = create_erasure_code({"plugin": plugin, "k": "4", "m": "2",
+                                "backend": "torch"}, device="cpu")
+    assert isinstance(code.engine, TorchEngine)
+    data = np.zeros(8, np.uint8)
+    assert ec_benchmark.object_input(code, data) is data
