@@ -152,7 +152,9 @@ class DeviceState:
                     rows[torch.from_numpy(seeds).to(rows.device)] = \
                         torch.from_numpy(fix_rows).to(rows.device)
             else:
-                rows = torch.as_tensor(rows, device=device)
+                # a copy: `commit` writes the rows in place, and the
+                # source's rows (a ClusterState's cache) stay as they are
+                rows = torch.as_tensor(rows, device=device).clone()
             self.rows[pid] = rows
             self.pg_num[pid] = n
             counts += reduce.osd_histogram(rows[:n], self.max_osd,

@@ -15,11 +15,11 @@ parameters: clay (`-P d=`), shec (`-P c=`), lrc (`-P l=`, or `-P
 mapping=` with `-P layers=`).
 
 Prints "<seconds>\t<KiB processed>" like the reference.  `--device`
-(default cuda) is where the device engine runs; plugin jax uses it by
-default, the others with `-P backend=torch`.  With the device engine a
-layered code's object is put on that device once, before the timed loop
-(numpy input would run it on the host); the other plugins get the host
-bytes on every call, as the JAX CLI gives them.
+(default cuda) is where the device engine runs, every plugin's engine
+unless `-P backend=numpy` asks for the host.  With the device engine a
+layered code's object is put on that device once, before the timed loop;
+the other plugins get the host bytes on every call, as the JAX CLI gives
+them (each call uploads them and reads the result back).
 """
 
 from __future__ import annotations
@@ -119,11 +119,11 @@ def _engines(code) -> list:
 
 
 def object_input(code, data: np.ndarray):
-    """The object as the timed loop hands it to the code.  A layered code
-    (clay, shec, lrc) computes numpy input on the host, as the JAX package
-    does, so when every engine of it is the device engine it takes a
-    tensor on that engine's device, put there once.  The other plugins
-    take the host bytes on every call, as the JAX CLI passes them."""
+    """The object as the timed loop hands it to the code.  When every
+    engine of a layered code (clay, shec, lrc) is the device engine, it
+    takes a tensor on that engine's device, put there once.  The other
+    plugins take the host bytes on every call, as the JAX CLI passes
+    them."""
     engines = _engines(code)
     if isinstance(code, (ClayCode, ShecCode, LrcCode)) and all(
             isinstance(e, TorchEngine) for e in engines):

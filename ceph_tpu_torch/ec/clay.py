@@ -16,12 +16,13 @@ helpers and reads a 1/q fraction of each (reference minimum_to_repair
 - The layered decode walks planes in intersection-score order, the
   reference's schedule (decode_layered :647).
 
-Where each product runs: numpy in gives numpy out, computed as the JAX
-package computes it (the per-plane pair and MDS products on the host, the
-batched repair on the engine).  Tensors stay on their device: every
-product goes through the engine, which is the Hopper kernel on a CUDA
-tensor and its plain version on a CPU tensor; a host-only engine refuses
-a CUDA tensor.
+Where each product runs: every product goes through the engine, which is
+the Hopper kernel on a CUDA tensor and its plain version on a CPU tensor;
+the device engine is the default.  Tensors stay on their device.  Numpy
+in gives numpy out: with the device engine a call uploads its input to
+the engine's device once and reads its result back once; with
+`backend=numpy` it computes on the host as the JAX package does (a host
+engine refuses a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -30,15 +31,17 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.ec import matrices
-from ceph_tpu_torch.ec.gf import GF_MUL_TABLE, gf_matvec_data
+from ceph_tpu_torch.ec.gf import GF_MUL_TABLE
 from ceph_tpu_torch.ec.interface import (
     ErasureCode,
     ErasureCodeProfileError,
     _as_u8,
     _is_tensor,
     _stack,
+    _to_tensor,
 )
-from ceph_tpu_torch.ec.rs import _concat, get_engine
+from ceph_tpu_torch.ec.rs import DEFAULT_BACKEND, _concat, get_engine
+from ceph_tpu_torch.ec.torch_backend import TorchEngine
 
 
 def _zeros(shape, like):
@@ -143,7 +146,8 @@ class ClayCode(ErasureCode):
             )
         self.mds_C = maker(k + self.nu, m)
         self.pft = _PairTransform()
-        self.engine = get_engine(profile.get("backend", "numpy"), self.device)
+        self.engine = get_engine(profile.get("backend", DEFAULT_BACKEND),
+                                 self.device)
         self._repair_plans.clear()  # geometry may have changed
 
     def get_sub_chunk_count(self) -> int:
@@ -153,12 +157,16 @@ class ClayCode(ErasureCode):
         # sub_chunk_no * k * inner alignment (reference get_chunk_size)
         return self.sub_chunk_no * self.k * self.w * 4
 
-    def _product(self, M: np.ndarray, X):
-        """A per-plane product: host table math for numpy (as the JAX
-        package computes it), the engine for a tensor."""
-        if _is_tensor(X):
-            return self.engine.matmul(M, X)
-        return gf_matvec_data(M, X)
+    def _uploads(self, chunks) -> bool:
+        """Whether a call's input is host bytes for the device engine: the
+        call then runs on tensors on the engine's device (`_upload`) and
+        gives numpy back."""
+        return isinstance(self.engine, TorchEngine) and not any(
+            _is_tensor(c) for c in chunks)
+
+    def _upload(self, chunks: dict) -> dict:
+        return {i: _to_tensor(c, self.engine.device)
+                for i, c in chunks.items()}
 
     # -- plane geometry ----------------------------------------------------
     def _z_vec(self, z: int) -> list[int]:
@@ -190,7 +198,7 @@ class ClayCode(ErasureCode):
         present = sorted(set(range(n)) - erased)[: self.k + self.nu]
         missing = sorted(erased)
         R = matrices.recover_matrix(self.mds_C, present, missing)
-        out = self._product(R, _stack([U[i][z] for i in present], 0))
+        out = self.engine.matmul(R, _stack([U[i][z] for i in present], 0))
         for row, i in zip(out, missing):
             U[i][z] = row
 
@@ -258,7 +266,7 @@ class ClayCode(ErasureCode):
         z_sw = self._z_sw(z, x, y, zv)
         c_xy, c_sw, u_xy, u_sw = self._pair_indices(x, zv[y])
         known = {c_sw: chunks[node_sw][z_sw], u_xy: U[node_xy][z]}
-        (rec,) = self.pft.recover(known, [c_xy], self._product)
+        (rec,) = self.pft.recover(known, [c_xy], self.engine.matmul)
         chunks[node_xy][z] = rec
 
     def _coupled_from_uncoupled(self, chunks, U, x, y, z, zv):
@@ -269,7 +277,7 @@ class ClayCode(ErasureCode):
         # no index swap here (reference get_coupled_from_uncoupled asserts
         # zv[y] < x): position 0 <-> node_xy, 1 <-> node_sw
         known = {2: U[node_xy][z], 3: U[node_sw][z_sw]}
-        rec0, rec1 = self.pft.recover(known, [0, 1], self._product)
+        rec0, rec1 = self.pft.recover(known, [0, 1], self.engine.matmul)
         chunks[node_xy][z] = rec0
         chunks[node_sw][z_sw] = rec1
 
@@ -280,7 +288,7 @@ class ClayCode(ErasureCode):
         z_sw = self._z_sw(z, x, y, zv)
         c_xy, c_sw, u_xy, u_sw = self._pair_indices(x, zv[y])
         known = {c_xy: chunks[node_xy][z], c_sw: chunks[node_sw][z_sw]}
-        rec_lo, rec_hi = self.pft.recover(known, [2, 3], self._product)
+        rec_lo, rec_hi = self.pft.recover(known, [2, 3], self.engine.matmul)
         rec = {2: rec_lo, 3: rec_hi}
         U[node_xy][z] = rec[u_xy]
         U[node_sw][z_sw] = rec[u_sw]
@@ -309,6 +317,9 @@ class ClayCode(ErasureCode):
         """[k, cs] data rows -> [k+m, cs] all chunks."""
         k, m = self.k, self.m
         data = _as_u8(data)
+        if self._uploads([data]):
+            return self.encode_chunks(
+                _to_tensor(data, self.engine.device)).cpu().numpy()
         cs = data.shape[1]
         if data.shape[0] != k or cs % self.sub_chunk_no:
             raise ValueError(
@@ -328,6 +339,10 @@ class ClayCode(ErasureCode):
         k, m = self.k, self.m
         if len(chunks) < k:
             raise ValueError(f"cannot decode: {len(chunks)} < k={k}")
+        if self._uploads(chunks.values()):
+            out = self.decode_chunks(want_to_read, self._upload(chunks),
+                                     chunk_size)
+            return {i: c.cpu().numpy() for i, c in out.items()}
         erased = {self._node(i) for i in range(k + m) if i not in chunks}
         nodes = self._to_nodes({i: _as_u8(c) for i, c in chunks.items()},
                                chunk_size // self.sub_chunk_no)
@@ -405,6 +420,10 @@ class ClayCode(ErasureCode):
                 f"repair rebuilds one chunk from d={self.d} helpers, got "
                 f"{sorted(want_to_read)} from {len(helper_chunks)}"
             )
+        if self._uploads(helper_chunks.values()):
+            out = self.repair(want_to_read, self._upload(helper_chunks),
+                              chunk_size)
+            return {i: c.cpu().numpy() for i, c in out.items()}
         q, t = self.q, self.t
         i = next(iter(want_to_read))
         lost = self._node(i)
@@ -477,7 +496,7 @@ class ClayCode(ErasureCode):
                                 u_sw: U[node_sw][z_sw],
                             }
                             (rec,) = self.pft.recover(
-                                known, [u_xy], self._product
+                                known, [u_xy], self.engine.matmul
                             )
                             U[node_xy][z] = rec
                         elif zv[y] != x:
@@ -486,7 +505,7 @@ class ClayCode(ErasureCode):
                                 c_sw: helpers[node_sw][plane_pos[z_sw]],
                             }
                             rec_lo, rec_hi = self.pft.recover(
-                                known, [2, 3], self._product
+                                known, [2, 3], self.engine.matmul
                             )
                             U[node_xy][z] = {2: rec_lo, 3: rec_hi}[u_xy]
                         else:
@@ -510,7 +529,7 @@ class ClayCode(ErasureCode):
                             u_xy: U[nd][z],
                         }
                         (rec,) = self.pft.recover(
-                            known, [c_sw], self._product
+                            known, [c_sw], self.engine.matmul
                         )
                         recovered[z_sw] = rec
         return {i: recovered.reshape(-1)}

@@ -11,10 +11,12 @@ Plugins:
   example   -> toy XOR(k, m=1) code
   clay / shec / lrc -> the layered codes (ec.clay / ec.shec / ec.lrc)
 
-profile["backend"] picks the per-stripe engine: `numpy` (host, the
-jerasure/isa/clay/shec default) or `torch` (the device engine; `jax` is
-accepted as an alias, so the JAX package's profiles carry over).  lrc
-passes its backend and device on to its layers.
+profile["backend"] picks the per-stripe engine: `torch` (the device
+engine, every plugin's default; `jax` is accepted as an alias, so the JAX
+package's profiles carry over) or `numpy` (the host, asked for by name).
+The device engine runs on `device`: the card unless the caller passes
+"cpu", and without a card `create_erasure_code` raises.  lrc passes its
+backend and device on to its layers.
 """
 
 from __future__ import annotations

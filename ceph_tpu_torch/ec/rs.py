@@ -4,9 +4,12 @@ Port of `ceph_tpu/ec/rs.py`: the jerasure and isa techniques that are
 plain generator-matrix codes.  Encode is C·data; decode inverts the
 surviving rows of [I;C].  The per-stripe math runs on an engine: numpy on
 the host, or `TorchEngine`, whose GF matmul is the Hopper kernel on a
-CUDA tensor and its plain torch version on a CPU tensor.
+CUDA tensor and its plain torch version on a CPU tensor.  The device
+engine is the default (`DEFAULT_BACKEND`); `backend=numpy` is the
+explicit host choice.
 
-Numpy in gives numpy out; tensors stay tensors on their device.
+Numpy in gives numpy out, computed on the engine's device; tensors stay
+tensors on their device.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ class NumpyEngine:
 # profile["backend"] -> engine; "jax" is the JAX package's name for the
 # device engine, so its profiles carry over unchanged
 _DEVICE_BACKENDS = ("torch", "jax")
+# every plugin's engine when the profile names none: the device engine,
+# on the code's device (the card unless the caller asked for the CPU)
+DEFAULT_BACKEND = "torch"
 
 
 def get_engine(name: str, device=None):
@@ -125,7 +131,8 @@ class RSErasureCode(ErasureCode):
                     f"unknown technique {self.technique!r}"
                 )
             self.C = make(self.k, self.m)
-        self.engine = get_engine(profile.get("backend", "numpy"), self.device)
+        self.engine = get_engine(profile.get("backend", DEFAULT_BACKEND),
+                                 self.device)
         # upload the encode matrix's kernel tables now, before any stripe
         if hasattr(self.engine, "prepare"):
             self.engine.prepare(self.C)

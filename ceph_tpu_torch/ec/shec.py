@@ -9,9 +9,11 @@ splits the parities into two groups (m1,c1)/(m2,c2) chosen to minimise
 the reference's recovery-efficiency metric
 (shec_calc_recovery_efficiency1).
 
-Defaults k=4, m=3, c=2 (reference ErasureCodeShec.h:47-57).  Numpy in
-gives numpy out, the JAX package's bytes; tensors stay on their device
-and every product of theirs goes through the engine.
+Defaults k=4, m=3, c=2 (reference ErasureCodeShec.h:47-57), on the
+device engine unless the profile says `backend=numpy`.  Numpy in gives
+numpy out, the JAX package's bytes, each product's operands uploaded to
+the engine's device; tensors stay on their device.  Every product goes
+through the engine.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ceph_tpu_torch.ec.interface import (
     _as_u8,
     _stack,
 )
-from ceph_tpu_torch.ec.rs import _concat, get_engine
+from ceph_tpu_torch.ec.rs import DEFAULT_BACKEND, _concat, get_engine
 
 
 def _zero_shingles(M: np.ndarray, rows: range, mm: int, cc: int) -> None:
@@ -96,8 +98,8 @@ def shec_matrix(k: int, m: int, c: int, single: bool = False) -> np.ndarray:
 
 class ShecCode(ErasureCode):
     """plugin=shec; profile: k=4, m=3, c=2, technique=multiple|single,
-    backend=numpy|torch (the per-stripe products ride the engines of
-    ec.rs)."""
+    backend=torch|numpy (the per-stripe products ride the engines of
+    ec.rs; the device engine by default)."""
 
     def __init__(self):
         super().__init__()
@@ -126,7 +128,8 @@ class ShecCode(ErasureCode):
         self.C = shec_matrix(
             self.k, self.m, self.c, single=(technique == "single")
         )
-        self.engine = get_engine(profile.get("backend", "numpy"), self.device)
+        self.engine = get_engine(profile.get("backend", DEFAULT_BACKEND),
+                                 self.device)
         if hasattr(self.engine, "prepare"):
             self.engine.prepare(self.C)
 

@@ -207,15 +207,28 @@ class PoolMapper:
     With `overlays=False` no overlay is frozen or uploaded: the mapper
     maps the map as if it had none (the balancer's and `map_all_device`'s
     form; callers scatter in `overlay_fixup_rows`).
+
+    `state` (an `osd.state.ClusterState` of `m`) makes the mapper the
+    state's: it runs on the state's device, takes the state's tables of
+    its choose_args group and reads the state's per-OSD vectors, and
+    uploads nothing of its own; `refresh_dev` rebinds the vectors.  It
+    always runs the primary-affinity stage (on an all-default vector it
+    changes nothing), so a first affinity delta is an operand update.
     """
 
     def __init__(self, m: OSDMap, pool_id: int, device=None,
-                 overlays: bool = True):
-        self.device = resolve_device(device)
+                 overlays: bool = True, state=None):
+        self._state = state
+        self.device = (state.device if state is not None
+                       else resolve_device(device))
         self.m = m
         self.pool_id = pool_id
-        ca = m.crush.choose_args.get(pool_id, m.crush.choose_args.get(-1))
-        self.arrays = build_arrays(m.crush, ca)
+        if state is not None:
+            self.arrays = state.arrays_for(pool_id)
+        else:
+            ca = m.crush.choose_args.get(pool_id,
+                                         m.crush.choose_args.get(-1))
+            self.arrays = build_arrays(m.crush, ca)
         self.ov = build_overlays(m, pool_id) if overlays else Overlays()
         self.spec = PoolSpec.for_pool(
             m, pool_id, extra_width=self.ov.extra_width
@@ -223,15 +236,22 @@ class PoolMapper:
         self.prog = (compile_rule(self.arrays, self.spec.ruleno,
                                   self.spec.size)
                      if self.spec.ruleno >= 0 else None)
-        self.tables = to_device(self.arrays, self.device)
+        self.tables = (state.device_tables_for(pool_id)
+                       if state is not None
+                       else to_device(self.arrays, self.device))
         self._ov = {k: torch.from_numpy(v).long().to(self.device)
                     for k, v in vars(self.ov).items() if v is not None}
-        self.with_primary_affinity = m.osd_primary_affinity is not None
+        self.with_primary_affinity = (m.osd_primary_affinity is not None
+                                      or state is not None)
         self.refresh_dev()
 
     def refresh_dev(self) -> None:
         """(Re)upload the padded per-OSD vectors from the map's current
-        osd state, weight and primary affinity."""
+        osd state, weight and primary affinity; a state's mapper rebinds
+        the state's vectors instead."""
+        if self._state is not None:
+            self.dev = self._state.vectors
+            return
         dv = self.m.frozen_vectors()
         DV = max(self.arrays.max_devices, self.m.max_osd, 1)
 

@@ -12,15 +12,22 @@ with none), drives the erasure-coding path (the RS corpus profiles,
 RS(8,4) encode/decode at full size, the clay, shec and lrc corpus
 profiles, BASELINE config 4's Clay(8,4,11) encode and minimum-bandwidth
 repair of every chunk at a 4 MiB stripe, the benchmark CLI on RS, clay,
-shec and lrc) and the
+shec and lrc, then every plugin through a profile that names no backend,
+whose default is the device engine, and the RS CLI lines on that default
+beside `backend=numpy`) and the
 placement path (the placement corpus, then BASELINE configs 2 and 5
 through `PoolMapper`, then the legacy bucket draws on maps of config 5's
 shape, then the placement CLIs `crushtool --test` and `osdmaptool
 --test-map-pgs` on configs 1, 2 and 5, and `osdmaptool --upmap` on config
 2) and the upmap balancer (`calc_pg_upmaps` on config 2 with every
 backend, then three device_loop rounds of config 5, the rebalance of
-BASELINE.json's north-star workload) through the entry points a user
-calls, and prints one JSON object per phase.  Any failure raises and
+BASELINE.json's north-star workload) and the mgr balancer on a
+ClusterState (`mgr_balancer`: config 5's eval, upmap plan and execute
+and two value-only Incrementals applied in O(delta), each step's rows
+held to a fresh state and the host oracle; crush-compat and the
+`balancer` CLI on config 2; tests/data/mgr_corpus.json on the card)
+through the entry points a user calls, and prints one JSON object per
+phase.  Any failure raises and
 exits non-zero.
 
 The line before the last is the kernels line (each kernel's launches on
@@ -50,6 +57,7 @@ import torch
 from ceph_tpu_torch import build
 from ceph_tpu_torch.balancer import calc_pg_upmaps, state, upmap
 from ceph_tpu_torch.balancer.crush_analysis import get_rule_weight_osd_map
+from ceph_tpu_torch.cli import balancer as balancer_cli
 from ceph_tpu_torch.cli import crushtool, ec_benchmark, osdmaptool
 from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.crush import mapper, soa
@@ -64,10 +72,14 @@ from ceph_tpu_torch.ec.torch_backend import (
     product_tables,
 )
 
+from ceph_tpu_torch.mgr import Balancer, MappingState, synthetic_pg_stats
 from ceph_tpu_torch.osd.carry import crush_from_reference, osdmap_from_reference
+from ceph_tpu_torch.osd.incremental import Incremental, encode_incremental
 from ceph_tpu_torch.osd.io import save_osdmap
-from ceph_tpu_torch.osd.osdmap import build_hierarchical
+from ceph_tpu_torch.osd.osdmap import OSD_UP, build_hierarchical
 from ceph_tpu_torch.osd.pipeline import PoolMapper
+from ceph_tpu_torch.osd.state import COUNTERS as state_counters
+from ceph_tpu_torch.osd.state import ClusterState
 from ceph_tpu_torch.osd.types import PgPool, PoolType
 
 ROOT = Path(__file__).resolve().parent
@@ -1484,6 +1496,385 @@ def phase_balancer_main(dev, peak: float) -> dict:
     return launches, res
 
 
+# -- EC: every plugin's default engine ----------------------------------------
+
+RS_CLI_SIZE = 16 * MiB  # the RS CLI lines' object, as in phase_cli
+# a profile of each plugin that names no backend: the device engine
+EC_DEFAULTS = {
+    "jerasure": {"plugin": "jerasure", "k": "8", "m": "4"},
+    "isa": {"plugin": "isa", "k": "8", "m": "4"},
+    "clay": {"plugin": "clay", "k": "8", "m": "4", "d": "11"},
+    "shec": {"plugin": "shec", "k": "4", "m": "3", "c": "2"},
+    "lrc": {"plugin": "lrc", "k": "4", "m": "2", "l": "3"},
+}
+
+
+def rs_cli_argv(plugin: str, workload: str, backend: str | None,
+                iterations: int, dev) -> list[str]:
+    argv = ["--plugin", plugin, "-P", "k=8", "-P", "m=4", "--size",
+            str(RS_CLI_SIZE), "--iterations", str(iterations),
+            "--workload", workload, "--device", str(dev)]
+    if workload == "decode":
+        argv += ["-e", "2"]
+    if backend is not None:
+        argv += ["-P", f"backend={backend}"]
+    return argv
+
+
+def phase_ec_defaults(dev) -> dict:
+    """Each plugin through a profile that names no backend: every engine
+    of it is the device engine on the card, and numpy in gives numpy out,
+    equal to `backend=numpy`'s host bytes, for the encode of a 1 MiB
+    object and a decode with its first and last chunks lost; its kernel
+    launches are the products the same calls run on the CPU.  Then the
+    RS CLI lines (jerasure, isa; encode and decode of 160 MiB) on the
+    default engine and on `backend=numpy`, the default before, in turns:
+    default, host, host, default."""
+    launches, rng = {}, np.random.default_rng(11)
+    obj = rng.integers(0, 256, MiB, dtype=np.uint8).tobytes()
+    for plugin, prof in EC_DEFAULTS.items():
+        code = create_erasure_code(dict(prof), device=dev)
+        check(all(isinstance(e, TorchEngine) and e.device.type == dev.type
+                  for e in ec_benchmark._engines(code)),
+              f"{plugin}: the default engine is the device engine")
+        n = code.get_chunk_count()
+
+        def drive(c):
+            enc = c.encode(set(range(n)), obj)
+            have = {i: v for i, v in enc.items() if i not in (0, n - 1)}
+            return enc, c.decode(set(range(n)), have)
+
+        want = drive(create_erasure_code(dict(prof, backend="numpy"),
+                                         device=dev))
+        expected = cpu_products(lambda: drive(
+            create_erasure_code(dict(prof), device="cpu")))
+        got, launches[plugin] = counted(expected, f"{plugin} default",
+                                        lambda: drive(code))
+        for g, w in zip(got, want):
+            check(sorted(g) == sorted(w) and all(
+                isinstance(g[i], np.ndarray) and np.array_equal(g[i], w[i])
+                for i in w), f"{plugin} default: numpy out, the host bytes")
+    lines = {}
+    iterations, k = 10, 8
+    for plugin in ("jerasure", "isa"):
+        for workload in ("encode", "decode"):
+            opts = ec_benchmark._parse(rs_cli_argv(plugin, workload, None,
+                                                   iterations, dev))
+            _, patterns = ec_benchmark.workload_inputs(opts, k + 4)
+            expected = iterations if workload == "encode" else 1 + sum(
+                any(i < k for i in patterns[it % len(patterns)])
+                for it in range(iterations))
+            for turn, backend in enumerate((None, "numpy", "numpy", None)):
+                buf = io.StringIO()
+                _, n = counted(
+                    expected if backend is None else 0,
+                    f"CLI {plugin} {workload} backend={backend}",
+                    lambda: ec_benchmark.run(ec_benchmark._parse(
+                        rs_cli_argv(plugin, workload, backend, iterations,
+                                    dev)),
+                        out=buf))
+                line = buf.getvalue().strip()
+                key = f"{plugin}_{workload}_{backend or 'default'}"
+                lines.setdefault(key, []).append(line)
+                if backend is None and turn == 0:
+                    launches[f"cli_{plugin}_{workload}"] = n
+    emit({"phase": "ec_defaults", "launches": launches,
+          "rs_cli_seconds_kib": lines})
+    for key, ls in lines.items():
+        print(f"ec_benchmark {key}: {ls}", flush=True)
+    return launches
+
+
+# -- the mgr balancer on ClusterState -----------------------------------------
+
+MGR_CORPUS = ROOT / "tests" / "data" / "mgr_corpus.json"
+MGR_SAMPLE = 512  # sampled seeds held to the host oracle at config 5
+MGR_DOWN = 8  # OSDs marked down by the scatter-path Incremental
+
+
+def rows_digest(rows) -> str:
+    return hashlib.sha256(np.ascontiguousarray(
+        rows.cpu().numpy(), np.int32).tobytes()).hexdigest()
+
+
+def mgr_scores(pe) -> dict:
+    return {"score": pe.score, "score_by_root": pe.score_by_root,
+            "score_by_pool": pe.score_by_pool}
+
+
+def mgr_case(case, dev, with_state: bool) -> dict:
+    """tests/test_torch_mgr_balancer.py::run_case on the card (mapper
+    "torch"; with_state: a ClusterState behind the MappingState, the plan
+    executed into it)."""
+    name, spec, mode, options, seed, stale = case
+    m = balancer_cli.build_synthetic(spec)
+    st = ClusterState(m, device=dev) if with_state else None
+    ms = MappingState(m, synthetic_pg_stats(m), desc="current",
+                      mapper="torch", device=dev, state=st)
+    bal = Balancer(options=dict(options), rng=np.random.default_rng(seed))
+    pe0 = bal.eval(ms)
+    out = {"eval": mgr_scores(pe0), "eval_show": pe0.show(verbose=True)}
+    if mode is None:
+        return out
+    weights = list(m.osd_weight)
+    plan = bal.plan_create("p", ms, mode=mode)
+    rc, detail = bal.optimize(plan)
+    out.update(rc=rc, detail=detail, show=plan.show())
+    if rc != 0:
+        out["restored"] = (-1 not in plan.osdmap.crush.choose_args
+                           and plan.osdmap.osd_weight == weights)
+        return out
+    pe1 = plan.final_eval or bal.eval(plan.final_state())
+    out["final"] = mgr_scores(pe1)
+    out["inc_sha256"] = hashlib.sha256(
+        encode_incremental(plan.finalize_inc())).hexdigest()
+    if stale:
+        m.epoch += 1
+    rc, detail = bal.execute(plan, m, state=st)
+    out["execute"] = [rc, detail]
+    if rc == 0:
+        rows = (st.rows(0)[0] if st is not None else MappingState(
+            m, mapper="torch", device=dev).pool_up_device(0))
+        out["rows_sha256"] = rows_digest(rows)
+    return out
+
+
+def mgr_cli_cases(corpus: dict, tmp: Path, dev) -> dict:
+    """The corpus's CLI cases in order in `tmp`, `--mapper host` replaced
+    by `--mapper torch --device <dev>`: {name: {"rc", "stdout",
+    "files"}}."""
+    out = {}
+    for name, argv, files in corpus["cli_inputs"]:
+        argv = [str(tmp / a) if a.endswith((".inc", ".bin")) else a
+                for a in argv]
+        if "--mapper" in argv:
+            i = argv.index("--mapper")
+            argv[i:i + 2] = ["--mapper", "torch", "--device", str(dev)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = balancer_cli.main(argv)
+        out[name] = {"rc": rc,
+                     "stdout": buf.getvalue().replace(f"{tmp}/", ""),
+                     "files": {f: hashlib.sha256(
+                         (tmp / f).read_bytes()).hexdigest() for f in files}}
+    return out
+
+
+def timed(fn):
+    """fn() synchronised on both sides, with the rule kernel's launch
+    count set to 0 just before and read just after: (out, s, launches)."""
+    torch.cuda.synchronize()
+    mapper.crush_rule_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, mapper.crush_rule_cuda.launches
+
+
+def state_rows_checked(st, step: str, seeds: np.ndarray, dev) -> dict:
+    """Hold a state's rows of pool 0 to a fresh ClusterState on the same
+    map (bit-equal) and, on every overlay seed and the sampled seeds, to
+    `host_up`.  Outside the counted windows; `check_s` is its host-clock
+    seconds (the host oracle's descents, memoised by `host_up` until a
+    descent input changes)."""
+    t0 = time.perf_counter()
+    rows = st.rows(0)[0]
+    fresh = ClusterState(st.m, device=dev).rows(0)[0]
+    check(torch.equal(rows, fresh),
+          f"mgr {step}: rows == a fresh ClusterState's")
+    over = np.asarray(st._overlay_seeds(0), np.int64)
+    seeds = np.union1d(seeds, over)
+    got = rows[torch.from_numpy(seeds).to(dev)].cpu().numpy()
+    for s, row in zip(seeds.tolist(), got):
+        check([int(o) for o in row if o != ITEM_NONE] == st.host_up(0, s),
+              f"mgr {step}: seed {s} == host_up")
+    return {"overlay_seeds": len(over), "checked_seeds": len(seeds),
+            "check_s": time.perf_counter() - t0}
+
+
+def phase_mgr_balancer(dev, smi: str) -> dict:
+    """The mgr balancer on ClusterState.  Config 5 (10M PGs, 10k OSDs):
+    the state and a MappingState on it, an eval, an upmap plan
+    (device_loop, 16 candidates, 10 optimizations) executed into the
+    state (one delta, no rebuild), then two value-only Incrementals
+    through `state.apply`: 8 OSDs marked down (the 32-lane scatter) and
+    2 % reweighted to 0.85 (a vector re-upload).  After each step the
+    rows equal a fresh state's, and the overlay seeds and MGR_SAMPLE
+    sampled seeds `host_up`.  Then crush-compat on config 2 with 25
+    iterations, the balancer CLI on config 2 (optimize --plan-out, show,
+    execute), and every entry of tests/data/mgr_corpus.json on the card.
+    Each step's rule kernel launches are counted from 0."""
+    launches, steps = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    n_pgs, n_osds = CONFIGS["config5"]
+    m = bench_map(n_pgs, n_osds)
+    st, s, n = timed(lambda: ClusterState(m, device=dev))
+    steps["state_build"] = {"s": s, "launches": n}
+    _, s, n = timed(lambda: st.rows(0))
+    steps["first_rows"] = {"s": s, "launches": n}
+    check(n == 1, "mgr: the first rows are one launch")
+    ms = MappingState(m, synthetic_pg_stats(m, objects_per_pg=64),
+                      mapper="torch", state=st)
+    bal = Balancer(options={"upmap_state_backend": "device_loop",
+                            "upmap_candidate_batch": 16,
+                            "upmap_max_optimizations": 10},
+                   rng=np.random.default_rng(0))
+    pe0, s, n = timed(lambda: bal.eval(ms))
+    steps["eval"] = {"s": s, "launches": n, "score": pe0.score}
+    check(n == 0 and 0 < pe0.score < 1, "mgr eval: the state's rows, "
+          "no launch, a score in (0, 1)")
+    plan = bal.plan_create("p", ms, mode="upmap")
+    (rc, detail), s, n = timed(lambda: bal.optimize(plan))
+    steps["optimize"] = {"s": s, "launches": n,
+                         "changes": len(plan.inc.new_pg_upmap_items)}
+    check(rc == 0 and n == 0 and 0 < len(plan.inc.new_pg_upmap_items) <= 10,
+          f"mgr optimize: rc {rc} ({detail}), the state's rows")
+    c0 = dict(state_counters)
+    (rc, _), s, n = timed(lambda: bal.execute(plan, st.m, state=st))
+    steps["execute"] = {"s": s, "launches": n,
+                        "device_put_bytes": state_counters[
+                            "device_put_bytes"] - c0["device_put_bytes"]}
+    check(rc == 0 and (st.delta_applies, st.full_rebuilds) == (1, 1)
+          and steps["execute"]["device_put_bytes"] == 0,
+          "mgr execute: one delta, no rebuild, no upload")
+    rng = np.random.default_rng(5)
+    seeds = np.unique(rng.integers(0, n_pgs, MGR_SAMPLE))
+    _, s, n = timed(lambda: st.rows(0))
+    steps["execute"].update(rows_s=s, rows_launches=n)
+    check(n == 1, "mgr execute: the rows after it are one raw launch")
+    steps["execute"].update(state_rows_checked(st, "execute", seeds, dev))
+    pe1 = bal.eval(MappingState(st.m, ms.pg_stats, state=st))
+    steps["execute"]["score"] = pe1.score
+    up = [o for o in range(n_osds) if st.m.is_up(o)]
+    incs = {
+        "down": lambda inc: inc.new_state.update(
+            {int(o): OSD_UP for o in rng.choice(up, MGR_DOWN,
+                                                replace=False)}),
+        "reweight": lambda inc: inc.new_weight.update(
+            {int(o): int(0x10000 * 0.85) for o in rng.choice(
+                n_osds, n_osds // 50, replace=False)}),
+    }
+    rows_launches = {"down": 1, "reweight": 2}  # reweights change raw rows
+    for step, fill in incs.items():
+        inc = Incremental(epoch=st.m.epoch + 1)
+        fill(inc)
+        # O(delta): one 32-lane block of the four vectors and the index
+        # (14 B a lane), or, past 32 OSDs, one re-upload of the vectors
+        # (DV + 1 entries of 1 + 1 + 4 + 4 B)
+        k = len(inc.new_state) + len(inc.new_weight)
+        uploads = (32 * 14 if k <= 32 and 2 * k < st.DV
+                   else (st.DV + 1) * 10)
+        c0 = dict(state_counters)
+        kind, s, n = timed(lambda: st.apply(inc))
+        put = state_counters["device_put_bytes"] - c0["device_put_bytes"]
+        _, rs, rn = timed(lambda: st.rows(0))
+        steps[step] = {"kind": kind, "apply_s": s, "launches": n,
+                       "device_put_bytes": put, "rows_s": rs,
+                       "rows_launches": rn}
+        check(kind == "delta" and n == 0 and put == uploads
+              and rn == rows_launches[step],
+              f"mgr {step}: {kind}, {put} bytes up (O(delta): "
+              f"{uploads}), rows {rn} launches")
+        steps[step].update(state_rows_checked(st, step, seeds, dev))
+    check((st.full_rebuilds, st.delta_applies) == (1, 3),
+          "mgr: one build, three deltas")
+    for step in ("execute", "down", "reweight"):
+        launches[f"mgr_config5_{step}"] = steps[step]["rows_launches"]
+    launches["mgr_config5_first_rows"] = steps["first_rows"]["launches"]
+    peak = torch.cuda.max_memory_allocated()
+
+    # crush-compat on config 2 with the default 25 iterations, executed
+    # into a ClusterState
+    m2 = bench_map(*CONFIGS["config2"])
+    st2 = ClusterState(m2, device=dev)
+    ms2 = MappingState(m2, synthetic_pg_stats(m2), state=st2)
+    bal2 = Balancer(rng=np.random.default_rng(7))
+    plan2 = bal2.plan_create("c", ms2, mode="crush-compat")
+    score0 = bal2.eval(ms2).score
+    (rc, detail), s, n = timed(lambda: bal2.optimize(plan2))
+    check(rc == 0, f"mgr crush-compat config2: rc {rc} ({detail})")
+    check(plan2.final_eval.score < score0,
+          "mgr crush-compat config2: the plan's score is strictly better")
+    (rc, _), es, en = timed(lambda: bal2.execute(plan2, m2, state=st2))
+    rows = st2.rows(0)[0]
+    fresh = PoolMapper(st2.m, 0, device=dev,
+                       overlays=False).map_all_device()
+    check(rc == 0 and torch.equal(rows, fresh) and -1 in st2.m.crush
+          .choose_args, "mgr crush-compat config2: executed rows == a "
+          "fresh mapper's")
+    steps["compat_config2"] = {
+        "optimize_s": s, "launches": n, "execute_s": es,
+        "score": score0, "final_score": plan2.final_eval.score,
+        "weight_set_osds": len(plan2.compat_ws)}
+    launches["mgr_compat_config2"] = n
+
+    # the balancer CLI on config 2: optimize --plan-out, show, execute
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        save_osdmap(bench_map(*CONFIGS["config2"]), str(d / "c2.bin"))
+        cli = {}
+        for name, argv in (
+                ("optimize", ["-i", str(d / "c2.bin"), "optimize", "p",
+                              "--plan-out", str(d / "p.inc"),
+                              "--device", str(dev)]),
+                ("show", ["show", str(d / "p.inc")]),
+                ("execute", ["-i", str(d / "c2.bin"), "execute",
+                             str(d / "p.inc"), "-o", str(d / "o.bin")])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc, s, n = timed(lambda: balancer_cli.main(argv))
+            out = buf.getvalue()
+            check(rc == 0, f"balancer CLI {name}: rc {rc}")
+            cli[name] = {"s": s, "launches": n, "lines": len(
+                out.splitlines()), "last": out.splitlines()[-1]}
+            launches[f"mgr_cli_config2_{name}"] = n
+        check("score" in cli["optimize"]["last"] or "wrote" in
+              cli["optimize"]["last"], "balancer CLI optimize output")
+        check(cli["execute"]["last"].startswith("wrote epoch 2"),
+              "balancer CLI execute: the map moved one epoch")
+    steps["cli_config2"] = cli
+
+    # the corpus, on the card
+    corpus = json.loads(MGR_CORPUS.read_text())
+    for case in corpus["case_inputs"]:
+        want = corpus["cases"][case[0]]
+        for with_state in (False, True):
+            got = mgr_case(case, dev, with_state)
+            check(json.loads(json.dumps(got)) == want,
+                  f"mgr corpus {case[0]} (state {with_state}) == the JAX "
+                  f"package's")
+    with tempfile.TemporaryDirectory() as d:
+        check(mgr_cli_cases(corpus, Path(d), dev) == corpus["cli"],
+              "mgr corpus: the balancer CLI's stdout and files == the JAX "
+              "CLI's")
+    res = {"steps": steps, "peak_device_bytes": peak,
+           "corpus_cases": len(corpus["case_inputs"]),
+           "corpus_equal": True, "sample": MGR_SAMPLE}
+    emit(dict(phase="mgr_balancer", **res))
+    c5 = (f"config5: state {steps['state_build']['s'] * 1e3:.6f} ms, "
+          f"first rows {steps['first_rows']['s'] * 1e3:.6f} ms "
+          f"({steps['first_rows']['launches']} crush_rule launch), eval "
+          f"{steps['eval']['s']:.6f} s ({steps['eval']['launches']}), "
+          f"optimize {steps['optimize']['s']:.6f} s "
+          f"({steps['optimize']['launches']}), execute "
+          f"{steps['execute']['s']:.6f} s ({steps['execute']['launches']};"
+          f" rows after {steps['execute']['rows_s'] * 1e3:.6f} ms, "
+          f"{steps['execute']['rows_launches']})")
+    for step in ("down", "reweight"):
+        r = steps[step]
+        c5 += (f", {step} apply {r['apply_s'] * 1e3:.6f} ms "
+               f"({r['launches']}; rows after {r['rows_s'] * 1e3:.6f} ms, "
+               f"{r['rows_launches']}; {r['device_put_bytes']} B up)")
+    c2 = steps["compat_config2"]
+    print(f"mgr on {smi}: {c5}; peak device memory {peak} bytes; config2 "
+          f"crush-compat optimize {c2['optimize_s']:.6f} s "
+          f"({c2['launches']}), score {c2['score']!r} -> "
+          f"{c2['final_score']!r}; CLI " + ", ".join(
+              f"{k} {v['s']:.6f} s ({v['launches']})"
+              for k, v in steps["cli_config2"].items()), flush=True)
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1504,6 +1895,8 @@ def main() -> int:
     by_path.update({f"clay_config4_{key}": n
                     for key, n in clay_launches.items()})
     by_path.update({f"cli_{w}": n for w, n in phase_cli().items()})
+    by_path.update({f"ec_default_{key}": n
+                    for key, n in phase_ec_defaults(dev).items()})
 
     # placement: the same, for the rule kernel
     corpus = {e["name"]: e for e in
@@ -1520,6 +1913,8 @@ def main() -> int:
                        for key, r in cres.items()})
     bal_paths, bres = phase_balancer_main(dev, info["peak_bw"])
     rule_paths.update(bal_paths)
+    mgr_paths, mres = phase_mgr_balancer(dev, info["nvidia_smi"])
+    rule_paths.update(mgr_paths)
     torch.cuda.synchronize()
 
     b, c5 = res["b"], pres["config5"]
@@ -1588,6 +1983,10 @@ def main() -> int:
             "wall_s", "build_ms", "plan_ms", "plan_bound_ms",
             "plan_pass_ms", "launches", "loop_rounds", "host_syncs",
             "changes")} for r in bres["config5"]["rounds"]],
+        # the mgr balancer on ClusterState (config 5, then config 2's
+        # crush-compat plan and CLI): each step's seconds, launches and
+        # host-to-device bytes
+        "mgr": mres["steps"],
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,17 +33,19 @@ from ceph_tpu_torch.ec.torch_backend import TorchEngine  # noqa: E402
 from tools import ec_corpus  # noqa: E402
 
 # (plugin, technique or None, k, m, backend or None); backend None is the
-# plugin's default engine (jax: the device engine; jerasure/isa: numpy)
+# plugin's default engine, the device engine for every plugin
 PROFILES = [
     ("jax", None, 8, 4, None),
     ("jax", "cauchy_good", 4, 2, None),
     ("jerasure", "reed_sol_van", 8, 4, None),
     ("jerasure", "reed_sol_van", 8, 4, "jax"),
+    ("jerasure", "reed_sol_van", 8, 4, "numpy"),
     ("jerasure", "reed_sol_r6_op", 6, 2, "jax"),
     ("jerasure", "cauchy_orig", 7, 3, "jax"),
     ("jerasure", "cauchy_good", 4, 2, None),
     ("isa", "reed_sol_van", 8, 4, "jax"),
     ("isa", "cauchy", 4, 2, None),
+    ("isa", "cauchy", 4, 2, "numpy"),
 ]
 
 
@@ -83,10 +85,10 @@ def test_encode_decode_equal(p):
     jprof, prof = _profiles(p)
     jcode = jax_create(jprof)
     code = create_erasure_code(prof, device="cpu")
-    if p[4] or p[0] == "jax":
-        assert isinstance(code.engine, TorchEngine)
-    else:
+    if p[4] == "numpy":
         assert isinstance(code.engine, NumpyEngine)
+    else:
+        assert isinstance(code.engine, TorchEngine)
     assert np.array_equal(code.C, jcode.C)
     n = code.get_chunk_count()
     payload = np.random.default_rng(n).integers(0, 256, 5000, np.uint8)
@@ -153,8 +155,8 @@ def test_tensors_stay_tensors():
 def test_numpy_engine_keeps_to_the_host():
     """The host engine computes CPU tensors and refuses a tensor on any
     other device (a `meta` tensor stands in for one on the card)."""
-    code = create_erasure_code({"plugin": "jerasure", "k": "4", "m": "2"},
-                               device="cpu")
+    code = create_erasure_code({"plugin": "jerasure", "k": "4", "m": "2",
+                                "backend": "numpy"}, device="cpu")
     assert isinstance(code.engine, NumpyEngine)
     data = np.random.default_rng(6).integers(0, 256, (4, 900), np.uint8)
     enc = code.encode_chunks(torch.from_numpy(data))
@@ -389,3 +391,115 @@ def test_default_device_is_the_card():
 def test_profile_errors(profile, match):
     with pytest.raises(ErasureCodeProfileError, match=match):
         create_erasure_code(profile, device="cpu")
+
+
+# -- every plugin's default engine: the device engine -------------------------
+
+DEFAULT_PROFILES = {
+    "jerasure": {"plugin": "jerasure", "k": "4", "m": "2"},
+    "isa": {"plugin": "isa", "k": "4", "m": "2", "technique": "cauchy"},
+    "jax": {"plugin": "jax", "k": "4", "m": "2"},
+    "clay": {"plugin": "clay", "k": "4", "m": "2", "d": "5"},
+    "shec": {"plugin": "shec", "k": "4", "m": "3", "c": "2"},
+    "lrc": {"plugin": "lrc", "k": "4", "m": "2", "l": "3"},
+}
+
+
+def _engines(code) -> list:
+    """The engines a code computes with (lrc: each layer's)."""
+    if hasattr(code, "layers"):
+        return [e for layer in code.layers for e in _engines(layer.code)]
+    return [code.engine]
+
+
+@pytest.mark.parametrize("plugin", sorted(DEFAULT_PROFILES))
+def test_plugin_default_engine_is_the_device_engine(plugin):
+    """A profile that names no backend runs every product on the device
+    engine, on the code's device (lrc: in every layer)."""
+    code = create_erasure_code(dict(DEFAULT_PROFILES[plugin]), device="cpu")
+    engines = _engines(code)
+    assert engines and all(isinstance(e, TorchEngine) for e in engines)
+    assert all(e.device == torch.device("cpu") for e in engines)
+
+
+@pytest.mark.parametrize("plugin", sorted(DEFAULT_PROFILES))
+def test_default_engine_on_cpu_gives_jax_bytes(plugin):
+    """With device="cpu" the default engine is the kernel's plain version:
+    numpy in gives numpy out, byte-equal to the JAX package (whose own
+    default for these plugins is its host engine), for encode, every
+    decode pattern and clay's single-chunk repair."""
+    prof = DEFAULT_PROFILES[plugin]
+    jprof = dict(prof, strategy="pallas") if plugin == "jax" else dict(prof)
+    jcode = jax_create(jprof)
+    code = create_erasure_code(dict(prof), device="cpu")
+    n = code.get_chunk_count()
+    payload = np.random.default_rng(n).integers(0, 256, 3000, np.uint8)
+    want = jcode.encode(set(range(n)), payload.tobytes())
+    with ec_engine_calls() as calls:
+        got = code.encode(set(range(n)), payload.tobytes())
+    assert calls and all(d.device.type == "cpu" for d in calls)
+    assert all(isinstance(c, np.ndarray) for c in got.values())
+    _assert_same(got, want)
+    for erased in ec_corpus.decode_patterns(n, code.m):
+        have = {i: c for i, c in want.items() if i not in erased}
+        try:
+            jdec = jcode.decode(set(range(n)), dict(have))
+        except ValueError:
+            with pytest.raises(ValueError):
+                code.decode(set(range(n)), dict(have))
+            continue
+        dec = code.decode(set(range(n)), dict(have))
+        assert all(isinstance(c, np.ndarray) for c in dec.values())
+        _assert_same(dec, jdec)
+    if plugin == "clay":
+        cs = len(want[0])
+        helpers = {i: want[i] for i in range(1, n)}
+        rep = code.repair({0}, dict(helpers), cs)
+        assert isinstance(rep[0], np.ndarray)
+        assert np.array_equal(rep[0], jcode.repair({0}, dict(helpers),
+                                                   cs)[0])
+
+
+@pytest.mark.parametrize("plugin", sorted(set(DEFAULT_PROFILES) - {"jax"}))
+def test_numpy_backend_is_the_host(plugin):
+    """backend=numpy is the host engine, asked for by name (lrc: in every
+    layer), and refuses a tensor off the host (`meta` stands in for the
+    card)."""
+    code = create_erasure_code(dict(DEFAULT_PROFILES[plugin],
+                                    backend="numpy"), device="cpu")
+    assert all(isinstance(e, NumpyEngine) for e in _engines(code))
+    k = code.get_data_chunk_count()
+    cs = code.get_chunk_size(k * 64)
+    elsewhere = torch.empty((k, cs), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="runs on the host"):
+        code.encode_chunks(elsewhere)
+
+
+@pytest.mark.parametrize("plugin", sorted(DEFAULT_PROFILES))
+def test_default_raises_without_a_card(plugin, monkeypatch):
+    """No plugin falls back to the host: without a card the default
+    device raises, and device="cpu" is the way to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_erasure_code(dict(DEFAULT_PROFILES[plugin]))
+    code = create_erasure_code(dict(DEFAULT_PROFILES[plugin]), device="cpu")
+    assert all(isinstance(e, TorchEngine) for e in _engines(code))
+
+
+class ec_engine_calls:
+    """Records the data tensor of each product the device engine runs."""
+
+    def __enter__(self):
+        self.real = TorchEngine._run
+        calls = self.calls = []
+        real = self.real
+
+        def run(engine, M, d):
+            calls.append(d)
+            return real(engine, M, d)
+
+        TorchEngine._run = run
+        return calls
+
+    def __exit__(self, *exc):
+        TorchEngine._run = self.real
