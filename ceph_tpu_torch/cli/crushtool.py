@@ -15,6 +15,8 @@ src/tools/crushtool.cc:129-231 usage, :436-1276 arg loop):
                              --simulate --backend torch|ref]
     crushtool -i map --tree
     crushtool -i map --reweight-item name w -o out
+    crushtool -i map explain <x> | <pool>.<seed> [--rule --num-rep]
+    crushtool -i map --locate-divergence [--against map] [--min-x --max-x]
 
 Extra:
 
@@ -23,22 +25,31 @@ Extra:
     --device cuda|cpu          where the torch backend runs (default: the
                                card; cpu runs the kernel's plain version)
 
-`explain <x>` and `--locate-divergence` wait for crush/explain.py: they
-exit 1 with "not yet ported".
+`explain` replays one placement through the host oracle's decision
+recorder; `--locate-divergence` runs the rule kernel's diagnostics
+variant over the x range (on `--device`) and the host oracle over the
+same seeds (walking `--against`'s map, default the input map) and names
+the first choose step where they differ: exit 0 when none does, 2 when
+one does (crush/explain.py).
 
     python -m ceph_tpu_torch.cli.crushtool -i map --test --device cpu
+    python -m ceph_tpu_torch.cli.crushtool -i map explain 42 --num-rep 3
 """
 
 from __future__ import annotations
 
 import sys
 
+import numpy as np
+
+from ceph_tpu_torch.crush import explain as explain_mod
 from ceph_tpu_torch.crush.codec import (
     decode_crushmap,
     encode_crushmap,
     looks_like_crushmap,
 )
 from ceph_tpu_torch.crush.compiler import compile_text, decompile
+from ceph_tpu_torch.crush.soa import build_arrays
 from ceph_tpu_torch.crush.tester import CrushTester, TesterConfig
 from ceph_tpu_torch.crush.types import BucketAlg, CrushMap
 from ceph_tpu_torch.osd.osdmap import DEFAULT_TYPES
@@ -155,9 +166,80 @@ def print_tree(m: CrushMap, out=sys.stdout) -> None:
         walk(r, 0, None)
 
 
-def _not_yet_ported(what: str) -> int:
-    print(f"{what}: not yet ported", file=sys.stderr)
-    return 1
+def _pick_rule(m: CrushMap, cfg: TesterConfig) -> tuple[int, int]:
+    """(ruleno, numrep) for the single-placement commands: --rule wins,
+    else the first present rule; --num-rep wins, else the rule's
+    max_size (the tester's default numrep sweep upper bound)."""
+    ruleno = (
+        cfg.rule
+        if cfg.rule >= 0
+        else next((i for i, r in enumerate(m.rules) if r is not None), -1)
+    )
+    if not (0 <= ruleno < len(m.rules)) or m.rules[ruleno] is None:
+        raise SystemExit(f"rule {ruleno} dne")
+    nr = cfg.num_rep if cfg.num_rep >= 0 else m.rules[ruleno].max_size
+    return ruleno, nr
+
+
+def run_explain(m: CrushMap, cfg: TesterConfig, explain_x: str,
+                out=None) -> int:
+    """`crushtool -i map explain <x>`: replay one placement through the
+    instrumented host oracle and print the decision log."""
+    out = out if out is not None else sys.stdout
+    if "." in explain_x:
+        p, s = explain_x.split(".", 1)
+        cfg.pool_id, x = int(p), int(s)
+    else:
+        x = int(explain_x)
+    tester = CrushTester(m, cfg, out=out)
+    ruleno, nr = _pick_rule(m, cfg)
+    real_x = int(tester._real_xs(np.array([x], np.int64))[0])
+    ex = explain_mod.explain_seed(m, ruleno, real_x, nr, tester.weight)
+    if cfg.pool_id != -1:
+        ex.update(pool=cfg.pool_id, seed=x, pps=real_x,
+                  up=ex["result"], up_primary=(ex["result"] or [-1])[0])
+    out.write(explain_mod.render_text(ex, m.item_names))
+    return 0
+
+
+def run_divergence(m: CrushMap, cfg: TesterConfig,
+                   against_fn: str | None, out=None) -> int:
+    """`crushtool -i map --locate-divergence [--against other]`: the
+    device kernel (from `m`) against the host oracle (walking `against`,
+    default `m`) over min-x..max-x; report the earliest differing choose
+    step.  Returns 0 when every step agrees, 2 on a located divergence."""
+    out = out if out is not None else sys.stdout
+    tester = CrushTester(m, cfg, out=out)
+    ruleno, nr = _pick_rule(m, cfg)
+    xs = tester._real_xs(
+        np.arange(cfg.min_x, cfg.max_x + 1, dtype=np.int64)
+    )
+    m_host = _read_map(against_fn) if against_fn else m
+    d = explain_mod.first_divergence(
+        m_host, build_arrays(m), ruleno, xs, nr, tester.weight,
+        device=tester.device,
+    )
+    span = f"rule {ruleno} x {cfg.min_x}..{cfg.max_x} numrep {nr}"
+    if d is None:
+        print(f"no divergence: {span} agrees step-for-step", file=out)
+        return 0
+    print(f"DIVERGENCE: {span}", file=out)
+    print(
+        f"  first differing choose step: {d['step']} at x={d['x']} "
+        f"(batch index {d['batch_index']})",
+        file=out,
+    )
+    print(f"  jax:  {d['jax']}", file=out)
+    print(f"  host: {d['host']}", file=out)
+    print(
+        f"  {d['n_divergent']}/{d['n_checked']} seeds diverge "
+        f"({d['n_unresolved_skipped']} unresolved lanes host-rescued, "
+        "not compared)",
+        file=out,
+    )
+    print("host decision log for that seed:", file=out)
+    out.write(explain_mod.render_text(d["host_log"], m_host.item_names))
+    return 2
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -171,6 +253,7 @@ def main(argv: list[str] | None = None) -> int:
     do_build = False
     explain_x: str | None = None
     do_divergence = False
+    against_fn: str | None = None
     num_osds = 0
     layers: list[tuple[str, str, int]] = []
     cfg = TesterConfig()
@@ -203,7 +286,7 @@ def main(argv: list[str] | None = None) -> int:
         elif a == "--locate-divergence":
             do_divergence = True
         elif a == "--against":
-            next_arg(a)  # --locate-divergence's map
+            against_fn = next_arg(a)
         elif a == "--tree":
             do_tree = True
         elif a == "--build":
@@ -302,9 +385,13 @@ def main(argv: list[str] | None = None) -> int:
         changed = True
 
     if explain_x is not None:
-        return _not_yet_ported("explain")
+        return run_explain(m, cfg, explain_x)
     if do_divergence:
-        return _not_yet_ported("--locate-divergence")
+        try:
+            return run_divergence(m, cfg, against_fn)
+        except NotImplementedError as e:  # legacy local retries
+            print(e, file=sys.stderr)
+            return 1
     if do_tree:
         print_tree(m)
     if do_test:

@@ -23,12 +23,28 @@
 // and uniform draws, bucket_choose), no legacy local retries (the
 // wrapper's plan pass, crush/mapper.py::compile_rule, refuses those maps
 // before a launch).
+//
+// The diagnostics variant (crush_rule_diag.cu) defines CRUSH_RULE_DIAG
+// before it includes this file: the same walk, which also books each
+// placement's retry count, the collision, out-of-weight and skip tallies
+// of the draws it makes, and the work vector after each choose step (see
+// Diag).  What it adds is written with DIAG() and DIAG_ARGS(), which
+// expand to nothing in the rule kernel's build, so that build compiles
+// exactly the code it compiled before the variant existed.
 
 #pragma once
 
 #include <stdint.h>
 
 #define CRUSH_HD __host__ __device__
+
+#ifdef CRUSH_RULE_DIAG
+#define DIAG(...) __VA_ARGS__
+#define DIAG_ARGS(...) , __VA_ARGS__
+#else
+#define DIAG(...)
+#define DIAG_ARGS(...)
+#endif
 
 namespace crush_rule {
 
@@ -97,6 +113,34 @@ struct Rule {
     int32_t choose_total_tries, chooseleaf_descend_once;
     int32_t chooseleaf_vary_r, chooseleaf_stable;
 };
+
+#ifdef CRUSH_RULE_DIAG
+// The diagnostics of one lane (the planes of mapper_jax.compile_rule's
+// with_diag, with mapper_ref's values).  plan[3 * s .. 3 * s + 2] is rule
+// step s's first tries lane, its lanes per source bucket and its row of
+// `steps` (-1: not a choose step the lane can reach); the wrapper's plan
+// pass, crush/mapper.py::compile_rule, lays them out:
+// - choose firstn: one lane per rep, the retry count (ftotal) of its
+//   placement; chooseleaf firstn a second block of numrep lanes, the
+//   leaf recursion's count (reference src/crush/mapper.c:640-643 books
+//   both);
+// - choose indep: one lane, the call's rounds (mapper.c:843); chooseleaf
+//   indep also one lane per (rep, round) for the leaf call of that round,
+//   which books its own rounds;
+// -1 where no placement (or call) was made.  coll, rej and skip count the
+// firstn draws that collided, were out of weight or ended in a skip_rep;
+// the indep loops leave them alone, as the JAX package does.
+struct Tally {
+    int32_t coll, rej, skip;
+};
+
+struct Diag {
+    const int32_t* plan;  // [n_steps, 3]
+    int32_t* tries;       // [diag_lanes], -1 filled
+    int32_t* steps;       // [diag_steps, result_max], ITEM_NONE filled
+    Tally tally;
+};
+#endif
 
 #ifdef __CUDACC__
 // [LN_WORDS] crush_ln tables, then [n_staged] records (crush_rule.cu)
@@ -446,13 +490,16 @@ CRUSH_HD inline int descend(const Map& m, int32_t start, uint32_t x,
 }
 
 // chooseleaf firstn's inner pick (reference src/crush/mapper.c:573-588):
-// one device under `bucket`, colliding against out2[0, outpos).
+// one device under `bucket`, colliding against out2[0, outpos).  DIAG:
+// *tries_at gets the retry count of the pick.
 CRUSH_HD inline bool leaf_firstn(const Map& m, int32_t bucket, uint32_t x,
                                  int32_t r0, int outpos, const int32_t* out2,
-                                 int tries, int32_t* leaf) {
+                                 int tries, int32_t* leaf
+                                 DIAG_ARGS(Tally* t, int* tries_at)) {
     for (int ftotal = 0;;) {
         int32_t item;
         const int st = descend(m, bucket, x, r0 + ftotal, outpos, 0, &item);
+        DIAG(if (st == SKIP) t->skip++;)
         if (st == SKIP) return false;
         if (st == FOUND) {
             bool collide = false;
@@ -460,8 +507,10 @@ CRUSH_HD inline bool leaf_firstn(const Map& m, int32_t bucket, uint32_t x,
                 if (out2[i] == item) { collide = true; break; }
             if (!collide && !is_out(m, item, x)) {
                 *leaf = item;
+                DIAG(*tries_at = ftotal;)
                 return true;
             }
+            DIAG(if (collide) t->coll++; else t->rej++;)
         }
         if (++ftotal >= tries) return false;
     }
@@ -469,18 +518,21 @@ CRUSH_HD inline bool leaf_firstn(const Map& m, int32_t bucket, uint32_t x,
 
 // crush_choose_firstn from outpos 0 (reference src/crush/mapper.c:460-648;
 // no local retries).  Returns the number of items placed in out[]; out2[]
-// holds the chooseleaf leaves beside them.
+// holds the chooseleaf leaves beside them.  DIAG: lanes are this source's
+// tries lanes (numrep, then numrep more for chooseleaf's leaves).
 CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
                                   int numrep, int type, int32_t* out,
                                   int32_t* out2, int count, int tries,
                                   int recurse_tries, bool leafy, int vary_r,
-                                  int stable) {
+                                  int stable
+                                  DIAG_ARGS(Tally* t, int32_t* lanes)) {
     int outpos = 0;
     for (int rep = 0; rep < numrep && count > 0; rep++) {
         for (int ftotal = 0;;) {
             const int32_t r = rep + ftotal;
             int32_t item;
             const int st = descend(m, bucket, x, r, outpos, type, &item);
+            DIAG(if (st == SKIP) t->skip++;)
             if (st == SKIP) break;
             bool fail = true;
             int32_t leaf = item;
@@ -491,12 +543,19 @@ CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
                 bool reject = false;
                 if (!collide && leafy && item < 0) {
                     const int32_t sub_r = vary_r ? (r >> (vary_r - 1)) : 0;
+                    DIAG(int leaf_tries = -1;)
                     reject = !leaf_firstn(m, item, x,
                                           (stable ? 0 : outpos) + sub_r,
-                                          outpos, out2, recurse_tries, &leaf);
+                                          outpos, out2, recurse_tries, &leaf
+                                          DIAG_ARGS(t, &leaf_tries));
+                    // a leaf found is a placement: the outer item is a
+                    // bucket, so no is_out check follows
+                    DIAG(lanes[numrep + rep] = leaf_tries;)
                 }
                 if (!collide && !reject && type == 0)
                     reject = is_out(m, item, x);
+                DIAG(if (collide) t->coll++;
+                     else if (reject && type == 0) t->rej++;)
                 fail = collide || reject;
             }
             if (!fail) {
@@ -504,6 +563,7 @@ CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
                 out2[outpos] = leaf;
                 outpos++;
                 count--;
+                DIAG(lanes[rep] = ftotal;)
                 break;
             }
             if (++ftotal >= tries) break;
@@ -513,15 +573,19 @@ CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
 }
 
 // chooseleaf indep's inner pick (reference src/crush/mapper.c:784-798):
-// one device under `bucket` for slot `rep`; ITEM_NONE if none.
+// one device under `bucket` for slot `rep`; ITEM_NONE if none.  DIAG:
+// *rounds gets the rounds the inner crush_choose_indep call ran.
 CRUSH_HD inline int32_t leaf_indep(const Map& m, int32_t bucket, uint32_t x,
                                    int rep, int32_t parent_r, int numrep,
-                                   int tries) {
+                                   int tries DIAG_ARGS(int* rounds)) {
+    DIAG(*rounds = tries;)
     for (int ftotal = 0; ftotal < tries; ftotal++) {
         int32_t item;
         const int st = descend(m, bucket, x, rep + parent_r + numrep * ftotal,
                                rep, 0, &item, numrep,
                                rep + parent_r + (numrep + 1) * ftotal);
+        DIAG(if (st == SKIP || (st == FOUND && !is_out(m, item, x)))
+                 *rounds = ftotal + 1;)
         if (st == SKIP) return ITEM_NONE;
         if (st == FOUND && !is_out(m, item, x)) return item;
     }
@@ -530,13 +594,18 @@ CRUSH_HD inline int32_t leaf_indep(const Map& m, int32_t bucket, uint32_t x,
 
 // crush_choose_indep from outpos 0 (reference src/crush/mapper.c:655-843):
 // breadth-first over `left` positional slots, ITEM_NONE where none.
+// DIAG: lanes are this source's tries lanes (the rounds, then the leaf
+// calls by rep and round).
 CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
                                   int left, int numrep, int type,
                                   int32_t* out, int32_t* out2, int tries,
-                                  int recurse_tries, bool leafy) {
+                                  int recurse_tries, bool leafy
+                                  DIAG_ARGS(int32_t* lanes)) {
     const int endpos = left;
+    DIAG(lanes[0] = 0;)
     for (int rep = 0; rep < endpos; rep++) out[rep] = out2[rep] = ITEM_UNDEF;
     for (int ftotal = 0; left > 0 && ftotal < tries; ftotal++) {
+        DIAG(lanes[0]++;)
         for (int rep = 0; rep < endpos; rep++) {
             if (out[rep] != ITEM_UNDEF) continue;
             int32_t item, r;
@@ -556,8 +625,10 @@ CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
             if (leafy) {
                 // a device is written to out2 before its is_out check
                 // (reference src/crush/mapper.c:799-801)
+                DIAG(int32_t* at = lanes + 1 + rep * tries + ftotal;)
                 out2[rep] = item < 0 ? leaf_indep(m, item, x, rep, r, numrep,
-                                                  recurse_tries)
+                                                  recurse_tries
+                                                  DIAG_ARGS(at))
                                      : item;
                 if (out2[rep] == ITEM_NONE) continue;
             }
@@ -574,8 +645,9 @@ CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
 
 // crush_do_rule (reference src/crush/mapper.c:900-1105).  Writes up to
 // rule.result_max (<= RMAX_CAP) items to result; returns how many.
+// DIAG: books into *d.
 CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
-                            int32_t* result) {
+                            int32_t* result DIAG_ARGS(Diag* d)) {
     const int result_max = rule.result_max;
     int32_t buf_a[RMAX_CAP], buf_b[RMAX_CAP], leaves[RMAX_CAP];
     int32_t* w = buf_a;
@@ -628,6 +700,8 @@ CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
                 }
                 const int32_t src = w[i];
                 if (src >= 0 || -1 - src >= m.n_buckets) continue;
+                DIAG(int32_t* lanes =
+                         d->tries + d->plan[3 * s] + i * d->plan[3 * s + 1];)
                 if (firstn) {
                     const int recurse_tries =
                         leaf_tries ? leaf_tries
@@ -636,13 +710,14 @@ CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
                     osize += choose_firstn(
                         m, src, x, numrep, arg2, o + osize, leaves + osize,
                         result_max - osize, choose_tries, recurse_tries,
-                        leafy, vary_r, stable);
+                        leafy, vary_r, stable DIAG_ARGS(&d->tally, lanes));
                 } else {
                     const int out_size = numrep < result_max - osize
                                              ? numrep : result_max - osize;
                     choose_indep(m, src, x, out_size, numrep, arg2,
                                  o + osize, leaves + osize, choose_tries,
-                                 leaf_tries ? leaf_tries : 1, leafy);
+                                 leaf_tries ? leaf_tries : 1, leafy
+                                 DIAG_ARGS(lanes));
                     osize += out_size;
                 }
             }
@@ -652,6 +727,8 @@ CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
             w = o;
             o = t;
             wsize = osize;
+            DIAG(for (int j = 0; j < wsize; j++)
+                     d->steps[d->plan[3 * s + 2] * result_max + j] = w[j];)
             break;
         }
         case OP_EMIT:
@@ -666,6 +743,7 @@ CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
     return rlen;
 }
 
+#ifndef CRUSH_RULE_DIAG
 // One seed's row: row[0, result_max), padded with ITEM_NONE.
 CRUSH_HD inline void map_seed(const Map& m, const Rule& rule, uint32_t x,
                               int32_t* row) {
@@ -674,5 +752,30 @@ CRUSH_HD inline void map_seed(const Map& m, const Rule& rule, uint32_t x,
     for (int j = 0; j < rule.result_max; j++)
         row[j] = j < got ? res[j] : ITEM_NONE;
 }
+#else
+// map_seed with the diagnostics: d's tries lanes (n_lanes) and steps rows
+// (n_steps_rows) are filled here first; tally gets coll, rej, skip and
+// bad (1 when the row holds fewer than result_max items).
+CRUSH_HD inline void map_seed_diag(const Map& m, const Rule& rule,
+                                   uint32_t x, int32_t* row, Diag& d,
+                                   int n_lanes, int n_steps_rows,
+                                   int32_t* tally) {
+    for (int j = 0; j < n_lanes; j++) d.tries[j] = -1;
+    for (int j = 0; j < n_steps_rows * rule.result_max; j++)
+        d.steps[j] = ITEM_NONE;
+    d.tally = {0, 0, 0};
+    int32_t res[RMAX_CAP];
+    const int got = do_rule(m, rule, x, res, &d);
+    int placed = 0;
+    for (int j = 0; j < rule.result_max; j++) {
+        row[j] = j < got ? res[j] : ITEM_NONE;
+        placed += row[j] != ITEM_NONE;
+    }
+    tally[0] = d.tally.coll;
+    tally[1] = d.tally.rej;
+    tally[2] = d.tally.skip;
+    tally[3] = placed < rule.result_max;
+}
+#endif
 
 }  // namespace crush_rule

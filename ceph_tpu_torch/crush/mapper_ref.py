@@ -6,13 +6,14 @@ src/crush/mapper.c): rule interpreter (crush_do_rule), the five bucket
 choose functions (uniform with the C's stateful permutation), firstn/indep
 replica selection with the full reject/collision/retry semantics, all
 tunables (the legacy local retries included) and the choose_tries
-histogram.  The JAX package's decision-recorder hooks, which only its
-`crush/explain.py` uses, are left out until that module is ported.
+histogram, and the decision-recorder hooks `crush/explain.py` replays
+a placement through (`do_rule(recorder=...)`; with no recorder the walk
+and its result are the same).
 
 This is NOT the fast path (that is ceph_tpu_torch.crush.mapper's rule
 kernel); the CLIs' single-PG paths (`osdmaptool --test-map-pg`,
-`--test-map-object`), `crushtool --test --show-choose-tries` and the
-tester's `ref` backend run it.
+`--test-map-object`), `crushtool explain`, `--locate-divergence`'s host
+half and the tester's `ref` backend run it.
 
 All arithmetic uses Python ints with explicit 32/64-bit wrapping to mirror C
 integer semantics.
@@ -37,6 +38,7 @@ S64_MIN = -(1 << 63)
 
 
 _h2, _h3, _h4 = hash2_int, hash3_int, hash4_int
+
 
 
 class _PermState:
@@ -192,8 +194,14 @@ def crush_bucket_choose(
     r: int,
     choose_args: ChooseArgs | None,
     position: int,
+    recorder=None,
 ) -> int:
-    """reference src/crush/mapper.c:387-418."""
+    """reference src/crush/mapper.c:387-418.
+
+    recorder: optional decision recorder (crush.explain.ExplainRecorder
+    protocol).  With `recorder.detail`, straw2 draws are re-derived and
+    emitted per item — the winner/loser view `crushtool explain` prints.
+    Never changes the choice."""
     assert bucket.size > 0
     if bucket.alg == BucketAlg.UNIFORM:
         return bucket_perm_choose(bucket, work.for_bucket(bucket.id), x, r)
@@ -205,7 +213,18 @@ def crush_bucket_choose(
         return bucket_straw_choose(bucket, x, r)
     if bucket.alg == BucketAlg.STRAW2:
         aw, ai = _choose_arg_for(choose_args, bucket, position)
-        return bucket_straw2_choose(bucket, x, r, aw, ai)
+        item = bucket_straw2_choose(bucket, x, r, aw, ai)
+        if recorder is not None and recorder.detail:
+            weights = aw if aw is not None else bucket.weights
+            draws = [
+                (bucket.items[i],
+                 _exp_draw(x, (ai if ai is not None else bucket.items)[i],
+                           r, weights[i]) if weights[i] else S64_MIN)
+                for i in range(bucket.size)
+            ]
+            recorder.emit(ev="straw2", bucket=bucket.id, r=r,
+                          winner=item, draws=draws)
+        return item
     return bucket.items[0]
 
 
@@ -243,8 +262,14 @@ def crush_choose_firstn(
     parent_r: int,
     choose_args: ChooseArgs | None,
     choose_tries_hist: list[int] | None = None,
+    recorder=None,
 ) -> int:
-    """reference src/crush/mapper.c:460-648."""
+    """reference src/crush/mapper.c:460-648.
+
+    recorder: optional decision recorder; one `draw` event per attempt
+    (item, r, final status), `place` on success, `leaf_enter`/`leaf_exit`
+    around chooseleaf recursions.  Pure observation — the walk itself is
+    untouched."""
     count = out_size
     rep = 0 if stable else outpos
     while rep < numrep and count > 0:
@@ -262,8 +287,17 @@ def crush_choose_firstn(
                 collide = False
                 r = rep + parent_r + ftotal
 
+                def _draw(status, it=None, bkt=None):
+                    if recorder is not None:
+                        recorder.emit(
+                            ev="draw", rep=rep, r=r, ftotal=ftotal,
+                            bucket=in_.id if bkt is None else bkt,
+                            item=it, status=status,
+                        )
+
                 if in_.size == 0:
                     reject = True
+                    _draw("empty")
                 else:
                     if (
                         local_fallback_retries > 0
@@ -276,9 +310,11 @@ def crush_choose_firstn(
                     else:
                         item = crush_bucket_choose(
                             map_, work, in_, x, r, choose_args, outpos,
+                            recorder=recorder,
                         )
                     if item >= map_.max_devices:
                         skip_rep = True
+                        _draw("skip_device_id", item)
                         break
 
                     child = map_.buckets.get(item) if item < 0 else None
@@ -286,13 +322,16 @@ def crush_choose_firstn(
                         # dangling bucket id ("bad item type" path; C skips
                         # when -1-item >= max_buckets)
                         skip_rep = True
+                        _draw("skip_dangling", item)
                         break
                     itemtype = child.type if item < 0 else 0
 
                     if itemtype != type_:
                         if item >= 0:
                             skip_rep = True
+                            _draw("skip_type", item)
                             break
+                        _draw("descend", item)
                         in_ = child
                         retry_bucket = True
                         continue
@@ -303,9 +342,14 @@ def crush_choose_firstn(
                             break
 
                     reject = False
+                    reject_why = None
                     if not collide and recurse_to_leaf:
                         if item < 0:
                             sub_r = (r >> (vary_r - 1)) if vary_r else 0
+                            if recorder is not None:
+                                recorder.emit(ev="leaf_enter", rep=rep,
+                                              bucket=item, r=sub_r)
+                                recorder.depth += 1
                             got = crush_choose_firstn(
                                 map_,
                                 work,
@@ -328,9 +372,15 @@ def crush_choose_firstn(
                                 sub_r,
                                 choose_args,
                                 choose_tries_hist,
+                                recorder=recorder,
                             )
+                            if recorder is not None:
+                                recorder.depth -= 1
+                                recorder.emit(ev="leaf_exit", rep=rep,
+                                              ok=got > outpos)
                             if got <= outpos:
                                 reject = True
+                                reject_why = "reject_leaf"
                         else:
                             while len(out2) <= outpos:  # type: ignore[arg-type]
                                 out2.append(ITEM_NONE)  # type: ignore[union-attr]
@@ -339,6 +389,11 @@ def crush_choose_firstn(
                     if not reject and not collide:
                         if itemtype == 0:
                             reject = is_out(map_, weight, item, x)
+                            if reject:
+                                reject_why = "out"
+                    _draw("collide" if collide
+                          else (reject_why or "ok") if reject else "ok",
+                          item)
 
                 if reject or collide:
                     ftotal += 1
@@ -369,6 +424,9 @@ def crush_choose_firstn(
         count -= 1
         if choose_tries_hist is not None and ftotal <= len(choose_tries_hist) - 1:
             choose_tries_hist[ftotal] += 1
+        if recorder is not None:
+            recorder.emit(ev="place", rep=rep, item=item, ftotal=ftotal,
+                          outpos=outpos - 1)
         rep += 1
 
     return outpos
@@ -392,6 +450,7 @@ def crush_choose_indep(
     parent_r: int,
     choose_args: ChooseArgs | None,
     choose_tries_hist: list[int] | None = None,
+    recorder=None,
 ) -> None:
     """reference src/crush/mapper.c:655-843."""
     endpos = outpos + left
@@ -419,17 +478,27 @@ def crush_choose_indep(
                 else:
                     r += numrep * ftotal
 
+                def _draw(status, it=None):
+                    if recorder is not None:
+                        recorder.emit(
+                            ev="draw", rep=rep, r=r, ftotal=ftotal,
+                            bucket=in_.id, item=it, status=status,
+                        )
+
                 if in_.size == 0:
+                    _draw("empty")
                     break
 
                 item = crush_bucket_choose(
                     map_, work, in_, x, r, choose_args, outpos,
+                    recorder=recorder,
                 )
                 if item >= map_.max_devices:
                     out[rep] = ITEM_NONE
                     if out2 is not None:
                         out2[rep] = ITEM_NONE
                     left -= 1
+                    _draw("skip_device_id", item)
                     break
 
                 child = map_.buckets.get(item) if item < 0 else None
@@ -438,6 +507,7 @@ def crush_choose_indep(
                     if out2 is not None:
                         out2[rep] = ITEM_NONE
                     left -= 1
+                    _draw("skip_dangling", item)
                     break
                 itemtype = child.type if item < 0 else 0
 
@@ -447,7 +517,9 @@ def crush_choose_indep(
                         if out2 is not None:
                             out2[rep] = ITEM_NONE
                         left -= 1
+                        _draw("skip_type", item)
                         break
+                    _draw("descend", item)
                     in_ = child
                     continue
 
@@ -457,10 +529,15 @@ def crush_choose_indep(
                         collide = True
                         break
                 if collide:
+                    _draw("collide", item)
                     break
 
                 if recurse_to_leaf:
                     if item < 0:
+                        if recorder is not None:
+                            recorder.emit(ev="leaf_enter", rep=rep,
+                                          bucket=item, r=r)
+                            recorder.depth += 1
                         crush_choose_indep(
                             map_,
                             work,
@@ -479,17 +556,31 @@ def crush_choose_indep(
                             r,
                             choose_args,
                             choose_tries_hist,
+                            recorder=recorder,
                         )
+                        if recorder is not None:
+                            recorder.depth -= 1
+                            recorder.emit(
+                                ev="leaf_exit", rep=rep,
+                                ok=not (out2 is not None
+                                        and out2[rep] == ITEM_NONE),
+                            )
                         if out2 is not None and out2[rep] == ITEM_NONE:
+                            _draw("reject_leaf", item)
                             break
                     elif out2 is not None:
                         out2[rep] = item
 
                 if itemtype == 0 and is_out(map_, weight, item, x):
+                    _draw("out", item)
                     break
 
                 out[rep] = item
                 left -= 1
+                _draw("ok", item)
+                if recorder is not None:
+                    recorder.emit(ev="place", rep=rep, item=item,
+                                  ftotal=ftotal, outpos=rep)
                 break
         ftotal += 1
         if left <= 0:
@@ -527,11 +618,17 @@ def do_rule(
     weight: list[int],
     choose_args: ChooseArgs | int | str | None = None,
     collect_choose_tries: bool = False,
+    recorder=None,
 ) -> list[int]:
     """crush_do_rule (reference src/crush/mapper.c:900-1105).
 
     Returns the result vector (length <= result_max).  `weight` is the
     per-device 16.16 in/out weight vector (not the crush tree weights).
+
+    recorder: optional decision recorder (crush.explain.ExplainRecorder)
+    — emits take/choose/draw/place/emit events and books the post-step
+    work vector after every choose step (`recorder.step_result`), the
+    host half of the jax-vs-host first-divergence locator.
     """
     if isinstance(choose_args, (int, str)):
         choose_args = map_.choose_args.get(choose_args)
@@ -567,6 +664,8 @@ def do_rule(
             if (0 <= arg1 < map_.max_devices) or (arg1 < 0 and arg1 in map_.buckets):
                 w = [arg1]
                 wsize = 1
+            if recorder is not None:
+                recorder.emit(ev="take", item=arg1, valid=wsize == 1)
         elif op == RuleOp.SET_CHOOSE_TRIES:
             if arg1 > 0:
                 choose_tries = arg1
@@ -599,6 +698,10 @@ def do_rule(
                 RuleOp.CHOOSELEAF_FIRSTN,
                 RuleOp.CHOOSELEAF_INDEP,
             )
+            if recorder is not None:
+                recorder.emit(ev="choose", op=int(op), firstn=firstn,
+                              leafy=recurse_to_leaf, numrep=arg1,
+                              type=arg2, sources=list(w[:wsize]))
             osize = 0
             o = []
             c = []
@@ -646,6 +749,7 @@ def do_rule(
                         0,
                         choose_args,
                         hist,
+                        recorder=recorder,
                     )
                     o = o[:osize] + sub_o
                     c = c[:osize] + sub_c
@@ -672,6 +776,7 @@ def do_rule(
                         0,
                         choose_args,
                         hist,
+                        recorder=recorder,
                     )
                     o = o[:osize] + sub_o
                     c = c[:osize] + sub_c
@@ -681,10 +786,15 @@ def do_rule(
                 o = list(c[:osize]) + o[osize:]
             w = o
             wsize = osize
+            if recorder is not None:
+                recorder.step_result(list(w[:wsize]))
         elif op == RuleOp.EMIT:
             for i in range(wsize):
                 if len(result) >= result_max:
                     break
                 result.append(w[i])
             wsize = 0
+            if recorder is not None:
+                recorder.emit(ev="emit", result=list(result))
+
     return result

@@ -12,9 +12,11 @@ The x-loop (1 `crush_do_rule` per PG in the reference) runs as one
 default; "jax" is taken as its alias): the rule kernel on the card, or its
 plain version with `device="cpu"`.  When nothing per-row is printed, the
 utilization and size histograms are reduced on the device
-(`core/reduce.py`) and only those come back.  `backend="ref"` runs the
-host oracle (`crush/mapper_ref.py`) seed by seed, and so does
-`--show-choose-tries`, whose histogram only the host oracle collects.
+(`core/reduce.py`) and only those come back.  `--show-choose-tries` takes
+its histogram from the rule kernel's diagnostics planes, reduced on the
+device (`crush/explain.py::device_choose_tries`).  `backend="ref"` runs
+the host oracle (`crush/mapper_ref.py`) seed by seed, and collects the
+histogram there.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.core.rjenkins import crush_hash32_2
-from ceph_tpu_torch.crush import mapper_ref
+from ceph_tpu_torch.crush import explain, mapper_ref
 from ceph_tpu_torch.crush.mapper import compile_rule, map_rule
 from ceph_tpu_torch.crush.soa import build_arrays, to_device
 from ceph_tpu_torch.crush.types import CrushMap, ITEM_NONE
@@ -63,7 +65,7 @@ class TesterConfig:
     show_statistics: bool = False
     # per-placement retry histogram (reference src/crush/mapper.c:640-643
     # choose_tries bookkeeping + CrushTester's --show-choose-tries dump),
-    # collected by the host oracle: every pass runs the ref backend
+    # from the diagnostics planes (torch) or the host oracle (ref)
     show_choose_tries: bool = False
 
 
@@ -148,6 +150,22 @@ class CrushTester:
             collect_choose_tries=self.cfg.show_choose_tries,
         )
 
+    def _collect_tries_device(self, ruleno: int, nr: int) -> None:
+        """Fold this (rule, numrep) pass's per-placement retry counts
+        into the histogram from the diagnostics planes, reduced on the
+        device (the host oracle's increments, lane for lane)."""
+        if self._tables is None:
+            self._arrays = build_arrays(self.m)
+            self._tables = to_device(self._arrays, self.device)
+        hist = self.m.choose_tries_histogram
+        counts, _ = explain.device_choose_tries(
+            self._arrays, ruleno, nr,
+            self._real_xs(np.arange(self.cfg.min_x, self.cfg.max_x + 1,
+                                    dtype=np.int64)),
+            self.weight, len(hist), self.device)
+        for i, v in enumerate(counts):
+            hist[i] += int(v)
+
     def _random_placement(
         self, rng: np.random.Generator, nr: int
     ) -> list[int]:
@@ -192,9 +210,6 @@ class CrushTester:
             m.choose_tries_histogram = [0] * (
                 m.tunables.choose_total_tries + 1
             )
-            # only the instrumented host walk collects (local override:
-            # the caller's config is not mutated)
-            backend = "ref"
         rules = (
             [cfg.rule]
             if cfg.rule >= 0
@@ -225,6 +240,9 @@ class CrushTester:
                 per = np.zeros(m.max_devices, np.int64)
                 sizes: dict[int, int] = {}
                 xs = np.arange(cfg.min_x, cfg.max_x + 1, dtype=np.int64)
+                if (cfg.show_choose_tries and backend == "torch"
+                        and not cfg.simulate):
+                    self._collect_tries_device(r, nr)
                 if cfg.simulate:
                     rows = [
                         self._random_placement(rng, nr) for _ in range(n_x)

@@ -18,11 +18,14 @@ module.py):
   entry, which the rule kernel reads as weight-set position 0.
 - `Balancer.execute` (:1192-1230): the plan's Incremental applied, to
   the ClusterState that owns the map when one is given (O(delta) on the
-  device), else through `osd.incremental.apply_incremental`.
+  device), else through `osd.incremental.apply_incremental`.  With
+  CEPH_TPU_PLACEMENT_DIAG=1 in the environment it then diagnoses the
+  plan's pools on the new map (`PoolMapper.diagnose`, the rule kernel's
+  diagnostics variant) and books the summary under source "mgr.<plan>"
+  in `obs.placement`; a device error there raises.
 
 Scores come from `mgr.eval.calc_eval`; return codes are the reference's
-negative errnos.  The JAX package's post-execute placement diagnosis is
-not ported (it needs the instrumented rule program).
+negative errnos.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import copy
 import errno
 import logging
+import os
 
 import numpy as np
 
@@ -505,4 +509,30 @@ class Balancer:
             state.apply(inc)
         else:
             apply_incremental(m, inc)
+        self._diagnose_executed(plan, m, state)
         return 0, ""
+
+    def _diagnose_executed(self, plan: Plan, m: OSDMap, state=None) -> None:
+        """Post-execute decision accounting (CEPH_TPU_PLACEMENT_DIAG=1):
+        the diagnostics of the plan's pools on the map the plan just
+        produced, booked under source "mgr.<plan>" (the JAX package's
+        `_diagnose_executed`).  On the state's device and tables when the
+        state owns `m`, else on the plan's device.  A device error raises:
+        there is no host fallback."""
+        if os.environ.get("CEPH_TPU_PLACEMENT_DIAG", "0") != "1":
+            return
+        from ceph_tpu_torch.obs import placement
+        from ceph_tpu_torch.osd.pipeline import PoolMapper
+
+        own = state is not None and state.m is m
+        by_name = {v: k for k, v in m.pool_name.items()}
+        pids = sorted(
+            by_name[p] for p in (plan.pools or m.pool_name.values())
+            if p in by_name
+        )
+        agg: dict = {"epoch": int(m.epoch), "mode": plan.mode}
+        for pid in pids:
+            pm = (PoolMapper(m, pid, state=state) if own
+                  else PoolMapper(m, pid, device=plan.initial.device))
+            placement.fold_summary(agg, pm.diagnose(record=False))
+        placement.record(f"mgr.{plan.name}", agg)

@@ -15,6 +15,10 @@ primary_temp) become dense per-PG tensors, uploaded once per mapper.
 
 Results equal `OSDMap.pg_to_up_acting_osds` of the JAX package for every
 PG, padded to the width with ITEM_NONE (tests/test_torch_pipeline.py).
+
+`PoolMapper.diagnose` runs stages 1-2 through the rule kernel's
+diagnostics variant (`crush.mapper.diag_rule`) and reduces its decision
+planes on the device to the JAX package's placement-diagnostics summary.
 """
 
 from __future__ import annotations
@@ -24,9 +28,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.core.intmath import pg_mask_for, stable_mod
 from ceph_tpu_torch.core.rjenkins import M32, crush_hash32_2
-from ceph_tpu_torch.crush.mapper import compile_rule, find_rule, map_rule
+from ceph_tpu_torch.crush.mapper import (
+    BLOCK,
+    compile_rule,
+    diag_rule,
+    find_rule,
+    map_rule,
+)
 from ceph_tpu_torch.crush.soa import build_arrays, to_device
 from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.device import resolve_device
@@ -455,6 +466,74 @@ class PoolMapper:
         removal), NONE-padded."""
         _, raw = self._raw(self._seeds(seeds))
         return raw.to(torch.int32).cpu().numpy()
+
+    def diagnose(self, ps=None, source: str | None = None,
+                 record: bool = True) -> dict:
+        """Run the rule's diagnostics over the placement seeds of `ps`
+        (default: every PG) and reduce the per-PG decision planes on the
+        device into the JAX package's placement-diagnostics summary: the
+        per-placement retry histogram (the reference collect_choose_tries
+        shape), collision / out-of-weight-rejection / skip tallies, the
+        bad mappings (CRUSH rows shorter than the pool size) and the
+        placements that ran out of retries.  Only the O(tries bound)
+        histogram and five sums are fetched, never the planes.  Every
+        lane is exact: `diag_exact` is True and `unresolved` 0.
+
+        The summary lands in `obs.placement` (source `source`, default
+        "pool<id>") with this mapper's explainer unless record=False."""
+        from ceph_tpu_torch.obs import placement
+
+        if ps is None:
+            ps = torch.arange(self.spec.pg_num, device=self.device)
+        else:
+            ps = self._seeds(ps)
+        n = ps.numel()
+        prog = self.prog
+        bound = min(prog.diag_tries_bound if prog else 0,
+                    len(placement.TRIES_BOUNDS) - 1)
+        hist = torch.zeros(bound + 1, dtype=torch.long, device=self.device)
+        sums = torch.zeros(5, dtype=torch.long, device=self.device)
+        if prog is not None:
+            retry = torch.from_numpy(prog.diag_retry_lanes).to(self.device)
+            for i in range(0, n, BLOCK):
+                pps = self.placement_seeds(ps[i:i + BLOCK])
+                _, dg = diag_rule(self.tables, prog, pps,
+                                  self.rule_weights())
+                hist += reduce.value_histogram(dg["tries"], bound)
+                sums += torch.stack([
+                    dg["coll"].long().sum(), dg["rej"].long().sum(),
+                    dg["skip"].long().sum(), dg["bad"].long().sum(),
+                    ((dg["tries"] < 0) & retry).sum()])
+        else:  # no rule: every PG trivially bad, nothing decided
+            sums[3] = n
+        hist_v = hist.cpu().tolist()
+        coll, rej, skip, bad, exhausted = sums.cpu().tolist()
+        summary = {
+            "pgs": n,
+            "pool_id": self.pool_id,
+            "tries_histogram": hist_v,
+            "tries_bound": bound,
+            "diag_exact": True,
+            "diag_lanes": prog.diag_lanes if prog else 0,
+            "collisions": coll,
+            "rejections": rej,
+            "skips": skip,
+            "bad_mappings": bad,
+            "retry_exhausted": exhausted,
+            "unresolved": 0,
+        }
+        if record:
+            placement.record(source or f"pool{self.pool_id}", summary)
+            placement.register_explainer(f"pool{self.pool_id}",
+                                         self._explain_seed)
+        return summary
+
+    def _explain_seed(self, seed: int) -> dict:
+        """Host-oracle replay of one placement seed of this pool (the
+        `placement.explain("<pool>.<seed>")` payload)."""
+        from ceph_tpu_torch.crush.explain import explain_pool_pg
+
+        return explain_pool_pg(self.m, self.pool_id, seed)
 
 
 def overlay_fixup_rows(m: OSDMap, pool_id: int, width: int):

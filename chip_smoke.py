@@ -25,10 +25,17 @@ BASELINE.json's north-star workload) and the mgr balancer on a
 ClusterState (`mgr_balancer`: config 5's eval, upmap plan and execute
 and two value-only Incrementals applied in O(delta), each step's rows
 held to a fresh state and the host oracle; crush-compat and the
-`balancer` CLI on config 2; tests/data/mgr_corpus.json on the card)
-through the entry points a user calls, and prints one JSON object per
-phase.  Any failure raises and
-exits non-zero.
+`balancer` CLI on config 2; tests/data/mgr_corpus.json on the card),
+then the placement diagnostics (the rule kernel's diagnostics variant
+against its plain version on every corpus, legacy and diag case;
+`PoolMapper.diagnose` over config 5's 10M PGs with and without a
+ClusterState; `crushtool explain` / `--locate-divergence` against the
+JAX CLI's stdout and `--test --show-choose-tries` on config 5) and a
+`ClusterSim` failure run at config 5 (8 OSDs of a host failed, 2
+revived, a reweight, a balance round, each epoch's report held to a
+numpy diff and its rows to the host oracle), through the entry points a
+user calls, and prints one JSON object per phase.  Any failure raises
+and exits non-zero.
 
 The line before the last is the kernels line (each kernel's launches on
 the main path, its time, bound and plain-version time); the last line is
@@ -38,8 +45,10 @@ prints no result.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import copy
+import dataclasses
 import hashlib
 import io
 import json
@@ -60,7 +69,7 @@ from ceph_tpu_torch.balancer.crush_analysis import get_rule_weight_osd_map
 from ceph_tpu_torch.cli import balancer as balancer_cli
 from ceph_tpu_torch.cli import crushtool, ec_benchmark, osdmaptool
 from ceph_tpu_torch.core import reduce
-from ceph_tpu_torch.crush import mapper, soa
+from ceph_tpu_torch.crush import mapper, mapper_ref, soa
 from ceph_tpu_torch.crush.codec import encode_crushmap
 from ceph_tpu_torch.crush.types import ITEM_NONE, BucketAlg
 from ceph_tpu_torch.ec import create_erasure_code
@@ -80,7 +89,8 @@ from ceph_tpu_torch.osd.osdmap import OSD_UP, build_hierarchical
 from ceph_tpu_torch.osd.pipeline import PoolMapper
 from ceph_tpu_torch.osd.state import COUNTERS as state_counters
 from ceph_tpu_torch.osd.state import ClusterState
-from ceph_tpu_torch.osd.types import PgPool, PoolType
+from ceph_tpu_torch.osd.types import PgId, PgPool, PoolType
+from ceph_tpu_torch.sim import ClusterSim
 
 ROOT = Path(__file__).resolve().parent
 CORPUS = ROOT / "tests" / "data" / "ec_corpus.json"
@@ -1875,6 +1885,340 @@ def phase_mgr_balancer(dev, smi: str) -> dict:
     return launches, res
 
 
+# -- placement diagnostics and the failure simulator ----------------------------
+
+EXPLAIN_CORPUS = ROOT / "tests" / "data" / "explain_corpus.json"
+DIAG_SAMPLE = 512  # config-5 seeds whose histogram is held to mapper_ref
+SIM_SAMPLE = 32  # seeds a failure_sim epoch holds to the host oracle
+
+
+def count_both(fn):
+    """fn() with both rule kernels' launch counts set to 0 just before and
+    read just after: (out, rule launches, diag launches)."""
+    mapper.crush_rule_cuda.launches = 0
+    mapper.crush_rule_diag_cuda.launches = 0
+    out = fn()
+    return (out, mapper.crush_rule_cuda.launches,
+            mapper.crush_rule_diag_cuda.launches)
+
+
+def diag_checked(T, prog, x, w, what: str) -> tuple[int, dict]:
+    """crush_rule_diag_cuda on seeds x (the wrapper's staging and none)
+    against the plain version, plane for plane, and its rows against
+    crush_rule_cuda's: (max abs error, the plain planes)."""
+    rows, _, want = mapper.crush_rule_plain(T, prog, x, w, diag=True)
+    xb, wb = mapper.u32_bits(x), mapper.u32_bits(w)
+    default = mapper.crush_rule_cuda(T, prog, xb, wb)
+    err = 0
+    for stage in (None, 0):
+        got_rows, got = mapper.crush_rule_diag_cuda(T, prog, xb, wb,
+                                                    stage=stage)
+        torch.cuda.synchronize()
+        check(torch.equal(got_rows, rows) and torch.equal(default, rows),
+              f"diag rows == plain rows == crush_rule rows ({what})")
+        for k, v in want.items():
+            if v.numel():
+                err = max(err, int((got[k].long() - v.long()).abs().max()))
+            check(torch.equal(got[k], v),
+                  f"diag plane {k} == plain ({what}, stage {stage})")
+    return err, want
+
+
+def phase_diag_vs_plain(dev, corpus: dict, pms: dict) -> tuple[int, dict]:
+    """The diagnostics kernel against its plain version, every plane
+    element-exact, on every placement corpus map, every legacy case, the
+    diag cases of tests/data/explain_corpus.json (an indep EC rule, and
+    the cases the JAX plan leaves inexact: 2 hosts for size 3, vary_r=0
+    and stable=0, leafy indep, two weight-set positions) and config 5's
+    first 2^20 PGs (timed: the plain version against the kernel)."""
+    worst, cases = 0, []
+
+    def case(name, T, prog, x, w):
+        nonlocal worst
+        err, _ = diag_checked(T, prog, x, w, name)
+        worst = max(worst, err)
+        cases.append({"case": name, "seeds": x.numel(),
+                      "lanes": prog.diag_lanes, "steps": prog.diag_steps})
+
+    for name, entry in corpus.items():
+        pm = PoolMapper(osdmap_from_reference(entry["map"]),
+                        entry["pool_id"], device=dev)
+        case(f"placement_{name}", pm.tables, pm.prog,
+             *rule_inputs(pm, pm.spec.pg_num))
+    stored = [("legacy", e) for e in
+              json.loads(LEGACY_CASES.read_text())["cases"]]
+    stored += [("diag", e) for e in
+               json.loads(EXPLAIN_CORPUS.read_text())["diag_cases"]]
+    for kind, e in stored:
+        cm = crush_from_reference(e["map"])
+        A = soa.build_arrays(cm, cm.choose_args.get(e["choose_args"]))
+        case(f"{kind}_{e['name']}", soa.to_device(A, dev),
+             mapper.compile_rule(A, e["ruleno"], e["result_max"]),
+             torch.tensor(e["xs"], dtype=torch.long, device=dev),
+             torch.tensor(e["weights"], dtype=torch.long, device=dev))
+    pm = pms["config5"]
+    x, w = rule_inputs(pm, PLAIN_BLOCK)
+    err, _ = diag_checked(pm.tables, pm.prog, x, w, "config5 block")
+    worst = max(worst, err)
+    flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    xb, wb = mapper.u32_bits(x), mapper.u32_bits(w)
+    block = {
+        "pgs": PLAIN_BLOCK,
+        "plain_ms": time_ms(lambda: mapper.crush_rule_plain(
+            pm.tables, pm.prog, x, w, diag=True), flush, runs=1, warmup=0),
+        "ms": time_ms(lambda: mapper.crush_rule_diag_cuda(
+            pm.tables, pm.prog, xb, wb), flush, runs=7),
+    }
+    cases.append({"case": "config5_block", "seeds": PLAIN_BLOCK, **block})
+    emit({"phase": "diag_vs_plain", "cases": cases, "max_abs_err": worst,
+          "equal": True, "ptxas": build.ptxas_report(
+              "crush/csrc/crush_rule_diag.cu"),
+          "plan": vars(mapper.launch_plan(torch.cuda.current_device(),
+                                          True))})
+    return worst, block
+
+
+def plane_bytes(prog, n: int) -> int:
+    """The diagnostics' extra output: tries, steps and the 4 tallies."""
+    return 4 * n * (prog.diag_lanes + prog.diag_steps * prog.result_max + 4)
+
+
+def phase_diagnose_main(dev, pms: dict, n_draws: int, peak: float) -> dict:
+    """PoolMapper.diagnose() over all of config 5's PGs, without and with
+    a ClusterState, each counted from 0 (one diagnostics launch): the
+    histogram's total equal to the placements the planes book, and, over
+    512 sampled seeds, the histogram equal to the host oracle's; the diag
+    kernel's time beside the default kernel's on the same seeds (CUDA
+    events, L2 flushed) and diagnose's entry time on the host clock."""
+    pm = pms["config5"]
+    n = pm.spec.pg_num
+    flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    out = {"pgs": n}
+    state = ClusterState(pm.m, device=dev)
+    for label, mpr in (("mapper", pm), ("state",
+                                        PoolMapper(pm.m, 0, state=state))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, rule_n, diag_n = count_both(lambda: mpr.diagnose(record=False))
+        sec = time.perf_counter() - t0
+        check((rule_n, diag_n) == (0, 1),
+              f"diagnose ({label}): {rule_n} rule, {diag_n} diag launches")
+        check(s["pgs"] == n and s["diag_exact"] and s["unresolved"] == 0,
+              f"diagnose ({label}) covers every PG")
+        out[label] = {"s": sec, "diag_launches": diag_n, "summary": {
+            k: v for k, v in s.items() if k != "tries_histogram"},
+            "tries_histogram_head": s["tries_histogram"][:8]}
+        out.setdefault("summary", s)
+        check(s == out["summary"], "diagnose with a ClusterState == without")
+    s = out["summary"]
+    x, w = rule_inputs(pm, n)
+    _, planes = mapper.diag_rule(pm.tables, pm.prog, x, w)
+    booked = int((planes["tries"] >= 0).sum())
+    check(sum(s["tries_histogram"]) == booked,
+          "the histogram's total == the placements the planes book")
+    check(booked + s["retry_exhausted"] == n * pm.prog.diag_lanes,
+          "booked + unplaced == every placement lane")
+    del planes
+    rng = np.random.default_rng(9)
+    sample = np.sort(rng.choice(n, DIAG_SAMPLE, replace=False))
+    got = pm.diagnose(sample, record=False)["tries_histogram"]
+    crush = pm.m.crush
+    crush.choose_tries_histogram = [0] * (crush.tunables.choose_total_tries
+                                          + 1)
+    pps = pm.placement_seeds(torch.from_numpy(sample).to(dev)).cpu()
+    weights = pm.rule_weights().cpu().tolist()
+    t0 = time.perf_counter()
+    for xv in pps.tolist():
+        mapper_ref.do_rule(crush, pm.spec.ruleno, xv, 3, weights,
+                           collect_choose_tries=True)
+    host_s = time.perf_counter() - t0
+    check(got == crush.choose_tries_histogram[:len(got)],
+          f"diagnose histogram == mapper_ref's over {DIAG_SAMPLE} seeds")
+    crush.choose_tries_histogram = None
+    xb, wb = mapper.u32_bits(x), mapper.u32_bits(w)
+    out["ms"] = time_ms(lambda: mapper.crush_rule_diag_cuda(
+        pm.tables, pm.prog, xb, wb), flush, runs=7)
+    out["default_ms"] = time_ms(lambda: mapper.crush_rule_cuda(
+        pm.tables, pm.prog, xb, wb), flush, runs=7)
+    out["diagnose_ms"] = wall_ms(lambda: pm.diagnose(record=False), flush,
+                                 runs=5)
+    clock = max_sm_clock_hz()
+    # the default kernel's draws on these seeds (placement_main counts
+    # them): the variant makes the same draws
+    ops_ms = (n_draws * OPS_PER_DRAW
+              / (H100_SMS * SCHEDULERS_PER_SM * WARP * clock) * 1e3)
+    nbytes = (rule_bytes(pm.tables, pm.prog, w.numel(), n)
+              + plane_bytes(pm.prog, n))
+    bytes_ms = nbytes / peak * 1e3
+    out.update({
+        "draws": n_draws, "ops_ms": ops_ms, "hbm_bytes": nbytes,
+        "plane_bytes": plane_bytes(pm.prog, n), "bytes_ms": bytes_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "sample": DIAG_SAMPLE, "sample_host_s": host_s,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+    })
+    out.pop("summary")
+    emit(dict(phase="diagnose_main", **out))
+    return out
+
+
+def phase_explain_cli(dev, pms: dict) -> dict:
+    """`crushtool explain` and `--locate-divergence` (clean, and against a
+    perturbed-tunables map) on the map files of tests/test_torch_explain.py,
+    on the card, each stdout's sha256 and exit code equal to the JAX
+    CLI's (tests/data/explain_corpus.json), each counted from 0; then
+    `--test --show-choose-tries` on config 5's map over x 0..2^20-1, its
+    histogram equal to the plain version's planes."""
+    corpus = json.loads(EXPLAIN_CORPUS.read_text())
+    res = {}
+    with tempfile.TemporaryDirectory() as d, contextlib.chdir(d):
+        for name, f in corpus["maps"].items():
+            Path(name).write_bytes(base64.b64decode(f))
+        for name, case in corpus["cli"].items():
+            argv = ["-i", case["maps"][0], *case["argv"]]
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc, rule_n, diag_n = count_both(
+                    lambda: crushtool.main(list(argv)))
+            sec = time.perf_counter() - t0
+            text = out.getvalue()
+            check(rc == case["rc"], f"crushtool {name}: rc {rc}")
+            digest = hashlib.sha256(text.encode()).hexdigest()
+            check(digest == case["sha256"], f"crushtool {name}: stdout "
+                  f"sha256 {digest} != the JAX CLI's {case['sha256']}")
+            want = 1 if "--locate-divergence" in argv else 0
+            check((rule_n, diag_n) == (0, want),
+                  f"crushtool {name}: {rule_n} rule, {diag_n} diag launches")
+            res[name] = {"rc": rc, "seconds": sec, "sha256_equal": True,
+                         "diag_launches": diag_n}
+        pm = pms["config5"]
+        with open("c5crush", "wb") as f:
+            f.write(encode_crushmap(pm.m.crush))
+        argv = ["-i", "c5crush", "--test", "--num-rep", "3", "--min-x", "0",
+                "--max-x", str(PLAIN_BLOCK - 1), "--show-choose-tries"]
+        ((text, sec), rule_n, diag_n) = count_both(
+            lambda: run_cli(crushtool, argv))
+        check((rule_n, diag_n) == (1, 1),
+              f"--show-choose-tries: {rule_n} rule, {diag_n} diag launches")
+        got = cli_counts(text, r"\n (\d+): (\d+)")
+        x = torch.arange(PLAIN_BLOCK, device=dev)
+        w = torch.full((pm.m.crush.max_devices,), 0x10000, device=dev)
+        _, _, planes = mapper.crush_rule_plain(pm.tables, pm.prog, x, w,
+                                               diag=True)
+        want = reduce.value_histogram(
+            planes["tries"], pm.prog.choose_total_tries).cpu().tolist()
+        last = max(i for i, v in enumerate(want) if v)
+        check(got == {i: want[i] for i in range(last + 1)},
+              "--show-choose-tries histogram == the plain version's")
+        res["config5_show_choose_tries"] = {
+            "seconds": sec, "rule_launches": rule_n, "diag_launches": diag_n,
+            "placements": sum(want), "histogram_equal": True}
+    emit({"phase": "explain_cli", "commands": res})
+    return res
+
+
+def numpy_report(before, after, size: int) -> dict:
+    """The JAX diff_mappings semantics, written here in numpy over the
+    fetched up rows: per PG the ordered non-NONE list changed, the OSDs
+    that entered it, a changed up_primary, fewer than size OSDs."""
+    (up1, p1), (up2, p2) = before, after
+
+    def listed(up):
+        out = up.copy()
+        holes = np.nonzero((up == ITEM_NONE).any(1))[0]
+        order = np.argsort(up[holes] == ITEM_NONE, axis=1, kind="stable")
+        out[holes] = np.take_along_axis(up[holes], order, 1)
+        return out
+
+    a, b = listed(up1), listed(up2)
+    remapped = (a != b).any(1)
+    new = b != ITEM_NONE
+    for j in range(b.shape[1]):
+        new[:, j] &= (a != b[:, j:j + 1]).all(1)
+        new[:, j] &= (b[:, :j] != b[:, j:j + 1]).all(1)
+    return {"total_pgs": len(up1), "pgs_remapped": int(remapped.sum()),
+            "pgs_primary_changed": int((p1 != p2).sum()),
+            "replicas_moved": int(new.sum()),
+            "degraded_pgs": int(((up2 != ITEM_NONE).sum(1) < size).sum())}
+
+
+def phase_failure_sim(dev, pms: dict, smi: str) -> dict:
+    """A ClusterSim(diagnostics=True) over config 5 on the card: 8 OSDs
+    of one host failed one event each, 2 of them revived, one reweighted
+    to 0.5, one balance() round (device_loop).  Each epoch: its wall
+    seconds and launches (one remap and one diagnostics launch; balance
+    also maps once for its plan), its MovementReport held to numpy_report
+    of the fetched rows, and SIM_SAMPLE seeds of its rows held to the host
+    oracle."""
+    m = copy.deepcopy(pms["config5"].m)
+    size = m.pools[0].size
+    host_osds = next(bk.items for bk in m.crush.buckets.values()
+                     if bk.type == 1 and 0 in bk.items)  # under the root
+    check(len(host_osds) == OSD_PER_HOST and 100 not in host_osds,
+          "a host of 8 OSDs, OSD 100 elsewhere")
+    events = ([("fail_osd", (o,)) for o in host_osds]
+              + [("revive_osd", (o,)) for o in host_osds[:2]]
+              + [("reweight_osd", (100, 0.5)), ("balance", ())])
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim, rule_n, diag_n = count_both(
+        lambda: ClusterSim(m, diagnostics=True, device=dev))
+    torch.cuda.synchronize()
+    epochs = [{"event": "init", "s": time.perf_counter() - t0,
+               "rule_launches": rule_n, "diag_launches": diag_n}]
+    check((rule_n, diag_n) == (1, 1), "ClusterSim init launches")
+    rng = np.random.default_rng(5)
+
+    def fetched(cur):
+        return cur[0].cpu().numpy(), cur[1].cpu().numpy()
+
+    before = fetched(sim.current[0])
+    for method, args in events:
+        kw = {"backend": "device_loop"} if method == "balance" else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep, rule_n, diag_n = count_both(
+            lambda: getattr(sim, method)(*args, **kw))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        want_rule = 2 if method == "balance" else 1
+        check((rule_n, diag_n) == (want_rule, 1),
+              f"{method}{args}: {rule_n} rule, {diag_n} diag launches")
+        after = fetched(sim.current[0])
+        want = numpy_report(before, after, size)
+        got = {k: getattr(rep, k) for k in want}
+        check(got == want, f"{method}{args}: report {got} != numpy {want}")
+        seeds = rng.choice(m.pools[0].pg_num, SIM_SAMPLE, replace=False)
+        t1 = time.perf_counter()
+        for ps in seeds.tolist():
+            up, upp, _, _ = sim.m.pg_to_up_acting_osds(PgId(0, ps))
+            row = [int(o) for o in after[0][ps] if o != ITEM_NONE]
+            check(row == [int(o) for o in up] and int(after[1][ps]) == upp,
+                  f"{method}{args}: seed {ps} == the host oracle")
+        agg = sim.diag_history[-1][1]
+        epochs.append({"event": f"{method}{args}", "s": sec,
+                       "rule_launches": rule_n, "diag_launches": diag_n,
+                       "report": dataclasses.asdict(rep),
+                       "report_equal_numpy": True,
+                       "checked_seeds": SIM_SAMPLE,
+                       "check_s": time.perf_counter() - t1,
+                       "bad_mappings": agg["bad_mappings"],
+                       "retry_exhausted": agg["retry_exhausted"],
+                       "collisions": agg["collisions"]})
+        before = after
+    peak = torch.cuda.max_memory_allocated(dev)
+    emit({"phase": "failure_sim", "pgs": m.pools[0].pg_num,
+          "epochs": epochs, "peak_device_bytes": peak})
+    walls = ", ".join(f"{e['event']} {e['s']:.6f} s" for e in epochs)
+    print(f"failure_sim on {smi}: {walls}; peak device memory {peak} bytes",
+          flush=True)
+    return {"epochs": epochs, "peak_device_bytes": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1915,6 +2259,23 @@ def main() -> int:
     rule_paths.update(bal_paths)
     mgr_paths, mres = phase_mgr_balancer(dev, info["nvidia_smi"])
     rule_paths.update(mgr_paths)
+
+    # placement diagnostics and the failure simulator: the diagnostics
+    # kernel vs its plain version, then its paths, each counted from 0
+    diag_err, dblock = phase_diag_vs_plain(dev, corpus, pms)
+    dres = phase_diagnose_main(dev, pms, pres["config5"]["draws"],
+                               info["peak_bw"])
+    diag_paths = {"diagnose_config5": dres["mapper"]["diag_launches"],
+                  "diagnose_config5_state": dres["state"]["diag_launches"]}
+    eres = phase_explain_cli(dev, pms)
+    diag_paths.update({f"cli_{k}": r["diag_launches"]
+                       for k, r in eres.items()})
+    rule_paths["cli_config5_show_choose_tries"] = \
+        eres["config5_show_choose_tries"]["rule_launches"]
+    fres = phase_failure_sim(dev, pms, info["nvidia_smi"])
+    for i, e in enumerate(fres["epochs"]):
+        diag_paths[f"sim_config5_{i}"] = e["diag_launches"]
+        rule_paths[f"sim_config5_{i}"] = e["rule_launches"]
     torch.cuda.synchronize()
 
     b, c5 = res["b"], pres["config5"]
@@ -1987,6 +2348,34 @@ def main() -> int:
         # crush-compat plan and CLI): each step's seconds, launches and
         # host-to-device bytes
         "mgr": mres["steps"],
+    }, {
+        "name": "crush_rule_diag",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/crush/csrc/crush_rule_diag.cu",
+        "replaces": "ceph_tpu/crush/mapper_jax.py:1529::compile_rule("
+                    "with_diag=True) (XLA)",
+        "equal": diag_err == 0,
+        "launches": sum(diag_paths.values()),
+        "launches_by_path": diag_paths,
+        "max_abs_err": diag_err,
+        # config 5 (10M PGs) beside the default kernel on the same seeds;
+        # plain_ms on the first plain_pgs PGs, beside the kernel's time on
+        # the same block (block_ms)
+        "ms": dres["ms"],
+        "default_ms": dres["default_ms"],
+        "plain_ms": dblock["plain_ms"],
+        "plain_pgs": dblock["pgs"],
+        "block_ms": dblock["ms"],
+        "bound_ms": dres["bound_ms"],
+        "bound_by": dres["bound_by"],
+        "library_ms": None,
+        "diagnose_ms": dres["diagnose_ms"],
+        "diagnose_s": {k: dres[k]["s"] for k in ("mapper", "state")},
+        "cli": {k: r["seconds"] for k, r in eres.items()},
+        "failure_sim": [{f: e[f] for f in ("event", "s", "rule_launches",
+                                          "diag_launches")}
+                        for e in fres["epochs"]],
+        "failure_sim_peak_device_bytes": fres["peak_device_bytes"],
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,9 @@ rows per config); the script fails otherwise.  With --sass DIR each
 child also writes the built library's SASS (cuobjdump -sass) to
 DIR/<n>-<tree>.txt and counts the instructions of every loop
 that holds a straw2 draw (a backward branch around at least 100
-IADD3/LOP3/SHF instructions, hash3's mix).
+IADD3/LOP3/SHF instructions, hash3's mix), and the last line says
+whether every tree's rule kernel (`crush_rule_kernel`) has the same SASS
+(`kernel_sass_equal`, from the sha256 of its instructions).
 
 Prints one JSON line per tree, with the card's name and power limit, and
 a last line with every tree's times side by side.
@@ -57,6 +59,16 @@ def smi() -> str:
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
 _BRA = re.compile(r"\bBRA\b.*?0x([0-9a-f]+)")
+
+
+def kernel_sass_sha256(sass: str) -> str:
+    """sha256 of the rule kernel's SASS instructions, in order."""
+    h = hashlib.sha256()
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        if "crush_rule_kernel" in fn.splitlines()[0]:
+            for m in _INSN.finditer(fn):
+                h.update(m.group(2).encode() + b"\n")
+    return h.hexdigest()
 
 
 def draw_loops(sass: str) -> list[dict]:
@@ -130,6 +142,7 @@ def child(tree: Path, label: str, sass: Path | None) -> dict:
         sass.mkdir(parents=True, exist_ok=True)
         (sass / f"{label}.txt").write_text(text)
         res["draw_loops"] = draw_loops(text)
+        res["kernel_sass_sha256"] = kernel_sass_sha256(text)
 
     flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
 
@@ -227,10 +240,14 @@ def main() -> int:
             print(f"crush_rule_ab: {name}: the trees' rows differ",
                   file=sys.stderr)
             return 1
-    print(json.dumps({"nvidia_smi": results[0]["nvidia_smi"], "side_by_side": {
+    last = {"nvidia_smi": results[0]["nvidia_smi"], "side_by_side": {
         r["tree"]: {name: {k: v for k, v in r[name].items()
                            if k.startswith("ms") or k == "entry_ms"}
-                    for name in CONFIGS} for r in results}}))
+                    for name in CONFIGS} for r in results}}
+    if args.sass:
+        last["kernel_sass_equal"] = len(
+            {r["kernel_sass_sha256"] for r in results}) == 1
+    print(json.dumps(last))
     return 0
 
 
