@@ -23,6 +23,22 @@ def subtree_contains(m: CrushMap, root: int, item: int) -> bool:
     return any(subtree_contains(m, c, item) for c in b.items)
 
 
+def subtree_items(m: CrushMap, root: int) -> set[int]:
+    """Every item `subtree_contains(m, root, item)` is true for: root
+    and everything under it, from one walk of the subtree."""
+    out: set[int] = set()
+    todo = [root]
+    while todo:
+        item = todo.pop()
+        if item in out:
+            continue
+        out.add(item)
+        b = m.buckets.get(item) if item < 0 else None
+        if b is not None:
+            todo.extend(b.items)
+    return out
+
+
 def find_takes_by_rule(m: CrushMap, ruleno: int) -> list[int]:
     rule = m.rules[ruleno]
     return [a1 for op, a1, _ in rule.steps if op == RuleOp.TAKE]

@@ -32,7 +32,7 @@ from ceph_tpu_torch.balancer.crush_analysis import (
     get_parent_of_type,
     get_rule_weight_osd_map,
     parent_of_type_map,
-    subtree_contains,
+    subtree_items,
 )
 from ceph_tpu_torch.crush import mapper_ref
 from ceph_tpu_torch.crush.types import ITEM_NONE, RuleOp
@@ -57,8 +57,28 @@ def _choose_type_stack(
     ruleno: int,
 ) -> list[int]:
     """reference CrushWrapper.cc:3845-4058; ipos is the shared orig cursor
-    (a 1-list so the caller sees advancement)."""
+    (a 1-list so the caller sees advancement).  get_parent_of_type and
+    subtree_contains are answered from one walk of the tree per type or
+    subtree (parent_of_type_map, subtree_items): called per item, they
+    walk it again each time, O(OSDs x tree) a call at 10k OSDs."""
     crush = m.crush
+    parents: dict[int, dict[int, int]] = {}
+    subtrees: dict[int, set[int]] = {}
+
+    def parent_of(item: int, type_: int) -> int:
+        if ruleno < 0:
+            return get_parent_of_type(crush, item, type_, ruleno)
+        pm = parents.get(type_)
+        if pm is None:
+            pm = parents[type_] = parent_of_type_map(crush, type_, ruleno)
+        return pm.get(item, 0)
+
+    def contains(root: int, item: int) -> bool:
+        sub = subtrees.get(root)
+        if sub is None:
+            sub = subtrees[root] = subtree_items(crush, root)
+        return item in sub
+
     cumulative_fanout = [0] * len(stack)
     f = 1
     for j in range(len(stack) - 1, -1, -1):
@@ -71,8 +91,8 @@ def _choose_type_stack(
         item = osd
         for j in range(len(stack) - 2, -1, -1):
             type_ = stack[j][0]
-            item = get_parent_of_type(crush, item, type_, ruleno)
-            if not subtree_contains(crush, root_bucket, item):
+            item = parent_of(item, type_)
+            if not contains(root_bucket, item):
                 continue
             underfull_buckets[j].add(item)
 
@@ -92,9 +112,7 @@ def _choose_type_stack(
                         # (CrushWrapper.cc:3906): a degraded mapping is
                         # shorter than the rule's fanout product
                         break
-                    item = get_parent_of_type(
-                        crush, orig[tmpi], type_, ruleno
-                    )
+                    item = parent_of(orig[tmpi], type_)
                     o.append(item)
                     n = cum_fanout
                     while n > 0 and tmpi < len(orig):
@@ -108,7 +126,7 @@ def _choose_type_stack(
                             for item in cand_list:
                                 if item in used:
                                     continue
-                                if not subtree_contains(crush, from_, item):
+                                if not contains(from_, item):
                                     continue
                                 if item in orig:
                                     continue
@@ -137,11 +155,9 @@ def _choose_type_stack(
                     for alt in sorted(underfull_buckets[j]):
                         if alt in o:
                             continue
-                        if j == 0 or get_parent_of_type(
-                            crush, o[pos], stack[j - 1][0], ruleno
-                        ) == get_parent_of_type(
-                            crush, alt, stack[j - 1][0], ruleno
-                        ):
+                        if j == 0 or parent_of(
+                            o[pos], stack[j - 1][0]
+                        ) == parent_of(alt, stack[j - 1][0]):
                             o[pos] = alt
                             break
             if ipos[0] >= len(orig):

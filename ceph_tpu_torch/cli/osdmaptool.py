@@ -28,8 +28,9 @@ the per-OSD counts and the size histogram; `--backend ref` maps PG by PG
 with the host oracle, as `--test-map-pg` and `--test-map-object` do.
 `--upmap` runs the balancer (`balancer.calc_pg_upmaps`, its "sets"
 backend with the PGs mapped through `PoolMapper`, or through the host
-pipeline with `--backend ref`).  `--health` is not yet ported: it exits
-1 and says so.
+pipeline with `--backend ref`).  `--health` evaluates the health
+checks (`obs.health`) from the OSD states and the per-PG live-lane counts,
+reduced where the mapped rows are, and exits 1 unless HEALTH_OK.
 
     python -m ceph_tpu_torch.cli.osdmaptool om --test-map-pgs --device cpu
 """
@@ -138,6 +139,44 @@ def _map_pool(m: OSDMap, pool_id: int, backend: str, device=None):
         upp[ps] = up_pr
         actp[ps] = a_pr
     return tuple(torch.from_numpy(v) for v in (acting, actp, up, upp))
+
+
+def map_health(m: OSDMap, backend: str = "torch", device=None) -> dict:
+    """Evaluate the obs/health checks against a loaded map: OSD
+    exists/up state plus each PG's live acting lanes (an OSD that is up)
+    against the pool's size (degraded), min_size (at risk) and zero
+    (unmapped).  The per-PG counts reduce where `_map_pool` left the
+    rows (the card for the torch backend); three counts per pool come
+    back."""
+    from ceph_tpu_torch.obs import health
+
+    exists = down = 0
+    for o in range(m.max_osd):
+        if m.exists(o):
+            exists += 1
+            if m.is_down(o):
+                down += 1
+    degraded = unmapped = at_risk = 0
+    up_osd = torch.tensor([m.is_up(o) for o in range(m.max_osd)] + [False])
+    for pid in sorted(m.pools):
+        pool = m.pools[pid]
+        acting = _map_pool(m, pid, backend, device)[0].long()
+        lanes = reduce.valid_lanes(acting) & (acting < m.max_osd)
+        ids = torch.where(lanes, acting, m.max_osd)
+        live = up_osd.to(acting.device)[ids].sum(1)
+        mapped = live > 0
+        counts = torch.stack([
+            (~mapped).sum(),
+            (mapped & (live < pool.size)).sum(),
+            (mapped & (live < pool.min_size)).sum(),
+        ]).tolist()
+        unmapped += counts[0]
+        degraded += counts[1]
+        at_risk += counts[2]
+    health.reset()  # this tool reports THIS map, not process history
+    health.evaluate(osds_down=down, osd_count=exists, degraded=degraded,
+                    unmapped=unmapped, at_risk=at_risk)
+    return health.dump()
 
 
 def test_map_pgs(
@@ -325,7 +364,7 @@ def main(argv: list[str] | None = None) -> int:
     pg_num = -1
     backend = "torch"
     device = None
-    refused: list[str] = []  # flags of modules not yet ported
+    do_health = False
     upmap = False
     upmap_cleanup = False
     upmap_file = "-"
@@ -382,7 +421,7 @@ def main(argv: list[str] | None = None) -> int:
         elif (v := p.withint("--mark-in")) is not None:
             marked_in = v
         elif p.flag("--health"):
-            refused.append("--health")
+            do_health = True
         elif p.flag("--test-map-pgs"):
             test_map_pgs_mode = "stats"
         elif p.flag("--test-map-pgs-dump"):
@@ -446,10 +485,6 @@ def main(argv: list[str] | None = None) -> int:
         else:
             p.i += 1  # unrecognized: ceph_argparse skips it
 
-    if refused:
-        print(f"{ME}: {', '.join(dict.fromkeys(refused))}: not yet ported",
-              file=sys.stderr)
-        return 1
     if backend not in ("torch", "jax", "ref"):
         print(f"{ME}: unknown backend '{backend}'", file=sys.stderr)
         return 1
@@ -740,11 +775,18 @@ def main(argv: list[str] | None = None) -> int:
             device=device,
         )
 
+    health_rc = 0
+    if do_health:
+        h = map_health(m, backend=backend, device=device)
+        print(json.dumps(h, indent=1, sort_keys=True))
+        if h["status"] != "HEALTH_OK":
+            health_rc = 1
+
     no_action = not (
         do_print or tree or modified or write_out or export_crush
         or import_crush or test_map_pg or test_map_object
         or test_map_pgs_mode or adjust_crush_weight or upmap
-        or upmap_cleanup
+        or upmap_cleanup or do_health
     )
     if no_action:
         print(f"{ME}: no action specified?", file=sys.stderr)
@@ -783,7 +825,7 @@ def main(argv: list[str] | None = None) -> int:
             m.wire["modified"] = _now_utime()
         print(f"{ME}: writing epoch {m.epoch} to {fn}")
         save_osdmap(m, fn)
-    return 0
+    return health_rc
 
 
 if __name__ == "__main__":

@@ -33,9 +33,16 @@ ClusterState; `crushtool explain` / `--locate-divergence` against the
 JAX CLI's stdout and `--test --show-choose-tries` on config 5) and a
 `ClusterSim` failure run at config 5 (8 OSDs of a host failed, 2
 revived, a reweight, a balance round, each epoch's report held to a
-numpy diff and its rows to the host oracle), through the entry points a
-user calls, and prints one JSON object per phase.  Any failure raises
-and exits non-zero.
+numpy diff and its rows to the host oracle), then the lifetime simulator
+(`lifetime_corpus`: every scenario of tests/data/lifetime_corpus.json on
+the card, digests and each epoch's launches equal to the corpus, a CLI
+run stopped and resumed, an injected device loss raising;
+`lifetime_main`: 48 epochs at 10M PGs / 10k OSDs with the workload,
+correlated failures and the balancer, after measuring the EC 4+2 encode
+GB/s, each epoch's launches, program times and parts, four epochs'
+programs held to numpy and 32 seeds a pool an epoch to the host oracle),
+through the entry points a user calls, and prints one JSON object per
+phase.  Any failure raises and exits non-zero.
 
 The line before the last is the kernels line (each kernel's launches on
 the main path, its time, bound and plain-version time); the last line is
@@ -63,7 +70,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ceph_tpu_torch import build
+from ceph_tpu_torch import build, obs
 from ceph_tpu_torch.balancer import calc_pg_upmaps, state, upmap
 from ceph_tpu_torch.balancer.crush_analysis import get_rule_weight_osd_map
 from ceph_tpu_torch.cli import balancer as balancer_cli
@@ -90,7 +97,13 @@ from ceph_tpu_torch.osd.pipeline import PoolMapper
 from ceph_tpu_torch.osd.state import COUNTERS as state_counters
 from ceph_tpu_torch.osd.state import ClusterState
 from ceph_tpu_torch.osd.types import PgId, PgPool, PoolType
-from ceph_tpu_torch.sim import ClusterSim
+from ceph_tpu_torch.recovery import DRAIN_KEYS
+from ceph_tpu_torch.recovery import queue as recovery_queue
+from ceph_tpu_torch.runtime import DeviceLostError, faults
+from ceph_tpu_torch.sim import ClusterSim, LifetimeSim
+from ceph_tpu_torch.sim import lifetime as sim_lifetime
+from ceph_tpu_torch.sim import workload as sim_workload
+from ceph_tpu_torch.sim.workload import WL_KEYS
 
 ROOT = Path(__file__).resolve().parent
 CORPUS = ROOT / "tests" / "data" / "ec_corpus.json"
@@ -1141,15 +1154,15 @@ def phase_legacy_main(dev, legacy: dict, peak: float) -> dict:
 
 # -- the placement CLIs --------------------------------------------------------
 
-def run_cli(tool, argv: list[str]) -> tuple[str, float]:
-    """(stdout, seconds) of one CLI run through its main(argv); stderr is
-    kept apart and shown if the run fails."""
+def run_cli(tool, argv: list[str], want_rc: int = 0) -> tuple[str, float]:
+    """(stdout, seconds) of one CLI run through its main(argv), which
+    must exit want_rc; stderr is kept apart and shown if it does not."""
     out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = tool.main(list(argv))
     seconds = time.perf_counter() - t0
-    check(rc == 0, f"{tool.__name__} {' '.join(argv)}: rc {rc}, "
+    check(rc == want_rc, f"{tool.__name__} {' '.join(argv)}: rc {rc}, "
           f"{err.getvalue()[-2000:]}")
     return out.getvalue(), seconds
 
@@ -1163,9 +1176,10 @@ def phase_cli_placement(dev, pms: dict) -> dict:
     default device), each counted from 0: BASELINE config 1 (`crushtool
     --test`), config 1's test on a map of straw hosts, a test of
     tests/data/legacy_crushmap.txt, BASELINE config 2
-    (`osdmaptool --test-map-pgs`) and the balancer on it (`osdmaptool
-    --upmap`), each stdout's sha256 (and the upmap file's) equal to the
-    JAX CLIs' (tests/data/cli_corpus.json); then config 5 through both, the
+    (`osdmaptool --test-map-pgs`), the balancer on it (`osdmaptool
+    --upmap`) and its health with 8 OSDs down (`osdmaptool --health`, exit
+    1 at HEALTH_WARN), each stdout's sha256 (and the upmap file's) equal
+    to the JAX CLIs' (tests/data/cli_corpus.json); then config 5 through both, the
     per-OSD counts each prints equal to the osd_histogram of
     map_all_device's rows.  One launch per (rule, numrep) pass or pool."""
     corpus = json.loads(CLI_CORPUS.read_text())
@@ -1177,10 +1191,10 @@ def phase_cli_placement(dev, pms: dict) -> dict:
     m5 = pms["config5"].m
     res = {}
     with tempfile.TemporaryDirectory() as d, contextlib.chdir(d):
-        def hashed(name, setup, tool, argv, launches, pgs):
+        def hashed(name, setup, tool, argv, launches, pgs, want_rc=0):
             setup()
             (text, sec), n = counted(launches, f"CLI {name}",
-                                     lambda: run_cli(tool, argv),
+                                     lambda: run_cli(tool, argv, want_rc),
                                      mapper.crush_rule_cuda)
             digest = hashlib.sha256(text.encode()).hexdigest()
             check(digest == want[name], f"CLI {name}: stdout sha256 "
@@ -1212,6 +1226,16 @@ def phase_cli_placement(dev, pms: dict) -> dict:
         hashed("config2_upmap", lambda: None, osdmaptool,
                ["m2", "--upmap", "upmap.txt", "--upmap-deviation", "5",
                 "--upmap-max", "10"], 1, CONFIGS["config2"][0])
+
+        def config2_down():
+            m2 = bench_map(*CONFIGS["config2"])
+            for o in range(8):  # tests/test_torch_cli.py::CONFIG2_DOWN
+                m2.mark_down(o)
+            save_osdmap(m2, "m2down")
+
+        # the health checks: per-PG live lanes reduced on the card
+        hashed("config2_health_down", config2_down, osdmaptool,
+               ["m2down", "--health"], 1, CONFIGS["config2"][0], want_rc=1)
 
         # config 5: the tester's x are the pool's placement seeds with
         # --pool-id 0 (pps = hash2(ps, pool) for ps < pg_num = pgp_num)
@@ -2219,6 +2243,460 @@ def phase_failure_sim(dev, pms: dict, smi: str) -> dict:
     return {"epochs": epochs, "peak_device_bytes": peak}
 
 
+# -- the lifetime simulator -----------------------------------------------------
+
+LIFETIME_CORPUS = ROOT / "tests" / "data" / "lifetime_corpus.json"
+# summary keys that read the wall clock, and those that differ by design
+# (tests/test_torch_lifetime.py::comparable)
+LIFETIME_WALL = ("wall_s", "epochs_per_sec", "cluster_years_per_hour")
+LIFETIME_BY_DESIGN = ("provenance", "state", "trace_once",
+                      "jit_compiles_per_epoch")
+# config 5's 10k OSDs (bench_map: 1250 hosts of 8 under 78 racks) with
+# 10M PGs over a size-3 pool and an EC 4+2 pool; ec_gbps is measured
+LIFETIME_MAIN = ("hosts=1250,osds_per_host=8,racks=78,pgs=8000000,"
+                 "ec=4+2,ec_pgs=2000000,workload=1,correlated=1,epochs=48,"
+                 "balance_every=16,checkpoint_every=0")
+LIFETIME_CHECKED = 4  # epochs whose program inputs are held to numpy
+LIFETIME_SAMPLE = 32  # seeds of each pool held to the host oracle an epoch
+LIFETIME_RESUMED = ("tiny_wl", 4)  # the CLI --stop-after / --resume run
+
+
+def lifetime_comparable(summary: dict) -> dict:
+    out = {k: v for k, v in summary.items()
+           if k not in LIFETIME_WALL + LIFETIME_BY_DESIGN}
+    if "pareto" in out:
+        out["pareto"] = {k: v for k, v in out["pareto"].items()
+                         if k != "cluster_years_per_hour"}
+    return json.loads(json.dumps(out))
+
+
+def fresh_observers() -> None:
+    """The health checks and the timeline are process-global: each run
+    starts from none, as the corpus runs did."""
+    obs.health.reset()
+    obs.timeline.reset()
+
+
+def phase_lifetime_corpus(dev) -> dict:
+    """Every scenario of tests/data/lifetime_corpus.json on the card
+    (backend "torch"): the JAX digest and summary, the rule kernel's
+    launches of each epoch equal to the CPU run's rule calls (0 on every
+    epoch in which no pool's rows tag changed), 0 compiles and no rebuild
+    on a steady epoch.  Then one scenario stopped after epoch k and
+    resumed through `python -m ceph_tpu_torch.cli.sim`, and an injected
+    device loss, which must raise."""
+    corpus = json.loads(LIFETIME_CORPUS.read_text())["scenarios"]
+    res, launches_by = {}, {}
+    for name, ent in sorted(corpus.items()):
+        fresh_observers()
+        t0 = time.perf_counter()
+        mapper.crush_rule_cuda.launches = 0
+        sim = LifetimeSim(ent["spec"], backend="torch", device=dev)
+        init_n = mapper.crush_rule_cuda.launches
+        todo = ent["forced"] + [None] * (sim.scenario.epochs
+                                         - len(ent["forced"]))
+        per_epoch = []
+        for ev in todo:
+            mapper.crush_rule_cuda.launches = 0
+            sim.step(force_event=ev)
+            per_epoch.append(mapper.crush_rule_cuda.launches)
+        out = sim.run()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check(out["digest"] == ent["digest"],
+              f"lifetime {name}: digest {out['digest']} != JAX's")
+        check(lifetime_comparable(out) == ent["summary"],
+              f"lifetime {name}: summary == JAX's")
+        check(per_epoch == ent["rule_calls"],
+              f"lifetime {name}: launches {per_epoch} != the CPU run's "
+              f"{ent['rule_calls']}")
+        check(all(n == 0 for n, c in zip(per_epoch, ent["tags_changed"])
+                  if not c), f"lifetime {name}: a tag-equal epoch launched")
+        to = out["trace_once"]
+        check(to["total_compiles"] == 0 and to["steady_full_rebuilds"] == 0,
+              f"lifetime {name}: trace_once {to}")
+        if "jax_backend" in ent:
+            check(out["state"] == ent["jax_backend"]["state"],
+                  f"lifetime {name}: state counts == the JAX backend's")
+        res[name] = {"epochs": out["epochs"], "s": sec,
+                     "init_launches": init_n, "launches": per_epoch,
+                     "digest_equal": True}
+        launches_by[name] = init_n + sum(per_epoch)
+
+    # kill-free resume through the CLI: stop after k, resume, same digest
+    name, k = LIFETIME_RESUMED
+    spec = corpus[name]["spec"]
+    with tempfile.TemporaryDirectory() as d:
+        ck = str(Path(d) / "ck.json")
+        t0 = time.perf_counter()
+        for argv in (["--scenario", spec, "--stop-after", str(k)],
+                     ["--resume"]):
+            r = subprocess.run(
+                [sys.executable, "-m", "ceph_tpu_torch.cli.sim", "digest",
+                 "--device", str(dev), "--checkpoint", ck] + argv,
+                cwd=ROOT, capture_output=True,
+                text=True, timeout=300)
+            check(r.returncode == 0, f"cli.sim {argv}: rc {r.returncode} "
+                  f"{r.stderr[-2000:]}")
+        check(r.stdout.strip() == corpus[name]["digest"],
+              f"cli.sim --resume after {k}: digest == JAX's")
+        resume_s = time.perf_counter() - t0
+
+    # no fallback: an injected device loss raises out of step()
+    faults.configure("epoch_apply.3=lost:injected x1")
+    try:
+        sim = LifetimeSim(corpus["tiny"]["spec"], backend="torch",
+                          device=dev)
+        raised = False
+        try:
+            sim.run()
+        except DeviceLostError:
+            raised = True
+    finally:
+        faults.disarm_all()
+    check(raised and sim.steps == 2 and sim.provenance()[
+        "device_loss_fallbacks"] == 0, "an injected device loss raises")
+    fresh_observers()
+    emit({"phase": "lifetime_corpus", "scenarios": res,
+          "cli_resume": {"scenario": name, "stop_after": k,
+                         "digest_equal": True, "s": resume_s},
+          "device_loss_raises": True})
+    return launches_by
+
+
+class ProgramClock:
+    """The three data-plane programs (epoch stats, recovery drain, client
+    traffic) wrapped where the simulator calls them: CUDA events around
+    every call, and, while `capture` is a list, each call's inputs and
+    outputs appended to it."""
+
+    PROGRAMS = (("stats", "lifetime", "_stats_torch"),
+                ("drain", "queue", "drain_pool_torch"),
+                ("traffic", "workload", "workload_pool_torch"))
+
+    def __init__(self):
+        self.events = {key: [] for key, _, _ in self.PROGRAMS}
+        self.capture = None
+        self._orig = []
+        mods = {"lifetime": sim_lifetime, "queue": recovery_queue,
+                "workload": sim_workload}
+        for key, mod, attr in self.PROGRAMS:
+            self._wrap(mods[mod], attr, key)
+
+    def _wrap(self, mod, attr, key):
+        orig = getattr(mod, attr)
+        self._orig.append((mod, attr, orig))
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*a, **kw)
+            end.record()
+            self.events[key].append((start, end))
+            if self.capture is not None:
+                self.capture.append((key, a, kw, out))
+            return out
+
+        setattr(mod, attr, timed)
+
+    def take_ms(self) -> dict:
+        """{program: [ms of each call]} since the last take."""
+        torch.cuda.synchronize()
+        out = {k: [s.elapsed_time(e) for s, e in v]
+               for k, v in self.events.items()}
+        self.events = {k: [] for k in self.events}
+        return out
+
+    def restore(self):
+        for mod, attr, orig in self._orig:
+            setattr(mod, attr, orig)
+
+
+def numpy_epoch_stats(prev, rows, n: int, size: int, tol: int):
+    """The epoch stats written lane by lane in numpy, apart from the
+    port's and the JAX package's formulas: ([degraded, unmapped, at_risk,
+    dup, moved, remapped], moved lanes per PG)."""
+    real = np.arange(rows.shape[0]) < n
+    W = rows.shape[1]
+    ok = (rows != ITEM_NONE) & (rows >= 0)
+    pok = (prev != ITEM_NONE) & (prev >= 0)
+    occ = ok.sum(1)
+    dup = np.zeros(rows.shape[0], bool)
+    for i in range(W):
+        for j in range(i + 1, W):
+            dup |= ok[:, i] & ok[:, j] & (rows[:, i] == rows[:, j])
+    moved = np.zeros(rows.shape[0], np.int64)
+    gone = np.zeros(rows.shape[0], bool)
+    for j in range(W):
+        in_prev = np.zeros(rows.shape[0], bool)
+        in_rows = np.zeros(rows.shape[0], bool)
+        for k in range(W):
+            in_prev |= rows[:, j] == prev[:, k]
+            in_rows |= prev[:, j] == rows[:, k]
+        moved += ok[:, j] & ~in_prev & real
+        gone |= pok[:, j] & ~in_rows
+    return [int((real & (occ < size)).sum()), int((real & (occ == 0)).sum()),
+            int((real & (occ < size - tol)).sum()), int((real & dup).sum()),
+            int(moved.sum()), int((real & ((moved > 0) | gone)).sum())], moved
+
+
+def held_to_numpy(calls: list) -> dict:
+    """Each captured program call held to numpy: the stats to
+    numpy_epoch_stats, the drain to drain_pool_np, the traffic to
+    workload_pool_np.  Returns the calls checked per program."""
+    done = {"stats": 0, "drain": 0, "traffic": 0}
+    for key, a, kw, out in calls:
+        host = [x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+                for x in a]
+        if key == "stats":
+            prev, rows, n, size, tol = host
+            want, moved = numpy_epoch_stats(prev, rows, n, size, tol)
+            check(out[0].tolist() == want, f"stats {out[0].tolist()} != "
+                  f"numpy {want}")
+            check(np.array_equal(out[1].cpu().numpy(), moved),
+                  "stats: moved lanes == numpy")
+        elif key == "drain":
+            b, cap, slots, scal = recovery_queue.drain_pool_np(*host, **kw)
+            check(out[3].tolist() == [scal[k] for k in DRAIN_KEYS],
+                  f"drain {out[3].tolist()} != drain_pool_np {scal}")
+            check(np.array_equal(out[0].cpu().numpy(), b)
+                  and np.array_equal(out[1].cpu().numpy(), cap)
+                  and np.array_equal(out[2].cpu().numpy(), slots),
+                  "drain: backlog, capacity, slots == drain_pool_np")
+        else:
+            client, scal = sim_workload.workload_pool_np(*host, **kw)
+            check(out[1].tolist() == [scal[k] for k in WL_KEYS],
+                  f"traffic {out[1].tolist()} != workload_pool_np {scal}")
+            check(np.array_equal(out[0].cpu().numpy(), client),
+                  "traffic: client bytes == workload_pool_np")
+        done[key] += 1
+    return done
+
+
+def program_bound_ms(key: str, a, kw, peak: float) -> float:
+    """Bytes a program must move (each input read once, each output
+    written once) over the card's memory rate, in ms."""
+    def nb(t):
+        return t.numel() * t.element_size() if isinstance(
+            t, torch.Tensor) else 0
+
+    if key == "stats":
+        prev, rows = a[0], a[1]
+        byts = nb(prev) + nb(rows) + rows.shape[0] * 8 + 6 * 8
+    elif key == "drain":
+        backlog, moved, rows, cap, slots = a
+        byts = (2 * nb(backlog) + nb(moved) + nb(rows) + 2 * nb(cap)
+                + 2 * nb(slots) + 7 * 8)
+    else:
+        rows, backlog, seeds, read = a
+        S, W = seeds.numel(), rows.shape[1]
+        byts = (S * W * rows.element_size() + (S * 8 if backlog is not None
+                else 0) + nb(seeds) + nb(read) + kw["DV"] * 8 + 7 * 8)
+    return byts / peak * 1e3
+
+
+LIFETIME_PARTS = ("_apply_event", "_account_epoch", "_workload_epoch",
+                  "_recovery_epoch", "_durability_epoch", "_invariants",
+                  "_observe_epoch")
+
+
+def time_parts(sim) -> dict:
+    """Wrap the parts of `sim.step()` on the instance: each call's host
+    seconds, synchronised at its end, added to the returned dict (the
+    step's breakdown; the caller zeroes it each epoch)."""
+    spent = dict.fromkeys(LIFETIME_PARTS, 0.0)
+    for name in LIFETIME_PARTS:
+        def timed(*a, _real=getattr(sim, name), _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            torch.cuda.synchronize()
+            spent[_name] += time.perf_counter() - t0
+            return out
+
+        setattr(sim, name, timed)
+    return spent
+
+
+def ec_encode_gbps(dev, flush) -> dict:
+    """The EC pool's own profile (plugin jax, k=4, m=2) on the card
+    through create_erasure_code: encode_batch of 4096 stripes of 4 x 4 KiB
+    (64 MiB of data), checked against the plain version, then its wall
+    time; GB/s of data encoded.  One gf_matmul launch per encode."""
+    code = create_erasure_code({"plugin": "jax", "k": "4", "m": "2"},
+                               device=dev)
+    N, L = 4096, 4096
+    stripes = rand_u8((N, code.k, L), 600, dev)
+    enc, n = counted(1, "lifetime EC calibration",
+                     lambda: code.encode_batch(stripes))
+    check(torch.equal(enc[:, code.k:], gf_matmul_plain(code.C, stripes)),
+          "lifetime EC calibration: parity == the plain version")
+    ms = wall_ms(lambda: code.encode_batch(stripes), flush)
+    return {"launches": n, "encode_ms": ms, "data_bytes": N * code.k * L,
+            "gbps": N * code.k * L / (ms * 1e-3) / 1e9}
+
+
+def phase_lifetime_main(dev, smi: str, peak: float) -> dict:
+    """LifetimeSim at config 5's size on the card: 10M PGs (8M size-3,
+    2M EC 4+2) over 10k OSDs, 48 epochs with the workload, correlated
+    failures and the queue model, the mgr balancer every 16 epochs, with
+    ec_gbps measured on the card first.  Each epoch: its event, wall
+    seconds, rule launches (held to the map_all_device and raw_rows calls
+    that make them: 0 on an epoch whose tags did not change), the
+    CUDA-event ms of the stats, drain and traffic programs; the first
+    LIFETIME_CHECKED epochs that ran the stats have every program's
+    inputs fetched and held to numpy; every event epoch has
+    LIFETIME_SAMPLE seeds of each pool held to the host oracle."""
+    flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    ec = ec_encode_gbps(dev, flush)
+    del flush
+    spec = LIFETIME_MAIN + f",ec_gbps={round(ec['gbps'], 3)}"
+    print(f"lifetime_main on {smi}: EC 4+2 encode {ec['gbps']:.3f} GB/s "
+          f"-> ec_gbps", flush=True)
+    calls = {"map_all": 0, "raw": 0}
+    real_map, real_raw = PoolMapper.map_all_device, PoolMapper.raw_rows
+
+    def map_all(self):
+        calls["map_all"] += 1
+        return real_map(self)
+
+    def raw(self, seeds):
+        calls["raw"] += int(len(seeds) > 0)
+        return real_raw(self, seeds)
+
+    PoolMapper.map_all_device, PoolMapper.raw_rows = map_all, raw
+    clock = ProgramClock()
+    rng = np.random.default_rng(10)
+    try:
+        fresh_observers()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        mapper.crush_rule_cuda.launches = 0
+        t0 = time.perf_counter()
+        sim = LifetimeSim(spec, backend="torch", device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_launches = mapper.crush_rule_cuda.launches
+        clock.take_ms()
+        parts = time_parts(sim)
+        epochs, checked, check_s, oracle_s = [], {}, 0.0, 0.0
+        for _ in range(sim.scenario.epochs):
+            tags0 = {p: ent[0] for p, ent in sim._prev_rows.items()}
+            calls.update(map_all=0, raw=0)
+            capture = [] if len(checked) < LIFETIME_CHECKED else None
+            clock.capture = capture
+            torch.cuda.synchronize()
+            mapper.crush_rule_cuda.launches = 0
+            parts.update(dict.fromkeys(parts, 0.0))
+            t0 = time.perf_counter()
+            r = sim.step()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            n = mapper.crush_rule_cuda.launches
+            clock.capture = None
+            changed = sorted(p for p, ent in sim._prev_rows.items()
+                             if tags0.get(p) != ent[0])
+            ms = clock.take_ms()
+            e = r["epoch"]
+            kind = r["event"].split(" ")[0].split("(")[0]
+            balance = kind == "balance"
+            check(n >= calls["map_all"] + calls["raw"] and (
+                balance or n == calls["map_all"] + calls["raw"]),
+                f"epoch {e}: {n} launches, {calls['map_all']} remaps + "
+                f"{calls['raw']} overlay raw refreshes")
+            check(changed or n == 0, f"epoch {e}: tags equal, {n} launches")
+            check(changed or not ms["stats"],
+                  f"epoch {e}: tags equal, stats ran")
+            rec = {"epoch": e, "event": r["event"][:120], "kind": kind,
+                   "s": sec, "launches": n, "remaps": calls["map_all"],
+                   "raw_refreshes": calls["raw"],
+                   "balancer_own": n - calls["map_all"] - calls["raw"],
+                   "tags_changed": changed, "structural": r["structural"],
+                   "parts_s": dict(parts),
+                   "program_ms": {k: sum(v) for k, v in ms.items()},
+                   "program_calls": {k: len(v) for k, v in ms.items()}}
+            if capture and any(c[0] == "stats" for c in capture):
+                t1 = time.perf_counter()
+                checked[e] = held_to_numpy(capture)
+                rec["bounds_ms"] = {}
+                for key, a, kw, _ in capture:
+                    rec["bounds_ms"][key] = rec["bounds_ms"].get(key, 0.0) \
+                        + program_bound_ms(key, a, kw, peak)
+                check_s += time.perf_counter() - t1
+            del capture
+            if kind != "quiet":
+                t1 = time.perf_counter()
+                for pid in sorted(sim.m.pools):
+                    rows = sim._prev_rows[pid][1]
+                    seeds = rng.choice(rows.shape[0], min(
+                        LIFETIME_SAMPLE, rows.shape[0]), replace=False)
+                    got = rows[torch.from_numpy(seeds).to(dev)].cpu()
+                    for ps, row in zip(seeds.tolist(), got.tolist()):
+                        up = sim.m.pg_to_up_acting_osds(PgId(pid, ps))[0]
+                        up = list(up) + [ITEM_NONE] * (len(row) - len(up))
+                        check(row == up,
+                              f"epoch {e}: pg {pid}.{ps:x} == host oracle")
+                oracle_s += time.perf_counter() - t1
+            epochs.append(rec)
+        out = sim.summary()
+        peak_bytes = torch.cuda.max_memory_allocated(dev)
+    finally:
+        clock.restore()
+        PoolMapper.map_all_device, PoolMapper.raw_rows = real_map, real_raw
+    check(out["invariant_violations"] == 0,
+          f"lifetime_main: violations {out['violations']}")
+    check(out["recovery"]["conservation_violations"] == 0,
+          "lifetime_main: byte conservation every epoch")
+    check(out["trace_once"]["steady_full_rebuilds"] == 0,
+          "lifetime_main: no rebuild on a steady epoch")
+    check(len(checked) == LIFETIME_CHECKED,
+          f"lifetime_main: {len(checked)} epochs held to numpy")
+    by_kind: dict = {}
+    for rec in epochs:
+        by_kind.setdefault(rec["kind"], []).append(rec["s"])
+    programs = {}
+    for key in ("stats", "drain", "traffic"):
+        per = [rec["program_ms"][key] for rec in epochs
+               if rec["program_calls"][key]]
+        bounds = [rec["bounds_ms"][key] for rec in epochs
+                  if "bounds_ms" in rec and key in rec["bounds_ms"]]
+        programs[key] = {
+            "epochs_run": len(per),
+            "calls": sum(rec["program_calls"][key] for rec in epochs),
+            "median_epoch_ms": statistics.median(per) if per else None,
+            "max_epoch_ms": max(per) if per else None,
+            "bound_ms": statistics.median(bounds) if bounds else None,
+            "bound_by": "bytes",
+            "library_ms": None}
+    event_s = [rec["s"] for rec in epochs if rec["kind"] != "quiet"]
+    res = {
+        "scenario": spec, "ec_calibration": ec, "init_s": init_s,
+        "init_launches": init_launches,
+        "launches": init_launches + sum(r["launches"] for r in epochs),
+        "epochs": epochs,
+        "seconds_by_kind": {k: {"n": len(v), "median": statistics.median(v),
+                                "max": max(v)} for k, v in by_kind.items()},
+        "programs": programs,
+        "program_share_of_event_epochs": sum(
+            sum(r["program_ms"].values()) for r in epochs
+            if r["kind"] != "quiet") / 1e3 / max(sum(event_s), 1e-9),
+        "checked_epochs": checked, "check_s": check_s,
+        "oracle_s": oracle_s, "oracle_seeds_per_pool": LIFETIME_SAMPLE,
+        "summary": {k: out[k] for k in (
+            "digest", "events", "cluster_years_per_hour", "wall_s",
+            "invariant_violations", "recovery", "workload", "durability",
+            "trace_once", "state", "health", "sim_years")},
+        "peak_device_bytes": peak_bytes,
+    }
+    emit(dict(phase="lifetime_main", **res))
+    kinds = ", ".join(f"{k} median {v['median']:.3f} s max {v['max']:.3f} s"
+                      for k, v in sorted(res["seconds_by_kind"].items()))
+    print(f"lifetime_main on {smi}: init {init_s:.3f} s; {kinds}; "
+          f"{out['cluster_years_per_hour']} cluster-years/hour; peak "
+          f"device memory {peak_bytes} bytes", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2276,6 +2754,15 @@ def main() -> int:
     for i, e in enumerate(fres["epochs"]):
         diag_paths[f"sim_config5_{i}"] = e["diag_launches"]
         rule_paths[f"sim_config5_{i}"] = e["rule_launches"]
+
+    # the lifetime simulator: the corpus, then config 5's size
+    del pms
+    torch.cuda.empty_cache()
+    rule_paths.update({f"lifetime_corpus_{name}": n for name, n in
+                       phase_lifetime_corpus(dev).items()})
+    life = phase_lifetime_main(dev, info["nvidia_smi"], info["peak_bw"])
+    rule_paths["lifetime_main"] = life["launches"]
+    by_path["lifetime_ec_calibration"] = life["ec_calibration"]["launches"]
     torch.cuda.synchronize()
 
     b, c5 = res["b"], pres["config5"]
@@ -2348,6 +2835,11 @@ def main() -> int:
         # crush-compat plan and CLI): each step's seconds, launches and
         # host-to-device bytes
         "mgr": mres["steps"],
+        # the lifetime simulator at config 5's size: seconds and launches
+        # by event kind
+        "lifetime_main": {"init_s": life["init_s"],
+                          "seconds_by_kind": life["seconds_by_kind"],
+                          "launches": life["launches"]},
     }, {
         "name": "crush_rule_diag",
         "route": "cuda",

@@ -12,8 +12,10 @@ into the map, so both tools' clocks are pinned.
 tests/data/cli_corpus.json holds the sha256 of the JAX CLIs' stdout for
 the commands `chip_smoke.py` runs on the card (BASELINE.json configs 1 and
 2, config 1's test on a map of straw hosts, a test of
-tests/data/legacy_crushmap.txt, and `osdmaptool --upmap` on config 2, with
-the upmap file it writes); `python tests/test_torch_cli.py` rewrites it,
+tests/data/legacy_crushmap.txt, `osdmaptool --upmap` on config 2, with
+the upmap file it writes, and `osdmaptool --health` on config 2 with all
+OSDs up and with 8 of them down); `python tests/test_torch_cli.py`
+rewrites it,
 and the tests here check that the JAX CLIs still print what it holds.
 """
 
@@ -240,6 +242,12 @@ CASES = {
         (O, ["om", "--upmap", "out", "--upmap-deviation", "1",
              "--upmap-max", "12", "--save"], True),
         (O, ["om", "--print"], False)],
+    "health_up_then_down": HOSTS16 + [
+        (O, ["om", "--health"], True),
+        ("inc", "om", "inc", reweight_and_temp),
+        (O, ["om", "--apply-incremental", "inc", "--save"], False),
+        (O, ["om", "--health"], True),
+        (O, ["om", "--health", "--backend", "ref"], True)],
     "create_from_conf": [
         ("write", "ceph.conf", CONF),
         (O, ["om", "--create-from-conf", "-c", "ceph.conf",
@@ -299,10 +307,16 @@ def test_port_cli_equals_jax_cli(name, tmp_path, monkeypatch):
     (["om", "--health"], "--health"),
 ])
 def test_osdmaptool_refuses_what_waits(argv, flag, tmp_path, monkeypatch):
+    """The flag that waited for obs/health.py (it exited 1, "not yet
+    ported") now runs: the port's stdout, stderr and exit code equal the
+    JAX CLI's on the same map (the `health_*` cases hold more)."""
     monkeypatch.chdir(tmp_path)
-    rc, out, err = run_step("port", "osdmaptool", argv, False)
-    assert rc != 0 and out == ""
-    assert f"{flag}: not yet ported" in err
+    for step in HOSTS16:
+        run_step("port", *step)
+    got = run_step("port", "osdmaptool", argv, True)
+    assert got == run_step("jax", "osdmaptool", argv, False)
+    assert got[0] == 0 and f"{flag}: not yet ported" not in got[2]
+    assert json.loads(got[1])["status"] == "HEALTH_OK"
 
 
 @pytest.mark.parametrize("argv", [["-i", "m", "explain", "3"],
@@ -356,6 +370,9 @@ def corpus_commands() -> dict:
                           (O, ["m", "--upmap", "upmap.txt",
                                "--upmap-deviation", "5", "--upmap-max",
                                "10"])],
+        "config2_health": [("config2", "m"), (O, ["m", "--health"])],
+        "config2_health_down": [("config2_down", "m"),
+                                (O, ["m", "--health"])],
         "legacy_text": [(C, ["-c", str(LEGACY_MAP), "-o", "legacy"]),
                         (C, ["-i", "legacy", "--test", "--num-rep", "3",
                              "--max-x", "1023", "--show-mappings",
@@ -365,11 +382,15 @@ def corpus_commands() -> dict:
 
 # the files a corpus command writes whose sha256 the corpus holds too
 CORPUS_FILES = {"config2_upmap": ["upmap.txt"]}
+# corpus commands whose last step exits non-zero (HEALTH_WARN)
+CORPUS_RC = {"config2_health_down": 1}
+CONFIG2_DOWN = range(8)  # the OSDs ("config2_down", path) marks down
 
 
-def save_config2(pkg: str, path: str) -> None:
+def save_config2(pkg: str, path: str, down=()) -> None:
     """BASELINE config 2 (bench.py::build_map(100000, 1024)): 128 hosts of
-    8 OSDs under 8 racks, one size-3 pool of 100k PGs."""
+    8 OSDs under 8 racks, one size-3 pool of 100k PGs; OSDs `down`
+    marked down."""
     if pkg == "jax":
         from ceph_tpu.osd.io import save_osdmap
         from ceph_tpu.osd.osdmap import build_hierarchical
@@ -380,17 +401,22 @@ def save_config2(pkg: str, path: str) -> None:
         from ceph_tpu_torch.osd.types import PgPool, PoolType
     pool = PgPool(type=PoolType.REPLICATED, size=3, crush_rule=0,
                   pg_num=100000, pgp_num=100000)
-    save_osdmap(build_hierarchical(128, 8, n_rack=8, pool=pool), path)
+    m = build_hierarchical(128, 8, n_rack=8, pool=pool)
+    for o in down:
+        m.mark_down(o)
+    save_osdmap(m, path)
 
 
-def corpus_stdout(pkg: str, steps, maps: bool = False) -> str:
-    """The last step's stdout, in the cwd."""
-    for step in steps:
-        if step[0] == "config2":
-            save_config2(pkg, step[1])
+def corpus_stdout(pkg: str, steps, maps: bool = False, rc: int = 0) -> str:
+    """The last step's stdout, in the cwd; every step but the last exits
+    0, the last `rc`."""
+    for i, step in enumerate(steps):
+        if step[0] in ("config2", "config2_down"):
+            save_config2(pkg, step[1],
+                         CONFIG2_DOWN if step[0] == "config2_down" else ())
             continue
-        rc, out, err = run_step(pkg, step[0], step[1], maps)
-        assert rc == 0, err
+        got, out, err = run_step(pkg, step[0], step[1], maps)
+        assert got == (rc if i == len(steps) - 1 else 0), err
     return out
 
 
@@ -421,15 +447,16 @@ def test_corpus_holds_every_command():
 @pytest.mark.parametrize("name", sorted(corpus_commands()))
 def test_corpus_is_the_jax_clis(name, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    assert sha(corpus_stdout("jax", corpus_commands()[name])) == \
-        _stored()[name]
+    assert sha(corpus_stdout("jax", corpus_commands()[name],
+                             rc=CORPUS_RC.get(name, 0))) == _stored()[name]
     assert file_hashes(name) == _stored_files().get(name, {})
 
 
 @pytest.mark.parametrize("name", sorted(corpus_commands()))
 def test_port_cli_prints_the_corpus(name, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    got = corpus_stdout("port", corpus_commands()[name], maps=True)
+    got = corpus_stdout("port", corpus_commands()[name], maps=True,
+                        rc=CORPUS_RC.get(name, 0))
     assert sha(got) == _stored()[name]
     assert file_hashes(name) == _stored_files().get(name, {})
 
@@ -445,7 +472,8 @@ def write_corpus() -> None:
             cwd = os.getcwd()
             os.chdir(d)
             try:
-                hashes[name] = sha(corpus_stdout("jax", steps))
+                hashes[name] = sha(corpus_stdout(
+                    "jax", steps, rc=CORPUS_RC.get(name, 0)))
                 if name in CORPUS_FILES:
                     files[name] = file_hashes(name)
             finally:
