@@ -89,27 +89,29 @@ def value_histogram(vals: torch.Tensor, max_value: int, extra_mask=None,
 
 def duplicate_rows(rows: torch.Tensor) -> torch.Tensor:
     """Per-row flag: the row carries the same OSD in two occupied lanes.
-    [N, W] -> bool [N]."""
+    [..., N, W] -> bool [..., N]."""
     valid = valid_lanes(rows)
-    eq = ((rows[:, :, None] == rows[:, None, :])
-          & valid[:, :, None] & valid[:, None, :])
+    eq = ((rows[..., :, None] == rows[..., None, :])
+          & valid[..., :, None] & valid[..., None, :])
     w = rows.shape[-1]
     upper = torch.ones((w, w), dtype=torch.bool,
                        device=rows.device).triu(1)
-    return (eq & upper).flatten(1).any(1)
+    return (eq & upper).flatten(-2).any(-1)
 
 
 def moved_in_lanes(before: torch.Tensor,
                    after: torch.Tensor) -> torch.Tensor:
     """Per-lane flag: occupied `after` lanes whose OSD is not a member of
-    the same row in `before`.  [N, W] x [N, W] -> bool [N, W]."""
-    member = (after[:, :, None] == before[:, None, :]).any(2)
+    the same row in `before`.  [..., N, W] x [..., N, W] -> bool
+    [..., N, W]."""
+    member = (after[..., :, None] == before[..., None, :]).any(-1)
     return ~member & valid_lanes(after)
 
 
 def changed_rows(before: torch.Tensor, after: torch.Tensor) -> torch.Tensor:
     """Per-row flag: the row's occupied-OSD multiset changed (primary
-    reordering alone does not count).  [N, W] x [N, W] -> bool [N]."""
+    reordering alone does not count).  [..., N, W] x [..., N, W] -> bool
+    [..., N]."""
     return (moved_in_lanes(before, after).any(-1)
             | moved_in_lanes(after, before).any(-1))
 

@@ -9,7 +9,11 @@ the port has one: `gf_matmul_cuda`, a CUDA kernel written for sm_90a
 
 `TorchEngine` dispatches on where the tensor lives: a CPU tensor goes to
 the plain version, a CUDA tensor to the kernel (or the call raises).
-There is no fallback from one to the other.
+There is no fallback from one to the other.  The kernel takes an M of at
+most MAX_ROWS x MAX_COLS; a larger M runs as one launch per block of that
+size (`gf_matmul_tiled`), the partial products of a row block XORed
+together (GF addition is XOR), so every profile the JAX package encodes
+runs on the card.
 """
 
 from __future__ import annotations
@@ -145,6 +149,35 @@ def gf_matmul_cuda(
 gf_matmul_cuda.launches = 0
 
 
+def matrix_blocks(M: np.ndarray):
+    """M's blocks of at most MAX_ROWS x MAX_COLS, row block by row block:
+    [(r0, [(c0, M[r0:r0 + MAX_ROWS, c0:c0 + MAX_COLS]), ...]), ...]."""
+    R, S = M.shape
+    return [(r0, [(c0, np.ascontiguousarray(M[r0:r0 + MAX_ROWS,
+                                               c0:c0 + MAX_COLS]))
+                  for c0 in range(0, S, MAX_COLS)])
+            for r0 in range(0, R, MAX_ROWS)]
+
+
+def gf_matmul_tiled(M: np.ndarray, data: torch.Tensor, product):
+    """M u8[R, S] x data u8[N, S, L] -> u8[N, R, L] through `product(Mb,
+    db)`, which computes one block Mb (at most MAX_ROWS x MAX_COLS) times
+    db u8[N, cols, L].  An M inside the limits is one product call; a
+    larger one is one call per block: a row block's partial products are
+    XORed (exact: GF addition is XOR), the row blocks concatenated."""
+    R, S = M.shape
+    if R <= MAX_ROWS and S <= MAX_COLS:
+        return product(M, data)
+    parts = []
+    for _, cols in matrix_blocks(M):
+        acc = None
+        for c0, Mb in cols:
+            p = product(Mb, data[:, c0:c0 + Mb.shape[1]])
+            acc = p if acc is None else acc.bitwise_xor_(p)
+        parts.append(acc)
+    return torch.cat(parts, dim=1)
+
+
 class TorchEngine:
     """Device GF matmul engine: M u8[R,S] × data u8[S,L] -> u8[R,L].
 
@@ -167,10 +200,13 @@ class TorchEngine:
         return t
 
     def prepare(self, M: np.ndarray) -> None:
-        """Profile-registration hook: upload M's tables before any stripe
-        arrives (called at parse() time and for each new decode plan)."""
+        """Profile-registration hook: upload M's tables (each block's, for
+        an M past the kernel's limits) before any stripe arrives (called
+        at parse() time and for each new decode plan)."""
         if self.device.type == "cuda":
-            self._tables_for(np.asarray(M, np.uint8), self.device)
+            for _, cols in matrix_blocks(np.asarray(M, np.uint8)):
+                for _, Mb in cols:
+                    self._tables_for(Mb, self.device)
 
     def _run(self, M: np.ndarray, d: torch.Tensor) -> torch.Tensor:
         if d.dtype != torch.uint8:
@@ -182,8 +218,8 @@ class TorchEngine:
         if d.device.type == "cpu":
             return gf_matmul_plain(M, d)
         if d.device.type == "cuda":
-            return gf_matmul_cuda(self._tables_for(M, d.device), d,
-                                  M.shape[0])
+            return gf_matmul_tiled(M, d, lambda Mb, db: gf_matmul_cuda(
+                self._tables_for(Mb, d.device), db, Mb.shape[0]))
         raise ValueError(f"unsupported device {d.device}")
 
     def matmul(self, M: np.ndarray, data):

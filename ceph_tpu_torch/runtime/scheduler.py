@@ -8,8 +8,8 @@ keeps its whole state under the `"lifetime"` key in the JAX package's
 layout, so each package resumes the other's file.
 
 Each flush embeds a snapshot of the port's counters (`COUNTERS` of
-`osd.state`, `runtime.faults`, `recovery.queue`, `sim.workload` and
-`sim.lifetime`, where those modules are loaded) under `"perf"`, where
+`osd.state`, `runtime.faults`, `recovery.queue`, `sim.workload`,
+`sim.lifetime` and `fleet.engine`, where those modules are loaded) under `"perf"`, where
 the JAX file embeds its perf registry.  The deadline-budgeted
 `StageScheduler`, the backend ladder and the preflight probe are not
 ported.
@@ -29,6 +29,7 @@ _COUNTER_MODULES = (
     "ceph_tpu_torch.recovery.queue",
     "ceph_tpu_torch.sim.workload",
     "ceph_tpu_torch.sim.lifetime",
+    "ceph_tpu_torch.fleet.engine",
     "ceph_tpu_torch.obs.health",
     "ceph_tpu_torch.obs.timeline",
 )

@@ -86,7 +86,8 @@ from ceph_tpu_torch.sim.failure import MovementReport, _map_ref
 BACKENDS = {"torch": "torch", "jax": "torch", "ref": "ref"}
 
 # The JAX package's `sim` perf group's counts, plus `stats_calls` (the
-# torch-op epoch stats run; a tag-equal pool-epoch makes none)
+# torch-op epoch stats run; a tag-equal pool-epoch makes none; the
+# fleet's stacked calls are `fleet.engine.COUNTERS["stats_calls"]`)
 COUNTERS: dict[str, int] = dict.fromkeys((
     "epochs", "events_applied", "invariant_violations",
     "degraded_pg_epochs", "structural_epochs", "spot_checks",
@@ -341,25 +342,59 @@ def _stats_np(prev, rows, n: int, size: int, tol: int):
         moved_rows
 
 
-def _stats_torch(prev: torch.Tensor, rows: torch.Tensor, n: int, size: int,
-                 tol: int):
-    """`_stats_np` as torch ops on the rows' device (`core.reduce`):
-    returns (int64 [6] in STAT_KEYS order, per-PG moved lanes int64
-    [N]), both on the device."""
-    _inc("stats_calls")
-    real = torch.arange(rows.shape[0], device=rows.device) < n
+def _stats_lanes(prevs, rowss, ns, sizes, tols):
+    """`_stats_np` as torch ops over a leading lane axis: lane i is
+    (prev, rows) int32 [N_i, W_i] on one device, with its n, size and tol.
+    The lanes are copied into one [L, Nmax, Wmax] block filled with
+    ITEM_NONE (fresh memory: no lane's tensors are written), and `real =
+    arange(Nmax) < min(n, N_i)` keeps the padded rows out of every sum;
+    ITEM_NONE lanes are never occupied, so the padded columns count
+    nowhere.  A single lane is a view, not a copy.  Returns (int64
+    [L, 6] in STAT_KEYS order, each lane's per-PG moved lanes int64
+    [N_i], sliced back from the block), on the device."""
+    L = len(rowss)
+    if L == 1:
+        prev, rows = prevs[0][None], rowss[0][None]
+    else:
+        nmax = max(r.shape[0] for r in rowss)
+        wmax = max(r.shape[1] for r in rowss)
+        prev = torch.full((L, nmax, wmax), ITEM_NONE,
+                          dtype=rowss[0].dtype, device=rowss[0].device)
+        rows = torch.full_like(prev, ITEM_NONE)
+        for i, (p, r) in enumerate(zip(prevs, rowss)):
+            prev[i, :p.shape[0], :p.shape[1]] = p
+            rows[i, :r.shape[0], :r.shape[1]] = r
+    dev = rows.device
+    # a lane's real rows: arange(Nmax) < min(n, N_i), as the solo
+    # arange(N_i) < n (an n past N_i must not count the padding)
+    n, size, tol = torch.tensor(
+        [[min(int(x), r.shape[0]) for x, r in zip(ns, rowss)],
+         [int(x) for x in sizes], [int(x) for x in tols]],
+        dtype=torch.int64).to(dev)[:, :, None]
+    real = torch.arange(rows.shape[1], device=dev)[None, :] < n
     occ = reduce.result_sizes(rows)
     moved_rows = (reduce.moved_in_lanes(prev, rows)
-                  & real[:, None]).sum(1)
+                  & real[..., None]).sum(-1)
     out = torch.stack([
-        (real & (occ < size)).sum(),
-        (real & (occ == 0)).sum(),
-        (real & (occ < size - tol)).sum(),
-        (real & reduce.duplicate_rows(rows)).sum(),
-        moved_rows.sum(),
-        (real & reduce.changed_rows(prev, rows)).sum(),
-    ])
-    return out, moved_rows
+        (real & (occ < size)).sum(-1),
+        (real & (occ == 0)).sum(-1),
+        (real & (occ < size - tol)).sum(-1),
+        (real & reduce.duplicate_rows(rows)).sum(-1),
+        moved_rows.sum(-1),
+        (real & reduce.changed_rows(prev, rows)).sum(-1),
+    ], dim=1)
+    return out, tuple(moved_rows[i, :r.shape[0]]
+                      for i, r in enumerate(rowss))
+
+
+def _stats_torch(prev: torch.Tensor, rows: torch.Tensor, n: int, size: int,
+                 tol: int):
+    """One pool's epoch stats: the L = 1 case of `_stats_lanes`.  Returns
+    (int64 [6] in STAT_KEYS order, per-PG moved lanes int64 [N]), both on
+    the device."""
+    _inc("stats_calls")
+    out, moved = _stats_lanes((prev,), (rows,), (n,), (size,), (tol,))
+    return out[0], moved[0]
 
 
 STAT_KEYS = ("degraded", "unmapped", "at_risk", "dup", "moved",
@@ -518,12 +553,14 @@ class LifetimeSim:
     the card; "cpu" runs the rule's plain version) and the torch-op data
     planes; "ref": the host mapper and the numpy mirrors end to end, the
     same digests.  checkpoint: path of the atomic state file
-    (runtime.Checkpoint); resume=True restores from it and continues."""
+    (runtime.Checkpoint); resume=True restores from it and continues;
+    restore_state: a `_state()` dict held elsewhere (a fleet checkpoint's
+    member slice) to continue from instead."""
 
     def __init__(self, scenario: Scenario | str | None = None,
                  backend: str = "torch",
                  checkpoint: str | None = None, resume: bool = False,
-                 device=None):
+                 device=None, restore_state: dict | None = None):
         if isinstance(scenario, str) or scenario is None:
             scenario = Scenario.parse(scenario)
         if backend not in BACKENDS:
@@ -636,8 +673,13 @@ class LifetimeSim:
 
         self.ck = Checkpoint(checkpoint, resume=resume) \
             if checkpoint else None
-        state = (self.ck.data.get("lifetime")
-                 if (self.ck is not None and resume) else None)
+        # restore_state: an externally held _state() dict (the fleet
+        # checkpoints the whole stack in one file and hands each member
+        # its slice); otherwise the engine's own checkpoint
+        state = restore_state
+        if state is None:
+            state = (self.ck.data.get("lifetime")
+                     if (self.ck is not None and resume) else None)
         if state:
             self._restore(state)
         else:
@@ -852,60 +894,97 @@ class LifetimeSim:
         the epoch does no device work for the pool: the rows are equal by
         the tag contract, so moved/remapped are 0 and the row-pure stats
         replay from the cache."""
-        pool = self.m.pools[pid]
-        tol = self._pool_tolerance(pool)
         if self.state is not None:
-            rows, skey, tag = self.state.rows(pid)
-            n = pool.pg_num
-            prev = self._prev_rows.get(pid)
-            cached = self._stats_cache.get(pid)
-            if (not baseline and prev is not None and prev[0] == tag
-                    and cached is not None and cached[0] == tag
-                    and cached[1]["tol"] == tol):
-                st = dict(cached[1]["stats"], moved=0, remapped=0)
-                self._moved[pid] = None  # tag-equal rows: nothing moved
-            else:
-                if (prev is None
-                        or tuple(prev[1].shape) != tuple(rows.shape)):
-                    prev_dev = rows  # fresh/resized pool: self-compare
-                else:
-                    prev_dev = prev[1]
-                out, moved_rows = _stats_torch(prev_dev, rows, n,
-                                               pool.size, tol)
-                st = {k: int(v) for k, v in zip(STAT_KEYS, out.tolist())}
-                self._moved[pid] = moved_rows  # stays on the device
-                self._stats_cache[pid] = (tag, {
-                    "tol": tol,
-                    "stats": {k: st[k] for k in self._ROW_STATS},
-                })
-            self._prev_rows[pid] = (tag, rows)  # stays on the device
+            lane, skey = self._plan_pool(pid)
+            out = moved_rows = None
+            if lane["cached"] is None:
+                out, moved_rows = _stats_torch(
+                    lane["prev"], lane["rows"], lane["n"], lane["size"],
+                    lane["tol"])
+                out = out.tolist()
+            st = self._commit_pool(lane, out, moved_rows)
             if baseline:  # ran for the warmup, not the books
                 return None, skey
-        else:
-            up, _, _, _ = _map_ref(self.m, pid)
-            rows = up.astype(np.int32)
-            if self.corrupt_hook is not None:
-                rows = self.corrupt_hook(pid, rows)
-            n = pool.pg_num
-            skey = ("ref", n, int(rows.shape[1]))
-            prev = self._prev_rows.get(pid)
-            prev_np = rows if (
-                prev is None
-                or tuple(np.shape(prev[1])) != tuple(rows.shape)
-            ) else np.asarray(prev[1])
-            self._prev_rows[pid] = (None, rows)
-            self._stats_cache.pop(pid, None)
-            if baseline:
-                self._moved[pid] = None
-                return None, skey
-            stats_list, moved_rows = _stats_np(
-                prev_np, rows, n, pool.size, tol)
-            self._moved[pid] = moved_rows
-            st = dict(zip(STAT_KEYS, stats_list))
+            return st, skey
+        pool = self.m.pools[pid]
+        tol = self._pool_tolerance(pool)
+        up, _, _, _ = _map_ref(self.m, pid)
+        rows = up.astype(np.int32)
+        if self.corrupt_hook is not None:
+            rows = self.corrupt_hook(pid, rows)
+        n = pool.pg_num
+        skey = ("ref", n, int(rows.shape[1]))
+        prev = self._prev_rows.get(pid)
+        prev_np = rows if (
+            prev is None
+            or tuple(np.shape(prev[1])) != tuple(rows.shape)
+        ) else np.asarray(prev[1])
+        self._prev_rows[pid] = (None, rows)
+        self._stats_cache.pop(pid, None)
+        if baseline:
+            self._moved[pid] = None
+            return None, skey
+        stats_list, moved_rows = _stats_np(
+            prev_np, rows, n, pool.size, tol)
+        self._moved[pid] = moved_rows
+        st = dict(zip(STAT_KEYS, stats_list))
         st["n"] = n
         st["size"] = pool.size
         st["tol"] = tol
         return st, skey
+
+    # The fleet engine (ceph_tpu_torch.fleet) reduces many engines' pools
+    # in one `_stats_lanes` call.  _plan_pool/_commit_pool are the read
+    # and write halves of _account_pool's device path, which is built from
+    # them, so a fleet member's digest equals a solo run's.
+
+    def _plan_pool(self, pid: int):
+        """Read half (device path only): the version-tagged rows, the
+        tag-equal decision and the prev operand, without reducing.
+        Returns (lane, skey); `lane["cached"]` not None means the stats
+        replay from the cache (the rows did not change) and the lane needs
+        no stats call."""
+        pool = self.m.pools[pid]
+        tol = self._pool_tolerance(pool)
+        rows, skey, tag = self.state.rows(pid)
+        prev = self._prev_rows.get(pid)
+        cached = self._stats_cache.get(pid)
+        lane = {"pid": pid, "rows": rows, "n": pool.pg_num,
+                "size": pool.size, "tol": tol, "tag": tag,
+                "cached": None}
+        if (prev is not None and prev[0] == tag
+                and cached is not None and cached[0] == tag
+                and cached[1]["tol"] == tol):
+            lane["cached"] = dict(cached[1]["stats"], moved=0, remapped=0)
+            lane["prev"] = rows
+        elif (prev is None
+                or tuple(prev[1].shape) != tuple(rows.shape)):
+            lane["prev"] = rows  # fresh/resized pool: self-compare
+        else:
+            lane["prev"] = prev[1]
+        return lane, skey
+
+    def _commit_pool(self, lane: dict, out, moved_rows) -> dict:
+        """Write half: book one lane's stats (`out`, the six ints in
+        STAT_KEYS order; `moved_rows`, the per-PG moved lanes on the
+        device) into the caches the solo path keeps.  A cached lane
+        ignores both."""
+        pid, tag = lane["pid"], lane["tag"]
+        if lane["cached"] is not None:
+            st = dict(lane["cached"])
+            self._moved[pid] = None  # tag-equal rows: nothing moved
+        else:
+            st = {k: int(v) for k, v in zip(STAT_KEYS, out)}
+            self._moved[pid] = moved_rows  # stays on the device
+            self._stats_cache[pid] = (tag, {
+                "tol": lane["tol"],
+                "stats": {k: st[k] for k in self._ROW_STATS},
+            })
+        self._prev_rows[pid] = (tag, lane["rows"])  # stays on the device
+        st["n"] = lane["n"]
+        st["size"] = lane["size"]
+        st["tol"] = lane["tol"]
+        return st
 
     def _account_epoch(self, e: int):
         stats: dict[int, dict] = {}
@@ -1666,23 +1745,44 @@ class LifetimeSim:
         ))
 
     def step(self, force_event: str | None = None) -> dict:
-        """One epoch: the fault gate, the epoch's seeded rng, the event,
-        the accounting, the data planes, invariants, the digest line and
-        observation."""
+        """One epoch: `_step_begin` (the fault gate, the epoch's seeded
+        rng, the event), the accounting, `_step_finish` (the data planes,
+        invariants, the digest line and observation)."""
+        ctx = self._step_begin(force_event)
+        stats, skeys = self._account_epoch(ctx["e"])
+        return self._step_finish(ctx, stats, skeys)
+
+    def _step_begin(self, force_event: str | None = None) -> dict:
+        """First half of one epoch, up to the mapping accounting: the
+        fault gate, the epoch's seeded rng, the rebuild snapshot and the
+        event.  Split out so the fleet engine (`ceph_tpu_torch.fleet`)
+        can account many engines' pools in one stats call between begin
+        and finish; `step()` composes the halves."""
         e = self.steps + 1
         faults.check("lifetime_step", qual=str(e))
         rng = np.random.default_rng([self.scenario.seed, e])
-        t0 = time.perf_counter()
-        rb0 = self.state.full_rebuilds if self.state is not None else 0
+        ctx = {"e": e, "rng": rng, "t0": time.perf_counter(),
+               "rb0": (self.state.full_rebuilds
+                       if self.state is not None else 0)}
         self._structural_apply = False
         event = self._apply_event(e, rng, force_event)
         if event.startswith("balance"):
             bal_key = (self._prev_skeys, self._overlay_presence())
-            hint = bal_key != self._last_balance_key
+            ctx["hint"] = bal_key != self._last_balance_key
             self._last_balance_key = bal_key
         else:
-            hint = False
-        stats, skeys = self._account_epoch(e)
+            ctx["hint"] = False
+        ctx["event"] = event
+        return ctx
+
+    def _step_finish(self, ctx: dict, stats: dict,
+                     skeys: frozenset) -> dict:
+        """Second half of one epoch: data planes, integration,
+        invariants, structural classification, the digest line and
+        observation.  The JAX signature's `jit_delta` has no counterpart:
+        the port compiles nothing per shape."""
+        e, rng, event = ctx["e"], ctx["rng"], ctx["event"]
+        t0 = ctx["t0"]
         wl = (self._workload_epoch(e)
               if self.workload is not None else None)
         rec = (self._recovery_epoch(e, stats)
@@ -1692,9 +1792,9 @@ class LifetimeSim:
         epoch_s = self._integrate(stats, rec)
         self._invariants(e, rng, stats)
         compiles = 0  # the port compiles nothing per shape
-        rebuilds = (self.state.full_rebuilds - rb0
+        rebuilds = (self.state.full_rebuilds - ctx["rb0"]
                     if self.state is not None else 0)
-        structural = (hint
+        structural = (ctx["hint"]
                       or self._structural_apply
                       or self._prev_skeys is None
                       or skeys != self._prev_skeys)

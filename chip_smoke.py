@@ -40,9 +40,21 @@ run stopped and resumed, an injected device loss raising;
 `lifetime_main`: 48 epochs at 10M PGs / 10k OSDs with the workload,
 correlated failures and the balancer, after measuring the EC 4+2 encode
 GB/s, each epoch's launches, program times and parts, four epochs'
-programs held to numpy and 32 seeds a pool an epoch to the host oracle),
-through the entry points a user calls, and prints one JSON object per
-phase.  Any failure raises and exits non-zero.
+programs held to numpy and 32 seeds a pool an epoch to the host oracle,
+then a forced expand and a forced remove epoch, each a ClusterState
+rebuild, held to the host oracle), then the GF(2^8) engine past the
+kernel's 32 x 64 limits (`ec_wide`: the tiled wrapper against the plain
+version, RS(70,4) and Clay(2,33,19) against tests/data/ec_wide.json,
+the JAX package's bytes) and the fleet simulator (`fleet_corpus`: the
+JAX tests' four-member DIGEST_SPEC, digests equal to
+tests/data/fleet_corpus.json and to solo runs, launches and stats lanes
+equal to the CPU run's; `fleet_main`: the JAX bench's 16-combination
+sweep at 64 members of 1024 OSDs, 16 epochs, stacked and with
+CEPH_TPU_FLEET_STACK=0, digests equal to each other and to solo runs,
+each run's widest stats call held lane by lane to numpy and the solo
+members' rows to the host oracle, each epoch's launches held first at a
+small size to the CPU run's rule calls), through the entry points a user calls, and prints one JSON
+object per phase.  Any failure raises and exits non-zero.
 
 The line before the last is the kernels line (each kernel's launches on
 the main path, its time, bound and plain-version time); the last line is
@@ -59,6 +71,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -85,8 +98,12 @@ from ceph_tpu_torch.ec.torch_backend import (
     TorchEngine,
     gf_matmul_cuda,
     gf_matmul_plain,
+    gf_matmul_tiled,
+    matrix_blocks,
     product_tables,
 )
+from ceph_tpu_torch.fleet import FleetSim, parse_fleet
+from ceph_tpu_torch.osd import pipeline
 
 from ceph_tpu_torch.mgr import Balancer, MappingState, synthetic_pg_stats
 from ceph_tpu_torch.osd.carry import crush_from_reference, osdmap_from_reference
@@ -2626,20 +2643,12 @@ def phase_lifetime_main(dev, smi: str, peak: float) -> dict:
             del capture
             if kind != "quiet":
                 t1 = time.perf_counter()
-                for pid in sorted(sim.m.pools):
-                    rows = sim._prev_rows[pid][1]
-                    seeds = rng.choice(rows.shape[0], min(
-                        LIFETIME_SAMPLE, rows.shape[0]), replace=False)
-                    got = rows[torch.from_numpy(seeds).to(dev)].cpu()
-                    for ps, row in zip(seeds.tolist(), got.tolist()):
-                        up = sim.m.pg_to_up_acting_osds(PgId(pid, ps))[0]
-                        up = list(up) + [ITEM_NONE] * (len(row) - len(up))
-                        check(row == up,
-                              f"epoch {e}: pg {pid}.{ps:x} == host oracle")
+                hold_to_oracle(sim, dev, rng, f"epoch {e}")
                 oracle_s += time.perf_counter() - t1
             epochs.append(rec)
         out = sim.summary()
         peak_bytes = torch.cuda.max_memory_allocated(dev)
+        forced = forced_epochs(sim, dev, rng)
     finally:
         clock.restore()
         PoolMapper.map_all_device, PoolMapper.raw_rows = real_map, real_raw
@@ -2687,6 +2696,7 @@ def phase_lifetime_main(dev, smi: str, peak: float) -> dict:
             "invariant_violations", "recovery", "workload", "durability",
             "trace_once", "state", "health", "sim_years")},
         "peak_device_bytes": peak_bytes,
+        "forced_epochs": forced,
     }
     emit(dict(phase="lifetime_main", **res))
     kinds = ", ".join(f"{k} median {v['median']:.3f} s max {v['max']:.3f} s"
@@ -2694,6 +2704,490 @@ def phase_lifetime_main(dev, smi: str, peak: float) -> dict:
     print(f"lifetime_main on {smi}: init {init_s:.3f} s; {kinds}; "
           f"{out['cluster_years_per_hour']} cluster-years/hour; peak "
           f"device memory {peak_bytes} bytes", flush=True)
+    for kind, r in forced.items():
+        print(f"lifetime_main on {smi}: forced {kind} after the 48 epochs: "
+              f"{r['s']:.3f} s, {r['rebuilds']} ClusterState rebuild(s), "
+              f"{r['launches']} launches, {r['oracle_seeds']} seeds == the "
+              "host oracle", flush=True)
+    return res
+
+
+# -- the expand and remove epochs at config 5's size ----------------------------
+
+def hold_to_oracle(sim, dev, rng, what: str) -> int:
+    """LIFETIME_SAMPLE seeds of each pool of a LifetimeSim: the up rows
+    its last epoch left on the device == the host oracle on its map.
+    Returns the seeds checked."""
+    checked = 0
+    for pid in sorted(sim.m.pools):
+        rows = sim._prev_rows[pid][1]
+        seeds = rng.choice(rows.shape[0], min(
+            LIFETIME_SAMPLE, rows.shape[0]), replace=False)
+        got = rows[torch.from_numpy(seeds).to(dev)].cpu()
+        for ps, row in zip(seeds.tolist(), got.tolist()):
+            up = sim.m.pg_to_up_acting_osds(PgId(pid, ps))[0]
+            up = list(up) + [ITEM_NONE] * (len(row) - len(up))
+            check(row == up, f"{what}: pg {pid}.{ps:x} == host oracle")
+            checked += 1
+    return checked
+
+
+def forced_epochs(sim, dev, rng) -> dict:
+    """After lifetime_main's 48 epochs: one epoch with a forced `expand`
+    (new hosts inserted into CRUSH, a ClusterState rebuild) and one with a
+    forced `remove` (a dead OSD destroyed and pulled from CRUSH), each
+    synchronised and timed, its launches and rebuilds counted, and
+    LIFETIME_SAMPLE seeds of each pool held to the host oracle.  Kept out
+    of the 48 epochs' figures."""
+    out = {}
+    for kind in ("expand", "remove"):
+        rb0 = sim.state.full_rebuilds
+        torch.cuda.synchronize()
+        mapper.crush_rule_cuda.launches = 0
+        t0 = time.perf_counter()
+        r = sim.step(force_event=kind)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = mapper.crush_rule_cuda.launches
+        check(r["event"].startswith(kind),
+              f"forced {kind}: the event was {r['event'][:80]!r}")
+        t1 = time.perf_counter()
+        seeds_checked = hold_to_oracle(sim, dev, rng, f"forced {kind}")
+        out[kind] = {"event": r["event"][:120], "s": sec, "launches": n,
+                     "rebuilds": sim.state.full_rebuilds - rb0,
+                     "structural": r["structural"],
+                     "oracle_seeds": seeds_checked,
+                     "oracle_s": time.perf_counter() - t1}
+    check(sim.summary()["invariant_violations"] == 0,
+          "forced epochs: no invariant violation")
+    return out
+
+
+# -- erasure codes past the kernel's 32 x 64 limits ------------------------------
+
+# RS(70,4) (a [4, 70] matrix) and Clay(2,33,19) (324 sub-chunks, an
+# inner code of 33 parity rows): each profile's inputs beside the JAX
+# package's SHA-256s, as tests/test_torch_ec_wide.py reads them
+EC_WIDE = ROOT / "tests" / "data" / "ec_wide.json"
+
+
+def _sha_chunks(chunks: dict) -> dict:
+    return {str(i): hashlib.sha256(np.asarray(
+        c.cpu() if isinstance(c, torch.Tensor) else c,
+        np.uint8).tobytes()).hexdigest() for i, c in sorted(chunks.items())}
+
+
+def run_wide(case: dict, device) -> dict:
+    """tests/test_torch_ec_wide.py::run_wide on `device`: encode, decode
+    each pattern, and (Clay) repair chunk 0 from its helpers' repair
+    sub-chunks; the SHA-256 of every chunk out."""
+    prof, size, patterns = case["profile"], case["size"], case["patterns"]
+    code = create_erasure_code(dict(prof), device=device)
+    n = code.get_chunk_count()
+    payload = np.random.default_rng(n).integers(0, 256, size, np.uint8)
+    enc = code.encode(set(range(n)), payload.tobytes())
+    out = {"encode": _sha_chunks(enc), "decode": {}}
+    for erased in patterns:
+        have = {i: c for i, c in enc.items() if i not in erased}
+        dec = code.decode(set(erased), have)
+        out["decode"][",".join(map(str, erased))] = _sha_chunks(
+            {i: dec[i] for i in erased})
+    if prof["plugin"] == "clay":
+        cs = len(enc[0])
+        need = code.minimum_to_repair({0}, set(range(1, n)))
+        helpers = {}
+        for h, runs in need.items():
+            planes = [z for ind, cnt in runs for z in range(ind, ind + cnt)]
+            helpers[h] = np.asarray(enc[h], np.uint8).reshape(
+                code.get_sub_chunk_count(), -1)[planes].reshape(-1)
+        out["repair0"] = _sha_chunks(code.repair({0}, helpers, cs))
+    return out
+
+
+def cpu_blocks(fn) -> int:
+    """The kernel launches fn()'s device-engine products make on the card,
+    counted on the CPU (the plain version): one per block of each M
+    (`matrix_blocks`)."""
+    with engine_calls() as calls:
+        fn()
+    check(all(d.device.type == "cpu" for _, d in calls), "a CPU dry run")
+    return sum(len(cols) for M, _ in calls
+               for _, cols in matrix_blocks(np.asarray(M, np.uint8)))
+
+
+def phase_ec_wide(dev) -> dict:
+    """C.2: the tiled wrapper on products past the kernel's limits, each
+    block one launch, equal to the plain version (random M of 40 x 130,
+    33 x 3 and 4 x 70 on CUDA tensors); then RS(70,4) and Clay(2,33,19)
+    through create_erasure_code on the card, every chunk's SHA-256 equal
+    to tests/data/ec_wide.json (the JAX package's bytes, which the CPU
+    tests hold the plain version to), launches equal to the CPU run's
+    blocks."""
+    eng = TorchEngine(dev)
+    rng = np.random.default_rng(70)
+    tiles = {}
+    for R, S in ((40, 130), (33, 3), (4, 70), (32, 64)):
+        M = rng.integers(0, 256, (R, S), np.uint8)
+        data = rand_u8((16, S, 4096), R * S, dev)
+        blocks = sum(len(c) for _, c in matrix_blocks(M))
+        got, n = counted(blocks, f"ec_wide tiled {R}x{S}",
+                         lambda: eng.matmul_batch(M, data))
+        check(torch.equal(got, gf_matmul_plain(M, data)),
+              f"ec_wide tiled {R}x{S} == the plain version")
+        check(torch.equal(got, gf_matmul_tiled(
+            M, data, lambda Mb, db: gf_matmul_plain(Mb, db))),
+            f"ec_wide tiled {R}x{S} == the plain version tiled")
+        tiles[f"{R}x{S}"] = n
+    cases = json.loads(EC_WIDE.read_text())
+    res, launches = {}, {}
+    for name, case in sorted(cases.items()):
+        expect = cpu_blocks(lambda: run_wide(case, "cpu"))
+        t0 = time.perf_counter()
+        got, n = counted(expect, f"ec_wide {name}",
+                         lambda: run_wide(case, dev))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check(got == case["sha256"],
+              f"ec_wide {name}: SHA-256 == the JAX bytes")
+        res[name] = {"launches": n, "s": sec, "bytes_equal": True}
+        launches[name] = n
+    emit({"phase": "ec_wide", "tiles": tiles, "profiles": res})
+    return {**{f"ec_wide_tile_{k}": v for k, v in tiles.items()},
+            **{f"ec_wide_{k}": v for k, v in launches.items()}}
+
+
+# -- the fleet simulator ---------------------------------------------------------
+
+# "digest_spec": tests/test_fleet.py's DIGEST_SPEC (plain, balanced,
+# correlated and data-loss members) beside the JAX fleet's digests
+FLEET_CORPUS = ROOT / "tests" / "data" / "fleet_corpus.json"
+
+
+def fleet_spec(epochs: int, clusters: int, hosts: int, per_host: int,
+               racks: int, pgs: tuple, ec_pgs: int) -> str:
+    """The JAX bench's 16-combination fleet sweep (bench.py's fleet stage)
+    at a given size."""
+    return (f"base=epochs={epochs},hosts={hosts},osds_per_host={per_host},"
+            f"racks={racks},pgs={pgs[0]},ec=4+2,ec_pgs={ec_pgs},workload=1,"
+            "balance_every=8,spotcheck_every=0,checkpoint_every=0,seed=3,"
+            "recovery=queue,max_backfills=4,recovery_mbps=200,osd_mbps=400,"
+            "p_pool_create=0,p_split=0;axis=correlated:0|1;"
+            "axis=p_death:0.02|0.12;axis=recovery_mbps:100|400;"
+            f"axis=pgs:{pgs[0]}|{pgs[1]};clusters={clusters}")
+
+
+# every member: 1024 OSDs (128 hosts of 8 under 8 racks) and about 100
+# PGs per OSD (32768 or 65536 size-3 PGs and 8192 EC 4+2 PGs)
+FLEET_MAIN = dict(epochs=16, clusters=64, hosts=128, per_host=8, racks=8,
+                  pgs=(32768, 65536), ec_pgs=8192)
+FLEET_SMALL = dict(epochs=5, clusters=16, hosts=16, per_host=2, racks=4,
+                   pgs=(32, 64), ec_pgs=16)
+FLEET_SOLO = (0, 21, 42, 63)  # members also run solo
+
+
+def solo_digest(member, dev) -> str:
+    fresh_observers()
+    sim = LifetimeSim(member.scenario.spec(), backend="torch", device=dev)
+    sim.balancer_options = {"upmap_state_backend": "device_loop"}
+    out = sim.run()["digest"]
+    fresh_observers()
+    return out
+
+
+def phase_fleet_corpus(dev) -> int:
+    """tests/test_fleet.py's DIGEST_SPEC on the card: each member's digest
+    == the JAX FleetSim's (tests/data/fleet_corpus.json) == a solo port
+    run's; the loss member lost PGs and the DATA_LOSS latch holds; each
+    fleet epoch's rule launches == the CPU run's rule calls, and its stats
+    call's lanes == the CPU run's."""
+    want = json.loads(FLEET_CORPUS.read_text())["digest_spec"]
+    fresh_observers()
+    t0 = time.perf_counter()
+    mapper.crush_rule_cuda.launches = 0
+    fleet = FleetSim(parse_fleet(want["spec"]), device=dev)
+    init_n = mapper.crush_rule_cuda.launches
+    lanes, real = [], sim_lifetime._stats_lanes
+
+    def stats_lanes(prevs, rowss, *a):
+        lanes[-1].append(len(rowss))
+        return real(prevs, rowss, *a)
+
+    per_epoch = []
+    sim_lifetime._stats_lanes = stats_lanes
+    try:
+        while fleet.live():
+            lanes.append([])
+            mapper.crush_rule_cuda.launches = 0
+            fleet.step()
+            per_epoch.append(mapper.crush_rule_cuda.launches)
+    finally:
+        sim_lifetime._stats_lanes = real
+    out = fleet.summary()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    check(fleet.digests() == want["digests"],
+          f"fleet_corpus: digests {fleet.digests()} != the JAX fleet's")
+    check(init_n == want["init_rule_calls"]
+          and per_epoch == want["rule_calls"],
+          f"fleet_corpus: launches {init_n} {per_epoch} != the CPU run's "
+          f"{want['init_rule_calls']} {want['rule_calls']}")
+    check(lanes == want["stats_lanes"],
+          f"fleet_corpus: stats lanes {lanes} != {want['stats_lanes']}")
+    check(out["members"][3]["pg_lost"] > 0, "fleet_corpus: PGs lost")
+    chk = obs.health.checks().get("DATA_LOSS")
+    check(bool(chk) and chk["severity"] == obs.health.ERR,
+          "fleet_corpus: the DATA_LOSS latch holds")
+    check(all(m["invariant_violations"] == 0 for m in out["members"]),
+          "fleet_corpus: no violation")
+    solo = [solo_digest(m, dev) for m in fleet.members]
+    check(solo == want["digests"], "fleet_corpus: solo port runs == JAX")
+    emit({"phase": "fleet_corpus", "s": sec, "init_launches": init_n,
+          "launches": per_epoch, "stats_lanes": lanes,
+          "digests_equal": True, "solo_equal": True,
+          "pg_lost": out["members"][3]["pg_lost"]})
+    return init_n + sum(per_epoch)
+
+
+class FleetRun:
+    """One fleet run on a device, epoch by epoch: wall seconds, rule
+    launches (the card) or rule calls (the CPU), stats calls with their
+    lanes and (the card) CUDA-event ms, and the remaps and overlay raw
+    refreshes that make the launches.  After the run, outside its
+    figures: every lane of the stats call with the most lanes held to
+    `_stats_np` on its host copy, and the `oracle` members' rows held to
+    the host oracle on LIFETIME_SAMPLE seeds of each pool."""
+
+    def __init__(self, spec: str, dev, stack: bool, oracle: tuple):
+        self.spec, self.dev, self.stack = spec, dev, stack
+        self.oracle = oracle
+        self.cuda = torch.device(dev).type == "cuda"
+
+    def run(self) -> dict:
+        env0 = os.environ.get("CEPH_TPU_FLEET_STACK")
+        os.environ["CEPH_TPU_FLEET_STACK"] = "1" if self.stack else "0"
+        real_stats, real_rule = sim_lifetime._stats_lanes, pipeline.map_rule
+        real_map, real_raw = PoolMapper.map_all_device, PoolMapper.raw_rows
+        n = {"rule": 0, "map_all": 0, "raw": 0}
+        stats = []
+        widest = []  # the call with the most lanes: its inputs and outputs
+
+        def stats_lanes(prevs, rowss, *a):
+            ev = None
+            if self.cuda:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = real_stats(prevs, rowss, *a)
+            if self.cuda:
+                ev[1].record()
+            if not widest or len(rowss) > len(widest[1]):
+                # kept, not copied: no lane tensor is written in place
+                widest[:] = (prevs, rowss, *a, out)
+            stats.append((len(rowss), ev, sum(
+                r.numel() * r.element_size() for r in rowss), max(
+                r.shape[0] for r in rowss), max(r.shape[1] for r in rowss)))
+            return out
+
+        def map_rule(T, prog, x, weight):
+            n["rule"] += int(x.numel() > 0)
+            return real_rule(T, prog, x, weight)
+
+        def map_all(pm):
+            n["map_all"] += 1
+            return real_map(pm)
+
+        def raw(pm, seeds):
+            n["raw"] += int(len(seeds) > 0)
+            return real_raw(pm, seeds)
+
+        sim_lifetime._stats_lanes, pipeline.map_rule = stats_lanes, map_rule
+        PoolMapper.map_all_device, PoolMapper.raw_rows = map_all, raw
+        try:
+            fresh_observers()
+            if self.cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(self.dev)
+            mapper.crush_rule_cuda.launches = 0
+            t0 = time.perf_counter()
+            fleet = FleetSim(parse_fleet(self.spec), device=self.dev)
+            if self.cuda:
+                torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            init = (mapper.crush_rule_cuda.launches if self.cuda
+                    else n["rule"])
+            epochs = []
+            while fleet.live():
+                n.update(rule=0, map_all=0, raw=0)
+                stats.clear()
+                mapper.crush_rule_cuda.launches = 0
+                t0 = time.perf_counter()
+                recs = fleet.step()
+                if self.cuda:
+                    torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                kinds = [r["event"].split(" ")[0].split("(")[0]
+                         for r in recs]
+                launches = (mapper.crush_rule_cuda.launches if self.cuda
+                            else n["rule"])
+                balance = "balance" in kinds
+                if self.cuda:
+                    check(launches >= n["map_all"] + n["raw"] and (
+                        balance or launches == n["map_all"] + n["raw"]),
+                        f"fleet epoch {fleet.steps}: {launches} launches, "
+                        f"{n['map_all']} remaps + {n['raw']} raw refreshes")
+                epochs.append({
+                    "s": sec, "launches": launches,
+                    "remaps": n["map_all"], "raw_refreshes": n["raw"],
+                    "balance_members": kinds.count("balance"),
+                    "stats_calls": len(stats),
+                    "stats_lanes": [c[0] for c in stats],
+                    "stats_ms": [c[1][0].elapsed_time(c[1][1])
+                                 for c in stats] if self.cuda else None,
+                    "stats_bytes": [(c[0], c[2], c[3], c[4])
+                                    for c in stats]})
+            out = fleet.summary()
+            peak = (torch.cuda.max_memory_allocated(self.dev)
+                    if self.cuda else None)
+        finally:
+            sim_lifetime._stats_lanes, pipeline.map_rule = \
+                real_stats, real_rule
+            PoolMapper.map_all_device, PoolMapper.raw_rows = \
+                real_map, real_raw
+            if env0 is None:
+                os.environ.pop("CEPH_TPU_FLEET_STACK", None)
+            else:
+                os.environ["CEPH_TPU_FLEET_STACK"] = env0
+        check(all(m["invariant_violations"] == 0 for m in out["members"]),
+              f"fleet {self.spec[:40]}...: no violation")
+        t0 = time.perf_counter()
+        np_lanes = self.hold_lanes_to_numpy(widest)
+        rng = np.random.default_rng(11)
+        oracle_seeds = sum(hold_to_oracle(
+            fleet.engines[i], self.dev, rng, f"fleet member {i}")
+            for i in self.oracle)
+        check_s = time.perf_counter() - t0
+        wall = sum(e["s"] for e in epochs)
+        members = fleet.members
+        del fleet, widest
+        fresh_observers()
+        return {"init_s": init_s, "init_launches": init, "epochs": epochs,
+                "wall_s": wall, "digests": [m["digest"]
+                                            for m in out["members"]],
+                "cluster_epochs": out["cluster_epochs"],
+                "cluster_epochs_per_s": out["cluster_epochs"] / wall,
+                "trace_once": out["trace_once"], "peak_device_bytes": peak,
+                "pg_lost": sum(m["pg_lost"] for m in out["members"]),
+                "members": members, "numpy_lanes": np_lanes,
+                "oracle_seeds": oracle_seeds, "check_s": check_s}
+
+    def hold_lanes_to_numpy(self, call: list) -> int:
+        """Every lane of one `_stats_lanes` call: its six stats and per-PG
+        moved counts == `_stats_np` on the lane's host copy, int64 exact.
+        Returns the lanes checked."""
+        check(bool(call), f"fleet {self.spec[:40]}...: a stats call ran")
+        prevs, rowss, ns, sizes, tols, (got, moved) = call
+        got = got.cpu()
+        for i, (p, r) in enumerate(zip(prevs, rowss)):
+            want, want_moved = sim_lifetime._stats_np(
+                p.cpu().numpy(), r.cpu().numpy(), int(ns[i]), int(sizes[i]),
+                int(tols[i]))
+            check(got[i].tolist() == want and torch.equal(
+                moved[i].cpu(), torch.from_numpy(want_moved)),
+                f"fleet {self.spec[:40]}...: stats lane {i} of "
+                f"{len(rowss)} == _stats_np")
+        return len(rowss)
+
+
+def stats_bound_ms(lanes: int, nmax: int, wmax: int, peak: float) -> float:
+    """The stacked stats' byte bound: the padded [L, Nmax, Wmax] int32
+    prev and rows blocks read once, the int64 [L, Nmax] moved lanes and
+    [L, 6] stats written once, over the card's memory rate."""
+    return (2 * lanes * nmax * wmax * 4 + lanes * nmax * 8
+            + lanes * 6 * 8) / peak * 1e3
+
+
+def phase_fleet_main(dev, smi: str, peak: float) -> dict:
+    """The JAX bench's 16-combination fleet sweep, 64 members of 1024 OSDs
+    and about 100 PGs per OSD, 16 epochs.  First the same sweep at a small
+    size on the CPU and on the card: each fleet epoch's launches == the
+    CPU run's rule calls, its stats calls and lanes equal, the digests
+    equal.  Then at full size stacked, then with CEPH_TPU_FLEET_STACK=0:
+    the digests equal between the two and to solo port runs of
+    FLEET_SOLO's members; each epoch's launches == its remaps and overlay
+    raw refreshes (balance epochs add the balancer's own) and equal
+    between the two modes.  Each run also holds its widest stats call,
+    lane by lane, to `_stats_np` on the host, and FLEET_SOLO's members'
+    final rows to the host oracle (FleetRun)."""
+    small = fleet_spec(**FLEET_SMALL)
+    cpu = FleetRun(small, "cpu", True, (0, 15)).run()
+    card = FleetRun(small, dev, True, (0, 15)).run()
+    check(card["digests"] == cpu["digests"], "fleet small: card == CPU")
+    check(card["init_launches"] == cpu["init_launches"] and [
+        e["launches"] for e in card["epochs"]] == [
+        e["launches"] for e in cpu["epochs"]],
+        "fleet small: launches == the CPU run's rule calls")
+    check([e["stats_lanes"] for e in card["epochs"]]
+          == [e["stats_lanes"] for e in cpu["epochs"]],
+          "fleet small: stats calls and lanes == the CPU run's")
+    spec = fleet_spec(**FLEET_MAIN)
+    stacked = FleetRun(spec, dev, True, FLEET_SOLO).run()
+    unstacked = FleetRun(spec, dev, False, FLEET_SOLO).run()
+    check(stacked["digests"] == unstacked["digests"],
+          "fleet_main: stacked == CEPH_TPU_FLEET_STACK=0")
+    check([e["launches"] for e in stacked["epochs"]]
+          == [e["launches"] for e in unstacked["epochs"]],
+          "fleet_main: stacked and unstacked launch alike")
+    check(all(e["stats_calls"] <= 1 for e in stacked["epochs"]),
+          "fleet_main: at most one stats call a stacked epoch")
+    t0 = time.perf_counter()
+    for i in FLEET_SOLO:
+        check(solo_digest(stacked["members"][i], dev)
+              == stacked["digests"][i], f"fleet_main: member {i} == solo")
+    solo_s = time.perf_counter() - t0
+    res = {"spec": spec, "small_spec": small,
+           "small": {"epochs": len(cpu["epochs"]),
+                     "launches": [e["launches"] for e in card["epochs"]],
+                     "stats_lanes": [e["stats_lanes"]
+                                     for e in card["epochs"]]},
+           "solo_members": list(FLEET_SOLO), "solo_s": solo_s,
+           "oracle_seeds_per_pool": LIFETIME_SAMPLE}
+    for mode, r in (("stacked", stacked), ("unstacked", unstacked)):
+        calls = [e for e in r["epochs"] if e["stats_calls"]]
+        ms = [sum(e["stats_ms"]) for e in calls]
+        bounds = [sum(stats_bound_ms(L, nm, wm, peak)
+                      for L, _, nm, wm in e["stats_bytes"]) for e in calls]
+        res[mode] = {
+            "init_s": r["init_s"], "init_launches": r["init_launches"],
+            "wall_s": r["wall_s"], "cluster_epochs": r["cluster_epochs"],
+            "cluster_epochs_per_s": r["cluster_epochs_per_s"],
+            "launches": r["init_launches"] + sum(
+                e["launches"] for e in r["epochs"]),
+            "stats_calls": sum(e["stats_calls"] for e in r["epochs"]),
+            "stats_calls_per_epoch": [e["stats_calls"] for e in r["epochs"]],
+            "stats_lanes_per_epoch": [sum(e["stats_lanes"])
+                                      for e in r["epochs"]],
+            "stats_ms_per_epoch": [sum(e["stats_ms"]) for e in r["epochs"]],
+            "stats_ms_median": statistics.median(ms) if ms else None,
+            "stats_bound_ms_median": (statistics.median(bounds)
+                                      if bounds else None),
+            "epoch_s": [e["s"] for e in r["epochs"]],
+            "launches_per_epoch": [e["launches"] for e in r["epochs"]],
+            "balance_members": [e["balance_members"] for e in r["epochs"]],
+            "trace_once": r["trace_once"], "pg_lost": r["pg_lost"],
+            "peak_device_bytes": r["peak_device_bytes"],
+            "numpy_lanes": r["numpy_lanes"],
+            "oracle_seeds": r["oracle_seeds"], "check_s": r["check_s"]}
+    emit(dict(phase="fleet_main", **res))
+    for mode in ("stacked", "unstacked"):
+        r = res[mode]
+        print(f"fleet_main on {smi}: {mode}: {r['cluster_epochs']} "
+              f"cluster-epochs in {r['wall_s']:.3f} s, "
+              f"{r['cluster_epochs_per_s']:.3f} cluster-epochs/s (init "
+              f"{r['init_s']:.3f} s); {r['stats_calls']} stats calls, "
+              f"median {r['stats_ms_median']} ms a fleet epoch (bound "
+              f"{r['stats_bound_ms_median']} ms); {r['launches']} crush_rule "
+              f"launches; peak device memory {r['peak_device_bytes']} bytes",
+              flush=True)
     return res
 
 
@@ -2704,7 +3198,6 @@ def main() -> int:
     dev = torch.device("cuda")
     info = phase_device()
     phase_build()
-
     # erasure coding: kernel vs plain, then the main path, path by path,
     # each counted from 0 (see counted())
     err = phase_kernel_vs_plain(dev)
@@ -2719,6 +3212,7 @@ def main() -> int:
     by_path.update({f"cli_{w}": n for w, n in phase_cli().items()})
     by_path.update({f"ec_default_{key}": n
                     for key, n in phase_ec_defaults(dev).items()})
+    by_path.update(phase_ec_wide(dev))
 
     # placement: the same, for the rule kernel
     corpus = {e["name"]: e for e in
@@ -2762,7 +3256,17 @@ def main() -> int:
                        phase_lifetime_corpus(dev).items()})
     life = phase_lifetime_main(dev, info["nvidia_smi"], info["peak_bw"])
     rule_paths["lifetime_main"] = life["launches"]
+    for kind, r in life["forced_epochs"].items():
+        rule_paths[f"lifetime_main_{kind}"] = r["launches"]
     by_path["lifetime_ec_calibration"] = life["ec_calibration"]["launches"]
+
+    # the fleet simulator: the JAX digest corpus, then the bench's sweep
+    torch.cuda.empty_cache()
+    rule_paths["fleet_corpus"] = phase_fleet_corpus(dev)
+    fleet = phase_fleet_main(dev, info["nvidia_smi"], info["peak_bw"])
+    rule_paths["fleet_main_small"] = sum(fleet["small"]["launches"])
+    for mode in ("stacked", "unstacked"):
+        rule_paths[f"fleet_main_{mode}"] = fleet[mode]["launches"]
     torch.cuda.synchronize()
 
     b, c5 = res["b"], pres["config5"]
@@ -2839,7 +3343,14 @@ def main() -> int:
         # by event kind
         "lifetime_main": {"init_s": life["init_s"],
                           "seconds_by_kind": life["seconds_by_kind"],
-                          "launches": life["launches"]},
+                          "launches": life["launches"],
+                          "forced_epochs": life["forced_epochs"]},
+        # the fleet sweep (64 members of 1024 OSDs): rates, stats calls
+        # and their ms a fleet epoch, launches, peak memory, per mode
+        "fleet_main": {mode: {f: fleet[mode][f] for f in (
+            "cluster_epochs_per_s", "wall_s", "init_s", "launches",
+            "stats_calls", "stats_ms_median", "stats_bound_ms_median",
+            "peak_device_bytes")} for mode in ("stacked", "unstacked")},
     }, {
         "name": "crush_rule_diag",
         "route": "cuda",
