@@ -8,7 +8,10 @@ the headers (`*.cuh`) beside it and the flags, so an edited source builds
 anew.  `build_all()` starts one nvcc per source at once and waits for
 them all.  ptxas reports each kernel's registers, stack, spills and
 static shared memory (-Xptxas=-v); the report is kept beside the library
-(`ptxas_report`).
+(`ptxas_report`).  Building and loading are thread-safe: one lock covers
+every build and first load, so two threads that first use a kernel at
+once run one nvcc, and each temporary file is named by process and
+thread.
 
 The build needs the CUDA toolkit (`nvcc` on PATH, or under CUDA_HOME,
 default /usr/local/cuda).  A failed build raises with nvcc's stderr.
@@ -22,6 +25,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent
@@ -34,6 +38,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# held across every build and first load (re-entered by load -> build)
+_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -66,7 +72,8 @@ def _start(source: str) -> tuple[subprocess.Popen, Path, Path] | None:
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    tmp = lib.with_name(
+        f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.Popen(
         [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(PACKAGE / source)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -90,21 +97,23 @@ def _finish(source: str, job) -> None:
 def build(source: str) -> Path:
     """Compile `source` unless it is built already; returns the
     library's path."""
-    _finish(source, _start(source))
-    return library_path(source)
+    with _LOCK:
+        _finish(source, _start(source))
+        return library_path(source)
 
 
 def build_all() -> dict[str, Path]:
     """Build every source of SOURCES, one nvcc each, all started together;
     returns {source: library path}.  Every job is waited for before the
     first failure is raised."""
-    jobs = {source: _start(source) for source in SOURCES}
     errors = []
-    for source, job in jobs.items():
-        try:
-            _finish(source, job)
-        except RuntimeError as e:
-            errors.append(str(e))
+    with _LOCK:
+        jobs = {source: _start(source) for source in SOURCES}
+        for source, job in jobs.items():
+            try:
+                _finish(source, job)
+            except RuntimeError as e:
+                errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
     return {source: library_path(source) for source in SOURCES}
@@ -138,6 +147,9 @@ def load(source: str) -> ctypes.CDLL:
     """The built library of `source`, building it first if needed."""
     lib = _LIBS.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(build(source)))
-        _LIBS[source] = lib
+        with _LOCK:
+            lib = _LIBS.get(source)
+            if lib is None:
+                lib = ctypes.CDLL(str(build(source)))
+                _LIBS[source] = lib
     return lib

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -749,21 +750,37 @@ def _empty_planes(prog: RuleProgram, device, n: int = 0) -> dict:
 
 # -- the kernel ---------------------------------------------------------------
 
-@functools.cache
+_LIBS: dict[bool, ctypes.CDLL] = {}
+# the first load of a library (two reader threads, or a reader and an
+# applier, may both be first) and the launch counts (kernels launch from several
+# threads at once)
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def _lib(diag: bool = False) -> ctypes.CDLL:
-    """The rule kernel's library, or its diagnostics variant's."""
-    name = "crush_rule_diag" if diag else "crush_rule"
-    lib = build.load(f"crush/csrc/{name}.cu")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = ([p] * 8 + [i] * 13 + [p, ctypes.c_longlong, p]
-                       + ([p, i, i, p, p, p] if diag else []) + [p])
-    launch.restype = i
-    getattr(lib, f"{name}_plan").argtypes = [p]
-    getattr(lib, f"{name}_plan").restype = i
-    getattr(lib, f"{name}_error_string").argtypes = [i]
-    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
-    return lib
+    """The rule kernel's library, or its diagnostics variant's, loaded
+    and declared once; published only once its signatures are set."""
+    lib = _LIBS.get(diag)
+    if lib is not None:
+        return lib
+    with _LIB_LOCK:
+        lib = _LIBS.get(diag)
+        if lib is not None:
+            return lib
+        name = "crush_rule_diag" if diag else "crush_rule"
+        lib = build.load(f"crush/csrc/{name}.cu")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = ([p] * 8 + [i] * 13 + [p, ctypes.c_longlong, p]
+                           + ([p, i, i, p, p, p] if diag else []) + [p])
+        launch.restype = i
+        getattr(lib, f"{name}_plan").argtypes = [p]
+        getattr(lib, f"{name}_plan").restype = i
+        getattr(lib, f"{name}_error_string").argtypes = [i]
+        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        _LIBS[diag] = lib
+        return lib
 
 
 def _check(rc: int, what: str, diag: bool = False) -> None:
@@ -893,7 +910,8 @@ def crush_rule_cuda(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
     the launches."""
     out, _ = _launch(T, prog, x, weight, stage, diag=False)
     if x.numel():
-        crush_rule_cuda.launches += 1
+        with _COUNT_LOCK:
+            crush_rule_cuda.launches += 1
     return out
 
 
@@ -911,7 +929,8 @@ def crush_rule_diag_cuda(T: DeviceArrays, prog: RuleProgram,
     launches."""
     out, planes = _launch(T, prog, x, weight, stage, diag=True)
     if x.numel():
-        crush_rule_diag_cuda.launches += 1
+        with _COUNT_LOCK:
+            crush_rule_diag_cuda.launches += 1
     return out, planes
 
 

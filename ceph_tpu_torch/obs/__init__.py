@@ -1,7 +1,7 @@
 """Observability: the placement-decision records (`placement.py`), the
-cluster health checks (`health.py`) and the time-series recorder
-(`timeline.py`)."""
+cluster health checks (`health.py`), the time-series recorder
+(`timeline.py`) and the latency quantiles (`quantiles.py`)."""
 
-from ceph_tpu_torch.obs import health, placement, timeline
+from ceph_tpu_torch.obs import health, placement, quantiles, timeline
 
-__all__ = ["health", "placement", "timeline"]
+__all__ = ["health", "placement", "quantiles", "timeline"]

@@ -23,8 +23,10 @@ Actions:
     stall:<secs>  sleep that long, then continue
     fail[:why]    raise FaultInjected(why)
     lost[:why]    raise DeviceLostError(why).  The JAX package degrades
-                  to its host mapper on it; in the port nothing catches
-                  it, so it raises out of the caller
+                  to its host mapper on it; the port's placement service
+                  answers the batch it hits EFAULT and records the loss
+                  (`serve/service.py`), and everywhere else in the port
+                  it raises out of the caller
     exit[:code]   os._exit(code): a SIGKILL-grade death (no atexit, no
                   finally) for checkpoint/resume tests
     overrun:<s>   sleep
@@ -51,7 +53,8 @@ ENV_VAR = "CEPH_TPU_FAULTS"
 
 # The declared fault points, as in the JAX package.  The port's lifetime
 # simulator checks `lifetime_step`, `epoch_apply`, `recovery_step` and
-# `hazard_decay`; the others belong to modules not ported yet.
+# `hazard_decay`, the placement service `serve_dispatch` and
+# `epoch_swap`; the others belong to modules not ported yet.
 FAULT_POINTS: dict[str, str] = {
     "init": "backend preflight probe (qualifier: platform rung)",
     "map_batch": "mid-batch device dispatch in the mapping pipeline",
@@ -98,8 +101,11 @@ _DEVICE_LOSS_MARKERS = (
 def looks_like_device_loss(exc: BaseException) -> bool:
     """True when a raised exception is plausibly the device dying: an
     injected DeviceLostError, or a torch runtime error whose message
-    matches a known transport-loss shape.  Kept for callers that report
-    the loss; the port degrades nowhere on it."""
+    matches a known transport-loss shape.  The port degrades nowhere:
+    the placement service answers a lost dispatch EFAULT and records
+    the loss only where this is true (the rule kernel's own errors, a
+    builtin RuntimeError from its wrapper, answer EFAULT unrecorded);
+    the port's other callers raise."""
     if isinstance(exc, DeviceLostError):
         return True
     mod = type(exc).__module__ or ""

@@ -53,8 +53,20 @@ sweep at 64 members of 1024 OSDs, 16 epochs, stacked and with
 CEPH_TPU_FLEET_STACK=0, digests equal to each other and to solo runs,
 each run's widest stats call held lane by lane to numpy and the solo
 members' rows to the host oracle, each epoch's launches held first at a
-small size to the CPU run's rule calls), through the entry points a user calls, and prints one JSON
-object per phase.  Any failure raises and exits non-zero.
+small size to the CPU run's rule calls) and the placement service
+(`serve_corpus`: tests/test_torch_serve.py's scripts on the card, rows
+and sample digests equal to tests/data/serve_corpus.json, the JAX
+checkpoint resumed and the port's own, an injected device loss answered
+EFAULT, recorded and followed by a device answer, an admission burst
+shedding exactly 8;
+`serve_main`: at config 5 with bench.py::bench_serve's settings, one
+query_block of 2^20 seeds held to map_all_tensors() and the host
+oracle, 3 closed-loop clients through the micro-batcher while a
+value-only reweight lands every second, 2 bulk clients while an upmap
+overlay is adopted mid-window, and a 2-replica front on config 2 with
+one replica stalled; every lane answered, from the device), through the
+entry points a user calls, and prints one JSON object per phase.  Any
+failure raises and exits non-zero.
 
 The line before the last is the kernels line (each kernel's launches on
 the main path, its time, bound and plain-version time); the last line is
@@ -77,6 +89,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -112,11 +125,12 @@ from ceph_tpu_torch.osd.io import save_osdmap
 from ceph_tpu_torch.osd.osdmap import OSD_UP, build_hierarchical
 from ceph_tpu_torch.osd.pipeline import PoolMapper
 from ceph_tpu_torch.osd.state import COUNTERS as state_counters
-from ceph_tpu_torch.osd.state import ClusterState
+from ceph_tpu_torch.osd.state import ClusterState, value_copy_map
 from ceph_tpu_torch.osd.types import PgId, PgPool, PoolType
 from ceph_tpu_torch.recovery import DRAIN_KEYS
 from ceph_tpu_torch.recovery import queue as recovery_queue
 from ceph_tpu_torch.runtime import DeviceLostError, faults
+from ceph_tpu_torch.serve import PlacementService, ServeConfig
 from ceph_tpu_torch.sim import ClusterSim, LifetimeSim
 from ceph_tpu_torch.sim import lifetime as sim_lifetime
 from ceph_tpu_torch.sim import workload as sim_workload
@@ -3191,6 +3205,674 @@ def phase_fleet_main(dev, smi: str, peak: float) -> dict:
     return res
 
 
+# -- the placement service ----------------------------------------------------
+
+SERVE_CORPUS = ROOT / "tests" / "data" / "serve_corpus.json"
+SERVE_PGS, SERVE_OSDS = 256, 16  # tests/test_torch_serve.py's map
+# bench.py::bench_serve's (:954), but its degraded_batches: the port
+# answers a lost dispatch EFAULT and has no host spell to size
+SERVE_MAIN_CFG = dict(block=2048, fill=8192, max_queue=64, deadline_s=2.0)
+SERVE_BULK_SEEDS = 1 << 20  # (a): one query_block
+SERVE_ORACLE = 256  # (a): lanes held to the host oracle
+SERVE_SCALAR_S, SERVE_SCALAR_CLIENTS, SERVE_SCALAR_BATCH = 10.0, 3, 1024
+SERVE_BULK_S, SERVE_BULK_CLIENTS, SERVE_BULK_BLOCK = 5.0, 2, 1 << 16
+SERVE_FRONT_BLOCKS, SERVE_FRONT_LANES = 40, 4096
+SERVE_SEED = 12  # the seeds of serve_main's lookups and swaps
+
+
+def serve_map(pgs: int = SERVE_PGS):
+    pool = PgPool(type=PoolType.REPLICATED, size=3, crush_rule=0,
+                  pg_num=pgs, pgp_num=pgs)
+    return build_hierarchical(4, 4, n_rack=1, pool=pool)
+
+
+def serve_cfg(**kw) -> ServeConfig:
+    """tests/test_torch_serve.py's configuration."""
+    base = dict(window_s=0.02, block=64, fill=512, max_queue=8,
+                deadline_s=5.0, bulk_max=256)
+    base.update(kw)
+    return ServeConfig(**base)
+
+
+def reply_rows(r) -> dict:
+    return {k: np.asarray(getattr(r, k)).tolist()
+            for k in ("up", "up_primary", "acting", "acting_primary")}
+
+
+def reply_sha(r) -> str:
+    """sha256 over a (bulk) reply's statuses, if any, and its rows (the
+    tests' `_sha`)."""
+    h = hashlib.sha256()
+    if hasattr(r, "statuses"):
+        h.update(np.ascontiguousarray(r.statuses).tobytes())
+    for k in ("up", "up_primary", "acting", "acting_primary"):
+        h.update(np.ascontiguousarray(getattr(r, k)).tobytes())
+    return h.hexdigest()
+
+
+def reweight_inc(epoch: int, osd: int, frac: float) -> Incremental:
+    inc = Incremental(epoch=epoch)
+    inc.new_weight[osd] = int(0x10000 * frac)
+    return inc
+
+
+def overlay_inc(m, epoch: int) -> Incremental:
+    """tests/test_torch_serve.py's `_overlay_inc`: PG 0.7's first OSD and
+    PG 0.9's second upmapped to the lowest OSD not in the row."""
+    inc = Incremental(epoch=epoch)
+    for seed, j in ((7, 0), (9, 1)):
+        _, _, act, _ = m.pg_to_up_acting_osds(PgId(0, seed))
+        to = min(set(range(SERVE_OSDS)) - set(act))
+        inc.new_pg_upmap_items[PgId(0, seed)] = [(act[j], to)]
+    return inc
+
+
+def device_only(replies, what: str) -> None:
+    bad = [r.source for r in replies if r.source != "device"]
+    check(not bad, f"{what}: {len(bad)} replies not from the device "
+                   f"({sorted(set(bad))}) with no fault injected")
+
+
+def phase_serve_corpus(dev) -> int:
+    """tests/test_torch_serve.py's scripts on the card, held to the JAX
+    service's records (tests/data/serve_corpus.json): lookups, a bulk
+    block, value-only, overlay, structural and adopted swaps, the
+    two-pool map's mixed submit and placement digest, a front, the JAX
+    checkpoint resumed and the port's own; then an injected device loss
+    (EFAULT, the loss recorded, the next batch from the device with
+    equal rows, nothing from the host) and an admission
+    burst of max_queue + 8 (exactly 8 EBUSY).  Returns the rule
+    kernel's launches from 0, the injected loss excluded."""
+    from ceph_tpu_torch.serve import meshcheck, service
+    from ceph_tpu_torch.serve.front import ServeFront
+
+    corpus = json.loads(SERVE_CORPUS.read_text())
+    cases = corpus["cases"]
+    fresh_observers()
+    torch.cuda.synchronize()
+    mapper.crush_rule_cuda.launches = 0
+    replies = []
+    svc = PlacementService(serve_map(), config=serve_cfg(), device=dev,
+                           name="chip.corpus")
+    try:
+        base = cases["base"]
+        r = svc.lookup_batch(0, [0, 1, 42, 137, 255])
+        replies.append(r)
+        check(reply_rows(r) == base["lookup"], "serve_corpus: lookup rows")
+        r = svc.lookup_object(0, "rbd_data.1f3a.0000000000000007")
+        replies.append(r)
+        check(reply_rows(r) == base["object"], "serve_corpus: object rows")
+        seeds = np.random.default_rng(7).integers(0, SERVE_PGS, 500)
+        r = svc.query_block(0, seeds.astype(np.uint32))
+        replies.append(r)
+        check(reply_sha(r) == base["block"], "serve_corpus: bulk block")
+        check(svc.sample_digest() == base["digest"],
+              "serve_corpus: sample_digest at epoch 1")
+        rw = cases["reweight"]
+        check(svc.apply(reweight_inc(svc.epoch + 1, 3, 0.5))["ok"],
+              "serve_corpus: value-only swap")
+        r = svc.query_block(0, np.arange(64))
+        replies.append(r)
+        check(reply_sha(r) == rw["rows"], "serve_corpus: reweighted rows")
+        check(svc.sample_digest() == rw["digest1"],
+              "serve_corpus: sample_digest after the swap")
+        for _ in range(3):
+            check(svc.apply(reweight_inc(svc.epoch + 1, 5, 0.9))["ok"],
+                  "serve_corpus: value-only swap")
+        check(svc.epoch == rw["epoch"]
+              and svc.sample_digest() == rw["digest"],
+              "serve_corpus: sample_digest after four swaps")
+    finally:
+        svc.close()
+
+    svc = PlacementService(serve_map(), config=serve_cfg(), device=dev,
+                           name="chip.swaps")
+    try:
+        sw = cases["swaps"]
+        seeds = np.arange(SERVE_PGS, dtype=np.uint32)
+        c0 = service.dump()
+        check(svc.apply(overlay_inc(svc._active.m, svc.epoch + 1))["ok"],
+              "serve_corpus: overlay swap")
+        got = {"overlay": svc.query_block(0, seeds)}
+        inc = Incremental(epoch=svc.epoch + 1)
+        inc.new_state[2] = OSD_UP  # the XOR marks it down
+        check(svc.apply(inc)["ok"], "serve_corpus: down swap")
+        got["down"] = svc.query_block(0, seeds)
+        inc = Incremental(epoch=svc.epoch + 1)
+        inc.new_max_osd = svc._active.m.max_osd + 4
+        check(svc.apply(inc)["ok"], "serve_corpus: structural swap")
+        got["structural"] = svc.query_block(0, seeds)
+        m2 = value_copy_map(svc._active.m)
+        m2.epoch += 1
+        m2.pg_upmap_items = dict(m2.pg_upmap_items)
+        m2.pg_upmap_items[PgId(0, 1)] = [(0, 0), (1, 1)]
+        check(svc.adopt_map(m2, reason="chip")["ok"],
+              "serve_corpus: adopted map")
+        got["adopted"] = svc.query_block(0, seeds)
+        replies += got.values()
+        for k, r in got.items():
+            check(reply_sha(r) == sw[k], f"serve_corpus: {k} rows")
+        c1 = service.dump()
+        check({k: c1[k] - c0[k] for k in ("swap_delta_applies",
+                                          "swap_full_restages")}
+              == {"swap_delta_applies": 2, "swap_full_restages": 1},
+              "serve_corpus: two forks and one structural restage")
+        check(svc.epoch == sw["epoch"]
+              and svc.sample_digest() == sw["digest"],
+              "serve_corpus: sample_digest after the swaps")
+    finally:
+        svc.close()
+
+    two = cases["two_pools"]
+    m = meshcheck.build_default(pgs=64, osds=8)
+    svc = PlacementService(m, config=serve_cfg(), device=dev,
+                           name="chip.two")
+    try:
+        rng = np.random.default_rng(23)
+        p0, p1 = sorted(m.pools)[:2]
+        pools = rng.choice([p0, p1], 240)
+        seeds = rng.integers(0, 32, 240).astype(np.uint32)
+        digest, oracle = meshcheck.placement_digest(svc, m)
+        r = svc.submit_many(pools, seeds)
+        replies.append(r)
+        check(reply_sha(r) == two["mixed"], "serve_corpus: submit_many")
+        check(digest == two["placement_digest"] and oracle,
+              "serve_corpus: placement digest == JAX and the host oracle")
+        check(svc.sample_digest() == two["digest"],
+              "serve_corpus: two-pool sample_digest")
+    finally:
+        svc.close()
+
+    fr = cases["front"]
+    f = ServeFront(serve_map(), replicas=2, config=serve_cfg(), device=dev,
+                   name="chip.front")
+    try:
+        seeds = np.random.default_rng(3).integers(0, SERVE_PGS, 300)
+        r = f.query_block(0, seeds)
+        replies.append(r)
+        check(reply_sha(r) == fr["block"], "serve_corpus: front block")
+        check(f.apply(reweight_inc(f.epoch + 1, 3, 0.5))["ok"],
+              "serve_corpus: front fan-out")
+        r = f.query_block(0, seeds)
+        replies.append(r)
+        check(reply_sha(r) == fr["block2"], "serve_corpus: front block 2")
+    finally:
+        f.close()
+
+    ck_want = corpus["checkpoint"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "jax_ck.json"
+        ck.write_text(json.dumps({"stages_done": [],
+                                  "serve": ck_want["ck"]}))
+        svc = PlacementService(config=serve_cfg(), checkpoint=str(ck),
+                               resume=True, device=dev, name="chip.resume")
+        try:
+            check(svc.epoch == ck_want["epoch"]
+                  and svc.sample_digest() == ck_want["digest"],
+                  "serve_corpus: the JAX checkpoint resumed")
+            r = svc.lookup_batch(0, np.arange(16))
+            replies.append(r)
+            check(reply_sha(r) == ck_want["spot"],
+                  "serve_corpus: resumed rows")
+        finally:
+            svc.close()
+        ck = Path(tmp) / "port_ck.json"
+        svc = PlacementService(serve_map(), config=serve_cfg(), device=dev,
+                               checkpoint=str(ck), name="chip.ck")
+        try:
+            for _ in range(2):
+                check(svc.apply(reweight_inc(svc.epoch + 1, 1, 0.75))["ok"],
+                      "serve_corpus: checkpointed swap")
+            digest = svc.sample_digest()
+        finally:
+            svc.close()
+        check(json.loads(ck.read_text())["serve"]["map_b64"]
+              == ck_want["ck"]["map_b64"],
+              "serve_corpus: the checkpoint's map blob == JAX's")
+        svc = PlacementService(config=serve_cfg(), checkpoint=str(ck),
+                               resume=True, device=dev, name="chip.ck2")
+        try:
+            check(svc.resumed_from == ck_want["epoch"]
+                  and svc.sample_digest() == digest == ck_want["digest"],
+                  "serve_corpus: the port's checkpoint resumed")
+        finally:
+            svc.close()
+    device_only(replies, "serve_corpus")
+    torch.cuda.synchronize()
+    launches = mapper.crush_rule_cuda.launches
+    check(launches > 0, "serve_corpus: the rule kernel launched")
+
+    # the injected device loss and the admission burst, outside the count
+    svc = PlacementService(serve_map(), config=serve_cfg(), device=dev,
+                           name="chip.loss")
+    try:
+        seeds = np.asarray([5, 9, 100, 200], np.uint32)
+        base = svc.lookup_batch(0, seeds)
+        device_only([base], "serve_corpus: before the loss")
+        d0 = service.dump()["degraded_answered"]
+        faults.arm("serve_dispatch", "lost", "chip smoke", 1)
+        try:
+            lost = [svc.lookup_batch(0, seeds) for _ in range(2)]
+        finally:
+            faults.disarm("serve_dispatch")
+        check(lost[0].status == "EFAULT" and lost[1].ok
+              and lost[1].source == "device"
+              and reply_rows(lost[1]) == reply_rows(base),
+              f"serve_corpus: a lost dispatch answered EFAULT, the next "
+              f"batch by the device with equal rows "
+              f"({[(r.status, r.source) for r in lost]})")
+        prov = svc.provenance()
+        check(prov["device_loss_fallbacks"] == 1
+              and prov["fallback_events"][-2].endswith("-> EFAULT")
+              and prov["fallback_events"][-1].startswith("recovered")
+              and service.dump()["degraded_answered"] == d0,
+              f"serve_corpus: the loss recorded, then the recovery, no "
+              f"lane from the host ({prov})")
+        svc.pause()
+        burst: list = []
+        n = svc.config.max_queue + 8
+
+        def one():
+            r = svc.lookup_batch(0, [1, 2, 3], deadline_s=10.0)
+            burst.append(r)
+
+        ths = [threading.Thread(target=one) for _ in range(n)]
+        for t in ths:
+            t.start()
+        t_end = time.time() + 10
+        while len(svc._q) + len(burst) < n and time.time() < t_end:
+            time.sleep(0.01)
+        svc.unpause()
+        for t in ths:
+            t.join(timeout=30)
+        statuses = sorted(r.status for r in burst)
+        check(len(burst) == n and statuses.count("EBUSY") == 8
+              and statuses.count("ok") == n - 8,
+              f"serve_corpus: a burst of {n}: exactly 8 EBUSY "
+              f"({statuses})")
+        device_only([r for r in burst if r.ok], "serve_corpus: the burst")
+    finally:
+        svc.close()
+    emit({"phase": "serve_corpus", "launches": launches,
+          "replies_checked": len(replies), "burst": n})
+    return launches
+
+
+def replied_lanes(lanes: int, r) -> dict:
+    """A reply's lanes by status, read off the reply itself: a bulk
+    reply's status vector, unless its rows do not cover it; a scalar ok
+    reply counts the rows it carries, a refused one its `lanes`."""
+    if hasattr(r, "counts"):
+        rows = 0 if r.up is None else len(r.up)
+        if rows != len(r.statuses) and r.counts().get("ok"):
+            return {"rows_short": rows}
+        return r.counts()
+    return {r.status: len(r.up) if r.ok else lanes}
+
+
+class ServeClients:
+    """Closed-loop client threads: each calls `fn(rng)` until stopped and
+    keeps every reply's lanes, status counts, sources and latency."""
+
+    def __init__(self, n: int, fn, seed: int):
+        self.fn = fn
+        self.stop = threading.Event()
+        self.lat: list = []
+        self.submitted = self.replied = self.ok = 0
+        self.done: list = []  # (host clock at the reply, ok lanes)
+        self.sources: dict = {}
+        self.statuses: dict = {}
+        self.errors: list = []
+        self._lock = threading.Lock()
+        self.threads = [threading.Thread(
+            target=self._run, args=(np.random.default_rng([seed, i]),))
+            for i in range(n)]
+
+    def _run(self, rng):
+        try:
+            while not self.stop.is_set():
+                t0 = time.perf_counter()
+                lanes, r = self.fn(rng)
+                dt = time.perf_counter() - t0
+                counts = replied_lanes(lanes, r)
+                with self._lock:
+                    self.submitted += lanes
+                    self.replied += sum(counts.values())
+                    self.ok += counts.get("ok", 0)
+                    for k, v in counts.items():
+                        self.statuses[k] = self.statuses.get(k, 0) + v
+                    self.sources[r.source] = \
+                        self.sources.get(r.source, 0) + 1
+                    if counts.get("ok"):
+                        self.lat.append(dt)
+                        self.done.append((t0 + dt, counts["ok"]))
+        except Exception as e:  # surfaced by finish()
+            self.errors.append(f"{type(e).__name__}: {e}")
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def finish(self, what: str) -> dict:
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=60)
+        check(not self.errors, f"{what}: client errors {self.errors[:3]}")
+        check(self.submitted == self.replied,
+              f"{what}: submitted {self.submitted} == replied "
+              f"{self.replied} (never dropped)")
+        check(set(self.sources) == {"device"},
+              f"{what}: every reply from the device ({self.sources})")
+        check(self.statuses == {"ok": self.submitted},
+              f"{what}: every lane ok ({self.statuses})")
+        lat = np.asarray(self.lat)
+        return {"lookups": self.ok, "requests": len(self.lat),
+                "done": self.done,
+                "p50_s": float(np.percentile(lat, 50)),
+                "p99_s": float(np.percentile(lat, 99))}
+
+
+def serve_rows_checked(svc, seeds: np.ndarray, what: str, dev) -> None:
+    """The active epoch's answers on `seeds`, held to a fresh PoolMapper
+    of the same map (outside the counted windows) and, on a few seeds,
+    to the host oracle."""
+    r = svc.query_block(0, seeds, deadline_s=0)
+    m = svc._active.m
+    want = PoolMapper(m, 0, device=dev).map_batch(seeds)
+    check(r.ok and all(np.array_equal(a, b) for a, b in zip(
+        (r.up, r.up_primary, r.acting, r.acting_primary), want)),
+        f"{what}: rows == a fresh mapper's")
+    for i in range(0, len(seeds), max(1, len(seeds) // 16)):
+        up, upp, act, actp = m.pg_to_up_acting_osds(PgId(0, int(seeds[i])))
+        check([int(o) for o in r.acting[i] if o != ITEM_NONE] == list(act)
+              and int(r.acting_primary[i]) == actp,
+              f"{what}: seed {seeds[i]} == the host oracle")
+
+
+def sub_block_parts(pm, seeds: np.ndarray, runs: int = 20) -> dict:
+    """Where one bulk sub-block's time goes (medians of `runs`, after the
+    counted window): the whole `map_batch` (host clock), its rows left
+    on the card (`_rows`, synchronised), and the rule kernel alone on the
+    same placement seeds (CUDA events), held to its plain version, whose
+    draws give the issue bound of these lanes (OPS_PER_DRAW a draw)."""
+    def median_s(fn):
+        out = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out)
+
+    ps = pm._seeds(seeds)
+    x = mapper.u32_bits(pm.placement_seeds(ps))
+    w = mapper.u32_bits(mapper._weight_vector(pm.rule_weights()))
+    kernel = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mapper.crush_rule_cuda(pm.tables, pm.prog, x, w)
+        end.record()
+        end.synchronize()
+        kernel.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, draws = mapper.crush_rule_plain(pm.tables, pm.prog, x, w)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(mapper.crush_rule_cuda(pm.tables, pm.prog, x, w),
+                      want), "serve_main (a): sub-block kernel == plain")
+    issue_rate = H100_SMS * SCHEDULERS_PER_SM * WARP * max_sm_clock_hz()
+    return {"lanes": len(seeds), "plain_ms": plain_ms,
+            "draws": int(draws.sum()),
+            "bound_ms": int(draws.sum()) * OPS_PER_DRAW / issue_rate * 1e3,
+            "bound_by": "operations",
+            "map_batch_ms": median_s(lambda: pm.map_batch(seeds)) * 1e3,
+            "rows_on_device_ms": median_s(lambda: pm._rows(
+                pm._seeds(seeds))) * 1e3,
+            "kernel_ms": statistics.median(kernel)}
+
+
+def phase_serve_main(dev, smi: str) -> dict:
+    """The placement service at BASELINE config 5 (10M PGs / 10k OSDs)
+    with bench.py::bench_serve's settings: (a) one query_block of 2^20
+    seeds held to map_all_tensors() and 256 lanes to the host oracle;
+    (b) 3 closed-loop clients of 1024 seeds for 10 s through the
+    micro-batcher while a value-only reweight lands every second; (c) 2
+    bulk clients of 2^16 seeds for 5 s with one structural swap (an
+    upmap overlay adopted) mid-window; (d) a 2-replica ServeFront on
+    config 2 with a stall aimed at one replica.  Each part's rule
+    launches counted from 0; every lane answered, from the device."""
+    from ceph_tpu_torch.serve import service
+    from ceph_tpu_torch.serve.front import COUNTERS as front_counters
+    from ceph_tpu_torch.serve.front import ServeFront
+
+    fresh_observers()
+    service.reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res: dict = {"nvidia_smi": smi}
+    m = bench_map(*CONFIGS["config5"])
+    cfg = ServeConfig(**SERVE_MAIN_CFG)
+    rng = np.random.default_rng(SERVE_SEED)
+
+    # (a) the bulk edge: 2^20 lanes fit a lane capacity of max_queue x
+    # block only with max_queue 512, so (a) raises it
+    (svc, init_s, _) = timed(lambda: PlacementService(
+        m, config=dataclasses.replace(cfg, max_queue=512), device=dev,
+        name="chip.serve.bulk"))
+    try:
+        seeds = rng.integers(0, CONFIGS["config5"][0],
+                             SERVE_BULK_SEEDS).astype(np.uint32)
+        r, s, launches = timed(lambda: svc.query_block(0, seeds,
+                                                       deadline_s=60.0))
+        check(r.ok and r.source == "device",
+              f"serve_main (a): every lane ok from the device "
+              f"({r.counts()}, {r.source})")
+        sub = max(cfg.bulk_max, cfg.block)
+        check(launches == -(-SERVE_BULK_SEEDS // sub),
+              f"serve_main (a): {launches} launches, one a sub-block of "
+              f"{sub}")
+        full = svc._active.mapper(0).map_all_tensors()
+        idx = torch.from_numpy(seeds.astype(np.int64)).to(dev)
+        for got, t in zip((r.up, r.up_primary, r.acting, r.acting_primary),
+                          full):
+            check(np.array_equal(got, t[idx].cpu().numpy()),
+                  "serve_main (a): rows == map_all_tensors() at the seeds")
+        del full
+        t0 = time.perf_counter()
+        for i in range(SERVE_ORACLE):
+            up, upp, act, actp = m.pg_to_up_acting_osds(
+                PgId(0, int(seeds[i])))
+            check([int(o) for o in r.up[i] if o != ITEM_NONE] == list(up)
+                  and [int(o) for o in r.acting[i] if o != ITEM_NONE]
+                  == list(act) and int(r.up_primary[i]) == upp
+                  and int(r.acting_primary[i]) == actp,
+                  f"serve_main (a): seed {seeds[i]} == the host oracle")
+        res["bulk"] = {"lookups": SERVE_BULK_SEEDS, "s": s,
+                       "lookups_per_s": SERVE_BULK_SEEDS / s,
+                       "launches": launches, "init_s": init_s,
+                       "oracle_lanes": SERVE_ORACLE,
+                       "oracle_s": time.perf_counter() - t0,
+                       "sub_block": sub_block_parts(
+                           svc._active.mapper(0), seeds[:cfg.bulk_max])}
+    finally:
+        svc.close()
+
+    svc = PlacementService(m, config=cfg, device=dev, name="chip.serve")
+    try:
+        # (b) the queued micro-batcher under a value-only swap a second
+        c0, st0 = service.dump(), dict(state_counters)
+        n_pgs = CONFIGS["config5"][0]
+        clients = ServeClients(SERVE_SCALAR_CLIENTS, lambda g: (
+            SERVE_SCALAR_BATCH, svc.lookup_batch(
+                0, g.integers(0, n_pgs, SERVE_SCALAR_BATCH))), SERVE_SEED)
+        applies: list = []
+        torch.cuda.synchronize()
+        mapper.crush_rule_cuda.launches = 0
+        t0 = time.perf_counter()
+        clients.start()
+        next_swap = t0 + 1.0
+        while time.perf_counter() - t0 < SERVE_SCALAR_S:
+            time.sleep(0.01)
+            if time.perf_counter() >= next_swap:
+                inc = Incremental(epoch=svc.epoch + 1)
+                for o in rng.choice(CONFIGS["config5"][1], 4,
+                                    replace=False):
+                    inc.new_weight[int(o)] = int(
+                        0x10000 * (0.7 + 0.3 * rng.random()))
+                ta = time.perf_counter()
+                out = svc.apply(inc)
+                applies.append(time.perf_counter() - ta)
+                check(out["ok"], f"serve_main (b): swap {out}")
+                next_swap += 1.0
+        b = clients.finish("serve_main (b)")
+        del b["done"]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        c1, st1 = service.dump(), dict(state_counters)
+        stall = c1["swap_stall_seconds"]
+        b.update(
+            s=wall, qps=b["lookups"] / wall,
+            launches=mapper.crush_rule_cuda.launches, swaps=len(applies),
+            apply_ms=[round(a * 1e3, 3) for a in applies],
+            swap_stall_p99_s=stall["p99"], swap_stall_max_s=stall["max"],
+            bytes_uploaded=st1["device_put_bytes"]
+            - st0["device_put_bytes"],
+            swap_delta_applies=c1["swap_delta_applies"]
+            - c0["swap_delta_applies"],
+            swap_full_restages=c1["swap_full_restages"]
+            - c0["swap_full_restages"],
+            state_rebuilds=st1["full_rebuilds"] - st0["full_rebuilds"],
+            batches=c1["batches"] - c0["batches"],
+            batch_fill_p50=c1["batch_fill_hist"]["p50"])
+        check(b["swap_delta_applies"] == b["swaps"] >= 8
+              and b["swap_full_restages"] == 0 == b["state_rebuilds"],
+              f"serve_main (b): every swap a fork ({b})")
+        res["scalar"] = b
+        serve_rows_checked(svc, rng.integers(0, n_pgs, 1 << 14)
+                           .astype(np.uint32), "serve_main (b)", dev)
+
+        # (c) the bulk edge under one structural swap mid-window
+        c0 = service.dump()
+        clients = ServeClients(SERVE_BULK_CLIENTS, lambda g: (
+            SERVE_BULK_BLOCK, svc.query_block(
+                0, g.integers(0, n_pgs, SERVE_BULK_BLOCK))), SERVE_SEED + 1)
+        m2 = value_copy_map(svc._active.m)
+        m2.epoch += 1
+        m2.pg_upmap_items = dict(m2.pg_upmap_items)
+        _, _, act, _ = m2.pg_to_up_acting_osds(PgId(0, 1))
+        to = next(o for o in range(m2.max_osd)
+                  if o not in act and m2.osd_weight[o])
+        m2.pg_upmap_items[PgId(0, 1)] = [(act[0], to)]
+        torch.cuda.synchronize()
+        mapper.crush_rule_cuda.launches = 0
+        t0 = time.perf_counter()
+        clients.start()
+        time.sleep(SERVE_BULK_S / 2)
+        ta = time.perf_counter()
+        swap = svc.adopt_map(m2, reason="chip structural")
+        stage_s = time.perf_counter() - ta
+        check(swap["ok"], f"serve_main (c): structural swap {swap}")
+        time.sleep(SERVE_BULK_S / 2)
+        c = clients.finish("serve_main (c)")
+        wall = time.perf_counter() - t0
+        done = c.pop("done")
+        t_flip = ta + stage_s
+        for key, lo, hi in (("before_swap", t0, ta),
+                            ("after_swap", t_flip, t0 + wall)):
+            n = sum(k for t, k in done if lo <= t < hi)
+            c[f"lookups_per_s_{key}"] = n / (hi - lo)
+        torch.cuda.synchronize()
+        c1 = service.dump()
+        c.update(s=wall, lookups_per_s=c["lookups"] / wall,
+                 launches=mapper.crush_rule_cuda.launches,
+                 stage_s=stage_s, flip_stall_s=swap["swap_stall_s"],
+                 structural_swap_stalls=c1["structural_swap_stalls"]
+                 - c0["structural_swap_stalls"],
+                 warm_stages=c1["warm_stages"] - c0["warm_stages"])
+        check(c["structural_swap_stalls"] == 0 and c["warm_stages"] == 1,
+              f"serve_main (c): one stage off the readers' threads, the "
+              f"flip within its bound ({c})")
+        res["structural"] = c
+        seeds = np.concatenate([[1], rng.integers(0, n_pgs, 4095)])
+        serve_rows_checked(svc, seeds.astype(np.uint32), "serve_main (c)",
+                           dev)
+        r = svc.lookup(0, 1)
+        check(to in [int(o) for o in r.up[0]],
+              "serve_main (c): PG 0.1 answers its upmap")
+        res["degraded_answered"] = service.dump()["degraded_answered"]
+        check(res["degraded_answered"] == 0,
+              "serve_main: no lane answered by the host")
+    finally:
+        svc.close()
+
+    # (d) a 2-replica front on config 2, a stall aimed at replica 1
+    m = bench_map(*CONFIGS["config2"])
+    f = ServeFront(m, replicas=2, config=cfg, device=dev,
+                   name="chip.front")
+    try:
+        n_pgs = CONFIGS["config2"][0]
+        f0 = dict(front_counters)
+        blocks = [rng.integers(0, n_pgs, SERVE_FRONT_LANES).astype(
+            np.uint32) for _ in range(SERVE_FRONT_BLOCKS)]
+        f.query_block(0, blocks[0])  # both replicas' latency EWMA
+        torch.cuda.synchronize()
+        mapper.crush_rule_cuda.launches = 0
+        faults.arm("serve_dispatch.chip.front.r1", "stall", "0.4", 8)
+        lat, replies = [], []
+        try:
+            for seeds in blocks:
+                t0 = time.perf_counter()
+                replies.append(f.query_block(0, seeds))
+                lat.append(time.perf_counter() - t0)
+        finally:
+            faults.disarm("serve_dispatch.chip.front.r1")
+        torch.cuda.synchronize()
+        launches = mapper.crush_rule_cuda.launches
+        check(all(r.ok and r.source == "device" for r in replies),
+              "serve_main (d): every lane ok from the device")
+        want = PoolMapper(m, 0, device=dev)
+        for seeds, r in zip(blocks[:4], replies[:4]):
+            check(all(np.array_equal(a, b) for a, b in zip(
+                (r.up, r.up_primary, r.acting, r.acting_primary),
+                want.map_batch(seeds))),
+                "serve_main (d): rows == a fresh mapper's")
+        d = {k: front_counters[k] - f0[k] for k in front_counters}
+        check(d["front_replica_sheds"] >= 1 and d["front_shed_routes"] > 0,
+              f"serve_main (d): the stalled replica shed ({d})")
+        lat = np.asarray(lat)
+        res["front"] = dict(d, blocks=SERVE_FRONT_BLOCKS,
+                            lanes=SERVE_FRONT_LANES, launches=launches,
+                            block_p50_s=float(np.percentile(lat, 50)),
+                            block_p99_s=float(np.percentile(lat, 99)))
+    finally:
+        f.close()
+    torch.cuda.synchronize()
+    res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    emit(dict(phase="serve_main", **res))
+    a, b, c, d = res["bulk"], res["scalar"], res["structural"], res["front"]
+    print(f"serve_main on {smi}: (a) {a['lookups']} lookups in one "
+          f"query_block, {a['s']:.6f} s, {a['lookups_per_s']:.1f} "
+          f"lookups/s, {a['launches']} launches; (b) {b['qps']:.1f} "
+          f"lookups/s, request p50 {b['p50_s']:.6f} s p99 "
+          f"{b['p99_s']:.6f} s over {b['requests']} requests, swap stall "
+          f"p99 {b['swap_stall_p99_s']:.9f} s max "
+          f"{b['swap_stall_max_s']:.9f} s, {b['swaps']} swaps, apply ms "
+          f"{b['apply_ms']}, {b['bytes_uploaded']} bytes up, "
+          f"{b['launches']} launches; (c) {c['lookups_per_s']:.1f} "
+          f"lookups/s, stage {c['stage_s']:.3f} s, flip "
+          f"{c['flip_stall_s']} s, {c['structural_swap_stalls']} "
+          f"structural stalls, {c['launches']} launches; (d) block p99 "
+          f"{d['block_p99_s']:.6f} s, {d['front_replica_sheds']} sheds; "
+          f"peak device memory {res['peak_device_bytes']} bytes",
+          flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3267,6 +3949,13 @@ def main() -> int:
     rule_paths["fleet_main_small"] = sum(fleet["small"]["launches"])
     for mode in ("stacked", "unstacked"):
         rule_paths[f"fleet_main_{mode}"] = fleet[mode]["launches"]
+
+    # the placement service: the corpus scripts, then config 5's traffic
+    torch.cuda.empty_cache()
+    rule_paths["serve_corpus"] = phase_serve_corpus(dev)
+    serve = phase_serve_main(dev, info["nvidia_smi"])
+    for part in ("bulk", "scalar", "structural", "front"):
+        rule_paths[f"serve_main_{part}"] = serve[part]["launches"]
     torch.cuda.synchronize()
 
     b, c5 = res["b"], pres["config5"]
@@ -3351,6 +4040,23 @@ def main() -> int:
             "cluster_epochs_per_s", "wall_s", "init_s", "launches",
             "stats_calls", "stats_ms_median", "stats_bound_ms_median",
             "peak_device_bytes")} for mode in ("stacked", "unstacked")},
+        # the placement service at config 5: (a) one 2^20-lane block,
+        # (b) the micro-batcher under value-only swaps, (c) the bulk edge
+        # under a structural swap; (d) a 2-replica front on config 2
+        "serve_main": {
+            "bulk": {f: serve["bulk"][f] for f in (
+                "lookups", "s", "lookups_per_s", "launches", "sub_block")},
+            "scalar": {f: serve["scalar"][f] for f in (
+                "qps", "p50_s", "p99_s", "requests", "swaps",
+                "swap_stall_p99_s", "swap_stall_max_s", "apply_ms",
+                "bytes_uploaded", "swap_delta_applies", "launches")},
+            "structural": {f: serve["structural"][f] for f in (
+                "lookups_per_s", "p50_s", "p99_s", "stage_s",
+                "flip_stall_s", "structural_swap_stalls", "launches")},
+            "front": {f: serve["front"][f] for f in (
+                "block_p50_s", "block_p99_s", "front_replica_sheds",
+                "launches")},
+            "peak_device_bytes": serve["peak_device_bytes"]},
     }, {
         "name": "crush_rule_diag",
         "route": "cuda",

@@ -326,7 +326,8 @@ def test_port_imports_neither_jax_nor_ceph_tpu():
     assert not bad, bad
 
 
-# modules the walk below must reach (the placement CLIs' slice among them)
+# modules the walk below must reach (the placement CLIs' and the
+# placement service's slices among them)
 PORT_MODULES = (
     "ceph_tpu_torch.cli.crushtool", "ceph_tpu_torch.cli.osdmaptool",
     "ceph_tpu_torch.core.reduce", "ceph_tpu_torch.crush.codec",
@@ -334,6 +335,10 @@ PORT_MODULES = (
     "ceph_tpu_torch.crush.tester", "ceph_tpu_torch.osd.codec",
     "ceph_tpu_torch.osd.conf", "ceph_tpu_torch.osd.io",
     "ceph_tpu_torch.osd.print", "ceph_tpu_torch.utils.crc32c",
+    "ceph_tpu_torch.serve.service", "ceph_tpu_torch.serve.front",
+    "ceph_tpu_torch.serve.chaos", "ceph_tpu_torch.serve.slo",
+    "ceph_tpu_torch.serve.meshcheck", "ceph_tpu_torch.cli.serve",
+    "ceph_tpu_torch.obs.quantiles",
 )
 
 
