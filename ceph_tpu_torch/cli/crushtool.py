@@ -12,7 +12,7 @@ src/tools/crushtool.cc:129-231 usage, :436-1276 arg loop):
                              --weight osd w --show-statistics
                              --show-utilization[-all] --show-mappings
                              --show-bad-mappings --show-choose-tries
-                             --simulate --backend torch|ref]
+                             --simulate --backend torch|native|ref]
     crushtool -i map --tree
     crushtool -i map --reweight-item name w -o out
     crushtool -i map explain <x> | <pool>.<seed> [--rule --num-rep]
@@ -20,8 +20,9 @@ src/tools/crushtool.cc:129-231 usage, :436-1276 arg loop):
 
 Extra:
 
-    --backend torch|ref        the rule kernel (default; "jax" is its
-                               alias) or the pure-Python host mapper
+    --backend torch|native|ref the rule kernel (default; "jax" is its
+                               alias), the threaded C++ host mapper, or
+                               the pure-Python host mapper
     --device cuda|cpu          where the torch backend runs (default: the
                                card; cpu runs the kernel's plain version)
 

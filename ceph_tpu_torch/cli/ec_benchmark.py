@@ -16,7 +16,9 @@ mapping=` with `-P layers=`).
 
 Prints "<seconds>\t<KiB processed>" like the reference.  `--device`
 (default cuda) is where the device engine runs, every plugin's engine
-unless `-P backend=numpy` asks for the host.  With the device engine a
+unless `-P backend=numpy` or `-P backend=native` (the C++ SIMD engine)
+asks for the host; `-P strategy=...` picks the device engine's strategy
+(ec.torch_backend.STRATEGIES).  With the device engine a
 layered code's object is put on that device once, before the timed loop;
 the other plugins get the host bytes on every call, as the JAX CLI gives
 them (each call uploads them and reads the result back).

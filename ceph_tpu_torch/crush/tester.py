@@ -16,7 +16,9 @@ utilization and size histograms are reduced on the device
 its histogram from the rule kernel's diagnostics planes, reduced on the
 device (`crush/explain.py::device_choose_tries`).  `backend="ref"` runs
 the host oracle (`crush/mapper_ref.py`) seed by seed, and collects the
-histogram there.
+histogram there.  `backend="native"` maps each pass with the threaded C++
+mapper (`native/mapper.py`) on the host; with `--show-choose-tries` it
+goes through the host oracle, which collects the histogram.
 """
 
 from __future__ import annotations
@@ -34,8 +36,10 @@ from ceph_tpu_torch.crush.mapper import compile_rule, map_rule
 from ceph_tpu_torch.crush.soa import build_arrays, to_device
 from ceph_tpu_torch.crush.types import CrushMap, ITEM_NONE
 from ceph_tpu_torch.device import resolve_device
+from ceph_tpu_torch.native.mapper import NativeMapper
 
-BACKENDS = {"torch": "torch", "jax": "torch", "ref": "ref"}
+BACKENDS = {"torch": "torch", "jax": "torch", "native": "native",
+            "ref": "ref"}
 
 
 def _vec(out) -> str:
@@ -73,7 +77,7 @@ class CrushTester:
     def __init__(self, m: CrushMap, cfg: TesterConfig, out=None):
         if cfg.backend not in BACKENDS:
             raise ValueError(f"unknown backend {cfg.backend!r}: torch "
-                             "(jax), or ref")
+                             "(jax), native, or ref")
         self.m = m
         self.cfg = cfg
         self.out = out if out is not None else sys.stdout
@@ -82,6 +86,7 @@ class CrushTester:
             if 0 <= osd < m.max_devices:
                 self.weight[osd] = w
         self._tables = None
+        self._native = None
 
     # -- mapping backends --------------------------------------------------
     @property
@@ -210,6 +215,10 @@ class CrushTester:
             m.choose_tries_histogram = [0] * (
                 m.tunables.choose_total_tries + 1
             )
+            if backend == "native":
+                # only the diagnostics planes (torch) and the host oracle
+                # (ref) collect the histogram; native goes through ref
+                backend = "ref"
         rules = (
             [cfg.rule]
             if cfg.rule >= 0
@@ -248,6 +257,13 @@ class CrushTester:
                         self._random_placement(rng, nr) for _ in range(n_x)
                     ]
                     prefix = "RNG"
+                elif backend == "native":
+                    if self._native is None:
+                        self._native = NativeMapper(m)
+                    padded = self._native.map_batch(
+                        r, self._real_xs(xs), nr, self.weight)
+                    rows = self._rows_from_padded(padded, rule)
+                    prefix = "CRUSH"
                 elif backend == "ref":
                     rows = [
                         self._map_one_ref(r, int(rx), nr)

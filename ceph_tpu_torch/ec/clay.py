@@ -18,11 +18,13 @@ helpers and reads a 1/q fraction of each (reference minimum_to_repair
 
 Where each product runs: every product goes through the engine, which is
 the Hopper kernel on a CUDA tensor and its plain version on a CPU tensor;
-the device engine is the default.  Tensors stay on their device.  Numpy
-in gives numpy out: with the device engine a call uploads its input to
-the engine's device once and reads its result back once; with
-`backend=numpy` it computes on the host as the JAX package does (a host
-engine refuses a CUDA tensor).
+the device engine (with the profile's `strategy`) is the default.
+Tensors stay on their device.  Numpy in gives numpy out: with the device
+engine a call uploads its input to the engine's device once and reads its
+result back once; with `backend=numpy` or `backend=native` it computes on
+the host as the JAX package does (a host engine refuses a CUDA tensor).
+`COUNTERS` holds the JAX package's `ec` counters of this module (its
+repair group).
 """
 
 from __future__ import annotations
@@ -42,6 +44,16 @@ from ceph_tpu_torch.ec.interface import (
 )
 from ceph_tpu_torch.ec.rs import DEFAULT_BACKEND, _concat, get_engine
 from ceph_tpu_torch.ec.torch_backend import TorchEngine
+
+COUNTERS: dict = {
+    "bytes_encoded": 0,       # stripe bytes pushed through encode_chunks
+    "bytes_decoded": 0,       # chunk bytes rebuilt by decode_chunks
+    "repair_bytes": 0,        # chunk bytes rebuilt by repair
+    # helper bytes read / (k * chunk bytes), per repair (a JAX avg)
+    "repair_read_fraction": {"avgcount": 0, "sum": 0.0},
+    "repair_plan_hits": 0,    # batched repairs served by a cached plan
+    "repair_plan_misses": 0,  # product-matrix repair plans built
+}
 
 
 def _zeros(shape, like):
@@ -147,7 +159,7 @@ class ClayCode(ErasureCode):
         self.mds_C = maker(k + self.nu, m)
         self.pft = _PairTransform()
         self.engine = get_engine(profile.get("backend", DEFAULT_BACKEND),
-                                 self.device)
+                                 profile.get("strategy"), self.device)
         self._repair_plans.clear()  # geometry may have changed
 
     def get_sub_chunk_count(self) -> int:
@@ -330,6 +342,7 @@ class ClayCode(ErasureCode):
                                cs // self.sub_chunk_no)
         self._decode_layered({self._node(i) for i in range(k, k + m)},
                              nodes)
+        COUNTERS["bytes_encoded"] += _numel(data)
         return _stack(
             [nodes[self._node(i)].reshape(-1) for i in range(k + m)], 0
         )
@@ -351,6 +364,7 @@ class ClayCode(ErasureCode):
         for i in range(k + m):
             if i not in out:
                 out[i] = nodes[self._node(i)].reshape(-1)
+        COUNTERS["bytes_decoded"] += len(erased) * chunk_size
         return out
 
     # -- repair (minimum-bandwidth single-node recovery) -------------------
@@ -424,6 +438,16 @@ class ClayCode(ErasureCode):
             out = self.repair(want_to_read, self._upload(helper_chunks),
                               chunk_size)
             return {i: c.cpu().numpy() for i, c in out.items()}
+        out = self._repair(want_to_read, helper_chunks, chunk_size)
+        COUNTERS["repair_bytes"] += len(want_to_read) * chunk_size
+        fraction = COUNTERS["repair_read_fraction"]
+        fraction["avgcount"] += 1
+        fraction["sum"] += (sum(_numel(b) for b in helper_chunks.values())
+                            / (self.k * chunk_size))
+        return out
+
+    def _repair(self, want_to_read: set[int], helper_chunks: dict,
+                chunk_size: int) -> dict:
         q, t = self.q, self.t
         i = next(iter(want_to_read))
         lost = self._node(i)
@@ -594,6 +618,7 @@ class ClayCode(ErasureCode):
         node * P + position into the [n*P, sc] helper and U arrays."""
         plan = self._repair_plans.get(lost)
         if plan is not None:
+            COUNTERS["repair_plan_hits"] += 1
             return plan
         q, t = self.q, self.t
         n, P = q * t, len(repair_planes)
@@ -667,6 +692,7 @@ class ClayCode(ErasureCode):
         plan = {"RB": RB, "pair_R": pair_R, "index": index,
                 "device_index": {}}
         self._repair_plans[lost] = plan
+        COUNTERS["repair_plan_misses"] += 1
         return plan
 
     def decode(self, want_to_read: set[int], chunks: dict,

@@ -4,8 +4,9 @@ Port of `ceph_tpu/ec/gf.py`.  Field: GF(2^8) with the primitive
 polynomial x^8+x^4+x^3+x^2+1 (0x11D), generator α=2, as jerasure's w=8
 default and isa-l use.
 
-Host side (numpy): log/antilog tables, scalar ops, matrix multiply and
-invert, for code construction and the small decode-matrix inversions.
+Host side (numpy): log/antilog tables, scalar ops, doubling (`gf_xtime`),
+matrix multiply and invert, for code construction and the small
+decode-matrix inversions.
 Device side: `gf_device_tables` (tables as torch tensors, once per
 device) and `ec.torch_backend` (the GF matrix product on the card).
 """
@@ -52,6 +53,16 @@ def gf_mul(a, b):
     a = np.asarray(a, np.uint8)
     b = np.asarray(b, np.uint8)
     return GF_MUL_TABLE[a, b]
+
+
+def gf_xtime(x: np.ndarray) -> np.ndarray:
+    """Element-wise doubling (·2) in GF(2^8)/0x11D, branch-free:
+    (x<<1) ^ (0x1D masked by bit 7 via arithmetic shift).  The host twin
+    of the torch executor's `_xtime` (ec.torch_backend), the XOR
+    schedules' only non-XOR primitive."""
+    x = np.asarray(x, np.uint8)
+    mask = ((x.astype(np.int8) >> 7).astype(np.uint8)) & np.uint8(0x1D)
+    return ((x << 1).astype(np.uint8)) ^ mask
 
 
 def gf_inv(a):

@@ -13,8 +13,8 @@ The k/m/l shorthand (profile k, m, l without mapping/layers) generates the
 one-global + per-group-local layout (reference parse_kml :293-395).
 
 The layers are RS codes made through the port's registry on the outer
-code's device, with the outer profile's `backend` unless a layer sets its
-own.  Numpy in gives numpy out; tensors stay on their device.
+code's device, with the outer profile's `backend` and `strategy` unless a
+layer sets its own.  Numpy in gives numpy out; tensors stay on their device.
 """
 
 from __future__ import annotations
@@ -45,11 +45,12 @@ class _Layer:
         prof.setdefault("m", len(self.coding))
         prof.setdefault("plugin", "jerasure")
         prof.setdefault("technique", "reed_sol_van")
-        # the engine inherits from the outer profile: a backend=torch lrc
-        # runs every layer's products on the device engine unless a layer
-        # profile overrides it
-        if parent.get("backend") is not None:
-            prof.setdefault("backend", parent["backend"])
+        # the engine knobs inherit from the outer profile: a backend=torch
+        # lrc runs every layer's products on the device engine (with the
+        # outer strategy) unless a layer profile overrides them
+        for knob in ("backend", "strategy"):
+            if parent.get(knob) is not None:
+                prof.setdefault(knob, parent[knob])
         from ceph_tpu_torch.ec.registry import create_erasure_code
 
         self.code = create_erasure_code(prof, device)

@@ -13,10 +13,13 @@ Plugins:
 
 profile["backend"] picks the per-stripe engine: `torch` (the device
 engine, every plugin's default; `jax` is accepted as an alias, so the JAX
-package's profiles carry over) or `numpy` (the host, asked for by name).
-The device engine runs on `device`: the card unless the caller passes
-"cpu", and without a card `create_erasure_code` raises.  lrc passes its
-backend and device on to its layers.
+package's profiles carry over), or a host engine asked for by name:
+`numpy`, or `native` (the C++ SIMD engine, native/gf.cpp).  For the
+device engine profile["strategy"] picks one of
+ec.torch_backend.STRATEGIES (CEPH_TPU_EC_STRATEGY overrides it).  The
+device engine runs on `device`: the card unless the caller passes "cpu",
+and without a card `create_erasure_code` raises.  lrc passes its backend,
+strategy and device on to its layers.
 """
 
 from __future__ import annotations
@@ -96,10 +99,6 @@ def create_erasure_code(profile: dict, device=None) -> ErasureCode:
     device = resolve_device(device)
     profile = dict(profile)
     name = profile.get("plugin", "jerasure")
-    if profile.get("strategy") is not None:  # lrc's layers come here too
-        raise ErasureCodeProfileError(
-            f"ec strategy {profile['strategy']!r} is not yet ported"
-        )
     try:
         factory = _PLUGINS[name]
     except KeyError:

@@ -14,6 +14,8 @@ tensors on their device.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -26,23 +28,61 @@ from ceph_tpu_torch.ec.interface import (
     _stack,
 )
 from ceph_tpu_torch.ec.torch_backend import TorchEngine
+from ceph_tpu_torch.native import load_gf
+
+COUNTERS: dict[str, int] = dict.fromkeys((
+    "bytes_encoded",       # stripe bytes pushed through the encodes
+    "bytes_decoded",       # chunk bytes rebuilt by the decodes
+    "decode_plan_hits",    # decodes served by a cached per-pattern plan
+    "decode_plan_misses",  # decode plans built (submatrix inverted)
+), 0)
+
+
+def _host(data, engine: str):
+    """`data` as numpy for a host engine: numpy stays, a CPU tensor is
+    viewed; a tensor on any other device is refused, never copied to
+    the host behind the caller's back."""
+    if _is_tensor(data):
+        if data.device.type != "cpu":
+            raise ValueError(
+                f"the {engine} engine runs on the host, not on "
+                f"{data.device}; use backend=torch for tensors on the "
+                f"card"
+            )
+        return data.numpy()
+    return data
 
 
 class NumpyEngine:
     """Host GF matmul engine (table-driven).  It takes numpy arrays and CPU
-    tensors; a tensor on any other device is refused, never copied to the
-    host behind the caller's back."""
+    tensors; a tensor on any other device is refused."""
 
     def matmul(self, M: np.ndarray, data):
-        if _is_tensor(data):
-            if data.device.type != "cpu":
-                raise ValueError(
-                    f"the numpy engine runs on the host, not on "
-                    f"{data.device}; use backend=torch for tensors on the "
-                    f"card"
-                )
-            return torch.from_numpy(gf_matvec_data(M, data.numpy()))
-        return gf_matvec_data(M, data)
+        out = gf_matvec_data(M, _host(data, "numpy"))
+        return torch.from_numpy(out) if _is_tensor(data) else out
+
+
+class NativeEngine:
+    """C++ SIMD GF engine (native/gf.cpp, built with g++ at first use; a
+    failed build raises).  It takes numpy arrays and CPU tensors; a
+    tensor on any other device is refused."""
+
+    def __init__(self):
+        self.lib = load_gf()
+
+    def matmul(self, M: np.ndarray, data):
+        M = np.ascontiguousarray(M, np.uint8)
+        d = np.ascontiguousarray(_host(data, "native"), np.uint8)
+        m, k = M.shape
+        if d.ndim != 2 or d.shape[0] != k:
+            raise ValueError(f"data {d.shape} does not match M {M.shape}")
+        out = np.empty((m, d.shape[1]), np.uint8)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        self.lib.gf_native_matvec(
+            M.ctypes.data_as(u8p), m, k, d.ctypes.data_as(u8p),
+            out.ctypes.data_as(u8p), d.shape[1],
+        )
+        return torch.from_numpy(out) if _is_tensor(data) else out
 
 
 # profile["backend"] -> engine; "jax" is the JAX package's name for the
@@ -53,17 +93,21 @@ _DEVICE_BACKENDS = ("torch", "jax")
 DEFAULT_BACKEND = "torch"
 
 
-def get_engine(name: str, device=None):
-    """Build a per-stripe math engine: `numpy` (host) or `torch` (alias
-    `jax`: the device engine on `device`)."""
+def get_engine(name: str, strategy: str | None = None, device=None):
+    """Build a per-stripe math engine: `numpy` or `native` (host), or
+    `torch` (alias `jax`: the device engine on `device`).  `strategy`
+    (the device engine only, as in the JAX package) picks one of
+    ec.torch_backend.STRATEGIES; None defers to the engine's own
+    resolution (the env override, then its default)."""
+    if name in _DEVICE_BACKENDS:
+        try:
+            return TorchEngine(device, strategy)
+        except ValueError as e:
+            raise ErasureCodeProfileError(str(e))
     if name == "numpy":
         return NumpyEngine()
-    if name in _DEVICE_BACKENDS:
-        return TorchEngine(device)
     if name == "native":
-        raise ErasureCodeProfileError(
-            "ec backend 'native' is not yet ported"
-        )
+        return NativeEngine()
     raise ErasureCodeProfileError(f"unknown ec backend {name!r}")
 
 
@@ -81,9 +125,16 @@ def decode_plan(C: np.ndarray, use: tuple, missing: tuple,
     if R is None:
         R = matrices.recover_matrix(C, list(use), list(missing))
         _DECODE_PLANS[key] = R
+        COUNTERS["decode_plan_misses"] += 1
+    else:
+        COUNTERS["decode_plan_hits"] += 1
     if engine is not None and hasattr(engine, "prepare"):
         engine.prepare(R)
     return R
+
+
+def _nbytes(data) -> int:
+    return int(np.prod(np.shape(data)))
 
 
 def _concat(a, b, dim: int):
@@ -132,7 +183,7 @@ class RSErasureCode(ErasureCode):
                 )
             self.C = make(self.k, self.m)
         self.engine = get_engine(profile.get("backend", DEFAULT_BACKEND),
-                                 self.device)
+                                 profile.get("strategy"), self.device)
         # upload the encode matrix's kernel tables now, before any stripe
         if hasattr(self.engine, "prepare"):
             self.engine.prepare(self.C)
@@ -144,6 +195,7 @@ class RSErasureCode(ErasureCode):
         if not _is_tensor(data):
             data = np.asarray(data, np.uint8)
         parity = self.engine.matmul(self.C, data)
+        COUNTERS["bytes_encoded"] += _nbytes(data)
         return _concat(data, parity, 0)
 
     def decode_chunks(
@@ -163,6 +215,7 @@ class RSErasureCode(ErasureCode):
             rebuilt = self.engine.matmul(R, stack)
             for row, i in enumerate(missing):
                 out[i] = rebuilt[row]
+        COUNTERS["bytes_decoded"] += len(missing) * chunk_size
         return out
 
     def encode_parity(self, data):
@@ -172,7 +225,9 @@ class RSErasureCode(ErasureCode):
         measured work."""
         if data.shape[0] != self.k:
             raise ValueError(f"{data.shape[0]} data rows, k={self.k}")
-        return self.engine.matmul(self.C, data)
+        parity = self.engine.matmul(self.C, data)
+        COUNTERS["bytes_encoded"] += _nbytes(data)
+        return parity
 
     # -- batched-stripe paths ----------------------------------------------
     def encode_batch(self, data):
@@ -184,6 +239,7 @@ class RSErasureCode(ErasureCode):
         if not hasattr(self.engine, "matmul_batch"):
             return _stack([self.encode_chunks(s) for s in data], 0)
         parity = self.engine.matmul_batch(self.C, data)
+        COUNTERS["bytes_encoded"] += _nbytes(data)
         return _concat(data, parity, 1)
 
     def decode_batch(
@@ -212,4 +268,6 @@ class RSErasureCode(ErasureCode):
                 )
             for row, i in enumerate(missing):
                 out[i] = rebuilt[:, row]
+        COUNTERS["bytes_decoded"] += (len(missing) * chunk_size
+                                      * int(np.shape(chunks[use[0]])[0]))
         return out

@@ -10,7 +10,8 @@ the reference's recovery-efficiency metric
 (shec_calc_recovery_efficiency1).
 
 Defaults k=4, m=3, c=2 (reference ErasureCodeShec.h:47-57), on the
-device engine unless the profile says `backend=numpy`.  Numpy in gives
+device engine (with the profile's `strategy`) unless the profile names
+a host engine, `backend=numpy` or `backend=native`.  Numpy in gives
 numpy out, the JAX package's bytes, each product's operands uploaded to
 the engine's device; tensors stay on their device.  Every product goes
 through the engine.
@@ -98,8 +99,8 @@ def shec_matrix(k: int, m: int, c: int, single: bool = False) -> np.ndarray:
 
 class ShecCode(ErasureCode):
     """plugin=shec; profile: k=4, m=3, c=2, technique=multiple|single,
-    backend=torch|numpy (the per-stripe products ride the engines of
-    ec.rs; the device engine by default)."""
+    backend=torch|numpy|native, strategy (the per-stripe products ride
+    the engines of ec.rs; the device engine by default)."""
 
     def __init__(self):
         super().__init__()
@@ -129,7 +130,7 @@ class ShecCode(ErasureCode):
             self.k, self.m, self.c, single=(technique == "single")
         )
         self.engine = get_engine(profile.get("backend", DEFAULT_BACKEND),
-                                 self.device)
+                                 profile.get("strategy"), self.device)
         if hasattr(self.engine, "prepare"):
             self.engine.prepare(self.C)
 

@@ -3,14 +3,19 @@ reference (ceph_crc32c, reference src/common/crc32c.cc; used by
 OSDMap::encode at src/osd/OSDMap.cc:3106 with initial value -1).
 
 Table-driven, reflected, polynomial 0x1EDC6F41 (reversed 0x82F63B78).
-A copy of `ceph_tpu/utils/crc32c.py` without its native engine: a
-byte-at-a-time loop and a slicing-by-8 variant (the same technique as the
-reference's crc32c_sctp fallback, 8 lookup tables / 8 bytes per
-iteration) used automatically for larger buffers.  Streaming:
+Port of `ceph_tpu/utils/crc32c.py`: a byte-at-a-time loop for buffers
+under 256 bytes, and the native kernel (native/crc.cpp: the SSE4.2 CRC32
+instruction when the CPU has it, else slicing-by-8) for larger ones.  A
+failed build of the native kernel raises; nothing falls back.
+`crc32c_fast`, slicing-by-8 in Python (the reference's crc32c_sctp
+technique, 8 lookup tables / 8 bytes per iteration), is the pure-Python
+twin the tests hold the native kernel to.  Streaming:
 crc32c(b2, crc32c(b1)) == crc32c(b1+b2).
 """
 
 from __future__ import annotations
+
+from ceph_tpu_torch.native import load_crc
 
 _POLY = 0x82F63B78
 
@@ -68,8 +73,10 @@ def crc32c(data: bytes | bytearray | memoryview,
     """Streaming CRC-32C.  Note: the reference passes the raw initial value
     (usually -1 == 0xffffffff) and does NOT pre/post-invert — this matches
     ceph_crc32c's contract, not the zlib crc32 one.  Buffers of 256 bytes
-    and more take the slicing-by-8 loop."""
+    and more go through the native kernel (native/crc.cpp, the
+    ceph_crc32c_intel_fast role), small ones through the Python table
+    loop."""
     b = bytes(data)
     if len(b) >= 256:
-        return crc32c_fast(b, crc)
+        return int(load_crc().ceph_tpu_crc32c(crc & 0xFFFFFFFF, b, len(b)))
     return _crc_bytes(b, crc & 0xFFFFFFFF) & 0xFFFFFFFF

@@ -64,7 +64,16 @@ query_block of 2^20 seeds held to map_all_tensors() and the host
 oracle, 3 closed-loop clients through the micro-batcher while a
 value-only reweight lands every second, 2 bulk clients while an upmap
 overlay is adopted mid-window, and a 2-replica front on config 2 with
-one replica stalled; every lane answered, from the device), through the
+one replica stalled; every lane answered, from the device), every EC
+strategy (`ec_strategies`: xor, xor_cse, bitplane, logexp, pallas and
+auto through create_erasure_code(..., strategy=s) on RS(8,4) shapes
+(a)-(c), bytes equal to the kernel's, timed beside it, auto's record on
+each shape, and the ec_corpus entries under each) and the native host
+engines (`native_main`: the g++ builds, NativeMapper on config 5's
+seeds on one core and on all, rows equal to the rule kernel's, beside
+its mappings/s; crushtool --test --backend native on config 2 equal to
+the default backend; backend=native RS(8,4) on 16 MiB equal to the
+kernel's bytes; CRC-32C of 1 MiB equal to the Python loop), through the
 entry points a user calls, and prints one JSON object per phase.  Any
 failure raises and exits non-zero.
 
@@ -96,7 +105,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ceph_tpu_torch import build, obs
+from ceph_tpu_torch import build, native, obs
 from ceph_tpu_torch.balancer import calc_pg_upmaps, state, upmap
 from ceph_tpu_torch.balancer.crush_analysis import get_rule_weight_osd_map
 from ceph_tpu_torch.cli import balancer as balancer_cli
@@ -105,17 +114,22 @@ from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.crush import mapper, mapper_ref, soa
 from ceph_tpu_torch.crush.codec import encode_crushmap
 from ceph_tpu_torch.crush.types import ITEM_NONE, BucketAlg
-from ceph_tpu_torch.ec import create_erasure_code
+from ceph_tpu_torch.ec import create_erasure_code, torch_backend
 from ceph_tpu_torch.ec.rs import decode_plan
 from ceph_tpu_torch.ec.torch_backend import (
+    STRATEGIES,
     TorchEngine,
+    bit_matrix,
     gf_matmul_cuda,
     gf_matmul_plain,
     gf_matmul_tiled,
+    matmul_bitplane,
     matrix_blocks,
     product_tables,
 )
+from ceph_tpu_torch.ec.xor_schedule import matrix_key
 from ceph_tpu_torch.fleet import FleetSim, parse_fleet
+from ceph_tpu_torch.native.mapper import NativeMapper
 from ceph_tpu_torch.osd import pipeline
 
 from ceph_tpu_torch.mgr import Balancer, MappingState, synthetic_pg_stats
@@ -135,6 +149,7 @@ from ceph_tpu_torch.sim import ClusterSim, LifetimeSim
 from ceph_tpu_torch.sim import lifetime as sim_lifetime
 from ceph_tpu_torch.sim import workload as sim_workload
 from ceph_tpu_torch.sim.workload import WL_KEYS
+from ceph_tpu_torch.utils import crc32c as crc32c_mod
 
 ROOT = Path(__file__).resolve().parent
 CORPUS = ROOT / "tests" / "data" / "ec_corpus.json"
@@ -3873,6 +3888,304 @@ def phase_serve_main(dev, smi: str) -> dict:
     return res
 
 
+# -- the EC strategies and the native host engines ----------------------------
+
+STRATEGY_RUNS = 10  # timed runs of each strategy per shape (median)
+NATIVE_X = 1 << 20  # config-5 seeds the native mapper maps on all cores
+# the prefix of them it maps on one core (all 2^20 take about 20 s on
+# one core of the H100 machine's 8-core host)
+NATIVE_ONE_CORE_X = 1 << 18
+NATIVE_RUNS = 5  # timed runs of the native RS(8,4) encode / decode
+
+
+@contextlib.contextmanager
+def resolved_products():
+    """Records the strategy each device-engine product resolved to (the
+    pick of `auto`): yields the list."""
+    seen, real = [], TorchEngine._run
+
+    def run(self, M, d):
+        out = real(self, M, d)
+        seen.append(self._resolved_strategy)
+        return out
+
+    TorchEngine._run = run
+    try:
+        yield seen
+    finally:
+        TorchEngine._run = real
+
+
+def strategy_launches(what: str, fn, dev):
+    """Run fn() with the GF kernel's count from 0 and hold its launches to
+    the products that resolved to `pallas`, plus the two (warm-up and
+    timed) of the `pallas` candidate in each autotune on the card: every
+    product here is inside the kernel's 32 x 64 limits, one launch
+    each."""
+    tunes = torch_backend.COUNTERS["autotunes"]
+    gf_matmul_cuda.launches = 0
+    with resolved_products() as seen:
+        out = fn()
+    launches = gf_matmul_cuda.launches
+    tunes = torch_backend.COUNTERS["autotunes"] - tunes
+    per_tune = 2 if "pallas" in TorchEngine._candidates(dev) else 0
+    expected = seen.count("pallas") + per_tune * tunes
+    check(launches == expected, f"{what}: {launches} kernel launches, "
+          f"expected {expected} ({len(seen)} products, {tunes} autotunes)")
+    return out, launches, tunes
+
+
+def ec_strategy_corpus(strategy: str, dev) -> None:
+    """Every entry of tests/data/ec_corpus.json (jerasure, isa, clay,
+    shec, lrc, whose layers take the strategy) on CUDA tensors through
+    `strategy`: stripe and rebuilt digests equal to the corpus."""
+    for entry in json.loads(CORPUS.read_text())["entries"]:
+        name = entry["name"]
+        code = create_erasure_code(dict(entry["profile"], strategy=strategy),
+                                   device="cuda")
+        L = entry["chunk_bytes"]
+        data = torch.from_numpy(_data_for(name, code.k, L)).to(dev)
+        enc = code.encode_chunks(data)
+        check(_digest(enc) == entry["digest"],
+              f"{strategy}: {name} stripe digest")
+        n = entry["n_chunks"]
+        for case in entry["decode"]:
+            erased = list(case["erased"])
+            avail = {i: enc[i] for i in range(n) if i not in erased}
+            dec = code.decode_chunks(set(erased), avail, L)
+            check(_digest(dec[i] for i in erased) == case["digest"],
+                  f"{strategy}: {name} decode {erased} digest")
+
+
+def phase_ec_strategies(dev, peak: float, main: dict) -> tuple[dict, dict]:
+    """Every EC strategy (torch_backend.STRATEGIES) through
+    create_erasure_code(..., strategy=s) at RS(8,4) on shapes (a)-(c) of
+    main_path: bytes equal to the kernel's (`pallas`), which equal the
+    plain version's; each timed with CUDA events, L2 flushed, beside the
+    kernel's time and HBM bound from main_path.  `auto` measures anew on
+    each shape and its record is printed.  Then the ec_corpus entries
+    under every strategy.  Returns (results, gf_matmul launches by
+    path)."""
+    flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    k, m, N, L = 8, 4, 8192, 4096
+    obj = rand_u8((k, 2 * MiB), 500, dev)
+    stripes = rand_u8((N, k, L), 501, dev)
+    lost = (0, 5)
+    codes = {s: create_erasure_code({"plugin": "jax", "k": str(k),
+                                     "m": str(m), "strategy": s},
+                                    device="cuda") for s in STRATEGIES}
+    C = codes["pallas"].C
+    Ckey = ("cuda", matrix_key(C))
+    want = {}
+    paths, res = {}, {}
+    for s in ["pallas"] + [s for s in STRATEGIES if s != "pallas"]:
+        code, eng = codes[s], codes[s].engine
+        got, picks = {}, {}
+
+        def drive():
+            torch_backend._AUTOTUNE.pop(Ckey, None)
+            got["a"] = code.encode_parity(obj)
+            picks["a"] = dict(eng.autotune.get(Ckey[1], {}))
+            torch_backend._AUTOTUNE.pop(Ckey, None)
+            got["b"] = code.encode_batch(stripes)
+            picks["b"] = dict(eng.autotune.get(Ckey[1], {}))
+            have = {i: got["b"][:, i] for i in range(k + m) if i not in lost}
+            got["c"] = code.decode_batch(set(range(k)), have, L)
+            return have
+
+        have, n, tunes = strategy_launches(f"ec_strategies {s}", drive,
+                                           dev)
+        torch.cuda.synchronize()
+        if s == "pallas":
+            check(torch.equal(got["a"], gf_matmul_plain(C, obj)),
+                  "(a) kernel == plain")
+            check(torch.equal(got["b"][:, k:], gf_matmul_plain(C, stripes)),
+                  "(b) kernel == plain")
+            want = {"a": got["a"], "b": got["b"]}
+        check(torch.equal(got["a"], want["a"]), f"{s}: (a) == the kernel's")
+        check(torch.equal(got["b"], want["b"]), f"{s}: (b) == the kernel's")
+        for i in lost:
+            check(torch.equal(got["c"][i], stripes[:, i]),
+                  f"{s}: (c) chunk {i}")
+        use = sorted(have)[:k]
+        R = decode_plan(C, tuple(use), lost, eng)
+        stack = torch.stack([have[i] for i in use], dim=1)
+        picks["c"] = dict(eng.autotune.get(matrix_key(R), {}))
+        times = {
+            "a": time_ms(lambda: eng.matmul(C, obj), flush, STRATEGY_RUNS),
+            "b": time_ms(lambda: eng.matmul_batch(C, stripes), flush,
+                         STRATEGY_RUNS),
+            "c": time_ms(lambda: eng.matmul_batch(R, stack), flush,
+                         STRATEGY_RUNS),
+        }
+        del got, have, stack
+        out = {"launches": n, "autotunes": tunes}
+        for key, ms in times.items():
+            nbytes, kernel = main[key]["hbm_bytes"], main[key]
+            out[key] = {"ms": ms, "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+                        "kernel_ms": kernel["ms"],
+                        "bound_ms": kernel["bound_ms"],
+                        "over_kernel": ms / kernel["ms"]}
+            if s == "auto":
+                out[key]["autotune"] = picks[key]
+        res[s] = out
+        paths[f"ec_strategies_{s}"] = n
+        emit({"phase": "ec_strategies", "strategy": s, **out})
+        torch.cuda.empty_cache()
+    # row 1's library time: (b) as one untiled bitplane product, a single
+    # torch.matmul over the whole batch's bit expansion (4 GiB of
+    # float16); the `bitplane` strategy above runs it in _BIT_TILE tiles
+    B = bit_matrix(C, dev)
+    check(torch.equal(matmul_bitplane(B, stripes), want["b"][:, k:]),
+          "untiled bitplane (b) == the kernel's")
+    untiled = time_ms(lambda: matmul_bitplane(B, stripes), flush,
+                      STRATEGY_RUNS)
+    res["bitplane"]["b"]["untiled_ms"] = untiled
+    emit({"phase": "ec_strategies", "bitplane_untiled_b_ms": untiled,
+          "bitplane_tiled_b_ms": res["bitplane"]["b"]["ms"],
+          "kernel_ms": main["b"]["ms"]})
+    del B
+    torch.cuda.empty_cache()
+    for s in STRATEGIES:
+        _, n, tunes = strategy_launches(
+            f"ec_strategies corpus {s}", lambda: ec_strategy_corpus(s, dev),
+            dev)
+        paths[f"ec_strategies_corpus_{s}"] = n
+        res[s]["corpus"] = {"entries": 7, "digests_equal": True,
+                            "launches": n, "autotunes": tunes}
+    emit({"phase": "ec_strategies_corpus",
+          "launches": {s: res[s]["corpus"]["launches"] for s in STRATEGIES},
+          "digests_equal": True})
+    return res, paths
+
+
+def host_cpu() -> dict:
+    """The host's CPU model and core counts, beside the native numbers."""
+    info = {}
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            key = key.strip()
+            if key in ("model name", "vendor_id", "cpu family", "model"):
+                info.setdefault(key, value.strip())
+    return {"cpuinfo": info, "cpu_count": os.cpu_count(),
+            "usable_cores": len(os.sched_getaffinity(0))}
+
+
+def phase_native_main(dev, pms: dict, smi: str) -> dict:
+    """The native host engines (native/*.cpp, g++ at first use): config
+    5's first NATIVE_X placement seeds through NativeMapper on all cores
+    and their first NATIVE_ONE_CORE_X on one core, rows equal to
+    map_rule's on the card, beside the rule kernel's mappings/s on the
+    same seeds (BASELINE.md's target is stated against the one-core
+    rate); `crushtool --test --backend native` on
+    config 2, stdout equal to the default backend's; RS(8,4) encode and
+    decode of a 16 MiB object with backend=native, bytes equal to the
+    kernel's; CRC-32C of 1 MiB equal to the Python loop."""
+    flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    for name in native.LIBRARIES:
+        native.build(name)
+    gf, crc_lib = native.load_gf(), native.load_crc()
+    out = {"nvidia_smi": smi, "host": host_cpu(),
+           "gpp_build_s": dict(native.BUILD_SECONDS),
+           "gf_native_simd_level": int(gf.gf_native_simd_level()),
+           "crc32c_hw": int(crc_lib.ceph_tpu_crc32c_hw())}
+
+    # config 5: the native mapper beside the rule kernel
+    pm = pms["config5"]
+    crush = pm.m.crush
+    ca = crush.choose_args.get(pm.pool_id, crush.choose_args.get(-1))
+    t0 = time.perf_counter()
+    nm = NativeMapper(crush, choose_args=ca)
+    mirror_s = time.perf_counter() - t0
+    x, w = rule_inputs(pm, NATIVE_X)
+    want = mapper.map_rule(pm.tables, pm.prog, x, w).cpu().numpy()
+    xs = x.cpu().numpy().astype(np.uint32)
+    ws = w.cpu().numpy().astype(np.uint32)
+    xb, wb = mapper.u32_bits(x), mapper.u32_bits(w)
+    rates = {}
+    for label, threads, n in (("one_core", 1, NATIVE_ONE_CORE_X),
+                              ("all_cores", 0, NATIVE_X)):
+        t0 = time.perf_counter()
+        rows = nm.map_batch(pm.spec.ruleno, xs[:n], pm.spec.size, ws,
+                            n_threads=threads)
+        sec = time.perf_counter() - t0
+        check(np.array_equal(rows, want[:n]),
+              f"native {label}: rows == map_rule's on the card")
+        kernel_ms = time_ms(
+            lambda n=n: mapper.crush_rule_cuda(pm.tables, pm.prog, xb[:n],
+                                               wb), flush, runs=7)
+        rates[label] = {
+            "seeds": n, "seconds": sec, "mappings_per_s": n / sec,
+            "kernel_ms": kernel_ms,
+            "kernel_mappings_per_s": n / (kernel_ms * 1e-3),
+            # the same seeds: host wall time over kernel CUDA-event time
+            "kernel_over_native": sec / (kernel_ms * 1e-3)}
+    out["config5"] = {"mirror_s": mirror_s, **rates, "rows_equal": True}
+
+    # crushtool --test on config 2: native == the default backend
+    argv = ["-i", "c2crush", "--test", "--num-rep", "3", "--min-x", "0",
+            "--max-x", str(CONFIGS["config2"][0] - 1), "--pool-id", "0",
+            "--show-statistics", "--show-utilization"]
+    with tempfile.TemporaryDirectory() as d, contextlib.chdir(d):
+        with open("c2crush", "wb") as f:
+            f.write(encode_crushmap(pms["config2"].m.crush))
+        (default, dsec), n = counted(
+            1, "crushtool default backend", lambda: run_cli(crushtool, argv),
+            mapper.crush_rule_cuda)
+        (nat, nsec), n_native = counted(
+            0, "crushtool --backend native",
+            lambda: run_cli(crushtool, argv + ["--backend", "native"]),
+            mapper.crush_rule_cuda)
+    sha = {key: hashlib.sha256(t.encode()).hexdigest()
+           for key, t in (("default", default), ("native", nat))}
+    check(sha["default"] == sha["native"],
+          "crushtool --backend native stdout == the default backend's")
+    out["crushtool_config2"] = {"sha256": sha["native"], "launches": n,
+                                "default_s": dsec, "native_s": nsec}
+
+    # RS(8,4) with backend=native on a 16 MiB object, against the kernel
+    code = create_erasure_code({"plugin": "jax", "k": "8", "m": "4",
+                                "backend": "native"}, device="cuda")
+    L = 2 * MiB
+    obj = rand_u8((8, L), 600, dev)
+    want_parity = gf_matmul_plain(code.C, obj)
+    (kparity, _) = counted(1, "native rs: the kernel's parity",
+                           lambda: TorchEngine(dev).matmul(code.C, obj))
+    check(torch.equal(kparity, want_parity), "kernel == plain (native rs)")
+    host = obj.cpu().numpy()
+    times = {"encode": [], "decode": []}
+    for _ in range(NATIVE_RUNS):
+        t0 = time.perf_counter()
+        parity = code.encode_parity(host)
+        times["encode"].append(time.perf_counter() - t0)
+    check(np.array_equal(parity, kparity.cpu().numpy()),
+          "native encode == the kernel's bytes")
+    chunks = {i: c for i, c in enumerate(np.concatenate([host, parity]))
+              if i not in (0, 5)}
+    for _ in range(NATIVE_RUNS):
+        t0 = time.perf_counter()
+        dec = code.decode_chunks({0, 5}, dict(chunks), L)
+        times["decode"].append(time.perf_counter() - t0)
+    check(all(np.array_equal(dec[i], host[i]) for i in (0, 5)),
+          "native decode == the object's bytes")
+    out["rs84_16mib"] = {
+        key: {"seconds_median": statistics.median(v),
+              "object_gb_per_s": 8 * L / statistics.median(v) / 1e9}
+        for key, v in times.items()}
+
+    # CRC-32C of 1 MiB: the native kernel == the Python loop
+    buf = rand_u8((MiB,), 601, dev).cpu().numpy().tobytes()
+    t0 = time.perf_counter()
+    got = crc32c_mod.crc32c(buf)
+    crc_s = time.perf_counter() - t0
+    check(got == crc32c_mod._crc_bytes(buf, 0xFFFFFFFF) & 0xFFFFFFFF,
+          "native CRC-32C == the Python loop")
+    out["crc32c_1mib"] = {"value": got, "seconds": crc_s}
+    emit({"phase": "native_main", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3895,6 +4208,8 @@ def main() -> int:
     by_path.update({f"ec_default_{key}": n
                     for key, n in phase_ec_defaults(dev).items()})
     by_path.update(phase_ec_wide(dev))
+    strat, strat_paths = phase_ec_strategies(dev, info["peak_bw"], res)
+    by_path.update(strat_paths)
 
     # placement: the same, for the rule kernel
     corpus = {e["name"]: e for e in
@@ -3930,6 +4245,11 @@ def main() -> int:
     for i, e in enumerate(fres["epochs"]):
         diag_paths[f"sim_config5_{i}"] = e["diag_launches"]
         rule_paths[f"sim_config5_{i}"] = e["rule_launches"]
+
+    # the native host engines beside the kernels
+    nat = phase_native_main(dev, pms, info["nvidia_smi"])
+    rule_paths["native_main_crushtool_default"] = \
+        nat["crushtool_config2"]["launches"]
 
     # the lifetime simulator: the corpus, then config 5's size
     del pms
@@ -3973,10 +4293,19 @@ def main() -> int:
         "plain_ms": b["plain_ms"],
         "bound_ms": b["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": None,
+        # (b) as one untiled bitplane product: torch.matmul of the GF(2)
+        # bit-matrix and the data's bit planes (float16, exact), mod 2;
+        # the `bitplane` strategy's tiled time beside it
+        "library_ms": strat["bitplane"]["b"]["untiled_ms"],
+        "library": "matmul_bitplane untiled (torch.matmul on the bit "
+                   "expansion)",
+        "bitplane_strategy_ms": strat["bitplane"]["b"]["ms"],
         "shapes": {key: {f: r[f] for f in ("ms", "plain_ms", "copy_ms",
                                            "bound_ms", "gb_per_s")}
                    for key, r in res.items()},
+        # every strategy's ms on (a)-(c), CUDA events, L2 flushed
+        "strategies": {s: {key: r[key]["ms"] for key in ("a", "b", "c")}
+                       for s, r in strat.items()},
         # BASELINE config 4 (Clay(8,4,11)): a repair's and an encode's
         # products, summed kernel ms beside the wall ms and the bound
         "config4": {key: {f: r[f] for f in (
@@ -4018,6 +4347,11 @@ def main() -> int:
                    for key, r in lres.items()},
         "cli": {key: {f: r[f] for f in ("seconds", "mappings_per_s")}
                 for key, r in cres.items()},
+        # the native C++ mapper on config 5, one core (the first
+        # NATIVE_ONE_CORE_X seeds) and all (NATIVE_X), beside this kernel
+        # on the same seeds: CUDA-event kernel time against host wall
+        # time, not crushtool end to end
+        "native_config5": nat["config5"],
         # the rebalance rounds of config 5: the launches of each round's
         # DeviceState build (one per pool) and the plan's host syncs
         "balancer_config5": [{f: r[f] for f in (

@@ -28,7 +28,7 @@ from ceph_tpu_torch.cli import ec_benchmark  # noqa: E402
 from ceph_tpu_torch.ec import ErasureCodeProfileError  # noqa: E402
 from ceph_tpu_torch.ec import create_erasure_code  # noqa: E402
 from ceph_tpu_torch.ec.carry import code_from_reference  # noqa: E402
-from ceph_tpu_torch.ec.rs import NumpyEngine  # noqa: E402
+from ceph_tpu_torch.ec.rs import NativeEngine, NumpyEngine  # noqa: E402
 from ceph_tpu_torch.ec.torch_backend import TorchEngine  # noqa: E402
 from tools import ec_corpus  # noqa: E402
 
@@ -323,6 +323,15 @@ def test_port_imports_neither_jax_nor_ceph_tpu():
                 continue
             bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
     assert len(_port_sources()) > 10
+    # the native engines' Python is walked too, and their C++ sources
+    # are the port's own copies, not read from ceph_tpu/native
+    native = ROOT / "ceph_tpu_torch" / "native"
+    assert {native / "__init__.py", native / "mapper.py"} <= set(
+        _port_sources())
+    for src in sorted(native.glob("*.cpp")):
+        bad += [f"{src.name}: {line.strip()}"
+                for line in src.read_text().splitlines()
+                if "ceph_tpu/" in line or "ceph_tpu." in line]
     assert not bad, bad
 
 
@@ -338,7 +347,8 @@ PORT_MODULES = (
     "ceph_tpu_torch.serve.service", "ceph_tpu_torch.serve.front",
     "ceph_tpu_torch.serve.chaos", "ceph_tpu_torch.serve.slo",
     "ceph_tpu_torch.serve.meshcheck", "ceph_tpu_torch.cli.serve",
-    "ceph_tpu_torch.obs.quantiles",
+    "ceph_tpu_torch.obs.quantiles", "ceph_tpu_torch.ec.xor_schedule",
+    "ceph_tpu_torch.native", "ceph_tpu_torch.native.mapper",
 )
 
 
@@ -378,17 +388,9 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("profile,match", [
-    ({"plugin": "jax", "strategy": "pallas"}, "not yet ported"),
-    ({"plugin": "jerasure", "strategy": "xor"}, "not yet ported"),
-    ({"plugin": "jerasure", "backend": "native"}, "not yet ported"),
-    ({"plugin": "clay", "k": "4", "m": "2", "d": "5", "strategy": "pallas"},
-     "not yet ported"),
-    ({"plugin": "shec", "k": "4", "m": "3", "c": "2", "strategy": "xor"},
-     "not yet ported"),
-    ({"plugin": "lrc", "k": "4", "m": "2", "l": "3", "backend": "native"},
-     "not yet ported"),
     ({"plugin": "nope"}, "unknown plugin"),
     ({"plugin": "jerasure", "backend": "tpu"}, "unknown ec backend"),
+    ({"plugin": "jax", "strategy": "warp-drive"}, "unknown EC strategy"),
     ({"plugin": "jerasure", "technique": "liberation"}, "unknown technique"),
     ({"plugin": "jerasure", "technique": "reed_sol_r6_op", "m": "3"},
      "m=2"),
@@ -396,6 +398,46 @@ def test_default_device_is_the_card():
 def test_profile_errors(profile, match):
     with pytest.raises(ErasureCodeProfileError, match=match):
         create_erasure_code(profile, device="cpu")
+
+
+# the profiles that named an engine knob the port had not yet ported
+KNOB_PROFILES = [
+    {"plugin": "jax", "strategy": "pallas"},
+    {"plugin": "jerasure", "strategy": "xor"},
+    {"plugin": "jerasure", "backend": "native"},
+    {"plugin": "clay", "k": "4", "m": "2", "d": "5", "strategy": "pallas"},
+    {"plugin": "shec", "k": "4", "m": "3", "c": "2", "strategy": "xor"},
+    {"plugin": "lrc", "k": "4", "m": "2", "l": "3", "backend": "native"},
+]
+
+
+@pytest.mark.parametrize("profile", KNOB_PROFILES,
+                         ids=lambda p: "-".join(f"{k}={v}"
+                                                for k, v in p.items()))
+def test_profile_knobs_give_jax_bytes(profile):
+    """A `strategy` or `backend=native` profile builds its engines (lrc:
+    every layer's) with the knob, and encodes and decodes the JAX
+    package's bytes from the same profile."""
+    code = create_erasure_code(dict(profile), device="cpu")
+    jcode = jax_create(dict(profile))
+    engines = _engines(code)
+    if profile.get("backend") == "native":
+        assert all(isinstance(e, NativeEngine) for e in engines)
+    else:
+        assert all(isinstance(e, TorchEngine)
+                   and e.strategy == profile["strategy"] for e in engines)
+    n = code.get_chunk_count()
+    payload = np.random.default_rng(n).integers(0, 256, 5000, np.uint8)
+    want = jcode.encode(set(range(n)), payload.tobytes())
+    got = code.encode(set(range(n)), payload.tobytes())
+    _assert_same(got, want)
+    for erased in ec_corpus.decode_patterns(n, code.m)[:4]:
+        have = {i: c for i, c in want.items() if i not in erased}
+        try:
+            jdec = jcode.decode(set(range(n)), dict(have))
+        except ValueError:
+            continue
+        _assert_same(code.decode(set(range(n)), dict(have)), jdec)
 
 
 # -- every plugin's default engine: the device engine -------------------------
