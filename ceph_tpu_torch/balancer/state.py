@@ -35,9 +35,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.osd.types import PgId
+
+_L = obs.logger_for("balancer")
+_L.add_u64("pgs_of_queries", "device membership queries (masked nonzero)")
+_L.add_time_avg("pgs_of_seconds", "device membership query wall time")
+_L.add_u64("txn_commits", "membership transactions committed")
 
 
 class SetState:
@@ -84,6 +90,7 @@ class SetState:
         return _SetTxn(self)
 
     def commit(self, txn: "_SetTxn"):
+        _L.inc("txn_commits")
         self.pbo = txn.temp
 
 
@@ -145,7 +152,8 @@ class DeviceState:
                     if cache is not None:
                         cache[pid] = pm
                 n = pm.spec.pg_num
-                rows = pm.map_all_device()
+                with obs.span("balancer.map_pool", pool=pid, pgs=n):
+                    rows = pm.map_all_device()
                 seeds, fix_rows = overlay_fixup_rows(m, pid,
                                                      int(rows.shape[1]))
                 if len(seeds):
@@ -189,10 +197,12 @@ class DeviceState:
         if osd in self._pgs_cache:
             return list(self._pgs_cache[osd])
         out: list[PgId] = []
-        for pid in sorted(self.rows):
-            rows = self.rows[pid][:self.pg_num[pid]]
-            idx = torch.nonzero((rows == osd).any(1))[:, 0].cpu().tolist()
-            out.extend(PgId(pid, s) for s in idx)
+        _L.inc("pgs_of_queries")
+        with obs.span("balancer.pgs_of", osd=osd), _L.time("pgs_of_seconds"):
+            for pid in sorted(self.rows):
+                rows = self.rows[pid][:self.pg_num[pid]]
+                idx = torch.nonzero((rows == osd).any(1))[:, 0].cpu()
+                out.extend(PgId(pid, s) for s in idx.tolist())
         self._pgs_cache[osd] = out
         return list(out)
 
@@ -201,6 +211,7 @@ class DeviceState:
         return _DeviceTxn(self)
 
     def commit(self, txn: "_DeviceTxn"):
+        _L.inc("txn_commits")
         for (pid, seed), swaps in txn.ops.items():
             row = self.rows[pid][seed]
             for frm, to in swaps:

@@ -17,17 +17,21 @@ Backends (`backend=`): "sets" (dict-of-sets, the reference's form),
 one small flag read back per round).  `candidate_batch > 0` scores a
 batch of prospective changes per step.  Each makes exactly the decisions
 the JAX package's backend of the same name makes (tests/
-test_torch_balancer.py).  The JAX package's obs spans are not ported:
-`COUNTERS` holds the counts its perf counters hold.
+test_torch_balancer.py).  It books the JAX package's `balancer` perf
+group and spans (`balancer.round`, `balancer.score_candidates`,
+`balancer.device_loop`, `balancer.build_state`, the `balancer.stddev`
+counter track); `COUNTERS` reads the group's counts.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.balancer.crush_analysis import (
     get_parent_of_type,
     get_rule_weight_osd_map,
@@ -38,6 +42,7 @@ from ceph_tpu_torch.crush import mapper_ref
 from ceph_tpu_torch.crush.types import ITEM_NONE, RuleOp
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.osd.osdmap import OSDMap
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 from ceph_tpu_torch.osd.types import PgId
 
 
@@ -246,30 +251,49 @@ def try_pg_upmap(
 
 # -- calc_pg_upmaps ---------------------------------------------------------
 
-# What the JAX package's "balancer" perf counters count, as plain totals
-# (a caller reads the change across a run):
-#   rounds                 greedy optimizer rounds (device_loop: the
-#                          plan's rounds)
-#   changes_accepted       upmap-item changes committed
-#   changes_rejected       changes rolled back or turned down by the score
-#   candidate_batches      candidate-scoring batch evaluations
-#   candidates_scored      prospective changes scored in those batches
-#   candidate_conflicts    scored candidates skipped because an accepted
-#                          one already touched one of their OSDs
-#   plan_dispatches        device_loop plans run
-#   plan_readback_reverts  device_loop moves rolled back at the readback
-#                          (counted in changes_rejected too)
-# and, the port's own:
-#   plan_host_syncs        device_loop reads from the device to the host
-#                          (one per plan round, one for the readback)
-COUNTERS: dict[str, int] = dict.fromkeys((
+# the JAX package's `balancer` perf group, and the port's plan_host_syncs
+_L = obs.logger_for("balancer")
+_L.add_u64("rounds", "greedy optimizer outer iterations")
+_L.add_u64("changes_accepted", "upmap-item changes committed")
+_L.add_u64("changes_rejected", "upmap-item changes rolled back (stddev up)")
+_L.add_avg("stddev", "PG-count deviation stddev after each accepted change")
+_L.add_avg("max_deviation", "max abs deviation after each accepted change")
+_L.add_time_avg("round_seconds", "wall time per optimizer round")
+_L.add_quantile("round_hist",
+                "optimizer round wall-time distribution (p50/p99)")
+_L.add_time_avg("build_state_seconds",
+                "membership-state build wall time (the O(PGs) mapping "
+                "pass), booked only when the state was built by mapping")
+_L.add_u64("state_rows_reused",
+           "membership builds served entirely from a caller's "
+           "version-tagged rows (no mapping pass)")
+_L.add_u64("candidate_batches", "candidate-scoring batch evaluations")
+_L.add_u64("candidates_scored",
+           "prospective upmap changes scored in those batches")
+_L.add_u64("candidate_conflicts",
+           "scored candidates skipped: an accepted one already touched "
+           "one of their OSDs")
+_L.add_u64("plan_dispatches", "device_loop plans run")
+_L.add_u64("plan_readback_reverts",
+           "device_loop moves rolled back at the readback (counted in "
+           "changes_rejected too)")
+_L.add_u64("plan_host_syncs",
+           "device_loop reads from the device to the host (one per plan "
+           "round, one for the readback)")
+__getattr__ = counters_attr("balancer", __name__, (
     "rounds", "changes_accepted", "changes_rejected", "candidate_batches",
     "candidates_scored", "candidate_conflicts", "plan_dispatches",
-    "plan_readback_reverts", "plan_host_syncs"), 0)
+    "plan_readback_reverts", "plan_host_syncs"))
 
 
 def _inc(name: str, n: int = 1) -> None:
-    COUNTERS[name] += int(n)
+    _L.inc(name, int(n))
+
+
+def _book_deviation(stddev: float, max_deviation: float) -> None:
+    _L.observe("stddev", stddev)
+    _L.observe("max_deviation", max_deviation)
+    obs.counter("balancer.stddev", stddev)
 
 
 @dataclass
@@ -534,15 +558,17 @@ def _score_candidates(st, cands, dv, target, inw, device):
     counts = st.counts_np(dv).astype(np.float64)
     _inc("candidate_batches")
     _inc("candidates_scored", K)
-    if device is not None:
-        def put(a):
-            return torch.from_numpy(a).to(device)
+    with obs.span("balancer.score_candidates", candidates=K,
+                  device=device is not None):
+        if device is not None:
+            def put(a):
+                return torch.from_numpy(a).to(device)
 
-        deltas = _score_math(torch, put(counts), put(target), put(inw),
-                             put(osd), put(sgn), dv)
-        return deltas.cpu().numpy()[:K]
-    return np.asarray(_score_math(np, counts, target, inw, osd, sgn,
-                                  dv))[:K]
+            deltas = _score_math(torch, put(counts), put(target), put(inw),
+                                 put(osd), put(sgn), dv)
+            return deltas.cpu().numpy()[:K]
+        return np.asarray(_score_math(np, counts, target, inw, osd, sgn,
+                                      dv))[:K]
 
 
 def _targets(st, dv):
@@ -569,68 +595,72 @@ def _run_batched(m, st, res, osd_deviation, stddev,
     while rounds < max_iter and res.num_changed < max_iter:
         rounds += 1
         _inc("rounds")
-        by_dev = sorted(osd_deviation.items(), key=lambda kv: (kv[1], kv[0]))
-        overfull, more_overfull, underfull, more_underfull = \
-            _classify_deviations(by_dev, max_deviation)
-        if not underfull and not overfull:
-            break
-        using_more = False
-        if not overfull and underfull:
-            overfull = more_overfull
-            using_more = True
-        cands = _gen_candidates(
-            m, st, by_dev, osd_deviation, overfull, underfull,
-            more_underfull, using_more, max_deviation, only_pools,
-            rng, aggressive, candidate_batch)
-        if not cands:
-            break
-        deltas = _score_candidates(st, cands, dv, target, inw, device)
-        # candidates the scorer turned down; conflict skips count in
-        # candidate_conflicts instead
-        _inc("changes_rejected", int(np.sum(deltas >= 0.0)))
-        # best non-conflicting subset: ascending delta, skip any
-        # candidate touching an OSD an accepted one already moved, so the
-        # deltas add up and every accept is an independent improvement
-        order = np.argsort(deltas, kind="stable")
-        txn = st.begin()
-        accepted = []
-        touched: set[int] = set()
-        for i in order:
-            if deltas[i] >= 0.0:
+        with obs.span("balancer.round", iteration=rounds, batched=True), \
+                _L.time("round_seconds"), _L.time("round_hist"):
+            by_dev = sorted(osd_deviation.items(),
+                            key=lambda kv: (kv[1], kv[0]))
+            overfull, more_overfull, underfull, more_underfull = \
+                _classify_deviations(by_dev, max_deviation)
+            if not underfull and not overfull:
                 break
-            if res.num_changed + len(accepted) >= max_iter:
+            using_more = False
+            if not overfull and underfull:
+                overfull = more_overfull
+                using_more = True
+            cands = _gen_candidates(
+                m, st, by_dev, osd_deviation, overfull, underfull,
+                more_underfull, using_more, max_deviation, only_pools,
+                rng, aggressive, candidate_batch)
+            if not cands:
                 break
-            c = cands[i]
-            osds = {x for mv in c["moves"] for x in mv}
-            if osds & touched:
-                _inc("candidate_conflicts")
-                continue
-            for frm, to in c["moves"]:
-                txn.move(c["pg"], frm, to)
-            touched |= osds
-            accepted.append(c)
-        if not accepted:
-            break
-        stddev_before = stddev
-        st.commit(txn)
-        for c in accepted:
-            pg = c["pg"]
-            if c["unmap"]:
-                if pg in m.pg_upmap_items:
-                    del m.pg_upmap_items[pg]
-                res.old_pg_upmap_items.add(pg)
-            else:
-                m.pg_upmap_items[pg] = list(c["items"])
-                res.new_pg_upmap_items[pg] = list(c["items"])
-            res.num_changed += 1
-        _inc("changes_accepted", len(accepted))
-        osd_deviation, stddev, cur_max_deviation = st.deviations()
-        res.stddev = stddev
-        res.max_deviation = cur_max_deviation
-        if stddev >= stddev_before:
-            break  # float-tie guard: never loop on a non-improvement
-        if cur_max_deviation <= max_deviation:
-            break
+            deltas = _score_candidates(st, cands, dv, target, inw, device)
+            # candidates the scorer turned down; conflict skips count in
+            # candidate_conflicts instead
+            _inc("changes_rejected", int(np.sum(deltas >= 0.0)))
+            # best non-conflicting subset: ascending delta, skip any
+            # candidate touching an OSD an accepted one already moved, so the
+            # deltas add up and every accept is an independent improvement
+            order = np.argsort(deltas, kind="stable")
+            txn = st.begin()
+            accepted = []
+            touched: set[int] = set()
+            for i in order:
+                if deltas[i] >= 0.0:
+                    break
+                if res.num_changed + len(accepted) >= max_iter:
+                    break
+                c = cands[i]
+                osds = {x for mv in c["moves"] for x in mv}
+                if osds & touched:
+                    _inc("candidate_conflicts")
+                    continue
+                for frm, to in c["moves"]:
+                    txn.move(c["pg"], frm, to)
+                touched |= osds
+                accepted.append(c)
+            if not accepted:
+                break
+            stddev_before = stddev
+            st.commit(txn)
+            for c in accepted:
+                pg = c["pg"]
+                if c["unmap"]:
+                    if pg in m.pg_upmap_items:
+                        del m.pg_upmap_items[pg]
+                    res.old_pg_upmap_items.add(pg)
+                else:
+                    m.pg_upmap_items[pg] = list(c["items"])
+                    res.new_pg_upmap_items[pg] = list(c["items"])
+                res.num_changed += 1
+            _inc("changes_accepted", len(accepted))
+            osd_deviation, stddev, cur_max_deviation = st.deviations()
+            _book_deviation(stddev, cur_max_deviation)
+            res.stddev = stddev
+            res.max_deviation = cur_max_deviation
+            if stddev >= stddev_before:
+                break  # float-tie guard: never loop on a non-improvement
+            if cur_max_deviation <= max_deviation:
+                break
     return res
 
 
@@ -876,11 +906,14 @@ def _run_device_loop(m, fst, res, max_deviation, max_iter,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     _inc("plan_dispatches")
-    (cpg, cfrm, cto, crnd, crows, n_rej, rounds_d, counts_np) = _loop_plan(
-        fst.rows, put(fst.pool_idx), put(movable), put(dom_tbl),
-        put(tgt_ok), put(target), put(inw),
-        put(st.counts.astype(np.int64)), float(max_deviation),
-        int(max_iter), B, C)
+    with obs.span("balancer.device_loop", pgs=int(fst.rows.shape[0]),
+                  osds=dv, batch=B, budget=int(max_iter)):
+        (cpg, cfrm, cto, crnd, crows, n_rej, rounds_d,
+         counts_np) = _loop_plan(
+            fst.rows, put(fst.pool_idx), put(movable), put(dom_tbl),
+            put(tgt_ok), put(target), put(inw),
+            put(st.counts.astype(np.int64)), float(max_deviation),
+            int(max_iter), B, C)
     n_chg = len(cpg)
     _inc("rounds", rounds_d)
     _inc("changes_rejected", n_rej)
@@ -951,6 +984,7 @@ def _run_device_loop(m, fst, res, max_deviation, max_iter,
             res.old_pg_upmap_items.add(pg)
     _inc("changes_accepted", applied)
     _, stddev, cur_max = st._dev_from_counts(counts_np)
+    _book_deviation(stddev, cur_max)
     res.stddev = stddev
     res.max_deviation = cur_max
     return res
@@ -1041,16 +1075,30 @@ def calc_pg_upmaps(
         return res
     pgs_per_weight = total_pgs / osd_weight_total
 
-    if on_device:
-        st = DeviceState(
-            m, osd_weight, pgs_per_weight, only_pools=only_pools,
-            device=device, cache=device_cache, rows_source=rows_source,
-        )
+    served = {"hit": 0, "miss": 0}
+
+    def _counted_src(pid):
+        rows = rows_source(pid)
+        served["hit" if rows is not None else "miss"] += 1
+        return rows
+
+    src = _counted_src if rows_source is not None else None
+    t0 = time.perf_counter()
+    with obs.span("balancer.build_state", backend=backend, pgs=total_pgs,
+                  reused=rows_source is not None):
+        if on_device:
+            st = DeviceState(
+                m, osd_weight, pgs_per_weight, only_pools=only_pools,
+                device=device, cache=device_cache, rows_source=src,
+            )
+        else:
+            pgs_by_osd = _build_pgs_by_osd(m, only_pools, use_tpu,
+                                           rows_source=src, device=device)
+            st = SetState(pgs_by_osd, osd_weight, pgs_per_weight)
+    if src is not None and not served["miss"] and served["hit"]:
+        _inc("state_rows_reused")
     else:
-        pgs_by_osd = _build_pgs_by_osd(m, only_pools, use_tpu,
-                                       rows_source=rows_source,
-                                       device=device)
-        st = SetState(pgs_by_osd, osd_weight, pgs_per_weight)
+        _L.observe("build_state_seconds", time.perf_counter() - t0)
 
     osd_deviation, stddev, cur_max_deviation = st.deviations()
     res.stddev, res.max_deviation = stddev, cur_max_deviation
@@ -1075,179 +1123,182 @@ def calc_pg_upmaps(
     while iter_left > 0:
         iter_left -= 1
         _inc("rounds")
-        by_dev = sorted(
-            osd_deviation.items(), key=lambda kv: (kv[1], kv[0])
-        )
-        overfull, more_overfull, underfull, more_underfull = \
-            _classify_deviations(by_dev, max_deviation)
-        if not underfull and not overfull:
-            break
-        using_more_overfull = False
-        if not overfull and underfull:
-            overfull = more_overfull
-            using_more_overfull = True
+        with obs.span("balancer.round", iteration=max_iter - iter_left), \
+                _L.time("round_seconds"), _L.time("round_hist"):
+            by_dev = sorted(
+                osd_deviation.items(), key=lambda kv: (kv[1], kv[0])
+            )
+            overfull, more_overfull, underfull, more_underfull = \
+                _classify_deviations(by_dev, max_deviation)
+            if not underfull and not overfull:
+                break
+            using_more_overfull = False
+            if not overfull and underfull:
+                overfull = more_overfull
+                using_more_overfull = True
 
-        to_skip: set = set()
-        local_fallback_retried = 0
+            to_skip: set = set()
+            local_fallback_retried = 0
 
-        while True:  # retry: label
-            to_unmap: set = set()
-            to_upmap: dict = {}
-            txn = st.begin()
-            found = False
+            while True:  # retry: label
+                to_unmap: set = set()
+                to_upmap: dict = {}
+                txn = st.begin()
+                found = False
 
-            # ---- overfull pass ---------------------------------------
-            if not (skip_overfull and underfull):
-                for osd, deviation in reversed(by_dev):
-                    if deviation < 0:
-                        break
-                    if (not using_more_overfull
-                            and deviation <= max_deviation):
-                        break
-                    pgs = [
-                        pg for pg in st.pgs_of(osd)
-                        if pg not in to_skip
-                    ]
-                    if aggressive:
-                        rng.shuffle(pgs)  # equal (in)attention
-                    # 1) drop existing remaps INTO this overfull osd
-                    for pg in pgs:
-                        items = m.pg_upmap_items.get(pg)
-                        if items is None:
-                            continue
-                        new_items = []
-                        for frm, to in items:
-                            if to == osd:
-                                txn.move(pg, to, frm)
-                            else:
-                                new_items.append((frm, to))
-                        if not new_items:
-                            to_unmap.add(pg)
-                            found = True
+                # ---- overfull pass ---------------------------------------
+                if not (skip_overfull and underfull):
+                    for osd, deviation in reversed(by_dev):
+                        if deviation < 0:
                             break
-                        elif len(new_items) != len(items):
-                            to_upmap[pg] = new_items
-                            found = True
+                        if (not using_more_overfull
+                                and deviation <= max_deviation):
                             break
-                    if found:
-                        break
-                    # 2) add a new remapping pair
-                    for pg in pgs:
-                        if pg in m.pg_upmap:
-                            continue
-                        pool = m.get_pg_pool(pg.pool)
-                        new_items = list(m.pg_upmap_items.get(pg, []))
-                        if len(new_items) >= pool.size:
-                            continue
-                        existing: set[int] = set()
-                        for frm, to in new_items:
-                            existing.add(frm)
-                            existing.add(to)
-                        # raw mapping including existing upmaps
-                        raw, _ = m._pg_to_raw_osds(pool, pg)
-                        orig = list(raw)
-                        m._apply_upmap(pool, pg, orig)
-                        out = try_pg_upmap(
-                            m, pg, overfull, underfull, more_underfull,
-                            orig
-                        )
-                        if out is None or len(out) != len(orig):
-                            continue
-                        pos, max_dev = -1, 0.0
-                        for i2 in range(len(out)):
-                            if orig[i2] == out[i2]:
+                        pgs = [
+                            pg for pg in st.pgs_of(osd)
+                            if pg not in to_skip
+                        ]
+                        if aggressive:
+                            rng.shuffle(pgs)  # equal (in)attention
+                        # 1) drop existing remaps INTO this overfull osd
+                        for pg in pgs:
+                            items = m.pg_upmap_items.get(pg)
+                            if items is None:
                                 continue
-                            if (
-                                orig[i2] in existing
-                                or out[i2] in existing
-                            ):
+                            new_items = []
+                            for frm, to in items:
+                                if to == osd:
+                                    txn.move(pg, to, frm)
+                                else:
+                                    new_items.append((frm, to))
+                            if not new_items:
+                                to_unmap.add(pg)
+                                found = True
+                                break
+                            elif len(new_items) != len(items):
+                                to_upmap[pg] = new_items
+                                found = True
+                                break
+                        if found:
+                            break
+                        # 2) add a new remapping pair
+                        for pg in pgs:
+                            if pg in m.pg_upmap:
                                 continue
-                            d = osd_deviation.get(orig[i2], 0.0)
-                            if d > max_dev:
-                                max_dev, pos = d, i2
-                        if pos != -1:
-                            frm, to = orig[pos], out[pos]
-                            txn.move(pg, frm, to)
-                            new_items.append((frm, to))
-                            to_upmap[pg] = new_items
-                            found = True
-                            break
-                    if found:
-                        break
-
-            # ---- underfull pass --------------------------------------
-            if not found:
-                for osd, deviation in by_dev:
-                    if osd not in underfull:
-                        break
-                    if abs(deviation) < max_deviation:
-                        break
-                    candidates = [
-                        (pg, items)
-                        for pg, items in sorted(m.pg_upmap_items.items())
-                        if pg not in to_skip
-                        and (not only_pools or pg.pool in only_pools)
-                    ]
-                    if aggressive:
-                        rng.shuffle(candidates)
-                    for pg, items in candidates:
-                        new_items = []
-                        for frm, to in items:
-                            if frm == osd:
-                                txn.move(pg, to, frm)
-                            else:
+                            pool = m.get_pg_pool(pg.pool)
+                            new_items = list(m.pg_upmap_items.get(pg, []))
+                            if len(new_items) >= pool.size:
+                                continue
+                            existing: set[int] = set()
+                            for frm, to in new_items:
+                                existing.add(frm)
+                                existing.add(to)
+                            # raw mapping including existing upmaps
+                            raw, _ = m._pg_to_raw_osds(pool, pg)
+                            orig = list(raw)
+                            m._apply_upmap(pool, pg, orig)
+                            out = try_pg_upmap(
+                                m, pg, overfull, underfull, more_underfull,
+                                orig
+                            )
+                            if out is None or len(out) != len(orig):
+                                continue
+                            pos, max_dev = -1, 0.0
+                            for i2 in range(len(out)):
+                                if orig[i2] == out[i2]:
+                                    continue
+                                if (
+                                    orig[i2] in existing
+                                    or out[i2] in existing
+                                ):
+                                    continue
+                                d = osd_deviation.get(orig[i2], 0.0)
+                                if d > max_dev:
+                                    max_dev, pos = d, i2
+                            if pos != -1:
+                                frm, to = orig[pos], out[pos]
+                                txn.move(pg, frm, to)
                                 new_items.append((frm, to))
-                        if not new_items:
-                            to_unmap.add(pg)
-                            found = True
+                                to_upmap[pg] = new_items
+                                found = True
+                                break
+                        if found:
                             break
-                        elif len(new_items) != len(items):
-                            to_upmap[pg] = new_items
-                            found = True
+
+                # ---- underfull pass --------------------------------------
+                if not found:
+                    for osd, deviation in by_dev:
+                        if osd not in underfull:
                             break
-                    if found:
+                        if abs(deviation) < max_deviation:
+                            break
+                        candidates = [
+                            (pg, items)
+                            for pg, items in sorted(m.pg_upmap_items.items())
+                            if pg not in to_skip
+                            and (not only_pools or pg.pool in only_pools)
+                        ]
+                        if aggressive:
+                            rng.shuffle(candidates)
+                        for pg, items in candidates:
+                            new_items = []
+                            for frm, to in items:
+                                if frm == osd:
+                                    txn.move(pg, to, frm)
+                                else:
+                                    new_items.append((frm, to))
+                            if not new_items:
+                                to_unmap.add(pg)
+                                found = True
+                                break
+                            elif len(new_items) != len(items):
+                                to_upmap[pg] = new_items
+                                found = True
+                                break
+                        if found:
+                            break
+
+                if not found:
+                    if not aggressive:
+                        iter_left = 0
+                    elif not skip_overfull:
+                        iter_left = 0
+                    else:
+                        skip_overfull = False
+                    break  # out of retry loop
+
+                # ---- test_change -----------------------------------------
+                temp_dev, new_stddev, cur_max_deviation = txn.deviations()
+                if new_stddev >= stddev:
+                    _inc("changes_rejected", len(to_unmap) + len(to_upmap))
+                    if not aggressive:
+                        iter_left = 0
                         break
+                    local_fallback_retried += 1
+                    if local_fallback_retried >= local_fallback_retries:
+                        skip_overfull = not skip_overfull
+                        break
+                    to_skip |= to_unmap
+                    to_skip |= set(to_upmap)
+                    continue  # goto retry
 
-            if not found:
-                if not aggressive:
+                stddev = new_stddev
+                st.commit(txn)
+                osd_deviation = temp_dev
+                for pg in to_unmap:
+                    del m.pg_upmap_items[pg]
+                    res.old_pg_upmap_items.add(pg)
+                    res.num_changed += 1
+                for pg, items in to_upmap.items():
+                    m.pg_upmap_items[pg] = items
+                    res.new_pg_upmap_items[pg] = items
+                    res.num_changed += 1
+                _inc("changes_accepted", len(to_unmap) + len(to_upmap))
+                _book_deviation(stddev, cur_max_deviation)
+                res.stddev = stddev
+                res.max_deviation = cur_max_deviation
+                if cur_max_deviation <= max_deviation:
                     iter_left = 0
-                elif not skip_overfull:
-                    iter_left = 0
-                else:
-                    skip_overfull = False
-                break  # out of retry loop
-
-            # ---- test_change -----------------------------------------
-            temp_dev, new_stddev, cur_max_deviation = txn.deviations()
-            if new_stddev >= stddev:
-                _inc("changes_rejected", len(to_unmap) + len(to_upmap))
-                if not aggressive:
-                    iter_left = 0
-                    break
-                local_fallback_retried += 1
-                if local_fallback_retried >= local_fallback_retries:
-                    skip_overfull = not skip_overfull
-                    break
-                to_skip |= to_unmap
-                to_skip |= set(to_upmap)
-                continue  # goto retry
-
-            stddev = new_stddev
-            st.commit(txn)
-            osd_deviation = temp_dev
-            for pg in to_unmap:
-                del m.pg_upmap_items[pg]
-                res.old_pg_upmap_items.add(pg)
-                res.num_changed += 1
-            for pg, items in to_upmap.items():
-                m.pg_upmap_items[pg] = items
-                res.new_pg_upmap_items[pg] = items
-                res.num_changed += 1
-            _inc("changes_accepted", len(to_unmap) + len(to_upmap))
-            res.stddev = stddev
-            res.max_deviation = cur_max_deviation
-            if cur_max_deviation <= max_deviation:
-                iter_left = 0
-            break  # exit retry loop, next outer iteration
+                break  # exit retry loop, next outer iteration
 
     return res

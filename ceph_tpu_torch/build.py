@@ -26,6 +26,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent
@@ -38,6 +39,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# nvcc wall seconds of each source this process built (from its start to
+# its end; sources built together overlap); absent when already built
+BUILD_SECONDS: dict[str, float] = {}
 # held across every build and first load (re-entered by load -> build)
 _LOCK = threading.RLock()
 
@@ -67,7 +71,7 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(source: str) -> tuple[subprocess.Popen, Path, Path] | None:
+def _start(source: str) -> tuple[subprocess.Popen, Path, Path, float] | None:
     lib = library_path(source)
     if lib.exists():
         return None
@@ -78,13 +82,13 @@ def _start(source: str) -> tuple[subprocess.Popen, Path, Path] | None:
         [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(PACKAGE / source)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
-    return proc, tmp, lib
+    return proc, tmp, lib, time.perf_counter()
 
 
 def _finish(source: str, job) -> None:
     if job is None:
         return
-    proc, tmp, lib = job
+    proc, tmp, lib, t0 = job
     out, err = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -92,6 +96,7 @@ def _finish(source: str, job) -> None:
                            f"\n{err}")
     lib.with_suffix(".ptxas").write_text(out + err)
     os.replace(tmp, lib)
+    BUILD_SECONDS[source] = time.perf_counter() - t0
 
 
 def build(source: str) -> Path:
@@ -117,6 +122,15 @@ def build_all() -> dict[str, Path]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return {source: library_path(source) for source in SOURCES}
+
+
+def source_hash(source: str) -> str:
+    """The hash that names `source`'s library (source, headers, flags)."""
+    return library_path(source).stem.rsplit("-", 1)[1]
+
+
+def built(source: str) -> bool:
+    return library_path(source).exists()
 
 
 def ptxas_report(source: str) -> dict[str, dict]:

@@ -47,9 +47,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ceph_tpu_torch import build
+from ceph_tpu_torch import build, obs
 from ceph_tpu_torch.core.intmath import div_trunc_s64
-from ceph_tpu_torch.core.lntable import crush_ln, ln_tables
+from ceph_tpu_torch.core.lntable import LL_TBL, RH_LH_TBL, crush_ln, ln_tables
 from ceph_tpu_torch.core.rjenkins import (
     M32,
     crush_hash32_2,
@@ -752,10 +752,33 @@ def _empty_planes(prog: RuleProgram, device, n: int = 0) -> dict:
 
 _LIBS: dict[bool, ctypes.CDLL] = {}
 # the first load of a library (two reader threads, or a reader and an
-# applier, may both be first) and the launch counts (kernels launch from several
-# threads at once)
+# applier, may both be first)
 _LIB_LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
+
+
+def _rule_work(shape) -> tuple[int, int]:
+    """(bytes, 0) of one launch of shape (T, prog, n, reweights, diag):
+    each input read once (seeds, the map's headers, records, items and
+    tree nodes, reweights, steps, crush_ln tables), each output written
+    once (rows, and the planes).  The operations are not reckoned."""
+    T, prog, n, n_weights, diag = shape
+    nbytes = (4 * n + 4 * n_weights + prog.steps.nbytes + RH_LH_TBL.nbytes
+              + LL_TBL.nbytes + sum(t.numel() * t.element_size() for t in (
+                  T.headers, T.records, T.packed_items, T.nodes))
+              + 4 * n * prog.result_max)
+    if diag:
+        nbytes += 4 * n * (prog.diag_lanes
+                           + prog.diag_steps * prog.result_max + 4)
+    return nbytes, 0
+
+
+# each kernel's launches, enqueue times and first-call build, booked into
+# the kernel registry, which the `pipeline` perf group reads
+_ACCTS = {
+    diag: obs.LaunchAccount(obs.logger_for("pipeline"), name,
+                            f"crush/csrc/{name}.cu", work=_rule_work)
+    for diag, name in ((False, "crush_rule"), (True, "crush_rule_diag"))
+}
 
 
 def _lib(diag: bool = False) -> ctypes.CDLL:
@@ -769,7 +792,8 @@ def _lib(diag: bool = False) -> ctypes.CDLL:
         if lib is not None:
             return lib
         name = "crush_rule_diag" if diag else "crush_rule"
-        lib = build.load(f"crush/csrc/{name}.cu")
+        lib = _ACCTS[diag].load(
+            lambda: build.load(f"crush/csrc/{name}.cu"))
         p, i = ctypes.c_void_p, ctypes.c_int
         launch = getattr(lib, f"{name}_launch")
         launch.argtypes = ([p] * 8 + [i] * 13 + [p, ctypes.c_longlong, p]
@@ -894,8 +918,10 @@ def _launch(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
     with torch.cuda.device(dev):
         launch = (_lib(True).crush_rule_diag_launch if diag
                   else _lib().crush_rule_launch)
-        _check(launch(*args, torch.cuda.current_stream().cuda_stream),
-               "kernel launch", diag)
+        rc = _ACCTS[diag].launch(
+            launch, *args, torch.cuda.current_stream().cuda_stream,
+            shape=(T, prog, n, weight.numel(), diag))
+        _check(rc, "kernel launch", diag)
     return out, planes
 
 
@@ -907,15 +933,13 @@ def crush_rule_cuda(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
     on the current stream, unsynchronised.  `stage` is the number of
     records each block copies to shared memory (None: `staged_records`;
     every choice gives the same rows).  `crush_rule_cuda.launches` counts
-    the launches."""
-    out, _ = _launch(T, prog, x, weight, stage, diag=False)
-    if x.numel():
-        with _COUNT_LOCK:
-            crush_rule_cuda.launches += 1
-    return out
+    the launches: it is the kernel's count in the kernel registry
+    (`obs.executables`), which each launch books with its shape
+    (`_rule_work` reckons its bytes)."""
+    return _launch(T, prog, x, weight, stage, diag=False)[0]
 
 
-crush_rule_cuda.launches = 0
+crush_rule_cuda = _ACCTS[False].entry(crush_rule_cuda)
 
 
 def crush_rule_diag_cuda(T: DeviceArrays, prog: RuleProgram,
@@ -926,15 +950,11 @@ def crush_rule_diag_cuda(T: DeviceArrays, prog: RuleProgram,
     planes int32 on the card (`_planes`: tries [N, diag_lanes], coll,
     rej, skip and bad [N], steps [N, diag_steps, result_max]).  The rows
     are crush_rule_cuda's.  `crush_rule_diag_cuda.launches` counts the
-    launches."""
-    out, planes = _launch(T, prog, x, weight, stage, diag=True)
-    if x.numel():
-        with _COUNT_LOCK:
-            crush_rule_diag_cuda.launches += 1
-    return out, planes
+    launches (the registry's count, as crush_rule_cuda's)."""
+    return _launch(T, prog, x, weight, stage, diag=True)
 
 
-crush_rule_diag_cuda.launches = 0
+crush_rule_diag_cuda = _ACCTS[True].entry(crush_rule_diag_cuda)
 
 
 def map_rule(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,

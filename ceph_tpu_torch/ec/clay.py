@@ -23,8 +23,9 @@ Tensors stay on their device.  Numpy in gives numpy out: with the device
 engine a call uploads its input to the engine's device once and reads its
 result back once; with `backend=numpy` or `backend=native` it computes on
 the host as the JAX package does (a host engine refuses a CUDA tensor).
-`COUNTERS` holds the JAX package's `ec` counters of this module (its
-repair group).
+It books the JAX package's `ec` counters of this module (its repair
+keys) and spans (`ec.clay_encode`, `ec.clay_decode`, `ec.clay_repair`);
+`COUNTERS` reads them.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.ec import matrices
 from ceph_tpu_torch.ec.gf import GF_MUL_TABLE
 from ceph_tpu_torch.ec.interface import (
@@ -44,16 +46,24 @@ from ceph_tpu_torch.ec.interface import (
 )
 from ceph_tpu_torch.ec.rs import DEFAULT_BACKEND, _concat, get_engine
 from ceph_tpu_torch.ec.torch_backend import TorchEngine
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
-COUNTERS: dict = {
-    "bytes_encoded": 0,       # stripe bytes pushed through encode_chunks
-    "bytes_decoded": 0,       # chunk bytes rebuilt by decode_chunks
-    "repair_bytes": 0,        # chunk bytes rebuilt by repair
-    # helper bytes read / (k * chunk bytes), per repair (a JAX avg)
-    "repair_read_fraction": {"avgcount": 0, "sum": 0.0},
-    "repair_plan_hits": 0,    # batched repairs served by a cached plan
-    "repair_plan_misses": 0,  # product-matrix repair plans built
-}
+_L = obs.logger_for("ec")
+_L.add_u64("bytes_encoded", "stripe bytes pushed through encode_chunks")
+_L.add_u64("bytes_decoded", "chunk bytes rebuilt by decode_chunks")
+_L.add_time_avg("encode_seconds", "encode_chunks wall time")
+_L.add_time_avg("decode_seconds", "decode_chunks wall time")
+_L.add_u64("repair_bytes", "chunk bytes rebuilt by minimum-bandwidth repair")
+_L.add_time_avg("repair_seconds", "repair wall time")
+_L.add_avg("repair_read_fraction",
+           "helper bytes read / full-stripe bytes, per repair")
+_L.add_u64("repair_plan_hits",
+           "batched repairs served by a cached product-matrix plan")
+_L.add_u64("repair_plan_misses",
+           "product-matrix repair plans built (one per lost node)")
+__getattr__ = counters_attr("ec", __name__, (
+    "bytes_encoded", "bytes_decoded", "repair_bytes",
+    "repair_read_fraction", "repair_plan_hits", "repair_plan_misses"))
 
 
 def _zeros(shape, like):
@@ -338,14 +348,17 @@ class ClayCode(ErasureCode):
                 f"data {tuple(data.shape)}: k={k} rows of a multiple of "
                 f"sub_chunk_no {self.sub_chunk_no} bytes expected"
             )
-        nodes = self._to_nodes({i: data[i] for i in range(k)},
-                               cs // self.sub_chunk_no)
-        self._decode_layered({self._node(i) for i in range(k, k + m)},
-                             nodes)
-        COUNTERS["bytes_encoded"] += _numel(data)
-        return _stack(
-            [nodes[self._node(i)].reshape(-1) for i in range(k + m)], 0
-        )
+        with obs.span("ec.clay_encode", k=k, m=m, d=self.d,
+                      bytes=_numel(data)), _L.time("encode_seconds"):
+            nodes = self._to_nodes({i: data[i] for i in range(k)},
+                                   cs // self.sub_chunk_no)
+            self._decode_layered(
+                {self._node(i) for i in range(k, k + m)}, nodes)
+            out = _stack(
+                [nodes[self._node(i)].reshape(-1) for i in range(k + m)], 0
+            )
+        _L.inc("bytes_encoded", _numel(data))
+        return out
 
     def decode_chunks(self, want_to_read: set[int], chunks: dict,
                       chunk_size: int) -> dict:
@@ -357,14 +370,18 @@ class ClayCode(ErasureCode):
                                      chunk_size)
             return {i: c.cpu().numpy() for i, c in out.items()}
         erased = {self._node(i) for i in range(k + m) if i not in chunks}
-        nodes = self._to_nodes({i: _as_u8(c) for i, c in chunks.items()},
-                               chunk_size // self.sub_chunk_no)
-        self._decode_layered(erased, nodes)
-        out = dict(chunks)
-        for i in range(k + m):
-            if i not in out:
-                out[i] = nodes[self._node(i)].reshape(-1)
-        COUNTERS["bytes_decoded"] += len(erased) * chunk_size
+        with obs.span("ec.clay_decode", k=k, m=m, missing=len(erased),
+                      bytes=len(erased) * chunk_size), \
+                _L.time("decode_seconds"):
+            nodes = self._to_nodes(
+                {i: _as_u8(c) for i, c in chunks.items()},
+                chunk_size // self.sub_chunk_no)
+            self._decode_layered(erased, nodes)
+            out = dict(chunks)
+            for i in range(k + m):
+                if i not in out:
+                    out[i] = nodes[self._node(i)].reshape(-1)
+        _L.inc("bytes_decoded", len(erased) * chunk_size)
         return out
 
     # -- repair (minimum-bandwidth single-node recovery) -------------------
@@ -438,12 +455,14 @@ class ClayCode(ErasureCode):
             out = self.repair(want_to_read, self._upload(helper_chunks),
                               chunk_size)
             return {i: c.cpu().numpy() for i, c in out.items()}
-        out = self._repair(want_to_read, helper_chunks, chunk_size)
-        COUNTERS["repair_bytes"] += len(want_to_read) * chunk_size
-        fraction = COUNTERS["repair_read_fraction"]
-        fraction["avgcount"] += 1
-        fraction["sum"] += (sum(_numel(b) for b in helper_chunks.values())
-                            / (self.k * chunk_size))
+        read_bytes = sum(_numel(b) for b in helper_chunks.values())
+        with obs.span("ec.clay_repair", k=self.k, m=self.m, d=self.d,
+                      helpers=len(helper_chunks), read_bytes=read_bytes), \
+                _L.time("repair_seconds"):
+            out = self._repair(want_to_read, helper_chunks, chunk_size)
+        _L.inc("repair_bytes", len(want_to_read) * chunk_size)
+        _L.observe("repair_read_fraction",
+                   read_bytes / (self.k * chunk_size))
         return out
 
     def _repair(self, want_to_read: set[int], helper_chunks: dict,
@@ -618,7 +637,7 @@ class ClayCode(ErasureCode):
         node * P + position into the [n*P, sc] helper and U arrays."""
         plan = self._repair_plans.get(lost)
         if plan is not None:
-            COUNTERS["repair_plan_hits"] += 1
+            _L.inc("repair_plan_hits")
             return plan
         q, t = self.q, self.t
         n, P = q * t, len(repair_planes)
@@ -692,7 +711,7 @@ class ClayCode(ErasureCode):
         plan = {"RB": RB, "pair_R": pair_R, "index": index,
                 "device_index": {}}
         self._repair_plans[lost] = plan
-        COUNTERS["repair_plan_misses"] += 1
+        _L.inc("repair_plan_misses")
         return plan
 
     def decode(self, want_to_read: set[int], chunks: dict,

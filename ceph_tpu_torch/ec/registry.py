@@ -27,18 +27,22 @@ from __future__ import annotations
 import numpy as np
 
 from ceph_tpu_torch.device import resolve_device
-from ceph_tpu_torch.ec.clay import ClayCode
 from ceph_tpu_torch.ec.interface import ErasureCode, ErasureCodeProfileError
-from ceph_tpu_torch.ec.lrc import LrcCode
-from ceph_tpu_torch.ec.rs import RSErasureCode
-from ceph_tpu_torch.ec.shec import ShecCode
+
+# the plugins' modules are imported when a profile first names them, as
+# in the JAX registry: a process's `ec` perf group then holds the keys
+# of the codes it built
 
 
 def _make_jerasure(profile: dict) -> ErasureCode:
+    from ceph_tpu_torch.ec.rs import RSErasureCode
+
     return RSErasureCode(profile.get("technique", "reed_sol_van"))
 
 
 def _make_isa(profile: dict) -> ErasureCode:
+    from ceph_tpu_torch.ec.rs import RSErasureCode
+
     tech = profile.get("technique", "reed_sol_van")
     mapped = {
         "reed_sol_van": "isa_reed_sol_van",
@@ -50,6 +54,8 @@ def _make_isa(profile: dict) -> ErasureCode:
 
 
 def _make_jax(profile: dict) -> ErasureCode:
+    from ceph_tpu_torch.ec.rs import RSErasureCode
+
     profile.setdefault("backend", "torch")
     return RSErasureCode(profile.get("technique", "reed_sol_van"))
 
@@ -81,14 +87,32 @@ class XorExample(ErasureCode):
         return out
 
 
+def _make_clay(profile: dict) -> ErasureCode:
+    from ceph_tpu_torch.ec.clay import ClayCode
+
+    return ClayCode()
+
+
+def _make_shec(profile: dict) -> ErasureCode:
+    from ceph_tpu_torch.ec.shec import ShecCode
+
+    return ShecCode()
+
+
+def _make_lrc(profile: dict) -> ErasureCode:
+    from ceph_tpu_torch.ec.lrc import LrcCode
+
+    return LrcCode()
+
+
 _PLUGINS = {
     "jerasure": _make_jerasure,
     "isa": _make_isa,
     "jax": _make_jax,
     "example": lambda p: XorExample(),
-    "clay": lambda p: ClayCode(),
-    "shec": lambda p: ShecCode(),
-    "lrc": lambda p: LrcCode(),
+    "clay": _make_clay,
+    "shec": _make_shec,
+    "lrc": _make_lrc,
 }
 
 

@@ -15,10 +15,12 @@ tensors on their device.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.ec import matrices
 from ceph_tpu_torch.ec.gf import gf_matvec_data
 from ceph_tpu_torch.ec.interface import (
@@ -29,13 +31,21 @@ from ceph_tpu_torch.ec.interface import (
 )
 from ceph_tpu_torch.ec.torch_backend import TorchEngine
 from ceph_tpu_torch.native import load_gf
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
-COUNTERS: dict[str, int] = dict.fromkeys((
-    "bytes_encoded",       # stripe bytes pushed through the encodes
-    "bytes_decoded",       # chunk bytes rebuilt by the decodes
-    "decode_plan_hits",    # decodes served by a cached per-pattern plan
-    "decode_plan_misses",  # decode plans built (submatrix inverted)
-), 0)
+_L = obs.logger_for("ec")
+_L.add_u64("bytes_encoded", "stripe bytes pushed through encode_chunks")
+_L.add_u64("bytes_decoded", "chunk bytes rebuilt by decode_chunks")
+_L.add_time_avg("encode_seconds", "encode_chunks wall time")
+_L.add_time_avg("decode_seconds", "decode_chunks wall time")
+_L.add_u64("decode_plan_hits",
+           "decodes served by a cached per-erasure-pattern plan")
+_L.add_u64("decode_plan_misses",
+           "decode plans built (submatrix inverted + schedule lowered)")
+# `COUNTERS`: this module's keys of the group, read as a dict snapshot
+__getattr__ = counters_attr("ec", __name__, (
+    "bytes_encoded", "bytes_decoded", "decode_plan_hits",
+    "decode_plan_misses"))
 
 
 def _host(data, engine: str):
@@ -125,16 +135,16 @@ def decode_plan(C: np.ndarray, use: tuple, missing: tuple,
     if R is None:
         R = matrices.recover_matrix(C, list(use), list(missing))
         _DECODE_PLANS[key] = R
-        COUNTERS["decode_plan_misses"] += 1
+        _L.inc("decode_plan_misses")
     else:
-        COUNTERS["decode_plan_hits"] += 1
+        _L.inc("decode_plan_hits")
     if engine is not None and hasattr(engine, "prepare"):
         engine.prepare(R)
     return R
 
 
 def _nbytes(data) -> int:
-    return int(np.prod(np.shape(data)))
+    return math.prod(np.shape(data))
 
 
 def _concat(a, b, dim: int):
@@ -194,9 +204,12 @@ class RSErasureCode(ErasureCode):
             raise ValueError(f"{data.shape[0]} data rows, k={self.k}")
         if not _is_tensor(data):
             data = np.asarray(data, np.uint8)
-        parity = self.engine.matmul(self.C, data)
-        COUNTERS["bytes_encoded"] += _nbytes(data)
-        return _concat(data, parity, 0)
+        nbytes = _nbytes(data)
+        with obs.span("ec.encode", k=self.k, m=self.m, bytes=nbytes), \
+                _L.time("encode_seconds"):
+            out = _concat(data, self.engine.matmul(self.C, data), 0)
+        _L.inc("bytes_encoded", nbytes)
+        return out
 
     def decode_chunks(
         self, want_to_read: set[int], chunks: dict, chunk_size: int
@@ -208,14 +221,18 @@ class RSErasureCode(ErasureCode):
             )
         use = present[: self.k]
         missing = sorted(set(want_to_read) - set(chunks))
-        out = dict(chunks)
-        if missing:
-            stack = _stack([chunks[i] for i in use], 0)
-            R = decode_plan(self.C, tuple(use), tuple(missing), self.engine)
-            rebuilt = self.engine.matmul(R, stack)
-            for row, i in enumerate(missing):
-                out[i] = rebuilt[row]
-        COUNTERS["bytes_decoded"] += len(missing) * chunk_size
+        with obs.span("ec.decode", k=self.k, m=self.m, missing=len(missing),
+                      bytes=len(missing) * chunk_size), \
+                _L.time("decode_seconds"):
+            out = dict(chunks)
+            if missing:
+                stack = _stack([chunks[i] for i in use], 0)
+                R = decode_plan(self.C, tuple(use), tuple(missing),
+                                self.engine)
+                rebuilt = self.engine.matmul(R, stack)
+                for row, i in enumerate(missing):
+                    out[i] = rebuilt[row]
+        _L.inc("bytes_decoded", len(missing) * chunk_size)
         return out
 
     def encode_parity(self, data):
@@ -225,8 +242,11 @@ class RSErasureCode(ErasureCode):
         measured work."""
         if data.shape[0] != self.k:
             raise ValueError(f"{data.shape[0]} data rows, k={self.k}")
-        parity = self.engine.matmul(self.C, data)
-        COUNTERS["bytes_encoded"] += _nbytes(data)
+        nbytes = _nbytes(data)
+        with obs.span("ec.encode", k=self.k, m=self.m, bytes=nbytes), \
+                _L.time("encode_seconds"):
+            parity = self.engine.matmul(self.C, data)
+        _L.inc("bytes_encoded", nbytes)
         return parity
 
     # -- batched-stripe paths ----------------------------------------------
@@ -238,9 +258,13 @@ class RSErasureCode(ErasureCode):
                              f"{tuple(data.shape)}")
         if not hasattr(self.engine, "matmul_batch"):
             return _stack([self.encode_chunks(s) for s in data], 0)
-        parity = self.engine.matmul_batch(self.C, data)
-        COUNTERS["bytes_encoded"] += _nbytes(data)
-        return _concat(data, parity, 1)
+        nbytes = _nbytes(data)
+        with obs.span("ec.encode_batch", k=self.k, m=self.m,
+                      stripes=int(np.shape(data)[0]), bytes=nbytes), \
+                _L.time("encode_seconds"):
+            out = _concat(data, self.engine.matmul_batch(self.C, data), 1)
+        _L.inc("bytes_encoded", nbytes)
+        return out
 
     def decode_batch(
         self, want_to_read: set[int], chunks: dict, chunk_size: int
@@ -256,18 +280,23 @@ class RSErasureCode(ErasureCode):
             )
         use = present[: self.k]
         missing = sorted(set(want_to_read) - set(chunks))
-        out = dict(chunks)
-        if missing:
-            R = decode_plan(self.C, tuple(use), tuple(missing), self.engine)
-            stack = _stack([chunks[i] for i in use], 1)  # [N, k, cs]
-            if hasattr(self.engine, "matmul_batch"):
-                rebuilt = self.engine.matmul_batch(R, stack)
-            else:
-                rebuilt = _stack(
-                    [self.engine.matmul(R, s) for s in stack], 0
-                )
-            for row, i in enumerate(missing):
-                out[i] = rebuilt[:, row]
-        COUNTERS["bytes_decoded"] += (len(missing) * chunk_size
-                                      * int(np.shape(chunks[use[0]])[0]))
+        n_stripes = int(np.shape(chunks[use[0]])[0])
+        with obs.span("ec.decode_batch", k=self.k, m=self.m,
+                      missing=len(missing), stripes=n_stripes,
+                      bytes=len(missing) * chunk_size * n_stripes), \
+                _L.time("decode_seconds"):
+            out = dict(chunks)
+            if missing:
+                R = decode_plan(self.C, tuple(use), tuple(missing),
+                                self.engine)
+                stack = _stack([chunks[i] for i in use], 1)  # [N, k, cs]
+                if hasattr(self.engine, "matmul_batch"):
+                    rebuilt = self.engine.matmul_batch(R, stack)
+                else:
+                    rebuilt = _stack(
+                        [self.engine.matmul(R, s) for s in stack], 0
+                    )
+                for row, i in enumerate(missing):
+                    out[i] = rebuilt[:, row]
+        _L.inc("bytes_decoded", len(missing) * chunk_size * n_stripes)
         return out

@@ -29,13 +29,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
+import math
 import time
 
 import numpy as np
 import torch
 
-from ceph_tpu_torch import build
+from ceph_tpu_torch import build, obs
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.ec.gf import (
     GF_LOG,
@@ -49,6 +49,8 @@ from ceph_tpu_torch.ec.xor_schedule import (
     build_schedule,
     matrix_key,
 )
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
 MAX_ROWS = 32  # the kernel's limits on M's shape (gf_matmul.cu)
 MAX_COLS = 64
@@ -95,8 +97,20 @@ STRATEGIES = {
 # default is `xor`; the port's is the kernel's plain version)
 DEFAULT_STRATEGY = "pallas"
 
-# the JAX package's `ec` counter of the strategies
-COUNTERS: dict[str, int] = {"autotunes": 0}
+_L = obs.logger_for("ec")
+_L.add_u64("autotunes", "measured strategy autotunes (one per matrix)")
+# the kernel's launches, enqueue times and first-call build
+def _gf_work(shape) -> tuple[int, int]:
+    """(bytes, operations) of one launch of shape (N, rows, S, L, table
+    bytes): data, tables and parity each moved once, and its GF(2^8)
+    multiply-accumulates."""
+    N, rows, S, L, tables = shape
+    return N * S * L + tables + N * rows * L, N * rows * S * L
+
+
+_GF_ACCT = obs.LaunchAccount(_L, "gf_matmul", "ec/csrc/gf_matmul.cu",
+                             span="ec.gf_matmul", work=_gf_work)
+__getattr__ = counters_attr("ec", __name__, ("autotunes",))
 
 # measured autotune results: (device type, matrix key) -> record
 _AUTOTUNE: dict[tuple, dict] = {}
@@ -142,7 +156,7 @@ def gf_matmul_plain(M, data: torch.Tensor) -> torch.Tensor:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("ec/csrc/gf_matmul.cu")
+    lib = _GF_ACCT.load(lambda: build.load("ec/csrc/gf_matmul.cu"))
     lib.gf_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -169,7 +183,9 @@ def gf_matmul_cuda(
     kernel runs on the current stream, unsynchronised.  Non-contiguous
     views are copied to contiguous memory first; unaligned ones run (the
     kernel falls back to byte loads).  `gf_matmul_cuda.launches` counts
-    the launches."""
+    the launches: it is the kernel's count in the kernel registry
+    (`obs.executables`), which each launch books with its shape
+    (`_gf_work` reckons its bytes and operations)."""
     if data.device.type != "cuda" or tables.device != data.device:
         raise ValueError(
             f"gf_matmul_cuda: data on {data.device}, tables on "
@@ -195,19 +211,20 @@ def gf_matmul_cuda(
         return out
     lib = _lib()
     with torch.cuda.device(data.device):
-        rc = lib.gf_matmul_launch(
+        rc = _GF_ACCT.launch(
+            lib.gf_matmul_launch,
             tables.data_ptr(), data.data_ptr(), out.data_ptr(), N, rows, S,
             L, _max_blocks(data.device),
             torch.cuda.current_stream().cuda_stream,
+            shape=(N, rows, S, L, tables.numel()),
         )
     if rc != 0:
         msg = lib.gf_matmul_error_string(rc).decode()
         raise RuntimeError(f"gf_matmul kernel launch failed: {msg}")
-    gf_matmul_cuda.launches += 1
     return out
 
 
-gf_matmul_cuda.launches = 0
+gf_matmul_cuda = _GF_ACCT.entry(gf_matmul_cuda)
 
 
 def matrix_blocks(M: np.ndarray):
@@ -353,7 +370,7 @@ class TorchEngine:
 
     def __init__(self, device=None, strategy: str | None = None):
         self.device = resolve_device(device)
-        env = os.environ.get("CEPH_TPU_EC_STRATEGY")
+        env = knobs.get("CEPH_TPU_EC_STRATEGY")
         if env:
             strategy = env
         if strategy is None:
@@ -449,7 +466,7 @@ class TorchEngine:
             dt = time.perf_counter() - t0
             measured[s] = round(nbytes / max(dt, 1e-9) / 1e9, 3)
         best = max(measured, key=lambda s: measured[s])
-        COUNTERS["autotunes"] += 1
+        _L.inc("autotunes")
         return {"strategy": best, "measured_gbps": measured,
                 "sample_bytes": nbytes}
 
@@ -498,15 +515,21 @@ class TorchEngine:
         if d.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {d.device}")
         self._resolved_strategy = self._resolve(M, d)
-        return self._dispatch(self._resolved_strategy, M, d)
+        with obs.span("ec.gf_dispatch", rows=int(M.shape[0]),
+                      stripes=int(d.shape[0]),
+                      strategy=self._resolved_strategy):
+            return self._dispatch(self._resolved_strategy, M, d)
 
     def matmul(self, M: np.ndarray, data):
-        """u8[S, L] -> u8[R, L]."""
+        """u8[S, L] -> u8[R, L].  Numpy in is uploaded to the engine's
+        device and its result copied back (`ec.gf_fetch_seconds`)."""
         M = np.asarray(M, np.uint8)
-        if isinstance(data, torch.Tensor):
-            return self._run(M, data[None])[0]
-        out = self._run(M, _to_tensor(data, self.device)[None])[0]
-        return out.cpu().numpy()
+        with obs.span("ec.gf_matmul", rows=int(M.shape[0]),
+                      bytes=math.prod(np.shape(data))):
+            if isinstance(data, torch.Tensor):
+                return self._run(M, data[None])[0]
+            out = self._run(M, _to_tensor(data, self.device)[None])[0]
+        return obs.timed_fetch(_L, "gf", out)
 
     def matmul_batch(self, M: np.ndarray, data):
         """u8[N, S, L] -> u8[N, R, L]: one product for the whole batch
@@ -514,6 +537,10 @@ class TorchEngine:
         M = np.asarray(M, np.uint8)
         if np.ndim(data) != 3:
             raise ValueError(f"[N, S, L] expected, got {np.shape(data)}")
-        if isinstance(data, torch.Tensor):
-            return self._run(M, data)
-        return self._run(M, _to_tensor(data, self.device)).cpu().numpy()
+        with obs.span("ec.gf_matmul_batch", rows=int(M.shape[0]),
+                      stripes=int(np.shape(data)[0]),
+                      bytes=math.prod(np.shape(data))):
+            if isinstance(data, torch.Tensor):
+                return self._run(M, data)
+            out = self._run(M, _to_tensor(data, self.device))
+        return obs.timed_fetch(_L, "gf_batch", out)

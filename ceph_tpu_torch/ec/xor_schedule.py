@@ -22,7 +22,8 @@ Schedules are a function of the matrix bytes only, so they cache by
 matrix key (`_SCHEDULES`).  The torch executors of both forms (the `xor`
 and `xor_cse` strategies) are in ec.torch_backend; `host_apply` executes
 the CSE DAG in numpy and is the oracle the tests hold both against.
-`COUNTERS` holds the JAX package's `ec` counters of this module.
+It books the JAX package's `ec` counters of this module; `COUNTERS`
+reads them.
 """
 
 from __future__ import annotations
@@ -33,11 +34,14 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ceph_tpu_torch.ec.gf import gf_xtime, matrix_to_bitmatrix
+from ceph_tpu_torch.utils.perf_counters import counters_attr, logger_for
 
-COUNTERS: dict[str, int] = {
-    "xor_schedules_built": 0,      # XOR DAG lowerings (one per new matrix)
-    "xor_schedule_cache_hits": 0,  # requests served from _SCHEDULES
-}
+_L = logger_for("ec")
+_L.add_u64("xor_schedules_built", "XOR DAG lowerings (one per new matrix)")
+_L.add_u64("xor_schedule_cache_hits",
+           "schedule requests served from _SCHEDULES")
+__getattr__ = counters_attr("ec", __name__, (
+    "xor_schedules_built", "xor_schedule_cache_hits"))
 
 
 def matrix_key(M: np.ndarray) -> tuple:
@@ -136,7 +140,7 @@ def build_schedule(M: np.ndarray) -> XorSchedule:
     key = matrix_key(M)
     sched = _SCHEDULES.get(key)
     if sched is not None:
-        COUNTERS["xor_schedule_cache_hits"] += 1
+        _L.inc("xor_schedule_cache_hits")
         return sched
     terms = bit_terms(M)
     m, k = np.asarray(M).shape
@@ -152,7 +156,7 @@ def build_schedule(M: np.ndarray) -> XorSchedule:
         ops=tuple(ops), outs=tuple(outs), max_power=max_power,
     )
     _SCHEDULES[key] = sched
-    COUNTERS["xor_schedules_built"] += 1
+    _L.inc("xor_schedules_built")
     return sched
 
 

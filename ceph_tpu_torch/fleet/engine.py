@@ -43,30 +43,50 @@ cadence in fleet epochs.
 
 from __future__ import annotations
 
-import os
 import time
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.fleet import pareto as pareto_mod
 from ceph_tpu_torch.fleet.spec import FleetMember, parse_fleet
 from ceph_tpu_torch.runtime import Checkpoint, faults
 from ceph_tpu_torch.sim import lifetime
 from ceph_tpu_torch.sim.lifetime import BACKENDS, LifetimeSim
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
-# The JAX package's `fleet` perf group's counts (its `epoch_seconds`
-# average is the summary's wall time), with the port's names:
-# `stats_calls` the stacked `_stats_lanes` calls, `stacked_lanes` the
-# pool lanes they reduced, `cached_lanes` the tag-equal lanes replayed
-# without one, `solo_lanes` the pools a member accounted itself ("ref"
-# members, or every member with CEPH_TPU_FLEET_STACK=0).
-COUNTERS: dict[str, int] = dict.fromkeys((
+# The JAX package's `fleet` perf group (`host_lanes` the pools a member
+# accounted itself, "ref" members or every member with
+# CEPH_TPU_FLEET_STACK=0; no `steady_compiles`: the port compiles
+# nothing, and COUNTERS reads it as 0), plus the port's `stats_calls`
+# (the stacked `_stats_lanes` calls), `cached_lanes` (the tag-equal
+# lanes replayed without one) and `solo_lanes` (as host_lanes, the name
+# the port's tests read).
+_L = obs.logger_for("fleet")
+_L.add_u64("epochs", "fleet epoch batches stepped")
+_L.add_u64("cluster_epochs", "member cluster-epochs advanced")
+_L.add_u64("stacked_lanes",
+           "pool lanes accounted through the ONE stacked stats call")
+_L.add_u64("host_lanes",
+           "pool lanes accounted by a member itself (ref members, or "
+           "CEPH_TPU_FLEET_STACK=0)")
+_L.add_u64("structural_epochs",
+           "fleet epochs that changed a member's pool structure")
+_L.add_u64("steady_epochs", "fleet epochs with unchanged structure")
+_L.add_u64("checkpoints", "fleet stack checkpoints flushed")
+_L.add_time_avg("epoch_seconds", "one fleet epoch batch wall time")
+_L.add_u64("stats_calls", "stacked _stats_lanes calls")
+_L.add_u64("cached_lanes",
+           "tag-equal pool lanes replayed without a stats call")
+_L.add_u64("solo_lanes", "pool lanes a member accounted itself")
+__getattr__ = counters_attr("fleet", __name__, (
     "epochs", "cluster_epochs", "stats_calls", "stacked_lanes",
     "cached_lanes", "solo_lanes", "structural_epochs", "steady_epochs",
-    "steady_compiles", "checkpoints"), 0)
+    "steady_compiles", "checkpoints"))
 
 
 def _inc(name: str, n: int = 1) -> None:
-    COUNTERS[name] += int(n)
+    _L.inc(name, int(n))
 
 
 def _spec_diff(have: str, want: str) -> list[str]:
@@ -103,9 +123,9 @@ class FleetSim:
                      for m in self.members]
         self.device = resolve_device(device) if any(on_device) else None
         self.balancer_backend = balancer_backend
-        self.stack = os.environ.get("CEPH_TPU_FLEET_STACK", "1") != "0"
+        self.stack = knobs.get("CEPH_TPU_FLEET_STACK", "1") != "0"
         self.checkpoint_every = int(
-            os.environ.get("CEPH_TPU_FLEET_CHECKPOINT_EVERY", "50"))
+            knobs.get("CEPH_TPU_FLEET_CHECKPOINT_EVERY", "50"))
         self.steps = 0
         self.structural_epochs = 0
         self.steady_epochs = 0
@@ -201,6 +221,7 @@ class FleetSim:
             return
         self.ck.progress("fleet", self._state())
         _inc("checkpoints")
+        obs.instant("fleet.checkpoint", epoch=self.steps)
 
     # -- stepping ----------------------------------------------------------
 
@@ -227,6 +248,7 @@ class FleetSim:
                 st, sk = sim._account_epoch(e)
                 plans[id(sim)] = (st, set(sk))
                 _inc("solo_lanes", len(st))
+                _inc("host_lanes", len(st))
                 continue
             stacked_sims.append(sim)
             stats: dict[int, dict] = {}
@@ -250,9 +272,10 @@ class FleetSim:
                 [lane["n"] for _, lane in lanes],
                 [lane["size"] for _, lane in lanes],
                 [lane["tol"] for _, lane in lanes])
+            rows_np = obs.timed_fetch(_L, "stack_stats", out)
             _inc("stats_calls")
             _inc("stacked_lanes", len(lanes))
-            for (sim, lane), row, mv in zip(lanes, out.tolist(), moved):
+            for (sim, lane), row, mv in zip(lanes, rows_np.tolist(), moved):
                 plans[id(sim)][0][lane["pid"]] = sim._commit_pool(
                     lane, row, mv)
         for sim in stacked_sims:
@@ -267,12 +290,26 @@ class FleetSim:
         if not live:
             return []
         t0 = time.perf_counter()
-        ctxs = [(sim, sim._step_begin(None)) for sim in live]
-        plans = self._account(ctxs)
+        fspan = obs.span("fleet.epoch", epoch=self.steps + 1,
+                         clusters=len(live))
+        fspan.__enter__()
+        ctxs: list[tuple] = []   # begun, not yet finished
         recs = []
-        for sim, ctx in ctxs:
-            stats, skeys = plans[id(sim)]
-            recs.append(sim._step_finish(ctx, stats, skeys))
+        try:
+            for sim in live:
+                ctxs.append((sim, sim._step_begin(None)))
+            plans = self._account(ctxs)
+            for sim, ctx in list(ctxs):
+                stats, skeys = plans[id(sim)]
+                rec = sim._step_finish(ctx, stats, skeys)
+                ctxs.remove((sim, ctx))   # its span is closed now
+                recs.append(rec)
+        except BaseException:
+            for _, ctx in ctxs:
+                ctx["span"].__exit__(None, None, None)
+            raise
+        finally:
+            fspan.__exit__(None, None, None)
         compiles = 0  # the port compiles nothing per shape
         sig = tuple((id(sim), plans[id(sim)][1]) for sim in live)
         structural = (any(r["structural"] for r in recs)
@@ -290,9 +327,11 @@ class FleetSim:
         self.steps += 1
         self._cluster_epochs += len(live)
         self._cluster_epochs_this_proc += len(live)
-        self._wall_this_proc += time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        self._wall_this_proc += wall
         _inc("epochs")
         _inc("cluster_epochs", len(live))
+        _L.observe("epoch_seconds", wall)
         if (self.ck is not None and self.checkpoint_every
                 and self.steps % self.checkpoint_every == 0):
             self.checkpoint()

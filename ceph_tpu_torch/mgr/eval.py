@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.balancer.crush_analysis import (
     find_takes_by_rule,
     get_rule_weight_osd_map,
@@ -38,6 +39,12 @@ from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import PgId
+
+_L = obs.logger_for("mgr")
+_L.add_u64("evals", "calc_eval passes")
+_L.add_u64("eval_pgs_mapped", "PGs mapped while building eval distributions")
+_L.add_time_avg("eval_seconds", "wall time per calc_eval pass")
+_L.add_avg("score", "eval score after each calc_eval (0 = perfect)")
 
 METRICS = ("pgs", "objects", "bytes")
 MAPPERS = ("torch", "jax", "host")  # "jax" is the JAX package's name
@@ -110,13 +117,16 @@ class MappingState:
         from ceph_tpu_torch.osd.pipeline import PoolMapper, overlay_fixup_rows
 
         m = self.osdmap
-        pm = PoolMapper(m, pool_id, resolve_device(self.device),
-                        overlays=False)
-        rows = pm.map_all_device()
-        seeds, fix = overlay_fixup_rows(m, pool_id, int(rows.shape[1]))
-        if len(seeds):
-            rows[torch.from_numpy(seeds).to(rows.device)] = \
-                torch.from_numpy(fix).to(rows.device)
+        n = m.pools[pool_id].pg_num
+        with obs.span("mgr.map_pool", pool=pool_id, pgs=n, mapper="torch"):
+            pm = PoolMapper(m, pool_id, resolve_device(self.device),
+                            overlays=False)
+            rows = pm.map_all_device()
+            seeds, fix = overlay_fixup_rows(m, pool_id, int(rows.shape[1]))
+            if len(seeds):
+                rows[torch.from_numpy(seeds).to(rows.device)] = \
+                    torch.from_numpy(fix).to(rows.device)
+        _L.inc("eval_pgs_mapped", n)
         self._dev[pool_id] = rows
         return rows
 
@@ -130,10 +140,14 @@ class MappingState:
         if self.on_device:
             rows = self.pool_up_device(pool_id).cpu().numpy()
         else:
-            rows = np.full((pool.pg_num, pool.size), ITEM_NONE, np.int32)
-            for ps in range(pool.pg_num):
-                up, _, _, _ = m.pg_to_up_acting_osds(PgId(pool_id, ps))
-                rows[ps, : min(len(up), pool.size)] = up[: pool.size]
+            with obs.span("mgr.map_pool", pool=pool_id, pgs=pool.pg_num,
+                          mapper=self.mapper):
+                rows = np.full((pool.pg_num, pool.size), ITEM_NONE,
+                               np.int32)
+                for ps in range(pool.pg_num):
+                    up, _, _, _ = m.pg_to_up_acting_osds(PgId(pool_id, ps))
+                    rows[ps, : min(len(up), pool.size)] = up[: pool.size]
+            _L.inc("eval_pgs_mapped", pool.pg_num)
         self._up[pool_id] = rows
         return rows
 
@@ -145,18 +159,19 @@ class MappingState:
         2^53 (raises OverflowError otherwise)."""
         n_osd = max(int(self.osdmap.max_osd), 1)
         rows = self.pool_up_device(pool_id)
-        c_pgs = reduce.osd_histogram(rows, n_osd,
-                                     dtype=torch.int64).cpu().numpy()
-        top = int(c_pgs.max(initial=0))
-        for w in (o_pg, b_pg):
-            w_max = int(np.max(w, initial=0))
-            if top * w_max >= EXACT_SUM or int(np.min(w, initial=0)) < 0:
-                raise OverflowError(
-                    f"pool {pool_id}: per-OSD sums up to {top} x {w_max} "
-                    f"are not exact in float64")
-        c_obj = reduce.weighted_osd_histogram(rows, o_pg, n_osd)
-        c_byt = reduce.weighted_osd_histogram(rows, b_pg, n_osd)
-        return c_pgs, c_obj.cpu().numpy(), c_byt.cpu().numpy()
+        with obs.span("mgr.pool_counts", pool=pool_id, osds=n_osd):
+            c_pgs = reduce.osd_histogram(rows, n_osd,
+                                         dtype=torch.int64).cpu().numpy()
+            top = int(c_pgs.max(initial=0))
+            for w in (o_pg, b_pg):
+                w_max = int(np.max(w, initial=0))
+                if top * w_max >= EXACT_SUM or int(np.min(w, initial=0)) < 0:
+                    raise OverflowError(
+                        f"pool {pool_id}: per-OSD sums up to {top} x {w_max} "
+                        f"are not exact in float64")
+            c_obj = reduce.weighted_osd_histogram(rows, o_pg, n_osd)
+            c_byt = reduce.weighted_osd_histogram(rows, b_pg, n_osd)
+            return c_pgs, c_obj.cpu().numpy(), c_byt.cpu().numpy()
 
     def misplaced_from(self, other: "MappingState") -> float:
         """Fraction of PG replica slots mapped differently than in `other`
@@ -284,6 +299,15 @@ class Eval:
 def calc_eval(ms: MappingState, pools: list[str] | None = None) -> Eval:
     """Build the scored distributions of `ms` (reference
     module.py:670-790 `calc_eval`).  `pools` restricts by pool name."""
+    _L.inc("evals")
+    with obs.span("mgr.calc_eval"), _L.time("eval_seconds"):
+        pe = _calc_eval(ms, pools)
+        _L.observe("score", pe.score)
+        obs.counter("mgr.score", pe.score)
+    return pe
+
+
+def _calc_eval(ms: MappingState, pools: list[str] | None) -> Eval:
     m = ms.osdmap
     pe = Eval(ms)
     pool_rule: dict[str, int] = {}

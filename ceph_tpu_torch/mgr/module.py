@@ -33,17 +33,26 @@ from __future__ import annotations
 import copy
 import errno
 import logging
-import os
 
 import numpy as np
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.crush.codec import encode_crushmap
 from ceph_tpu_torch.crush.types import ChooseArgs, CrushMap
 from ceph_tpu_torch.mgr.eval import Eval, MappingState, calc_eval
 from ceph_tpu_torch.osd.incremental import Incremental, apply_incremental
 from ceph_tpu_torch.osd.osdmap import OSDMap
+from ceph_tpu_torch.utils import knobs
 
 _log = logging.getLogger("ceph_tpu_torch.mgr")
+
+_L = obs.logger_for("mgr")
+_L.add_u64("plans_computed", "optimization plans computed")
+_L.add_u64("upmap_changes", "pg_upmap_items changes planned by do_upmap")
+_L.add_u64("compat_iterations", "crush-compat weight-set iterations")
+_L.add_u64("compat_bad_steps",
+           "crush-compat iterations that worsened the score")
+_L.add_time_avg("optimize_seconds", "wall time per optimize() call")
 
 # module options and defaults (reference module.py MODULE_OPTIONS)
 DEFAULT_OPTIONS: dict = {
@@ -248,13 +257,16 @@ class Balancer:
 
     def optimize(self, plan: Plan) -> tuple[int, str]:
         """Dispatch by mode (reference module.py:930-962)."""
-        if plan.mode == "upmap":
-            return self.do_upmap(plan)
-        if plan.mode == "crush-compat":
-            return self.do_crush_compat(plan)
-        if plan.mode == "none":
-            return -errno.ENOEXEC, "balancer mode is 'none'"
-        return -errno.EINVAL, f"unrecognized mode {plan.mode!r}"
+        _L.inc("plans_computed")
+        with obs.span("mgr.optimize", mode=plan.mode), \
+                _L.time("optimize_seconds"):
+            if plan.mode == "upmap":
+                return self.do_upmap(plan)
+            if plan.mode == "crush-compat":
+                return self.do_crush_compat(plan)
+            if plan.mode == "none":
+                return -errno.ENOEXEC, "balancer mode is 'none'"
+            return -errno.EINVAL, f"unrecognized mode {plan.mode!r}"
 
     # -- upmap mode --------------------------------------------------------
     def do_upmap(self, plan: Plan) -> tuple[int, str]:
@@ -282,14 +294,16 @@ class Balancer:
                        if ms.state is not None else None)
         for pool in pools:
             pid = by_name[pool]
-            res = calc_pg_upmaps(
-                m, max_deviation=max_deviation, max_iter=left,
-                only_pools={pid}, use_tpu=ms.on_device, rng=self.rng,
-                backend=self.get_option("upmap_state_backend"),
-                rows_source=rows_source,
-                candidate_batch=int(self.get_option("upmap_candidate_batch")),
-                device=ms.device,
-            )
+            with obs.span("mgr.do_upmap_pool", pool=pid, left=left):
+                res = calc_pg_upmaps(
+                    m, max_deviation=max_deviation, max_iter=left,
+                    only_pools={pid}, use_tpu=ms.on_device, rng=self.rng,
+                    backend=self.get_option("upmap_state_backend"),
+                    rows_source=rows_source,
+                    candidate_batch=int(
+                        self.get_option("upmap_candidate_batch")),
+                    device=ms.device,
+                )
             did = res.num_changed
             for pg, items in res.new_pg_upmap_items.items():
                 plan.inc.new_pg_upmap_items[pg] = list(items)
@@ -302,6 +316,7 @@ class Balancer:
             left -= did
             if left <= 0:
                 break
+        _L.inc("upmap_changes", total_did)
         _log.debug("do_upmap: %d changes over %d pools", total_did,
                    len(pools))
         if total_did == 0:
@@ -373,6 +388,7 @@ class Balancer:
         next_ws = dict(best_ws)
         next_ow = dict(best_ow)
         while left > 0:
+            _L.inc("compat_iterations")
             self.rng.shuffle(roots)
             for root in roots:
                 target = best_pe.target_by_root[root]
@@ -439,6 +455,7 @@ class Balancer:
                 next_ow = dict(best_ow)
             elif next_pe.score > best_pe.score * 1.0001:
                 # the score got worse (module.py:1168-1178)
+                _L.inc("compat_bad_steps")
                 bad_steps += 1
                 if bad_steps < 5 and int(self.rng.integers(0, 100)) < 70:
                     pass  # take another step anyway
@@ -505,10 +522,11 @@ class Balancer:
                 f"plan epoch {inc.epoch} != map epoch {m.epoch}+1 "
                 "(map changed since the plan was computed)"
             )
-        if state is not None and state.m is m:
-            state.apply(inc)
-        else:
-            apply_incremental(m, inc)
+        with obs.span("mgr.execute", plan=plan.name, mode=plan.mode):
+            if state is not None and state.m is m:
+                state.apply(inc)
+            else:
+                apply_incremental(m, inc)
         self._diagnose_executed(plan, m, state)
         return 0, ""
 
@@ -519,7 +537,7 @@ class Balancer:
         `_diagnose_executed`).  On the state's device and tables when the
         state owns `m`, else on the plan's device.  A device error raises:
         there is no host fallback."""
-        if os.environ.get("CEPH_TPU_PLACEMENT_DIAG", "0") != "1":
+        if knobs.get("CEPH_TPU_PLACEMENT_DIAG", "0") != "1":
             return
         from ceph_tpu_torch.obs import placement
         from ceph_tpu_torch.osd.pipeline import PoolMapper

@@ -15,14 +15,19 @@ Muting mirrors `ceph health mute`: codes listed in `CEPH_TPU_HEALTH_MUTE`
 (comma-separated) still evaluate and dump, but do not count in the
 summarized status.
 
-`COUNTERS` holds the JAX package's `health` perf group's counts.  The
-Prometheus gauges are not ported.
+It books the JAX package's `health` perf group (`COUNTERS` reads it)
+and `health.raised` / `health.cleared` instants; `prometheus_gauges()`
+is the JAX exposition of the raised checks.
 """
 
 from __future__ import annotations
 
-import os
 import threading
+
+from ceph_tpu_torch.obs import trace
+from ceph_tpu_torch.obs.prometheus import escape_label
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.perf_counters import counters_attr, logger_for
 
 # The check registry: code -> what raises it (the JAX package's).
 HEALTH_CHECKS: dict[str, str] = {
@@ -44,11 +49,12 @@ WARN = "HEALTH_WARN"
 ERR = "HEALTH_ERR"
 _RANK = {OK: 0, WARN: 1, ERR: 2}
 
-#   checks_raised    health checks raised (OK->non-OK transitions)
-#   checks_cleared   health checks cleared (non-OK->OK transitions)
-#   evaluations      evaluate() calls over already-fetched state
-COUNTERS: dict[str, int] = dict.fromkeys(
-    ("checks_raised", "checks_cleared", "evaluations"), 0)
+_L = logger_for("health")
+_L.add_u64("checks_raised", "health checks raised (OK->non-OK transitions)")
+_L.add_u64("checks_cleared", "health checks cleared (non-OK->OK transitions)")
+_L.add_u64("evaluations", "evaluate() calls over already-fetched state")
+__getattr__ = counters_attr("health", __name__, (
+    "checks_raised", "checks_cleared", "evaluations"))
 
 _lock = threading.Lock()
 # code -> {"severity", "summary", "count", "detail": [..]}
@@ -56,17 +62,17 @@ _checks: dict[str, dict] = {}
 
 
 def enabled() -> bool:
-    return os.environ.get("CEPH_TPU_HEALTH", "1") != "0"
+    return knobs.get("CEPH_TPU_HEALTH", "1") != "0"
 
 
 def rank(severity: str) -> int:
     """Numeric rank of a status string (OK=0, WARN=1, ERR=2), the
-    encoding timelines record."""
+    encoding timelines and Prometheus gauges record."""
     return _RANK[severity]
 
 
 def muted() -> frozenset[str]:
-    raw = os.environ.get("CEPH_TPU_HEALTH_MUTE", "")
+    raw = knobs.get("CEPH_TPU_HEALTH_MUTE", "")
     return frozenset(c.strip() for c in raw.split(",") if c.strip())
 
 
@@ -85,8 +91,9 @@ def raise_check(code: str, severity: str, summary: str,
             "count": int(count),
             "detail": list(detail)[:8],
         }
-        if fresh:
-            COUNTERS["checks_raised"] += 1
+    if fresh:
+        _L.inc("checks_raised")
+        trace.instant("health.raised", code=code, severity=severity)
     return fresh
 
 
@@ -96,8 +103,9 @@ def clear(code: str) -> bool:
         raise KeyError(f"undeclared health check code {code!r}")
     with _lock:
         was = _checks.pop(code, None) is not None
-        if was:
-            COUNTERS["checks_cleared"] += 1
+    if was:
+        _L.inc("checks_cleared")
+        trace.instant("health.cleared", code=code)
     return was
 
 
@@ -122,8 +130,7 @@ def evaluate(*, osds_down: int = 0, osd_count: int = 0, degraded: int = 0,
     `raise_check`, and the returned status still reflects them."""
     if not enabled():
         return OK
-    with _lock:
-        COUNTERS["evaluations"] += 1
+    _L.inc("evaluations")
     _set("OSD_DOWN", osds_down > 0, WARN,
          f"{osds_down}/{osd_count} osds down", count=osds_down, detail=detail)
     _set("PG_DEGRADED", degraded > 0, WARN,
@@ -192,3 +199,27 @@ def dump() -> dict:
 def reset() -> None:
     with _lock:
         _checks.clear()
+
+
+def prometheus_gauges() -> str:
+    """`ceph_tpu_health_status` (0/1/2) plus one labelled gauge per
+    raised check.  Check summaries embed operator-visible strings, so
+    label values go through the shared escaper."""
+    snap = checks()
+    m = muted()
+    lines = [
+        "# HELP ceph_tpu_health_status cluster health (0=OK 1=WARN 2=ERR)",
+        "# TYPE ceph_tpu_health_status gauge",
+        f"ceph_tpu_health_status {_RANK[status()]}",
+        "# HELP ceph_tpu_health_check per-check count (labels: code, "
+        "severity, summary, muted)",
+        "# TYPE ceph_tpu_health_check gauge",
+    ]
+    for code, v in sorted(snap.items()):
+        lines.append(
+            f'ceph_tpu_health_check{{code="{escape_label(code)}",'
+            f'severity="{escape_label(v["severity"])}",'
+            f'summary="{escape_label(v["summary"])}",'
+            f'muted="{int(code in m)}"}} {int(v["count"])}'
+        )
+    return "\n".join(lines) + "\n"

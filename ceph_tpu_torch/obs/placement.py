@@ -9,32 +9,74 @@ invisible from the outside.  The kernel's diagnostics variant
 `PoolMapper.diagnose` reduces them to a summary; this module is where
 those summaries become operator-visible state:
 
-- `COUNTERS`, the decision tallies summed over every recorded summary
-  (the JAX package's `placement` perf group's counters, with its
-  `choose_tries` histogram as a list, index == retry count);
+- the JAX package's `placement` perf group: the decision tallies summed
+  over every recorded summary and the `choose_tries` histogram (bucket
+  value == retry count), read by `COUNTERS` (`choose_tries` there as
+  its list of buckets);
 - a per-source snapshot store (`record()` / `dump()`): the latest
   summary per producer ("pool0", "sim", "mgr.<plan>");
 - an explainer registry (`register_explainer()` / `explain()`): a
   PoolMapper publishes a host-oracle replay closure so `explain
   <pool>.<seed>` answers for the maps it serves.
 
-Prometheus gauges and the admin socket wait for the rest of `obs/`.
-No torch at module load: the summaries are plain Python here.
+`prometheus_gauges()` exposes the per-source numbers, `dump()` is the
+admin socket's `bad dump`.  No torch at module load: the summaries are
+plain Python here.  Unlike the JAX package's, `reset()` also zeroes
+the group.
 """
 
 from __future__ import annotations
 
 import threading
 
+from ceph_tpu_torch.obs.prometheus import escape_label
+from ceph_tpu_torch.utils.perf_counters import logger_for
+
 # retry counts are small non-negative ints; integer bounds make the
 # histogram exact (value == bound), and 0..63 covers every tunable
 # default (choose_total_tries=50) with headroom for SET_CHOOSE_TRIES
 TRIES_BOUNDS = list(range(64))
 
-COUNTERS: dict = dict.fromkeys((
-    "pgs_diagnosed", "bad_mappings", "retry_exhausted", "collisions",
-    "rejections_out", "skips", "unresolved_masked"), 0)
-COUNTERS["choose_tries"] = [0] * len(TRIES_BOUNDS)
+_L = logger_for("placement")
+_L.add_u64("pgs_diagnosed",
+           "PGs run through the instrumented (with_diag) pipeline")
+_L.add_u64("bad_mappings",
+           "diagnosed PGs whose CRUSH result was shorter than numrep "
+           "(the tester's bad-mapping test, on device)")
+_L.add_u64("retry_exhausted",
+           "diagnostics lanes left unplaced (-1 retry marker): the "
+           "choose walk ran out of tries or candidates")
+_L.add_u64("collisions",
+           "duplicate-item rejections across diagnosed choose draws")
+_L.add_u64("rejections_out",
+           "out-of-weight (is_out) rejections across diagnosed draws")
+_L.add_u64("skips",
+           "skip_rep draws (dead source bucket / wrong item type / "
+           "exhausted count) across diagnosed choose walks")
+_L.add_u64("unresolved_masked",
+           "diagnosed lanes excluded from the planes because the fast "
+           "window flagged them (rescued exactly elsewhere)")
+_L.add_histogram(
+    "choose_tries", TRIES_BOUNDS,
+    "per-placement retry histogram folded from the device diagnostics "
+    "planes (the reference collect_choose_tries shape; bucket value == "
+    "retry count)")
+_L.add_quantile(
+    "diagnose_seconds",
+    "instrumented-pipeline dispatch wall time per diagnose() block")
+_U64 = ("pgs_diagnosed", "bad_mappings", "retry_exhausted", "collisions",
+        "rejections_out", "skips", "unresolved_masked")
+
+
+def __getattr__(name: str):
+    """`COUNTERS`: the group's tallies, `choose_tries` as its buckets."""
+    if name == "COUNTERS":
+        d = _L.dump()
+        out = {k: d[k] for k in _U64}
+        out["choose_tries"] = d["choose_tries"]["buckets"][:len(TRIES_BOUNDS)]
+        return out
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 _lock = threading.Lock()
 _snapshots: dict[str, dict] = {}
@@ -61,47 +103,44 @@ def fold_summary(agg: dict, s: dict) -> dict:
 
 
 def record(source: str, summary: dict) -> dict:
-    """Book one diagnostics summary into COUNTERS and the snapshot
-    store.  `summary` is the plain-python dict PoolMapper.diagnose
+    """Book one diagnostics summary into the perf group and the
+    snapshot store.  `summary` is the plain-python dict PoolMapper.diagnose
     produces: pgs, bad_mappings, retry_exhausted, collisions,
     rejections, skips, unresolved, tries_histogram (list[int], index ==
     retry count), diag_exact.  Returns the summary (for chaining)."""
+    _L.inc("pgs_diagnosed", int(summary.get("pgs", 0)))
+    _L.inc("bad_mappings", int(summary.get("bad_mappings", 0)))
+    _L.inc("retry_exhausted", int(summary.get("retry_exhausted", 0)))
+    _L.inc("collisions", int(summary.get("collisions", 0)))
+    _L.inc("rejections_out", int(summary.get("rejections", 0)))
+    _L.inc("skips", int(summary.get("skips", 0)))
+    _L.inc("unresolved_masked", int(summary.get("unresolved", 0)))
+    hist = summary.get("tries_histogram")
+    if hist:
+        _L.merge_histogram("choose_tries", list(hist))
     with _lock:
-        for key, name in (("pgs_diagnosed", "pgs"),
-                          ("bad_mappings", "bad_mappings"),
-                          ("retry_exhausted", "retry_exhausted"),
-                          ("collisions", "collisions"),
-                          ("rejections_out", "rejections"),
-                          ("skips", "skips"),
-                          ("unresolved_masked", "unresolved")):
-            COUNTERS[key] += int(summary.get(name, 0))
-        hist = COUNTERS["choose_tries"]
-        for i, v in enumerate(summary.get("tries_histogram") or []):
-            if i < len(hist):
-                hist[i] += int(v)
         _snapshots[source] = dict(summary)
     return summary
 
 
 def dump() -> dict:
-    """The latest snapshot per source, the counters and the registered
-    explainers."""
+    """The daemon `bad dump` payload: latest snapshot per source plus
+    the aggregate perf-group values."""
     with _lock:
-        return {
-            "sources": {k: dict(v) for k, v in _snapshots.items()},
-            "counters": {k: list(v) if isinstance(v, list) else v
-                         for k, v in COUNTERS.items()},
-            "explainers": sorted(_explainers),
-        }
+        sources = {k: dict(v) for k, v in _snapshots.items()}
+    return {
+        "sources": sources,
+        "counters": _L.dump(),
+        "explainers": sorted(_explainers),
+    }
 
 
 def reset() -> None:
-    """Test isolation: drop snapshots and explainers, zero COUNTERS."""
+    """Test isolation: drop snapshots and explainers, zero the group."""
     with _lock:
         _snapshots.clear()
         _explainers.clear()
-        for k, v in COUNTERS.items():
-            COUNTERS[k] = [0] * len(v) if isinstance(v, list) else 0
+    _L.reset_values()
 
 
 def register_explainer(key: str, fn) -> None:
@@ -131,3 +170,36 @@ def explain(pgid: str) -> dict:
         return fn(int(x))
     except Exception as e:  # an operator's query reports, never raises
         return {"error": f"{type(e).__name__}: {e}"[:200]}
+
+
+def prometheus_gauges() -> str:
+    """Gauges for the snapshot-only numbers (per-source bad mappings /
+    retry exhaustion); the placement perf-group counters render through
+    the registry exposition."""
+    with _lock:
+        items = sorted(_snapshots.items())
+    if not items:
+        return ""
+    lines = [
+        "# HELP ceph_tpu_placement_source_bad_mappings latest diagnosed "
+        "bad-mapping count per source",
+        "# TYPE ceph_tpu_placement_source_bad_mappings gauge",
+    ]
+    for src, s in items:
+        lines.append(
+            "ceph_tpu_placement_source_bad_mappings"
+            f'{{source="{escape_label(src)}"}} '
+            f'{int(s.get("bad_mappings", 0))}'
+        )
+    lines += [
+        "# HELP ceph_tpu_placement_source_retry_exhausted latest "
+        "unplaced-lane count per source",
+        "# TYPE ceph_tpu_placement_source_retry_exhausted gauge",
+    ]
+    for src, s in items:
+        lines.append(
+            "ceph_tpu_placement_source_retry_exhausted"
+            f'{{source="{escape_label(src)}"}} '
+            f'{int(s.get("retry_exhausted", 0))}'
+        )
+    return "\n".join(lines) + "\n"

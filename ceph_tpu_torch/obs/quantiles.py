@@ -1,9 +1,9 @@
 """Log-bucketed latency quantiles: the estimator and a histogram.
 
 The port of `ceph_tpu/obs/quantiles.py` (`estimate`, `summarize`, the
-bounds), with `Quantile`, the port's stand-in for the JAX perf
-registry's `quantile` counter kind (`utils/perf_counters.py`), which the
-port has not ported: observations land in log-spaced buckets
+bounds), and `Quantile`, one standalone counter of the perf registry's
+`quantile` kind (`utils/perf_counters.py`; the kernel registry keeps one
+per kernel for its enqueue times): observations land in log-spaced buckets
 (`DEFAULT_BOUNDS`: 1 us to 100 s, 4 buckets per decade, or bounds the
 counter declares), and p50/p90/p99 are estimated when the histogram is
 dumped, by walking the cumulative counts and interpolating geometrically
@@ -18,6 +18,7 @@ sum, count, min, max, p50, p90, p99).
 from __future__ import annotations
 
 import threading
+from bisect import bisect_left
 
 # 1 µs .. 100 s, 4 buckets per decade: 33 bounds -> 34 buckets.  Spans
 # everything between a single device enqueue and a deadline-killed stage.
@@ -119,35 +120,45 @@ class Quantile:
 
     def reset(self) -> None:
         with self._lock:
-            self.buckets = [0] * (len(self.bounds) + 1)
-            self.sum = 0.0
-            self.count = 0
-            self.vmin = float("inf")
-            self.vmax = float("-inf")
+            self.reset_unlocked()
+
+    def reset_unlocked(self) -> None:
+        self.buckets = [0] * (len(self.bounds) + 1)
+        self.sum = 0.0
+        self.count = 0
+        self.vmin = float("inf")
+        self.vmax = float("-inf")
 
     def observe(self, v: float) -> None:
-        """Add one observation: bucket i is the first whose bound is at
-        least v (the last bucket is the overflow)."""
         with self._lock:
-            i = 0
-            while i < len(self.bounds) and v > self.bounds[i]:
-                i += 1
-            self.buckets[i] += 1
-            self.vmin = min(self.vmin, v)
-            self.vmax = max(self.vmax, v)
-            self.sum += v
-            self.count += 1
+            self.add(v)
+
+    def add(self, v: float) -> None:
+        """Add one observation without taking the lock (for a caller
+        that serialises its updates and dumps under its own): bucket i is
+        the first whose bound is at least v (the last bucket is the
+        overflow)."""
+        self.buckets[bisect_left(self.bounds, v)] += 1
+        if v < self.vmin:
+            self.vmin = v
+        if v > self.vmax:
+            self.vmax = v
+        self.sum += v
+        self.count += 1
 
     def dump(self) -> dict:
         with self._lock:
-            vmin = self.vmin if self.count else None
-            vmax = self.vmax if self.count else None
-            return {
-                "bounds": list(self.bounds),
-                "buckets": list(self.buckets),
-                "sum": self.sum,
-                "count": self.count,
-                "min": 0.0 if vmin is None else vmin,
-                "max": 0.0 if vmax is None else vmax,
-                **summarize(self.bounds, self.buckets, vmin, vmax),
-            }
+            return self.dump_unlocked()
+
+    def dump_unlocked(self) -> dict:
+        vmin = self.vmin if self.count else None
+        vmax = self.vmax if self.count else None
+        return {
+            "bounds": list(self.bounds),
+            "buckets": list(self.buckets),
+            "sum": self.sum,
+            "count": self.count,
+            "min": 0.0 if vmin is None else vmin,
+            "max": 0.0 if vmax is None else vmax,
+            **summarize(self.bounds, self.buckets, vmin, vmax),
+        }

@@ -17,24 +17,28 @@ continues the same recording.
 
 Recording is host-only observation of plain floats the caller already
 holds; `CEPH_TPU_TIMELINE_CAP=0` turns it off and changes no digest.
-`COUNTERS` holds the JAX package's `timeline` perf group's counts.  The
-Prometheus gauges are not ported.
+It books the JAX package's `timeline` perf group (`COUNTERS` reads
+it); `prometheus_gauges()` is the JAX exposition of the newest samples.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 
 import numpy as np
 
+from ceph_tpu_torch.obs.prometheus import escape_label
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.perf_counters import counters_attr, logger_for
+
 TIER1_FACTOR = 8  # tier-0 evictions averaged into one tier-1 sample
 
-#   samples       timeline samples recorded across all series
-#   downsamples   tier-1 samples emitted by eviction folding
-#   restores      series restored from checkpoint state
-COUNTERS: dict[str, int] = dict.fromkeys(
-    ("samples", "downsamples", "restores"), 0)
+_L = logger_for("timeline")
+_L.add_u64("samples", "timeline samples recorded across all series")
+_L.add_u64("downsamples", "tier-1 samples emitted by eviction folding")
+_L.add_u64("restores", "series restored from checkpoint state")
+__getattr__ = counters_attr("timeline", __name__, (
+    "samples", "downsamples", "restores"))
 
 _lock = threading.Lock()
 _SERIES: dict[str, "_Series"] = {}
@@ -43,7 +47,7 @@ _SERIES: dict[str, "_Series"] = {}
 def cap() -> int:
     """Per-series tier-0 ring capacity; 0 disables recording."""
     try:
-        return max(0, int(os.environ.get("CEPH_TPU_TIMELINE_CAP", "512")))
+        return max(0, int(knobs.get("CEPH_TPU_TIMELINE_CAP", "512")))
     except ValueError:
         return 512
 
@@ -166,8 +170,10 @@ def sample(series: str, values: dict[str, float]) -> int:
             s = _SERIES[series] = _Series(c)
         before = s.t1_n
         i = s.sample(values)
-        COUNTERS["samples"] += 1
-        COUNTERS["downsamples"] += s.t1_n - before
+        emitted = s.t1_n - before
+    _L.inc("samples")
+    if emitted:
+        _L.inc("downsamples", emitted)
     return i
 
 
@@ -213,9 +219,41 @@ def restore(series: str, st: dict) -> None:
     with _lock:
         s = _SERIES[series] = _Series(cap())
         s.restore(st)
-        COUNTERS["restores"] += 1
+    _L.inc("restores")
 
 
 def reset() -> None:
     with _lock:
         _SERIES.clear()
+
+
+def prometheus_gauges() -> str:
+    """Per-series sample totals plus the newest value of every field."""
+    with _lock:
+        names = sorted(_SERIES)
+        if not names:
+            return ""
+        counts = {name: _SERIES[name].n for name in names}
+    lines = [
+        "# HELP ceph_tpu_timeline_samples samples recorded per series",
+        "# TYPE ceph_tpu_timeline_samples gauge",
+    ]
+    for name in names:
+        lines.append(
+            f'ceph_tpu_timeline_samples{{series="{escape_label(name)}"}} '
+            f"{counts[name]}"
+        )
+    lines += [
+        "# HELP ceph_tpu_timeline_last newest sample value per series/field",
+        "# TYPE ceph_tpu_timeline_last gauge",
+    ]
+    for name in names:
+        i, vals = last(name)
+        if i < 0:
+            continue
+        for field, v in vals.items():
+            lines.append(
+                f'ceph_tpu_timeline_last{{series="{escape_label(name)}",'
+                f'field="{escape_label(field)}"}} {v!r}'
+            )
+    return "\n".join(lines) + "\n"

@@ -19,6 +19,12 @@ PG, padded to the width with ITEM_NONE (tests/test_torch_pipeline.py).
 `PoolMapper.diagnose` runs stages 1-2 through the rule kernel's
 diagnostics variant (`crush.mapper.diag_rule`) and reduces its decision
 planes on the device to the JAX package's placement-diagnostics summary.
+
+The mapper books the JAX package's `pipeline` perf group (`pgs_mapped`,
+`map_block_seconds`: the host time of one block's enqueue) and spans
+(`pipeline.map_block`, `pipeline.diagnose`, `pipeline.fetch`).  Every
+lane is exact, so `unresolved_pgs` and `rescue_invocations` stay 0: the
+kernel has no fast window to rescue from.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.core.intmath import pg_mask_for, stable_mod
 from ceph_tpu_torch.core.rjenkins import M32, crush_hash32_2
@@ -47,6 +54,17 @@ from ceph_tpu_torch.osd.osdmap import (
     OSDMap,
 )
 from ceph_tpu_torch.osd.types import FLAG_HASHPSPOOL, PgId
+
+_L = obs.logger_for("pipeline")
+_L.add_u64("pgs_mapped",
+           "placement seeds mapped through the batched pipeline")
+_L.add_u64("unresolved_pgs",
+           "fast-window inconclusive lanes (exact-loop rescued)")
+_L.add_u64("rescue_invocations", "loop-kernel rescue passes")
+_L.add_quantile("map_block_seconds",
+                "per-block map_block dispatch wall-time distribution "
+                "(host enqueue time of the block's kernel launches and "
+                "torch ops; p50/p99 in the dump)")
 
 
 @dataclass(frozen=True)
@@ -432,11 +450,20 @@ class PoolMapper:
             acting_primary = torch.where(pt >= 0, pt, up_primary)
         return up, up_primary, acting, acting_primary
 
+    def _map_block(self, ps: torch.Tensor, **span_args):
+        """_rows(ps) as one accounted block (dispatch only: no host
+        sync inside the span)."""
+        n = ps.numel()
+        with obs.span("pipeline.map_block", pgs=n, **span_args), \
+                _L.time("map_block_seconds"):
+            out = tuple(t.to(torch.int32) for t in self._rows(ps))
+        _L.inc("pgs_mapped", n)
+        return out
+
     def map_batch(self, ps):
         """Map a batch of placement seeds.  Returns numpy int32
         (up[N,W], up_primary[N], acting[N,W], acting_primary[N])."""
-        out = self._rows(self._seeds(ps))
-        return tuple(t.to(torch.int32).cpu().numpy() for t in out)
+        return obs.timed_fetch(_L, "result", self._map_block(self._seeds(ps)))
 
     def map_all(self):
         """`map_batch` of every PG of the pool."""
@@ -446,7 +473,7 @@ class PoolMapper:
         """(up, up_primary, acting, acting_primary) of every PG of the
         pool, int32 tensors left on the mapper's device."""
         ps = torch.arange(self.spec.pg_num, device=self.device)
-        return tuple(t.to(torch.int32) for t in self._rows(ps))
+        return self._map_block(ps, device_resident=True)
 
     def map_all_device(self) -> torch.Tensor:
         """`up` rows [pg_num, W] of every PG of the pool, as an int32
@@ -458,14 +485,21 @@ class PoolMapper:
             raise ValueError("map_all_device is an overlay-free path: "
                              "build the PoolMapper with overlays=False")
         ps = torch.arange(self.spec.pg_num, device=self.device)
-        return self._up(ps, {})[0].to(torch.int32)
+        with obs.span("pipeline.map_block", pgs=ps.numel(),
+                      device_resident=True), _L.time("map_block_seconds"):
+            up = self._up(ps, {})[0].to(torch.int32)
+        _L.inc("pgs_mapped", ps.numel())
+        return up
 
     def raw_rows(self, seeds) -> np.ndarray:
         """The rows before the overlays, [K, out_width] int32 numpy:
         equal to `OSDMap._pg_to_raw_osds` (descent + nonexistent-OSD
         removal), NONE-padded."""
-        _, raw = self._raw(self._seeds(seeds))
-        return raw.to(torch.int32).cpu().numpy()
+        ps = self._seeds(seeds)
+        with obs.span("pipeline.map_block", pgs=ps.numel(), raw=True):
+            raw = self._raw(ps)[1].to(torch.int32)
+        with obs.span("pipeline.fetch"):
+            return raw.cpu().numpy()
 
     def diagnose(self, ps=None, source: str | None = None,
                  record: bool = True) -> dict:
@@ -483,6 +517,8 @@ class PoolMapper:
         "pool<id>") with this mapper's explainer unless record=False."""
         from ceph_tpu_torch.obs import placement
 
+        PL = obs.logger_for("placement")
+
         if ps is None:
             ps = torch.arange(self.spec.pg_num, device=self.device)
         else:
@@ -496,9 +532,12 @@ class PoolMapper:
         if prog is not None:
             retry = torch.from_numpy(prog.diag_retry_lanes).to(self.device)
             for i in range(0, n, BLOCK):
-                pps = self.placement_seeds(ps[i:i + BLOCK])
-                _, dg = diag_rule(self.tables, prog, pps,
-                                  self.rule_weights())
+                with obs.span("pipeline.diagnose",
+                              pgs=min(BLOCK, n - i)), \
+                        PL.time("diagnose_seconds"):
+                    pps = self.placement_seeds(ps[i:i + BLOCK])
+                    _, dg = diag_rule(self.tables, prog, pps,
+                                      self.rule_weights())
                 hist += reduce.value_histogram(dg["tries"], bound)
                 sums += torch.stack([
                     dg["coll"].long().sum(), dg["rej"].long().sum(),
@@ -506,8 +545,9 @@ class PoolMapper:
                     ((dg["tries"] < 0) & retry).sum()])
         else:  # no rule: every PG trivially bad, nothing decided
             sums[3] = n
-        hist_v = hist.cpu().tolist()
-        coll, rej, skip, bad, exhausted = sums.cpu().tolist()
+        with obs.span("pipeline.fetch"):
+            hist_v = hist.cpu().tolist()
+            coll, rej, skip, bad, exhausted = sums.cpu().tolist()
         summary = {
             "pgs": n,
             "pool_id": self.pool_id,

@@ -34,7 +34,9 @@ Overlay fixups take the raw rows of the overlay PGs from the rule kernel
 when a descent input changed, and replay the cheap host steps (upmap, the
 up filter, primary affinity) on those few rows.
 
-`COUNTERS` holds the JAX package's `state` perf group's seven counts.
+It books the JAX package's `state` perf group (`COUNTERS` reads its
+seven counts) and spans (`state.apply`, `state.rebuild`, `state.rows`,
+`state.raw_fixup`).
 CEPH_TPU_STATE_DELTA=0 in the environment makes every apply rebuild: the
 A/B lever of the delta-versus-rebuild tests.
 
@@ -46,11 +48,11 @@ deferred re-key after a lost device (a device error raises).
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.osd.incremental import Incremental, apply_incremental
@@ -61,27 +63,41 @@ from ceph_tpu_torch.osd.osdmap import (
     OSDMap,
 )
 from ceph_tpu_torch.osd.types import PgId
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
-# the JAX package's `state` perf counters:
-#   delta_applies     value-only Incrementals applied in O(delta)
-#   full_rebuilds     builds and structural (or forced) rebuilds
-#   device_put_bytes  host-to-device bytes of state maintenance: a delta
-#                     counts its scatter block, a rebuild its vectors and
-#                     tables
-#   rows_served       rows() calls answered from the version-tagged cache
-#   rows_remapped     rows() calls that mapped the pool again
-#   raw_refreshes     overlay raw-row refreshes (one rule launch each)
-#   value_forks       value-only forks
-COUNTERS: dict[str, int] = dict.fromkeys((
-    "delta_applies", "full_rebuilds", "device_put_bytes", "rows_served",
-    "rows_remapped", "raw_refreshes", "value_forks"), 0)
+# the JAX package's `state` perf group (device_put_bytes: a delta counts
+# its scatter block, a rebuild its vectors and tables; raw_refreshes: one
+# rule launch each)
+_L = obs.logger_for("state")
+_L.add_u64("delta_applies",
+           "value-only Incrementals applied in O(delta) on device "
+           "(scatter into the resident operand tables, no re-key)")
+_L.add_u64("full_rebuilds",
+           "structural (or forced) rebuilds: CRUSH arrays rebuilt, "
+           "operand tables re-uploaded, mappers reconstructed")
+_L.add_u64("device_put_bytes",
+           "host->device bytes moved by state maintenance (delta: the "
+           "scatter index/value blocks; rebuild: the full tables)")
+_L.add_u64("rows_served",
+           "rows() calls answered from the version-tagged cache")
+_L.add_u64("rows_remapped",
+           "rows() calls that re-dispatched the pool mapping")
+_L.add_u64("raw_refreshes",
+           "raw-kernel refreshes of overlay-carrying PGs' descent rows")
+_L.add_u64("value_forks",
+           "value-only forks (shared structure, copied value operands)")
+_L.add_quantile("apply_seconds", "ClusterState.apply wall time")
+_KEYS = ("delta_applies", "full_rebuilds", "device_put_bytes",
+         "rows_served", "rows_remapped", "raw_refreshes", "value_forks")
+__getattr__ = counters_attr("state", __name__, _KEYS)
 
 _DELTA_PAD = 32  # scatter index blocks pad to multiples of this
 _HOST_UP_MEMO = 4096  # host_up's memo of host descents, cleared when full
 
 
 def _inc(name: str, n: int = 1) -> None:
-    COUNTERS[name] += int(n)
+    _L.inc(name, int(n))
 
 
 # ----------------------------------------------------------- classification
@@ -238,18 +254,21 @@ class ClusterState:
     def __init__(self, m: OSDMap, device=None):
         self.device = resolve_device(device)
         self.m = m
-        self.delta_enabled = os.environ.get("CEPH_TPU_STATE_DELTA",
-                                            "1") != "0"
+        self.delta_enabled = knobs.get("CEPH_TPU_STATE_DELTA", "1") != "0"
         self._vec_ver = 0
         self._raw_ver = 0
         self._overlay_ver: dict[int, int] = {}
-        self.full_rebuilds = 0  # per instance (COUNTERS is per process)
+        self.full_rebuilds = 0  # per instance (the group is per process)
         self.delta_applies = 0
         self._build()
 
     # -- build / rebuild ---------------------------------------------------
 
     def _build(self) -> None:
+        with obs.span("state.rebuild", epoch=self.m.epoch):
+            self._build_inner()
+
+    def _build_inner(self) -> None:
         _inc("full_rebuilds")
         self.full_rebuilds += 1
         self._arrays: dict = {}   # ca_key -> CrushArrays
@@ -373,6 +392,13 @@ class ClusterState:
         if ent is not None and ent[0] == tag:
             _inc("rows_served")
             return ent[1], ent[2], tag
+        with obs.span("state.rows", pool=pid):
+            rows, skey = self._remap(pid)
+        self._rows[pid] = (tag, rows, skey)
+        _inc("rows_remapped")
+        return rows, skey, tag
+
+    def _remap(self, pid: int):
         pm = self.mapper(pid)
         pm.refresh_dev()
         base_ent = self._base.get(pid)
@@ -391,9 +417,7 @@ class ClusterState:
                                    device=rows.device),
                 torch.from_numpy(np.stack([fix[s] for s in seeds])).to(
                     rows.device))
-        self._rows[pid] = (tag, rows, skey)
-        _inc("rows_remapped")
-        return rows, skey, tag
+        return rows, skey
 
     def _fixups(self, pid: int, pm, width: int) -> dict:
         """{seed: host-exact up row} of the pool's upmap-carrying PGs: the
@@ -422,7 +446,8 @@ class ClusterState:
         ent = self._raw.get(pid)
         if ent is not None and ent[0] == key:
             return ent[1]
-        rows = pm.raw_rows(np.asarray(seeds, np.int64))
+        with obs.span("state.raw_fixup", pool=pid, seeds=len(seeds)):
+            rows = pm.raw_rows(np.asarray(seeds, np.int64))
         self._raw[pid] = (key, rows)
         _inc("raw_refreshes")
         return rows
@@ -483,6 +508,11 @@ class ClusterState:
         delta.  Returns "delta" (value-only, O(delta) device work),
         "rebuild" (structural) or "forced_rebuild" (a value-only delta
         rebuilt because CEPH_TPU_STATE_DELTA=0)."""
+        with obs.span("state.apply", epoch=inc.epoch), \
+                _L.time("apply_seconds"):
+            return self._apply(inc)
+
+    def _apply(self, inc: Incremental) -> str:
         kind, info = classify_incremental(inc, self.m)
         m2 = apply_incremental(self.m, inc)
         if m2 is not self.m:
@@ -672,7 +702,7 @@ class ClusterState:
 
     def counters(self) -> dict:
         """The process-wide `state` counts (COUNTERS)."""
-        return dict(COUNTERS)
+        return __getattr__("COUNTERS")
 
 
 __all__ = [

@@ -44,8 +44,8 @@ serves the "ref" backend.  The backlog vectors live on the state's
 device epoch to epoch; the numpy mirror is fetched only when a caller
 reads it (checkpoint, the durability pass, the summary).
 
-`COUNTERS` holds the JAX package's `recovery` perf group's counts, plus
-`device_drains` (torch-op drains run).
+It books the JAX package's `recovery` perf group, plus `device_drains`
+(torch-op drains run); `COUNTERS` reads its counts.
 """
 
 from __future__ import annotations
@@ -55,20 +55,38 @@ import base64
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.crush.types import ITEM_NONE
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
-#   enqueued_bytes           recovery bytes queued by moved-in lanes
-#   drained_bytes            recovery bytes drained by per-OSD streams
-#   completed_pgs            PG recoveries that fully drained in an epoch
-#   queued_pg_epochs         PG-epochs spent with a nonzero backlog
-#   fallbacks                always 0: the port has no host degradation
-#   conservation_violations  epochs where prev + enqueued != drained +
-#                            backlog
-#   device_drains            drain_pool_torch calls (one per pool-epoch
-#                            with work)
-COUNTERS: dict[str, int] = dict.fromkeys((
+_L = obs.logger_for("recovery")
+_L.add_u64("enqueued_bytes",
+           "recovery bytes queued by moved-in replica lanes")
+_L.add_u64("drained_bytes",
+           "recovery bytes drained by per-OSD slot-limited streams")
+_L.add_u64("completed_pgs",
+           "PG recoveries that fully drained within an epoch")
+_L.add_u64("queued_pg_epochs",
+           "PG-epochs spent with a nonzero recovery backlog")
+_L.add_u64("fallbacks",
+           "recovery drains degraded to the host mirror after a device "
+           "loss (always 0: the port has no host degradation)")
+_L.add_u64("conservation_violations",
+           "epochs where prev_backlog + enqueued != drained + backlog "
+           "(also booked as a sim invariant violation)")
+_L.add_avg("backlog_bytes",
+           "end-of-epoch total recovery backlog (one observation per "
+           "epoch)")
+_L.add_avg("streams",
+           "concurrent recovery streams granted per epoch")
+_L.add_quantile("drain_seconds",
+                "wall time of one epoch's recovery drain (all pools: "
+                "launch + scalar fetch, or the numpy mirror)")
+_L.add_u64("device_drains",
+           "drain_pool_torch calls (one per pool-epoch with work)")
+__getattr__ = counters_attr("recovery", __name__, (
     "enqueued_bytes", "drained_bytes", "completed_pgs", "queued_pg_epochs",
-    "fallbacks", "conservation_violations", "device_drains"), 0)
+    "fallbacks", "conservation_violations", "device_drains"))
 
 
 def stream_bytes_per_epoch(recovery_mbps: float, t_us: int,
@@ -175,7 +193,7 @@ def drain_pool_torch(backlog, moved, rows, cap, slots, *, shard_bytes: int,
     end).  `moved` may be None (nothing moved).  Returns (new_backlog,
     new_cap, new_slots, scalars int64 [7] in DRAIN_KEYS order, still on
     the device).  No input is written: every output is a new tensor."""
-    COUNTERS["device_drains"] += 1
+    _L.inc("device_drains")
     dev = rows.device
     N = rows.shape[0]
     DV = cap.shape[0]
@@ -373,12 +391,13 @@ class RecoveryQueue:
         self.totals["completed"] += scalars["completed"]
         self.totals["risk_us"] += scalars["risk_us"]
         self.totals["queued_pg_epochs"] += scalars["queued"]
-        COUNTERS["enqueued_bytes"] += scalars["enqueued"]
-        COUNTERS["drained_bytes"] += scalars["drained"]
-        COUNTERS["completed_pgs"] += scalars["completed"]
-        COUNTERS["queued_pg_epochs"] += scalars["queued"]
+        _L.inc("enqueued_bytes", int(scalars["enqueued"]))
+        _L.inc("drained_bytes", int(scalars["drained"]))
+        _L.inc("completed_pgs", int(scalars["completed"]))
+        _L.inc("queued_pg_epochs", int(scalars["queued"]))
+        _L.observe("streams", scalars["streams"])
         if not conserved:
-            COUNTERS["conservation_violations"] += 1
+            _L.inc("conservation_violations")
             self.conservation_violations += 1
         return conserved
 
@@ -387,6 +406,7 @@ class RecoveryQueue:
         self.backlog_peak = max(self.backlog_peak, total)
         self.queue_peak = max(self.queue_peak, self._epoch_queue)
         self._epoch_queue = 0
+        _L.observe("backlog_bytes", total)
         return total
 
     # -- checkpoint --------------------------------------------------------

@@ -38,8 +38,9 @@ armed spec gives the same fire/skip sequence in every process.  A skipped
 hit consumes no `xN` budget, and when both a qualified and a bare fault
 are armed the most specific match decides alone.
 
-Every firing adds one to `COUNTERS["faults_fired"]` (the JAX package's
-`runtime` perf group's counter).
+Every firing books `faults_fired` in the JAX package's `runtime` perf
+group (declared at the first firing, as there; `COUNTERS` reads it),
+emits a `fault.fired` instant and logs at runtime level 1.
 """
 
 from __future__ import annotations
@@ -49,7 +50,12 @@ import re
 import threading
 import time
 
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.dout import subsys_logger
+from ceph_tpu_torch.utils.perf_counters import counters_attr, logger_for
+
 ENV_VAR = "CEPH_TPU_FAULTS"
+_log = subsys_logger("runtime")
 
 # The declared fault points, as in the JAX package.  The port's lifetime
 # simulator checks `lifetime_step`, `epoch_apply`, `recovery_step` and
@@ -77,7 +83,7 @@ FAULT_POINTS: dict[str, str] = {
                   "new buffer is built (qualifier: target epoch)",
 }
 
-COUNTERS: dict[str, int] = {"faults_fired": 0}
+__getattr__ = counters_attr("runtime", __name__, ("faults_fired",))
 
 _lock = threading.Lock()
 
@@ -232,8 +238,11 @@ def check(point: str, qual: str | None = None) -> None:
     if hit is None:
         return
     key, f = hit
-    with _lock:
-        COUNTERS["faults_fired"] += 1
+    from ceph_tpu_torch.obs import trace
+
+    _rt_counters().inc("faults_fired")
+    trace.instant("fault.fired", point=key, action=f.action)
+    _log(1, f"fault point {key} fired: {f.action}:{f.arg}")
     if f.action in ("hang", "stall", "overrun"):
         time.sleep(float(f.arg or 1.0))
     elif f.action == "fail":
@@ -255,5 +264,11 @@ def active() -> dict[str, str]:
         }
 
 
+def _rt_counters():
+    L = logger_for("runtime")
+    L.add_u64("faults_fired", "armed fault points that fired")
+    return L
+
+
 # arm from the environment at import: a subprocess inherits the spec
-configure(os.environ.get(ENV_VAR))
+configure(knobs.get("CEPH_TPU_FAULTS"))

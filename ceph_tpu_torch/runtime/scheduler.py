@@ -7,43 +7,24 @@ mid-flush leaves the previous complete file.  The lifetime simulator
 keeps its whole state under the `"lifetime"` key in the JAX package's
 layout, so each package resumes the other's file.
 
-Each flush embeds a snapshot of the port's counters (`COUNTERS` of
-`osd.state`, `runtime.faults`, `recovery.queue`, `sim.workload`,
-`sim.lifetime` and `fleet.engine`, where those modules are loaded) under `"perf"`, where
-the JAX file embeds its perf registry.  The deadline-budgeted
-`StageScheduler`, the backend ladder and the preflight probe are not
-ported.
+Each flush embeds `obs.perf_dump()` under `"perf"`, keyed by perf group
+as the JAX file's is, and writes the trace file when tracing is on.
+The deadline-budgeted `StageScheduler`, the backend ladder and the
+preflight probe are not ported.
 """
 
 from __future__ import annotations
 
 import json
-import sys
 import threading
 from pathlib import Path
 
-# modules whose COUNTERS a flush snapshots (those already imported)
-_COUNTER_MODULES = (
-    "ceph_tpu_torch.osd.state",
-    "ceph_tpu_torch.runtime.faults",
-    "ceph_tpu_torch.recovery.queue",
-    "ceph_tpu_torch.sim.workload",
-    "ceph_tpu_torch.sim.lifetime",
-    "ceph_tpu_torch.fleet.engine",
-    "ceph_tpu_torch.obs.health",
-    "ceph_tpu_torch.obs.timeline",
-)
+from ceph_tpu_torch.utils.perf_counters import perf_dump
 
 
 def perf_snapshot() -> dict:
-    """{group: counters} of the loaded port modules that keep COUNTERS."""
-    out = {}
-    for name in _COUNTER_MODULES:
-        mod = sys.modules.get(name)
-        c = getattr(mod, "COUNTERS", None)
-        if isinstance(c, dict):
-            out[name.rsplit(".", 1)[-1]] = json.loads(json.dumps(c))
-    return out
+    """The perf registry (`perf_dump()`), as a Checkpoint embeds it."""
+    return json.loads(json.dumps(perf_dump()))
 
 
 class Checkpoint:
@@ -94,8 +75,18 @@ class Checkpoint:
             self.flush()
 
     def flush(self) -> None:
+        from ceph_tpu_torch.obs import trace
+
         with self._lock:
             self.data["perf"] = perf_snapshot()
+            try:
+                # a run killed later keeps the spans recorded so far
+                tp = trace.flush()
+                if tp:
+                    self.data["trace"] = tp
+            except OSError as e:
+                # a bad CEPH_TPU_TRACE path must not kill the run
+                self.data["trace_error"] = f"{type(e).__name__}: {e}"[:200]
             tmp = self.path.with_suffix(".tmp")
             tmp.write_text(json.dumps(self.data))
             tmp.replace(self.path)

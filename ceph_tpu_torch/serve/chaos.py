@@ -38,6 +38,7 @@ import time
 
 import numpy as np
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.obs import health, timeline
 from ceph_tpu_torch.serve import service
 from ceph_tpu_torch.serve.service import PlacementService, ServeConfig
@@ -204,47 +205,48 @@ def run_chaos(scenario: str | None = None, epochs: int | None = None,
     try:
         for c in pool_threads:
             c.thread.start()
-        if sim is not None:
-            for ep in range(sc.epochs):
-                step = sim.step()
-                r = svc.adopt_map(sim.m, reason=step["event"])
-                if r["ok"]:
-                    swaps_ok += 1
-                else:
-                    swaps_rejected += 1
-                # let at least one client batch land per epoch so
-                # every epoch's map actually served traffic
-                time.sleep(settle_s)
-                if background_every and \
-                        (ep + 1) % background_every == 0:
-                    # a live background balancing round between
-                    # swaps, with the clients still querying
-                    bg_rounds.append(svc.background_balance())
-            # post-churn grace: the control plane goes quiet and
-            # the clients get the final map to themselves, so the
-            # summary always carries served-ok samples.  If churn
-            # left the SLO story mid-episode (nothing scored yet, a
-            # burn open, or breaches still in the fast window),
-            # hold the quiet load — bounded — until the engine sees
-            # a clean fast window: the raise->clear transition is
-            # part of the recorded trajectory, not a truncated
-            # cliffhanger
-            def _episode_open() -> bool:
-                if not health.enabled():
-                    return False
-                st = svc.slo.status()
-                return (svc.slo.samples == 0 or st["burning"]
-                        or st["fast_burn"] > 0)
+        with obs.span("serve.chaos", epochs=sc.epochs):
+            if sim is not None:
+                for ep in range(sc.epochs):
+                    step = sim.step()
+                    r = svc.adopt_map(sim.m, reason=step["event"])
+                    if r["ok"]:
+                        swaps_ok += 1
+                    else:
+                        swaps_rejected += 1
+                    # let at least one client batch land per epoch so
+                    # every epoch's map actually served traffic
+                    time.sleep(settle_s)
+                    if background_every and \
+                            (ep + 1) % background_every == 0:
+                        # a live background balancing round between
+                        # swaps, with the clients still querying
+                        bg_rounds.append(svc.background_balance())
+                # post-churn grace: the control plane goes quiet and
+                # the clients get the final map to themselves, so the
+                # summary always carries served-ok samples.  If churn
+                # left the SLO story mid-episode (nothing scored yet, a
+                # burn open, or breaches still in the fast window),
+                # hold the quiet load — bounded — until the engine sees
+                # a clean fast window: the raise->clear transition is
+                # part of the recorded trajectory, not a truncated
+                # cliffhanger
+                def _episode_open() -> bool:
+                    if not health.enabled():
+                        return False
+                    st = svc.slo.status()
+                    return (svc.slo.samples == 0 or st["burning"]
+                            or st["fast_burn"] > 0)
 
-            grace_end = time.perf_counter() + max(10 * settle_s, 0.3)
-            slo_end = time.perf_counter() + 30.0
-            while time.perf_counter() < grace_end or (
-                    _episode_open()
-                    and time.perf_counter() < slo_end):
-                time.sleep(settle_s)
-        else:
-            # resumed service: a short verification load, no churn
-            time.sleep(max(10 * settle_s, 0.2))
+                grace_end = time.perf_counter() + max(10 * settle_s, 0.3)
+                slo_end = time.perf_counter() + 30.0
+                while time.perf_counter() < grace_end or (
+                        _episode_open()
+                        and time.perf_counter() < slo_end):
+                    time.sleep(settle_s)
+            else:
+                # resumed service: a short verification load, no churn
+                time.sleep(max(10 * settle_s, 0.2))
     finally:
         stop.set()
         for c in pool_threads:

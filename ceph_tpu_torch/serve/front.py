@@ -34,14 +34,13 @@ is a latency decision, never a correctness one.
 from __future__ import annotations
 
 import logging
-import os
 import threading
 import time
 
 import numpy as np
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.crush.types import ITEM_NONE
-from ceph_tpu_torch.obs import quantiles
 from ceph_tpu_torch.osd.incremental import Incremental
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.serve.service import (
@@ -53,28 +52,36 @@ from ceph_tpu_torch.serve.service import (
     _SERVICES,
     _services_lock,
 )
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
 _log = logging.getLogger("ceph_tpu_torch.serve")
 
-# the front's keys of the JAX package's `serve` perf group:
-#   front_blocks           bulk blocks routed through a ServeFront
-#   front_shed_routes      lanes remapped away from an excluded (staging
-#                          or shed) replica; every other lane kept its
-#                          placement
-#   front_replica_sheds    slowest-replica shed transitions
-#   front_staggered_swaps  epoch fan-outs completed (replicas staged
-#                          strictly one at a time)
-COUNTERS: dict[str, int] = dict.fromkeys(
-    ("front_blocks", "front_shed_routes", "front_replica_sheds",
-     "front_staggered_swaps"), 0)
-# client-visible seconds of one bulk block through the front
-BLOCK_SECONDS = quantiles.Quantile()
-_counter_lock = threading.Lock()
+# the front's keys of the JAX package's `serve` perf group
+_L = obs.logger_for("serve")
+_L.add_u64("front_blocks", "bulk blocks routed through a ServeFront")
+_L.add_u64("front_shed_routes",
+           "lanes remapped away from an excluded (staging or shed) "
+           "replica by the rendezvous exclusion property — every other "
+           "lane kept its placement")
+_L.add_u64("front_replica_sheds",
+           "slowest-replica shed transitions: a replica's per-lane "
+           "latency EWMA breached SHED_FACTOR x the fastest and it "
+           "left the routing set for a probe interval")
+_L.add_u64("front_staggered_swaps",
+           "epoch fan-outs completed by a front (replicas staged "
+           "strictly one at a time, each excluded from routing while "
+           "staging)")
+_L.add_quantile("front_block_seconds",
+                "client-visible latency of one bulk block through the "
+                "front (route + replica sub-blocks + merge)")
+__getattr__ = counters_attr("serve", __name__, (
+    "front_blocks", "front_shed_routes", "front_replica_sheds",
+    "front_staggered_swaps"))
 
 
 def _inc(name: str, n: int = 1) -> None:
-    with _counter_lock:
-        COUNTERS[name] += int(n)
+    _L.inc(name, int(n))
 
 
 # a replica is shed when its per-lane latency EWMA exceeds SHED_FACTOR
@@ -107,7 +114,7 @@ class ServeFront:
                  config: ServeConfig | None = None,
                  name: str = "front", device=None):
         if replicas is None:
-            replicas = int(os.environ.get("CEPH_TPU_SERVE_REPLICAS", "2"))
+            replicas = int(knobs.get("CEPH_TPU_SERVE_REPLICAS", "2"))
         if replicas < 1:
             raise ValueError("a front needs at least one replica")
         self.name = name
@@ -203,34 +210,36 @@ class ServeFront:
         source = ""
         errors: list[str] = []
         epoch = 0
-        for i in eligible:
-            mask = owners == i
-            lanes = int(mask.sum())
-            if not lanes:
-                continue
-            t_r = time.perf_counter()
-            r = self.replicas[i].query_block(
-                pool, seeds[mask], deadline_s)
-            self._observe_replica(
-                i, time.perf_counter() - t_r, lanes, t0)
-            statuses[mask] = r.statuses
-            if r.up is not None:
-                if up is None:
-                    w = r.up.shape[1]
-                    up = np.full((n, w), ITEM_NONE, np.int32)
-                    upp = np.full(n, -1, np.int32)
-                    act = np.full((n, w), ITEM_NONE, np.int32)
-                    actp = np.full(n, -1, np.int32)
-                up[mask] = r.up
-                upp[mask] = r.up_primary
-                act[mask] = r.acting
-                actp[mask] = r.acting_primary
-            source = source or r.source
-            if r.error:
-                errors.append(r.error)
-            epoch = max(epoch, r.epoch)
+        with obs.span("serve.front", lookups=n, pool=pool,
+                      replicas=len(eligible)):
+            for i in eligible:
+                mask = owners == i
+                lanes = int(mask.sum())
+                if not lanes:
+                    continue
+                t_r = time.perf_counter()
+                r = self.replicas[i].query_block(
+                    pool, seeds[mask], deadline_s)
+                self._observe_replica(
+                    i, time.perf_counter() - t_r, lanes, t0)
+                statuses[mask] = r.statuses
+                if r.up is not None:
+                    if up is None:
+                        w = r.up.shape[1]
+                        up = np.full((n, w), ITEM_NONE, np.int32)
+                        upp = np.full(n, -1, np.int32)
+                        act = np.full((n, w), ITEM_NONE, np.int32)
+                        actp = np.full(n, -1, np.int32)
+                    up[mask] = r.up
+                    upp[mask] = r.up_primary
+                    act[mask] = r.acting
+                    actp[mask] = r.acting_primary
+                source = source or r.source
+                if r.error:
+                    errors.append(r.error)
+                epoch = max(epoch, r.epoch)
         _inc("front_blocks")
-        BLOCK_SECONDS.observe(time.perf_counter() - t0)
+        _L.observe("front_block_seconds", time.perf_counter() - t0)
         return BulkReply(statuses, epoch=epoch or self.epoch,
                          source=source, up=up, up_primary=upp,
                          acting=act, acting_primary=actp,
@@ -323,9 +332,8 @@ class ServeFront:
     # -- introspection / lifecycle ----------------------------------------
 
     def status(self) -> dict:
-        with _counter_lock:
-            d = dict(COUNTERS)
-        fb = BLOCK_SECONDS.dump()
+        d = _L.dump()
+        fb = d["front_block_seconds"]
         with self._route_lock:
             shed = [i for i, t in enumerate(self._shed_until)
                     if t > time.perf_counter()]

@@ -62,12 +62,12 @@ shape; a device loss answers EFAULT where the JAX service answers
 through the host oracle for `degraded_batches` batches (no such knob,
 no `degraded_batches_left`; `degraded_answered` stays 0); a failed
 stage is never served "without ClusterState": the first stage raises,
-a later one is a rejected swap.  The perf group
-is `COUNTERS` plus the `obs.quantiles.Quantile` histograms of
-`QUANTILES` (`dump()` has the JAX group's layout for them; the JAX
-group's averages are the quantiles' sum / count).  The device mesh and
-the admin socket's `serve status` command are not ported (`status_dump`
-is).
+a later one is a rejected swap.  The service books
+the JAX package's `serve` perf group (`dump()`; `COUNTERS` reads its
+counts) and spans (`serve.batch`, `serve.bulk`, `serve.swap`,
+`serve.background_balance`, the swap and device instants); the admin
+socket's `serve status` is `status_dump()`.  The device mesh is not
+ported.
 """
 
 from __future__ import annotations
@@ -76,8 +76,6 @@ import base64
 import contextlib
 import copy
 import logging
-import os
-import sys
 import threading
 import time
 from collections import deque
@@ -86,6 +84,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.obs import health, quantiles, timeline
@@ -94,81 +93,104 @@ from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import PgId
 from ceph_tpu_torch.runtime import Checkpoint, faults
 from ceph_tpu_torch.serve.slo import SloEngine
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
 _log = logging.getLogger("ceph_tpu_torch.serve")
 
-# the JAX package's `serve` perf group (u64 counters):
-#   queries                 queries answered ok
-#   queries_shed            queries refused at admission with EBUSY
-#   queries_expired         queries answered ETIMEDOUT
-#   degraded_answered       queries answered by the host oracle after a
-#                           device loss: 0 in the port (the JAX layout)
-#   batches                 micro-batches dispatched to the mapper
-#   epoch_swaps             epoch swaps applied (staged + flipped)
-#   swap_rejected           epoch swaps refused, the old epoch serving on
-#   device_recoveries       dispatches answered on the device after a
-#                           recorded device loss
-#   swap_delta_applies      value-only swaps staged by ClusterState fork
-#   swap_full_restages      structural swaps staged from scratch
-#   serve_checkpoints       epoch+map checkpoints flushed
-#   bulk_blocks             bulk blocks answered on the caller's thread
-#   bulk_lookups            lookups submitted through the bulk edge
-#   structural_swap_stalls  structural flips past STRUCTURAL_STALL_BOUND_S
-#   warm_stages             structural stagings run off the reader path
-#   background_rounds       background balancing rounds
-#   background_changes      upmap changes they applied
-#   background_stale_plans  plans discarded because an epoch flipped in
-COUNTERS: dict[str, int] = dict.fromkeys((
+# the JAX package's `serve` perf group (the front's keys are declared in
+# front.py); `degraded_answered` stays 0 (a device loss answers EFAULT)
+# and `prewarmed_structures` is absent (nothing to pre-trace)
+_L = obs.logger_for("serve")
+_L.add_u64("queries", "queries answered ok (device or degraded host path)")
+_L.add_u64("queries_shed",
+           "queries refused at admission with an EBUSY reply (bounded "
+           "queue full — shed, not queued into collapse)")
+_L.add_u64("queries_expired",
+           "queries answered ETIMEDOUT (deadline budget spent before "
+           "the reply; late results are discarded, never delivered)")
+_L.add_u64("degraded_answered",
+           "queries answered by the host mapper after a device loss "
+           "(always 0: the port answers such lanes EFAULT)")
+_L.add_u64("batches", "micro-batches dispatched to the mapper")
+_L.add_u64("epoch_swaps", "epoch swaps applied (staged + flipped)")
+_L.add_u64("swap_rejected",
+           "epoch swaps refused (fault/apply error) with the old epoch "
+           "left serving")
+_L.add_u64("device_recoveries",
+           "dispatches answered on the device after a recorded device "
+           "loss")
+_L.add_u64("swap_delta_applies",
+           "value-only epoch swaps staged by ClusterState fork: no "
+           "full-map copy, no table re-upload, vectors scattered on "
+           "the device in O(delta)")
+_L.add_u64("swap_full_restages",
+           "structural epoch swaps staged from scratch (deepcopy + "
+           "fresh ClusterState + warm launches)")
+_L.add_u64("serve_checkpoints", "epoch+map checkpoints flushed")
+_L.add_avg("batch_fill", "queries per dispatched micro-batch")
+_L.add_quantile("batch_fill_hist",
+                "queries per dispatched micro-batch as a distribution "
+                "(p50/p99 in the dump)",
+                bounds=[1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024,
+                        2048, 4096, 8192, 16384, 32768, 65536])
+_L.add_u64("bulk_blocks",
+           "bulk protocol blocks answered on the caller's thread "
+           "(query_block/submit_many)")
+_L.add_u64("bulk_lookups",
+           "lookups submitted through the bulk protocol edge (every "
+           "lane, whatever its per-lane status)")
+_L.add_u64("structural_swap_stalls",
+           "structural epoch flips whose reader-visible stall exceeded "
+           "STRUCTURAL_STALL_BOUND_S (must stay 0)")
+_L.add_u64("warm_stages",
+           "structural stagings run off every thread that answers "
+           "queries")
+_L.add_quantile("request_seconds",
+                "submit-to-reply latency per client request (p50/p99 "
+                "in the dump)")
+_L.add_quantile("swap_stall_seconds",
+                "reader-visible stall of one epoch swap: the atomic "
+                "buffer flip only")
+_L.add_time_avg("swap_prepare_seconds",
+                "off-path staging cost of one epoch swap (clone + "
+                "apply + mapper construction + warm launches)")
+_L.add_u64("background_rounds",
+           "background balancing rounds (one device-loop plan each, "
+           "computed off the query path)")
+_L.add_u64("background_changes",
+           "upmap changes applied by background balancing rounds "
+           "(value-only overlay epochs)")
+_L.add_u64("background_stale_plans",
+           "background plans discarded unapplied because another "
+           "epoch flipped in while the plan was being computed")
+_L.add_time_avg("background_round_seconds",
+                "wall time of one background balancing round (plan + "
+                "value-only apply)")
+_L.add_quantile("background_round_hist",
+                "background balancing round wall-time distribution")
+__getattr__ = counters_attr("serve", __name__, (
     "queries", "queries_shed", "queries_expired", "degraded_answered",
     "batches", "epoch_swaps", "swap_rejected", "device_recoveries",
     "swap_delta_applies", "swap_full_restages", "serve_checkpoints",
     "bulk_blocks", "bulk_lookups", "structural_swap_stalls",
     "warm_stages", "background_rounds", "background_changes",
-    "background_stale_plans"), 0)
-# the group's quantile counters
-QUANTILES: dict[str, quantiles.Quantile] = {
-    # queries per dispatched micro-batch
-    "batch_fill_hist": quantiles.Quantile(
-        [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
-         16384, 32768, 65536]),
-    # submit-to-reply seconds per client request (or bulk block)
-    "request_seconds": quantiles.Quantile(),
-    # reader-visible stall of one epoch swap: the flip only
-    "swap_stall_seconds": quantiles.Quantile(),
-    # off-path staging of one epoch swap
-    "swap_prepare_seconds": quantiles.Quantile(),
-    # wall seconds of one background balancing round
-    "background_round_hist": quantiles.Quantile(),
-}
-_counter_lock = threading.Lock()
+    "background_stale_plans"))
 
 
 def _inc(name: str, n: int = 1) -> None:
-    with _counter_lock:
-        COUNTERS[name] += int(n)
-
-
-def _observe(name: str, v: float) -> None:
-    QUANTILES[name].observe(v)
+    _L.inc(name, int(n))
 
 
 def dump() -> dict:
-    """The `serve` group in the JAX perf-dump layout: u64 counters as
-    ints, quantiles as their histogram with p50/p90/p99."""
-    with _counter_lock:
-        out: dict = dict(COUNTERS)
-    for k, q in QUANTILES.items():
-        out[k] = q.dump()
-    return out
+    """The `serve` group in the JAX perf-dump layout (the front's keys
+    included: one group, as in the JAX package)."""
+    return _L.dump()
 
 
 def reset_counters() -> None:
     """Zero the group (counters are process-wide, as the JAX group is)."""
-    with _counter_lock:
-        for k in COUNTERS:
-            COUNTERS[k] = 0
-    for q in QUANTILES.values():
-        q.reset()
+    _L.reset_values()
 
 
 # reader-visible stall budget for a STRUCTURAL epoch flip: the flip is
@@ -191,15 +213,15 @@ class ServeConfig:
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
-        env = os.environ.get
         return cls(
-            window_s=float(env("CEPH_TPU_SERVE_WINDOW_US", "1000")) / 1e6,
-            block=int(env("CEPH_TPU_SERVE_BLOCK", "1024")),
-            fill=int(env("CEPH_TPU_SERVE_FILL", "4096")),
-            max_queue=int(env("CEPH_TPU_SERVE_QUEUE", "256")),
-            deadline_s=float(env("CEPH_TPU_SERVE_DEADLINE_MS",
-                                 "250")) / 1e3,
-            bulk_max=int(env("CEPH_TPU_SERVE_BULK_MAX", "8192")),
+            window_s=float(
+                knobs.get("CEPH_TPU_SERVE_WINDOW_US", "1000")) / 1e6,
+            block=int(knobs.get("CEPH_TPU_SERVE_BLOCK", "1024")),
+            fill=int(knobs.get("CEPH_TPU_SERVE_FILL", "4096")),
+            max_queue=int(knobs.get("CEPH_TPU_SERVE_QUEUE", "256")),
+            deadline_s=float(
+                knobs.get("CEPH_TPU_SERVE_DEADLINE_MS", "250")) / 1e3,
+            bulk_max=int(knobs.get("CEPH_TPU_SERVE_BULK_MAX", "8192")),
         )
 
 
@@ -537,6 +559,7 @@ class PlacementService:
                 with self._events_lock:
                     self.fallback_events.append(msg)
                 _log.warning("device lost mid-serve; %s", msg)
+                obs.instant("serve.degraded", pool=pool)
             raise
         with self._events_lock:
             recovered = (bool(self.fallback_events)
@@ -546,6 +569,7 @@ class PlacementService:
                     "recovered: device dispatch healthy again")
         if recovered:
             _inc("device_recoveries")
+            obs.instant("serve.recovered", pool=pool)
         return rows
 
     def query_block(self, pool: int, seeds,
@@ -586,18 +610,19 @@ class PlacementService:
         bmax = max(self.config.bulk_max, self.config.block)
         done = 0
         try:
-            while done < granted:
-                if deadline is not None and time.perf_counter() > deadline:
-                    statuses[done:granted] = STATUS_CODES["ETIMEDOUT"]
-                    _inc("queries_expired", granted - done)
-                    error = error or f"deadline spent after {done} lanes"
-                    break
-                take = min(bmax, granted - done)
-                rows = self._device_rows(
-                    buf, pool, seeds[done:done + take], self.name)
-                for dst, part in zip((up, upp, act, actp), rows):
-                    dst[done:done + take] = part
-                done += take
+            with obs.span("serve.bulk", lookups=n, pool=pool):
+                while done < granted:
+                    if deadline is not None and time.perf_counter() > deadline:
+                        statuses[done:granted] = STATUS_CODES["ETIMEDOUT"]
+                        _inc("queries_expired", granted - done)
+                        error = error or f"deadline spent after {done} lanes"
+                        break
+                    take = min(bmax, granted - done)
+                    rows = self._device_rows(
+                        buf, pool, seeds[done:done + take], self.name)
+                    for dst, part in zip((up, upp, act, actp), rows):
+                        dst[done:done + take] = part
+                    done += take
         except Exception as e:
             # a dispatcher error must not eat lanes: the rest of the
             # grant answers EFAULT loudly, the shed/done lanes keep
@@ -611,7 +636,7 @@ class PlacementService:
             _inc("queries", done)
         _inc("bulk_blocks")
         _inc("bulk_lookups", n)
-        _observe("request_seconds", time.perf_counter() - t0)
+        _L.observe("request_seconds", time.perf_counter() - t0)
         return BulkReply(statuses, epoch=buf.epoch,
                          source="device" if done else "", up=up,
                          up_primary=upp, acting=act, acting_primary=actp,
@@ -671,17 +696,18 @@ class PlacementService:
             old = self._active
             try:
                 faults.check("epoch_swap", qual=str(inc.epoch))
-                t0 = time.perf_counter()
-                structural = classify_incremental(inc, old.m)[0] != "delta"
-                if not structural:
-                    buf = self._stage_value(old, inc)
-                    _inc("swap_delta_applies")
-                else:
-                    m2 = apply_incremental(copy.deepcopy(old.m), inc)
-                    buf = self._stage(m2)
-                    _inc("warm_stages")
-                    _inc("swap_full_restages")
-                _observe("swap_prepare_seconds", time.perf_counter() - t0)
+                with obs.span("serve.swap", epoch=inc.epoch), \
+                        _L.time("swap_prepare_seconds"):
+                    structural = (classify_incremental(inc, old.m)[0]
+                                  != "delta")
+                    if not structural:
+                        buf = self._stage_value(old, inc)
+                        _inc("swap_delta_applies")
+                    else:
+                        m2 = apply_incremental(copy.deepcopy(old.m), inc)
+                        buf = self._stage(m2)
+                        _inc("warm_stages")
+                        _inc("swap_full_restages")
             except Exception as e:
                 return self._rejected(old, inc.epoch, e)
             return self._flip(buf, structural=structural)
@@ -695,11 +721,11 @@ class PlacementService:
             old = self._active
             try:
                 faults.check("epoch_swap", qual=str(m.epoch))
-                t0 = time.perf_counter()
-                m2 = copy.deepcopy(m)
-                buf = self._stage(m2)
-                _inc("warm_stages")
-                _observe("swap_prepare_seconds", time.perf_counter() - t0)
+                with obs.span("serve.swap", epoch=m.epoch), \
+                        _L.time("swap_prepare_seconds"):
+                    m2 = copy.deepcopy(m)
+                    buf = self._stage(m2)
+                    _inc("warm_stages")
             except Exception as e:
                 return self._rejected(old, m.epoch, e, reason)
             return self._flip(buf, structural=True)
@@ -747,10 +773,11 @@ class PlacementService:
         t0 = time.perf_counter()
         self._active = buf
         stall = time.perf_counter() - t0
-        _observe("swap_stall_seconds", stall)
+        _L.observe("swap_stall_seconds", stall)
         if structural and stall > STRUCTURAL_STALL_BOUND_S:
             _inc("structural_swap_stalls")
         _inc("epoch_swaps")
+        obs.instant("serve.swap_applied", epoch=buf.epoch)
         self._swaps_since_ck += 1
         every = self.config.checkpoint_every
         if every and self._swaps_since_ck >= every:
@@ -772,29 +799,32 @@ class PlacementService:
         t0 = time.perf_counter()
         buf = self._active  # snapshot; planning never blocks appliers
         applied: dict = {"ok": True, "epoch": buf.epoch}
-        m2 = value_copy_map(buf.m)
-        res = calc_pg_upmaps(
-            m2, max_deviation=max_deviation, max_iter=max_iter,
-            backend="device_loop", candidate_batch=candidate_batch,
-            rows_source=buf.state.rows_source_for(m2),
-            device=self.device)
-        if res.num_changed:
-            if self._active is buf:
-                inc = Incremental(epoch=buf.epoch + 1)
-                inc.new_pg_upmap_items = {
-                    pg: list(v) for pg, v in res.new_pg_upmap_items.items()}
-                inc.old_pg_upmap_items = set(res.old_pg_upmap_items)
-                applied = self.apply(inc)
-            else:
-                _inc("background_stale_plans")
-                applied = {"ok": False, "epoch": self._active.epoch,
-                           "error": "stale plan (epoch moved during "
-                                    "planning)"}
+        with obs.span("serve.background_balance", epoch=buf.epoch):
+            m2 = value_copy_map(buf.m)
+            res = calc_pg_upmaps(
+                m2, max_deviation=max_deviation, max_iter=max_iter,
+                backend="device_loop", candidate_batch=candidate_batch,
+                rows_source=buf.state.rows_source_for(m2),
+                device=self.device)
+            if res.num_changed:
+                if self._active is buf:
+                    inc = Incremental(epoch=buf.epoch + 1)
+                    inc.new_pg_upmap_items = {
+                        pg: list(v)
+                        for pg, v in res.new_pg_upmap_items.items()}
+                    inc.old_pg_upmap_items = set(res.old_pg_upmap_items)
+                    applied = self.apply(inc)
+                else:
+                    _inc("background_stale_plans")
+                    applied = {"ok": False, "epoch": self._active.epoch,
+                               "error": "stale plan (epoch moved during "
+                                        "planning)"}
         _inc("background_rounds")
         if applied.get("ok"):
             _inc("background_changes", res.num_changed)
         dt = time.perf_counter() - t0
-        _observe("background_round_hist", dt)
+        _L.observe("background_round_seconds", dt)
+        _L.observe("background_round_hist", dt)
         return {"ok": bool(applied.get("ok", False)),
                 "epoch": int(applied.get("epoch", buf.epoch)),
                 "num_changed": res.num_changed,
@@ -909,26 +939,29 @@ class PlacementService:
         if not live:
             return
         _inc("batches")
-        _observe("batch_fill_hist", n_live)
-        for pool, reqs in live.items():
-            seeds = np.concatenate([r.seeds for r in reqs])
-            # the fault qualifier is the batch sequence number, so
-            # `exit`/`lost` can be aimed mid-serve deterministically
-            up, upp, act, actp = self._device_rows(
-                buf, pool, seeds, str(self._batch_seq))
-            off = 0
-            for r in reqs:
-                n = len(r.seeds)
-                delivered = r.answer(Reply(
-                    "ok", epoch=buf.epoch, source="device",
-                    up=up[off:off + n], up_primary=upp[off:off + n],
-                    acting=act[off:off + n],
-                    acting_primary=actp[off:off + n],
-                ))
-                if delivered:
-                    _inc("queries", n)
-                    _observe("request_seconds", time.perf_counter() - r.t0)
-                off += n
+        _L.observe("batch_fill", n_live)
+        _L.observe("batch_fill_hist", n_live)
+        with obs.span("serve.batch", queries=n_live, pools=len(live)):
+            for pool, reqs in live.items():
+                seeds = np.concatenate([r.seeds for r in reqs])
+                # the fault qualifier is the batch sequence number, so
+                # `exit`/`lost` can be aimed mid-serve deterministically
+                up, upp, act, actp = self._device_rows(
+                    buf, pool, seeds, str(self._batch_seq))
+                off = 0
+                for r in reqs:
+                    n = len(r.seeds)
+                    delivered = r.answer(Reply(
+                        "ok", epoch=buf.epoch, source="device",
+                        up=up[off:off + n], up_primary=upp[off:off + n],
+                        acting=act[off:off + n],
+                        acting_primary=actp[off:off + n],
+                    ))
+                    if delivered:
+                        _inc("queries", n)
+                        _L.observe("request_seconds",
+                                   time.perf_counter() - r.t0)
+                    off += n
         self._observe_window()
 
     def _observe_window(self) -> None:
@@ -1023,8 +1056,7 @@ class PlacementService:
         stall = d["swap_stall_seconds"]
         req = d["request_seconds"]
         fill = d["batch_fill_hist"]
-        wl = getattr(sys.modules.get("ceph_tpu_torch.sim.workload"),
-                     "COUNTERS", None) or {}
+        wl = obs.group_view("workload")
         out = {
             "epoch": self.epoch,
             "pools": sorted(self._active.m.pools),

@@ -21,31 +21,30 @@ fast/slow pattern):
 
 Objectives come from the environment (`CEPH_TPU_SLO_P99_MS`,
 `CEPH_TPU_SLO_ERROR_PCT`, `CEPH_TPU_SLO_SHED_PCT`); everything here is
-host-side observation only.  `COUNTERS` holds the JAX package's `slo`
-perf group's counts.
+host-side observation only.  It books the JAX package's `slo` perf
+group; `COUNTERS` reads it.
 """
 
 from __future__ import annotations
 
-import os
-import threading
 import time
 from dataclasses import dataclass
 
 from ceph_tpu_torch.obs import health
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.perf_counters import counters_attr, logger_for
 
-#   slo_samples    dispatch-window samples scored against the SLO
-#   slo_breaches   samples that breached at least one objective
-#   burns_raised   SLO_BURN raise transitions
-#   burns_cleared  SLO_BURN clear transitions
-COUNTERS: dict[str, int] = dict.fromkeys(
-    ("slo_samples", "slo_breaches", "burns_raised", "burns_cleared"), 0)
-_lock = threading.Lock()
+_L = logger_for("slo")
+_L.add_u64("slo_samples", "dispatch-window samples scored against the SLO")
+_L.add_u64("slo_breaches", "samples that breached at least one objective")
+_L.add_u64("burns_raised", "SLO_BURN raise transitions")
+_L.add_u64("burns_cleared", "SLO_BURN clear transitions")
+__getattr__ = counters_attr("slo", __name__, (
+    "slo_samples", "slo_breaches", "burns_raised", "burns_cleared"))
 
 
 def _inc(name: str) -> None:
-    with _lock:
-        COUNTERS[name] += 1
+    _L.inc(name)
 
 
 @dataclass(frozen=True)
@@ -59,12 +58,11 @@ class Objectives:
     @classmethod
     def from_env(cls) -> "Objectives":
         return cls(
-            p99_s=float(os.environ.get("CEPH_TPU_SLO_P99_MS",
-                                       "250")) / 1e3,
+            p99_s=float(knobs.get("CEPH_TPU_SLO_P99_MS", "250")) / 1e3,
             error_ratio=float(
-                os.environ.get("CEPH_TPU_SLO_ERROR_PCT", "1")) / 100.0,
+                knobs.get("CEPH_TPU_SLO_ERROR_PCT", "1")) / 100.0,
             shed_ratio=float(
-                os.environ.get("CEPH_TPU_SLO_SHED_PCT", "5")) / 100.0,
+                knobs.get("CEPH_TPU_SLO_SHED_PCT", "5")) / 100.0,
         )
 
     def as_dict(self) -> dict:

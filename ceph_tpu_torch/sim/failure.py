@@ -23,7 +23,6 @@ to the host mapper after a lost device needs `runtime.faults`).
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +32,7 @@ from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import PgId
+from ceph_tpu_torch.utils import knobs
 
 BACKENDS = {"torch": "torch", "jax": "torch", "ref": "ref"}
 
@@ -180,8 +180,7 @@ class ClusterSim:
                        if BACKENDS[backend] == "torch" else None)
         self.epoch = m.epoch
         if diagnostics is None:
-            diagnostics = os.environ.get("CEPH_TPU_PLACEMENT_DIAG",
-                                         "0") == "1"
+            diagnostics = knobs.get("CEPH_TPU_PLACEMENT_DIAG", "0") == "1"
         self.diagnostics = diagnostics
         self.diag_history: list[tuple[str, dict]] = []
         self.current = _map_all(m, backend, self.device)

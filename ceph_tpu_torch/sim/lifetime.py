@@ -66,13 +66,13 @@ from __future__ import annotations
 import base64
 import copy
 import hashlib
-import os
 import time
 from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.device import resolve_device
@@ -82,21 +82,59 @@ from ceph_tpu_torch.osd.osdmap import IN_WEIGHT, OSD_EXISTS, OSD_UP, OSDMap
 from ceph_tpu_torch.osd.types import PgId, PgPool, PoolType
 from ceph_tpu_torch.runtime import Checkpoint, faults
 from ceph_tpu_torch.sim.failure import MovementReport, _map_ref
+from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
 BACKENDS = {"torch": "torch", "jax": "torch", "ref": "ref"}
 
-# The JAX package's `sim` perf group's counts, plus `stats_calls` (the
-# torch-op epoch stats run; a tag-equal pool-epoch makes none; the
-# fleet's stacked calls are `fleet.engine.COUNTERS["stats_calls"]`)
-COUNTERS: dict[str, int] = dict.fromkeys((
+# The JAX package's `sim` perf group, plus `stats_calls` (the torch-op
+# epoch stats run; a tag-equal pool-epoch makes none; the fleet's stacked
+# calls are the `fleet` group's `stats_calls`)
+_L = obs.logger_for("sim")
+_L.add_u64("epochs", "lifetime epochs applied (one Incremental chain "
+           "step + remap + accounting each)")
+_L.add_u64("events_applied", "non-quiet chaos events applied")
+_L.add_u64("invariant_violations",
+           "epochs whose device-side invariant scalars flagged a "
+           "violation (duplicate OSDs, overfull rows, down/out OSDs in "
+           "up sets)")
+_L.add_u64("degraded_pg_epochs", "epochs that ended with >=1 degraded PG")
+_L.add_u64("structural_epochs",
+           "epochs that changed a pool's compiled structure (expected "
+           "compile events)")
+_L.add_u64("spot_checks", "device==host spot-check lanes compared")
+_L.add_u64("spotcheck_mismatches", "spot-check lanes that disagreed")
+_L.add_u64("checkpoints", "lifetime checkpoints flushed")
+_L.add_u64("cascade_outages",
+           "correlated cascade outages: a host or rack of OSDs failing "
+           "together")
+_L.add_u64("flap_revives",
+           "flapping OSDs revived at the end of their down window")
+_L.add_u64("pgs_lost",
+           "PGs that lost more shards than their pool tolerates before "
+           "recovery drained them (irreversible)")
+_L.add_avg("at_risk_pg_seconds",
+           "per-epoch at-risk PG-seconds (PGs past EC tolerance x "
+           "simulated epoch duration)")
+_L.add_quantile("epoch_seconds",
+                "wall time per lifetime epoch (apply + remap + "
+                "accounting + checks)")
+_L.add_u64("stats_calls", "torch-op epoch stats runs (one per pool "
+           "whose rows changed)")
+__getattr__ = counters_attr("sim", __name__, (
     "epochs", "events_applied", "invariant_violations",
     "degraded_pg_epochs", "structural_epochs", "spot_checks",
     "spotcheck_mismatches", "checkpoints", "cascade_outages",
-    "flap_revives", "pgs_lost", "stats_calls"), 0)
+    "flap_revives", "pgs_lost", "stats_calls"))
 
 
 def _inc(name: str, n: int = 1) -> None:
-    COUNTERS[name] += int(n)
+    _L.inc(name, int(n))
+
+
+def _recovery_counters():
+    """The `recovery` perf group (declared by recovery/queue.py)."""
+    return obs.logger_for("recovery")
 
 
 def _host(x) -> np.ndarray:
@@ -215,12 +253,12 @@ class Scenario:
     def __post_init__(self):
         if self.checkpoint_every < 0:
             self.checkpoint_every = int(
-                os.environ.get("CEPH_TPU_SIM_CHECKPOINT_EVERY", "100"))
+                knobs.get("CEPH_TPU_SIM_CHECKPOINT_EVERY", "100"))
         if self.spotcheck_every < 0:
             self.spotcheck_every = int(
-                os.environ.get("CEPH_TPU_SIM_SPOTCHECK", "16"))
+                knobs.get("CEPH_TPU_SIM_SPOTCHECK", "16"))
         if not self.recovery:
-            self.recovery = os.environ.get("CEPH_TPU_SIM_RECOVERY",
+            self.recovery = knobs.get("CEPH_TPU_SIM_RECOVERY",
                                            "queue")
         if self.recovery not in ("queue", "flat"):
             raise ValueError(
@@ -811,6 +849,7 @@ class LifetimeSim:
             return
         self.ck.progress("lifetime", self._state())
         _inc("checkpoints")
+        obs.instant("sim.checkpoint", epoch=self.steps)
 
     # -- mapping + accounting ---------------------------------------------
 
@@ -1525,6 +1564,14 @@ class LifetimeSim:
         placement rows (sim/workload.py): per-pool request samples,
         client-visible tallies, and the per-OSD capacity remainder the
         recovery drain then competes for."""
+        t0 = time.perf_counter()
+        with obs.span("sim.workload", epoch=e):
+            out = self._workload_body(e)
+        self.workload.observe_epoch(self.workload.qps(e),
+                                    time.perf_counter() - t0)
+        return out
+
+    def _workload_body(self, e: int) -> dict:
         from ceph_tpu_torch.sim.workload import (
             contention_np,
             contention_torch,
@@ -1588,6 +1635,14 @@ class LifetimeSim:
         against the per-OSD capacity clients left over, byte
         conservation checked per pool.  A `recovery_step` fault raises
         (no host degradation)."""
+        t0 = time.perf_counter()
+        with obs.span("sim.recovery", epoch=e):
+            out = self._recovery_body(e, stats)
+        _recovery_counters().observe("drain_seconds",
+                                     time.perf_counter() - t0)
+        return out
+
+    def _recovery_body(self, e: int, stats: dict) -> dict:
         rq = self.recovery
         use_device = self.state is not None
         faults.check("recovery_step", qual=str(e))
@@ -1749,7 +1804,11 @@ class LifetimeSim:
         rng, the event), the accounting, `_step_finish` (the data planes,
         invariants, the digest line and observation)."""
         ctx = self._step_begin(force_event)
-        stats, skeys = self._account_epoch(ctx["e"])
+        try:
+            stats, skeys = self._account_epoch(ctx["e"])
+        except BaseException:
+            ctx["span"].__exit__(None, None, None)
+            raise
         return self._step_finish(ctx, stats, skeys)
 
     def _step_begin(self, force_event: str | None = None) -> dict:
@@ -1765,7 +1824,17 @@ class LifetimeSim:
                "rb0": (self.state.full_rebuilds
                        if self.state is not None else 0)}
         self._structural_apply = False
-        event = self._apply_event(e, rng, force_event)
+        # the epoch's span closes in _step_finish (or where the epoch
+        # raises), so the fleet's stacked accounting between the halves
+        # sits inside it
+        span = obs.span("sim.epoch", epoch=e)
+        span.__enter__()
+        ctx["span"] = span
+        try:
+            event = self._apply_event(e, rng, force_event)
+        except BaseException:
+            span.__exit__(None, None, None)
+            raise
         if event.startswith("balance"):
             bal_key = (self._prev_skeys, self._overlay_presence())
             ctx["hint"] = bal_key != self._last_balance_key
@@ -1783,14 +1852,17 @@ class LifetimeSim:
         the port compiles nothing per shape."""
         e, rng, event = ctx["e"], ctx["rng"], ctx["event"]
         t0 = ctx["t0"]
-        wl = (self._workload_epoch(e)
-              if self.workload is not None else None)
-        rec = (self._recovery_epoch(e, stats)
-               if self.recovery is not None else None)
-        dur = (self._durability_epoch(e)
-               if self.scenario.correlated else None)
-        epoch_s = self._integrate(stats, rec)
-        self._invariants(e, rng, stats)
+        try:
+            wl = (self._workload_epoch(e)
+                  if self.workload is not None else None)
+            rec = (self._recovery_epoch(e, stats)
+                   if self.recovery is not None else None)
+            dur = (self._durability_epoch(e)
+                   if self.scenario.correlated else None)
+            epoch_s = self._integrate(stats, rec)
+            self._invariants(e, rng, stats)
+        finally:
+            ctx["span"].__exit__(None, None, None)
         compiles = 0  # the port compiles nothing per shape
         rebuilds = (self.state.full_rebuilds - ctx["rb0"]
                     if self.state is not None else 0)
@@ -1844,6 +1916,7 @@ class LifetimeSim:
         _inc("epochs")
         wall = time.perf_counter() - t0
         self._wall_this_proc += wall
+        _L.observe("epoch_seconds", wall)
         # observation AFTER the digest update: health/timeline read only
         # the host ints accounting already fetched
         health_status = self._observe_epoch(e, stats, rec, wl, dur,
@@ -1949,6 +2022,7 @@ class LifetimeSim:
             at_risk_pg_seconds=at_risk_s,
         )
         self.report.merge(rep)
+        _L.observe("at_risk_pg_seconds", rep.at_risk_pg_seconds)
         if totals["degraded"]:
             # epochs that ended with degraded PGs (the JAX package's
             # meaning; no device degradation is counted here)

@@ -27,8 +27,9 @@ Two executors of each formula: torch ops on the rows' device
 mirror (`workload_pool_np`, `contention_np`, copied verbatim) for the
 "ref" backend.
 
-`COUNTERS` holds the JAX package's `workload` perf group's counts, plus
-`device_traffic` (torch-op traffic passes run).
+It books the JAX package's `workload` perf group, plus
+`device_traffic` (torch-op traffic passes run); `COUNTERS` reads its
+counts.
 """
 
 from __future__ import annotations
@@ -36,19 +37,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ceph_tpu_torch import obs
 from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.recovery.queue import primary_slots
+from ceph_tpu_torch.utils.perf_counters import counters_attr
 
 WL_KEYS = ("requests", "reads", "writes", "degraded_reads",
            "at_risk_hits", "backlog_hits", "unserved")
 
-#   requests .. unserved     the WL_KEYS tallies, summed over epochs
-#   throttled_bytes          client bytes beyond the per-OSD capacity
-#   contended_osd_epochs     OSD-epochs whose capacity clients used up
-#   device_traffic           workload_pool_torch calls
-COUNTERS: dict[str, int] = dict.fromkeys(
-    WL_KEYS + ("throttled_bytes", "contended_osd_epochs",
-               "device_traffic"), 0)
+_L = obs.logger_for("workload")
+_L.add_u64("requests", "modeled client requests (reads + writes)")
+_L.add_u64("reads", "read requests (primary-served)")
+_L.add_u64("writes", "write requests (all live replica lanes)")
+_L.add_u64("degraded_reads",
+           "reads served degraded: up set below pool size with >=1 "
+           "live replica")
+_L.add_u64("at_risk_hits",
+           "requests that landed on at-risk PGs (below tolerance)")
+_L.add_u64("backlog_hits",
+           "requests that landed on PGs carrying recovery backlog")
+_L.add_u64("unserved",
+           "requests whose PG had no live replica at all")
+_L.add_u64("throttled_bytes",
+           "client bytes beyond the per-OSD epoch capacity")
+_L.add_u64("contended_osd_epochs",
+           "OSD-epochs whose full bandwidth capacity was consumed by "
+           "client traffic (recovery starved)")
+_L.add_avg("qps", "modeled client QPS (one observation per epoch)")
+_L.add_quantile("step_seconds",
+                "wall time of one epoch's workload pass (all pools: "
+                "draws + launches + scalar fetch, or the numpy mirror)")
+_L.add_u64("device_traffic", "workload_pool_torch calls")
+__getattr__ = counters_attr("workload", __name__, WL_KEYS + (
+    "throttled_bytes", "contended_osd_epochs", "device_traffic"))
 
 
 def zipf_pg_seeds(u: np.ndarray, n: int, zipf_a: float) -> np.ndarray:
@@ -111,7 +132,7 @@ def workload_pool_torch(rows, backlog, seeds, read, *, wq: int,
     end).  `seeds` int64 [S] and `read` bool [S] on that device, `backlog`
     int64 [N] or None.  Returns (client_bytes int64 [DV], scalars int64
     [7] in WL_KEYS order), both on the device."""
-    COUNTERS["device_traffic"] += 1
+    _L.inc("device_traffic")
     dev = rows.device
     r = rows[seeds]
     valid = (r != ITEM_NONE) & (r >= 0)
@@ -246,13 +267,17 @@ class WorkloadGen:
     def book(self, scalars: dict) -> None:
         for k in WL_KEYS:
             self.totals[k] += scalars[k]
-            COUNTERS[k] += scalars[k]
+            _L.inc(k, int(scalars[k]))
 
     def book_contention(self, throttled: int, contended: int) -> None:
         self.totals["throttled_bytes"] += throttled
         self.totals["contended_osd_epochs"] += contended
-        COUNTERS["throttled_bytes"] += throttled
-        COUNTERS["contended_osd_epochs"] += contended
+        _L.inc("throttled_bytes", int(throttled))
+        _L.inc("contended_osd_epochs", int(contended))
+
+    def observe_epoch(self, qps: float, wall_s: float) -> None:
+        _L.observe("qps", qps)
+        _L.observe("step_seconds", wall_s)
 
     def state(self) -> dict:
         return {"totals": dict(self.totals)}

@@ -73,12 +73,19 @@ engines (`native_main`: the g++ builds, NativeMapper on config 5's
 seeds on one core and on all, rows equal to the rule kernel's, beside
 its mappings/s; crushtool --test --backend native on config 2 equal to
 the default backend; backend=native RS(8,4) on 16 MiB equal to the
-kernel's bytes; CRC-32C of 1 MiB equal to the Python loop), through the
-entry points a user calls, and prints one JSON object per phase.  Any
+kernel's bytes; CRC-32C of 1 MiB equal to the Python loop) and the
+operator surface (`obs_main`: the daemon CLI's `perf dump` and `metrics`
+in two children on the card, each kernel launched and its registry count
+equal to its wrapper's, `bytes_encoded` equal to the JAX self-test's; a
+child mapping config 2 with `CEPH_TPU_ADMIN_SOCKET` set, queried through
+`--sock` while it maps; config 5's `map_all_device` with tracing off and
+on, the trace file parsed), through the entry points a user calls, and
+prints one JSON object per phase.  Any
 failure raises and exits non-zero.
 
 The line before the last is the kernels line (each kernel's launches on
-the main path, its time, bound and plain-version time); the last line is
+the main path, read from the kernel registry, its time, bound and
+plain-version time); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits with 1 and
 prints no result.
 """
@@ -138,7 +145,6 @@ from ceph_tpu_torch.osd.incremental import Incremental, encode_incremental
 from ceph_tpu_torch.osd.io import save_osdmap
 from ceph_tpu_torch.osd.osdmap import OSD_UP, build_hierarchical
 from ceph_tpu_torch.osd.pipeline import PoolMapper
-from ceph_tpu_torch.osd.state import COUNTERS as state_counters
 from ceph_tpu_torch.osd.state import ClusterState, value_copy_map
 from ceph_tpu_torch.osd.types import PgId, PgPool, PoolType
 from ceph_tpu_torch.recovery import DRAIN_KEYS
@@ -204,12 +210,25 @@ def peak_bandwidth(name: str) -> tuple[float, str]:
     return H100_SXM_BW, "H100 SXM, 3.35 TB/s"
 
 
+def registry_launches(kernel) -> int:
+    """A kernel's launches as the kernel registry (`obs.executables`)
+    holds them (its wrapper's `launches` reads the same record)."""
+    return obs.executables.record(kernel.record.name).launches
+
+
+def counts(group: str) -> dict:
+    """The u64 counters of perf group `group`."""
+    return {k: v for k, v in obs.group_view(group).items()
+            if isinstance(v, int)}
+
+
 def counted(expected: int, what: str, fn, kernel=gf_matmul_cuda):
     """Run fn() with the kernel's launch count set to 0 just before and
-    read just after; fail unless it launched exactly `expected` times."""
+    read just after, from the kernel registry; fail unless it launched
+    exactly `expected` times."""
     kernel.launches = 0
     out = fn()
-    launches = kernel.launches
+    launches = registry_launches(kernel)
     check(launches == expected,
           f"{what}: {launches} kernel launches, expected {expected}")
     return out, launches
@@ -1453,7 +1472,7 @@ def rebalance_config5(dev, c5: dict, check_each: bool):
     rounds, digests = [], []
     before = overlay_counts(m, dev) if check_each else None
     for entry in c5["rounds"]:
-        c0 = dict(upmap.COUNTERS)
+        c0 = counts("balancer")
         with stage_times() as st:
             t0 = time.perf_counter()
             r, n = counted(1, f"config5 round rng {entry['rng']}",
@@ -1466,7 +1485,8 @@ def rebalance_config5(dev, c5: dict, check_each: bool):
                            mapper.crush_rule_cuda)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        delta = {k: upmap.COUNTERS[k] - c0[k] for k in c0}
+        c1 = counts("balancer")
+        delta = {k: c1[k] - c0[k] for k in c0}
         digests.append(plan_digest(m))
         row = {"rng": entry["rng"], "wall_s": wall,
                "build_ms": st["build"], "plan_ms": st["plan"],
@@ -1511,7 +1531,7 @@ def phase_balancer_main(dev, peak: float) -> dict:
     for name, entry in c2["backends"].items():
         m = reweighted(bench_map(c2["pgs"], c2["osds"]), c2["osds"],
                        c2["reweight_seed"])
-        c0 = dict(upmap.COUNTERS)
+        c0 = counts("balancer")
         with stage_times() as st:
             t0 = time.perf_counter()
             r, n = counted(1, f"config2 {name}", lambda: calc_pg_upmaps(
@@ -1532,7 +1552,7 @@ def phase_balancer_main(dev, peak: float) -> dict:
             "launches": n, "changes": r.num_changed, "stddev": r.stddev,
             "max_deviation": r.max_deviation, "digest": digest,
             "digest_equal": True,
-            "counters": {k: upmap.COUNTERS[k] - c0[k] for k in c0}}
+            "counters": {k: v - c0[k] for k, v in counts("balancer").items()}}
 
     c5 = corpus["config5"]
     torch.cuda.reset_peak_memory_stats()
@@ -1809,10 +1829,10 @@ def phase_mgr_balancer(dev, smi: str) -> dict:
                          "changes": len(plan.inc.new_pg_upmap_items)}
     check(rc == 0 and n == 0 and 0 < len(plan.inc.new_pg_upmap_items) <= 10,
           f"mgr optimize: rc {rc} ({detail}), the state's rows")
-    c0 = dict(state_counters)
+    c0 = counts("state")
     (rc, _), s, n = timed(lambda: bal.execute(plan, st.m, state=st))
     steps["execute"] = {"s": s, "launches": n,
-                        "device_put_bytes": state_counters[
+                        "device_put_bytes": counts("state")[
                             "device_put_bytes"] - c0["device_put_bytes"]}
     check(rc == 0 and (st.delta_applies, st.full_rebuilds) == (1, 1)
           and steps["execute"]["device_put_bytes"] == 0,
@@ -1844,9 +1864,9 @@ def phase_mgr_balancer(dev, smi: str) -> dict:
         k = len(inc.new_state) + len(inc.new_weight)
         uploads = (32 * 14 if k <= 32 and 2 * k < st.DV
                    else (st.DV + 1) * 10)
-        c0 = dict(state_counters)
+        c0 = counts("state")
         kind, s, n = timed(lambda: st.apply(inc))
-        put = state_counters["device_put_bytes"] - c0["device_put_bytes"]
+        put = counts("state")["device_put_bytes"] - c0["device_put_bytes"]
         _, rs, rn = timed(lambda: st.rows(0))
         steps[step] = {"kind": kind, "apply_s": s, "launches": n,
                        "device_put_bytes": put, "rows_s": rs,
@@ -1968,8 +1988,8 @@ def count_both(fn):
     mapper.crush_rule_cuda.launches = 0
     mapper.crush_rule_diag_cuda.launches = 0
     out = fn()
-    return (out, mapper.crush_rule_cuda.launches,
-            mapper.crush_rule_diag_cuda.launches)
+    return (out, registry_launches(mapper.crush_rule_cuda),
+            registry_launches(mapper.crush_rule_diag_cuda))
 
 
 def diag_checked(T, prog, x, w, what: str) -> tuple[int, dict]:
@@ -3662,7 +3682,6 @@ def phase_serve_main(dev, smi: str) -> dict:
     config 2 with a stall aimed at one replica.  Each part's rule
     launches counted from 0; every lane answered, from the device."""
     from ceph_tpu_torch.serve import service
-    from ceph_tpu_torch.serve.front import COUNTERS as front_counters
     from ceph_tpu_torch.serve.front import ServeFront
 
     fresh_observers()
@@ -3720,7 +3739,7 @@ def phase_serve_main(dev, smi: str) -> dict:
     svc = PlacementService(m, config=cfg, device=dev, name="chip.serve")
     try:
         # (b) the queued micro-batcher under a value-only swap a second
-        c0, st0 = service.dump(), dict(state_counters)
+        c0, st0 = service.dump(), counts("state")
         n_pgs = CONFIGS["config5"][0]
         clients = ServeClients(SERVE_SCALAR_CLIENTS, lambda g: (
             SERVE_SCALAR_BATCH, svc.lookup_batch(
@@ -3748,7 +3767,7 @@ def phase_serve_main(dev, smi: str) -> dict:
         del b["done"]
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-        c1, st1 = service.dump(), dict(state_counters)
+        c1, st1 = service.dump(), counts("state")
         stall = c1["swap_stall_seconds"]
         b.update(
             s=wall, qps=b["lookups"] / wall,
@@ -3831,7 +3850,7 @@ def phase_serve_main(dev, smi: str) -> dict:
                    name="chip.front")
     try:
         n_pgs = CONFIGS["config2"][0]
-        f0 = dict(front_counters)
+        f0 = counts("serve")
         blocks = [rng.integers(0, n_pgs, SERVE_FRONT_LANES).astype(
             np.uint32) for _ in range(SERVE_FRONT_BLOCKS)]
         f.query_block(0, blocks[0])  # both replicas' latency EWMA
@@ -3856,7 +3875,8 @@ def phase_serve_main(dev, smi: str) -> dict:
                 (r.up, r.up_primary, r.acting, r.acting_primary),
                 want.map_batch(seeds))),
                 "serve_main (d): rows == a fresh mapper's")
-        d = {k: front_counters[k] - f0[k] for k in front_counters}
+        f1 = counts("serve")
+        d = {k: f1[k] - f0[k] for k in f1 if k.startswith("front_")}
         check(d["front_replica_sheds"] >= 1 and d["front_shed_routes"] > 0,
               f"serve_main (d): the stalled replica shed ({d})")
         lat = np.asarray(lat)
@@ -3922,12 +3942,12 @@ def strategy_launches(what: str, fn, dev):
     timed) of the `pallas` candidate in each autotune on the card: every
     product here is inside the kernel's 32 x 64 limits, one launch
     each."""
-    tunes = torch_backend.COUNTERS["autotunes"]
+    tunes = counts("ec")["autotunes"]
     gf_matmul_cuda.launches = 0
     with resolved_products() as seen:
         out = fn()
     launches = gf_matmul_cuda.launches
-    tunes = torch_backend.COUNTERS["autotunes"] - tunes
+    tunes = counts("ec")["autotunes"] - tunes
     per_tune = 2 if "pallas" in TorchEngine._candidates(dev) else 0
     expected = seen.count("pallas") + per_tune * tunes
     check(launches == expected, f"{what}: {launches} kernel launches, "
@@ -4186,6 +4206,218 @@ def phase_native_main(dev, pms: dict, smi: str) -> dict:
     return out
 
 
+# -- the operator surface: the daemon, a live admin socket, tracing -----------
+
+OBS_CORPUS = ROOT / "tests" / "data" / "obs_corpus.json"
+PROM_LINE = re.compile(
+    r"^[a-zA-Z_][a-zA-Z0-9_]*(\{[^}]*\})? (-?[0-9.e+-]+|NaN|\+Inf)$")
+# the daemon self-test's launches of each kernel: one RS(8,4) encode of
+# 8 x 4096 bytes, one map_batch of 256 PGs, one diagnose
+OBS_KERNELS = (("gf_matmul", "ec", 1), ("crush_rule", "pipeline", 1),
+               ("crush_rule_diag", "pipeline", 1))
+# a child mapping config 2 on the card in a loop while its admin socket
+# answers (CEPH_TPU_ADMIN_SOCKET); it stops itself after two minutes
+_LIVE_MAPPER = r"""
+import sys, time
+import numpy as np
+from ceph_tpu_torch import obs  # serves CEPH_TPU_ADMIN_SOCKET
+from ceph_tpu_torch.osd.osdmap import build_hierarchical
+from ceph_tpu_torch.osd.pipeline import PoolMapper
+from ceph_tpu_torch.osd.types import PgPool, PoolType
+n_pgs, n_osds, per_host = (int(a) for a in sys.argv[1:4])
+n_host = max(1, n_osds // per_host)
+pool = PgPool(type=PoolType.REPLICATED, size=3, crush_rule=0,
+              pg_num=n_pgs, pgp_num=n_pgs)
+m = build_hierarchical(n_host, per_host, n_rack=max(1, n_host // 16),
+                       pool=pool)
+pm = PoolMapper(m, 0, overlays=False)
+pm.map_all()
+print("ready", flush=True)
+t_end = time.time() + 120
+while time.time() < t_end:
+    pm.map_all()
+"""
+
+
+def _daemon_argv(*argv: str) -> list[str]:
+    return [sys.executable, "-m", "ceph_tpu_torch.cli.daemon", *argv]
+
+
+def _prometheus_ok(text: str) -> bool:
+    return text.endswith("\n") and all(
+        line.startswith(("# HELP ", "# TYPE ")) or PROM_LINE.match(line)
+        for line in text.rstrip("\n").split("\n"))
+
+
+def phase_obs_main(pms: dict, smi: str, timed_b: dict) -> dict:
+    """The operator surface on the card.  (1) `python -m
+    ceph_tpu_torch.cli.daemon perf dump` and `metrics` in two child
+    processes without --device: the self-test maps 256 PGs, diagnoses
+    them and encodes RS(8,4) on the card; pgs_mapped, bytes_encoded (==
+    the JAX self-test's), each kernel's launches in `cache dump` == the
+    self-test's (one each; its perf group's `<kernel>_launches` reads the
+    same record), the metrics valid Prometheus text.
+    (2) A child mapping config 2 in a loop with CEPH_TPU_ADMIN_SOCKET
+    set, queried twice through `--sock perf dump`: pgs_mapped grows.
+    (3) config 5's map_all_device, median of 5, tracing off and on
+    (`set_trace_path`); the trace holds each run's pipeline.map_block
+    span and each rule launch's span.  (4) The GF(2^8) kernel's (b)
+    time from `main_path` (CUDA events) booked into its registry
+    record: `cache dump`'s achieved GB/s equals the phase's."""
+    t_phase = time.perf_counter()
+    corpus = json.loads(OBS_CORPUS.read_text())
+    env = dict(os.environ)
+    for k in ("CEPH_TPU_ADMIN_SOCKET", "CEPH_TPU_TRACE"):
+        env.pop(k, None)
+    tmp = Path(tempfile.mkdtemp(prefix="obs_main"))
+    sock = str(tmp / "live.asok")
+    n_pgs, n_osds = CONFIGS["config2"]
+    pipe = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=ROOT)
+    procs = {
+        "perf": subprocess.Popen(_daemon_argv("perf", "dump"), env=env,
+                                 **pipe),
+        "metrics": subprocess.Popen(_daemon_argv("metrics"), env=env,
+                                    **pipe),
+        "live": subprocess.Popen(
+            [sys.executable, "-c", _LIVE_MAPPER, str(n_pgs), str(n_osds),
+             str(OSD_PER_HOST)],
+            env=dict(env, CEPH_TPU_ADMIN_SOCKET=sock), **pipe),
+    }
+    res: dict = {"nvidia_smi": smi}
+    try:
+        out, err = procs["perf"].communicate(timeout=300)
+        check(procs["perf"].returncode == 0,
+              f"obs_main: daemon perf dump rc {procs['perf'].returncode}: "
+              f"{err[-600:]}")
+        d = json.loads(out)
+        check(d["pipeline"]["pgs_mapped"] == 256,
+              f"obs_main: pgs_mapped {d['pipeline']['pgs_mapped']}")
+        want = corpus["perf"]["ec"]["bytes_encoded"]
+        check(d["ec"]["bytes_encoded"] == want,
+              f"obs_main: bytes_encoded {d['ec']['bytes_encoded']} != "
+              f"the JAX self-test's {want}")
+        reg = {e["kernel"]: e for e in d["executables"]["entries"]}
+        daemon_launches = {}
+        for name, group, want in OBS_KERNELS:
+            n = reg[name]["launches"]
+            check(n == want and d[group][f"{name}_launches"] == n,
+                  f"obs_main: {name} launched {n} times in the daemon's "
+                  f"self-test, expected {want}")
+            daemon_launches[name] = n
+        res["daemon"] = {
+            "launches": daemon_launches,
+            "enqueue_p50_s": {k: reg[k]["enqueue_seconds"]["p50"]
+                              for k in daemon_launches},
+            "build_seconds": {k: reg[k]["build_seconds"]
+                              for k in daemon_launches},
+            "bytes_per_launch": {k: reg[k]["bytes_per_launch"]
+                                 for k in daemon_launches}}
+        out, err = procs["metrics"].communicate(timeout=300)
+        check(procs["metrics"].returncode == 0 and _prometheus_ok(out),
+              f"obs_main: daemon metrics: {err[-600:]}")
+        for name, _, _ in OBS_KERNELS:
+            m = re.search(r'^ceph_tpu_executables_dispatches_total\{cache="'
+                          + name + r'"\} (\d+)$', out, re.M)
+            check(m is not None and int(m.group(1)) >= 1,
+                  f"obs_main: metrics show no launch of {name}")
+        res["metrics_lines"] = out.count("\n")
+
+        # (2) a live process on the card answering while it maps
+        live = procs["live"]
+        t0 = time.perf_counter()
+        line = live.stdout.readline()
+        check(line.strip() == "ready",
+              f"obs_main: the live mapper did not start: {line!r} "
+              f"{live.stderr.read()[-600:] if live.poll() else ''}")
+        counts = []
+        for _ in range(2):
+            q = subprocess.run(_daemon_argv("--sock", sock, "perf", "dump"),
+                               capture_output=True, text=True, cwd=ROOT,
+                               env=env, timeout=120)
+            check(q.returncode == 0, f"obs_main: --sock query: {q.stderr}")
+            counts.append(json.loads(q.stdout)["pipeline"]["pgs_mapped"])
+            deadline = time.time() + 60
+            while time.time() < deadline:  # until the child maps more
+                c = json.loads(obs.admin_socket.client_command(
+                    sock, "perf dump"))["pipeline"]["pgs_mapped"]
+                if c > counts[-1]:
+                    break
+        check(live.poll() is None and counts[1] > counts[0] > 0,
+              f"obs_main: pgs_mapped over --sock {counts}")
+        res["live"] = {"pgs_mapped": counts,
+                       "queries_s": time.perf_counter() - t0}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+
+    # (3) tracing off vs on, config 5's map_all_device (host clock around
+    # a synchronised call: the span records enqueue, this the whole call)
+    pm = pms["config5"]
+
+    def run():
+        pm.map_all_device()
+        torch.cuda.synchronize()
+
+    def median_ms(runs: int = 5) -> float:
+        times = []
+        for _ in range(runs):
+            t = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    run()
+    obs.trace.clear()
+    off_ms = median_ms()
+    path = tmp / "trace.json"
+    obs.set_trace_path(str(path))
+    mapper.crush_rule_cuda.launches = 0
+    try:
+        on_ms = median_ms()
+    finally:
+        obs.set_trace_path(None)
+    launches = registry_launches(mapper.crush_rule_cuda)
+    check(obs.flush(str(path)) == str(path), "obs_main: no trace written")
+    events = json.loads(path.read_text())["traceEvents"]
+    obs.trace.clear()
+    names = [e["name"] for e in events]
+    check(names.count("pipeline.map_block") == 5
+          and names.count("pipeline.crush_rule.launch") == launches > 0,
+          f"obs_main: trace holds {names.count('pipeline.map_block')} "
+          f"map_block and {names.count('pipeline.crush_rule.launch')} "
+          f"launch spans, {launches} launches")
+    res["trace"] = {"map_all_device_ms_off": off_ms,
+                    "map_all_device_ms_on": on_ms,
+                    "pgs": pm.spec.pg_num, "events": len(events),
+                    "launches": launches}
+    print(f"obs_main: config 5 map_all_device median of 5: tracing off "
+          f"{off_ms:.3f} ms, on {on_ms:.3f} ms ({smi})", flush=True)
+    for f in tmp.iterdir():
+        f.unlink()
+    tmp.rmdir()
+
+    # (4) a launch timed on the card, in the registry's roofline
+    rec = obs.executables.record("gf_matmul")
+    rec.note_timed(timed_b["ms"] * 1e-3, nbytes=timed_b["hbm_bytes"])
+    entry = next(e for e in json.loads(obs.admin_socket.handle_command(
+        "cache dump"))["entries"] if e["kernel"] == "gf_matmul")
+    gbps = entry["roofline"]["achieved_gbps"]
+    check(abs(gbps - timed_b["gb_per_s"]) <= 1e-3 * timed_b["gb_per_s"],
+          f"obs_main: cache dump {gbps} GB/s, main_path "
+          f"{timed_b['gb_per_s']}")
+    res["cache_dump_gf_matmul"] = {k: entry[k] for k in (
+        "launches", "bytes_per_launch", "build_seconds", "roofline",
+        "ptxas")}
+    res["cache_dump_gf_matmul"]["enqueue_p50_s"] = \
+        entry["enqueue_seconds"]["p50"]
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(dict(phase="obs_main", **res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4250,6 +4482,15 @@ def main() -> int:
     nat = phase_native_main(dev, pms, info["nvidia_smi"])
     rule_paths["native_main_crushtool_default"] = \
         nat["crushtool_config2"]["launches"]
+
+    # the operator surface: the daemon's launches are its own process's,
+    # read from that process's kernel registry
+    ores = phase_obs_main(pms, info["nvidia_smi"], res["b"])
+    by_path["obs_main_daemon"] = ores["daemon"]["launches"]["gf_matmul"]
+    rule_paths["obs_main_daemon"] = ores["daemon"]["launches"]["crush_rule"]
+    diag_paths["obs_main_daemon"] = \
+        ores["daemon"]["launches"]["crush_rule_diag"]
+    rule_paths["obs_main_trace"] = ores["trace"]["launches"]
 
     # the lifetime simulator: the corpus, then config 5's size
     del pms

@@ -606,8 +606,8 @@ def test_record_dump_and_explainer_registry():
     assert dump["sources"]["pool0"] == s
     assert dump["counters"]["pgs_diagnosed"] == 256
     assert dump["counters"]["collisions"] == s["collisions"]
-    assert dump["counters"]["choose_tries"][:len(s["tries_histogram"])] \
-        == s["tries_histogram"]
+    assert dump["counters"]["choose_tries"]["buckets"][
+        :len(s["tries_histogram"])] == s["tries_histogram"]
     assert dump["explainers"] == ["pool0"]
     ex = placement.explain("0.5")
     assert ex.get("pool") == 0 and ex.get("seed") == 5

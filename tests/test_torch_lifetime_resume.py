@@ -476,7 +476,8 @@ def test_checkpoint_store_keeps_the_jax_layout(tmp_path):
     assert data["stages_done"] == ["stage_a"]
     assert data["errors"] == {"stage_b": "ValueError: boom"}
     assert data["lifetime"] == {"steps": 3}
-    assert "lifetime" in data["perf"] and "perf" in data["stage_a"]
+    # the perf registry, keyed by perf group as the JAX file is
+    assert "sim" in data["perf"] and "perf" in data["stage_a"]
     j = JaxCheckpoint(path, resume=True)
     assert j.done("stage_a") and j.data["lifetime"] == {"steps": 3}
     j.progress("lifetime", {"steps": 4})
