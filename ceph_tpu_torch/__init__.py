@@ -16,8 +16,18 @@ GF(2^8) matrix product is a CUDA kernel written for `sm_90a`
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`); see `ceph_tpu_torch.device.resolve_device`.
+
+Importing the package imports no torch: the preflight probe's child
+(`python -m ceph_tpu_torch.runtime.preflight --child cuda`) fires its
+fault point before torch loads.  `resolve_device` loads on first use.
 """
 
-from ceph_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from ceph_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

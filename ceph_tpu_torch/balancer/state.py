@@ -19,7 +19,10 @@ applies.  That bookkeeping is the state interface here:
 - FlatDeviceState: every selected pool's rows in one [N, Wmax] tensor,
   the operand of the device_loop plan.
 
-The JAX package's PG-axis mesh is not ported: there is one device.
+With a mesh (`parallel.sharded.Mesh`), DeviceState's mapping passes
+split over the mesh's devices (`PoolMapper(mesh=...)`) and the rows are
+gathered onto its first device, where the membership queries and the
+device_loop plan run.
 
 Each exposes:
     deviations() -> (dev: {osd: float}, sum_sq: float, max_abs: float)
@@ -122,7 +125,7 @@ class DeviceState:
 
     def __init__(self, m, osd_weight: dict[int, float],
                  pgs_per_weight: float, only_pools=None, device=None,
-                 cache: dict | None = None, rows_source=None):
+                 cache: dict | None = None, rows_source=None, mesh=None):
         from ceph_tpu_torch.osd.pipeline import PoolMapper, overlay_fixup_rows
 
         self.osd_weight = dict(osd_weight)
@@ -144,11 +147,13 @@ class DeviceState:
             n = m.pools[pid].pg_num
             rows = rows_source(pid) if rows_source is not None else None
             if rows is None:
-                if cache is not None and pid in cache:
+                if cache is not None and pid in cache \
+                        and cache[pid].mesh is mesh:
                     pm = cache[pid]
                     pm.refresh_dev()
                 else:
-                    pm = PoolMapper(m, pid, device, overlays=False)
+                    pm = PoolMapper(m, pid, device, overlays=False,
+                                    mesh=mesh)
                     if cache is not None:
                         cache[pid] = pm
                 n = pm.spec.pg_num

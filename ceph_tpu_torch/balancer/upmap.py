@@ -1028,8 +1028,10 @@ def calc_pg_upmaps(
     from exactly as the JAX package draws.  device_cache: a caller-owned
     dict that keeps the per-pool PoolMapper across calls.  rows_source
     (pid -> rows or None) stands in for the mapping of the pools it
-    answers.  mesh: the JAX package's PG-axis device mesh, not ported;
-    anything but None raises.
+    answers.  mesh: the PG-axis device mesh (`parallel.sharded.Mesh`)
+    the device backends' mapping passes split over; None resolves the
+    CEPH_TPU_MESH_DEVICES knob (`sharded.default_mesh`), as the JAX
+    package does.  The plan runs on the mesh's first device.
     """
     from ceph_tpu_torch.balancer.state import (
         DeviceState,
@@ -1037,13 +1039,14 @@ def calc_pg_upmaps(
         SetState,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "calc_pg_upmaps: a device mesh is not ported (one device)")
     if backend not in ("sets", "device", "device_loop"):
         raise ValueError(f"calc_pg_upmaps: unknown backend {backend!r}")
     on_device = backend in ("device", "device_loop")
-    if on_device or use_tpu:
+    if on_device:
+        from ceph_tpu_torch.parallel.sharded import mesh_for
+
+        device, mesh = mesh_for(device, mesh)
+    elif use_tpu:
         device = resolve_device(device)
 
     res = UpmapResult()
@@ -1090,6 +1093,7 @@ def calc_pg_upmaps(
             st = DeviceState(
                 m, osd_weight, pgs_per_weight, only_pools=only_pools,
                 device=device, cache=device_cache, rows_source=src,
+                mesh=mesh,
             )
         else:
             pgs_by_osd = _build_pgs_by_osd(m, only_pools, use_tpu,

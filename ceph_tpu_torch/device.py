@@ -1,9 +1,13 @@
 """Where the port's entry points run.
 
-The role of `ceph_tpu/utils/platform.py` (pick the backend once, at the
-entry point), without its fallback ladder: the port runs on the card
-unless the caller asks for the CPU, and a missing card is an error, never
-a silent move to the host.
+The role of `ceph_tpu/utils/platform.py` at the entry point: a device
+left to the default is acquired through the backend ladder
+(`utils.platform.ensure_backend`, once per process, recorded in
+`runtime.last_provenance()`).  The default ladder is the card alone, so
+a missing card is an error, never a silent move to the host; a lower
+rung runs only when `CEPH_TPU_LADDER` names it, and then the descent is
+recorded and warned about.  `device="cpu"` is the caller's way to ask
+for the host.
 """
 
 from __future__ import annotations
@@ -12,15 +16,22 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` -> `cuda`; anything else as `torch.device` reads it.  A
-    CUDA device comes back with its index (`cuda` -> `cuda:<current>`),
-    as the tensors on it report their device.
+    """`None` -> the backend the ladder acquires (`cuda` by default);
+    anything else as `torch.device` reads it.  A CUDA device comes back
+    with its index (`cuda` -> `cuda:<current>`), as the tensors on it
+    report their device.
 
-    Raises RuntimeError when CUDA is asked for (or defaulted to) and the
-    process has no CUDA device: pass `device="cpu"` to run the plain
-    PyTorch versions of the kernels on the host.
+    Raises RuntimeError (`runtime.RequiredBackendError` for the default)
+    when CUDA is asked for or defaulted to and the process has no CUDA
+    device: pass `device="cpu"` to run the plain PyTorch versions of the
+    kernels on the host.
     """
-    dev = torch.device("cuda" if device is None else device)
+    if device is None:
+        from ceph_tpu_torch.utils.platform import ensure_backend
+
+        dev = torch.device("cuda" if ensure_backend() == "cuda" else "cpu")
+    else:
+        dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":

@@ -16,10 +16,15 @@ ITEM_NONE lanes, and `real = arange(Nmax) < min(n, N_i)` masks the
 padded rows, so no padded element reaches a sum; each lane's per-PG
 moved counts come back at its own row count.
 
+A device loss follows `LifetimeSim._degrade`: on a card it raises out
+of `step()`.  On a run placed on the host it degrades as the JAX
+engine's does: a member's pool whose plan (or an injected
+`epoch_apply=lost`) loses the device accounts on the host mapper, and a
+lost stats call degrades every lane it carried, each descent recorded
+in that member's `fallback_events`; the digests are unchanged.  Any
+other error raises.
+
 Differences from the JAX engine, by design:
-- No host degradation: a device error, or an injected
-  `epoch_apply=lost`, raises out of `step()` (the port's `LifetimeSim`
-  does the same).
 - A lane whose rows' version tag did not change replays its stats from
   the member's cache and rides no stats call (the JAX engine rides it as
   a discarded self-compare to keep its compiled structure fixed; the
@@ -46,9 +51,9 @@ from __future__ import annotations
 import time
 
 from ceph_tpu_torch import obs
-from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.fleet import pareto as pareto_mod
 from ceph_tpu_torch.fleet.spec import FleetMember, parse_fleet
+from ceph_tpu_torch.parallel.sharded import mesh_for
 from ceph_tpu_torch.runtime import Checkpoint, faults
 from ceph_tpu_torch.sim import lifetime
 from ceph_tpu_torch.sim.lifetime import BACKENDS, LifetimeSim
@@ -115,13 +120,15 @@ class FleetSim:
 
     def __init__(self, members: list[FleetMember], checkpoint=None,
                  resume: bool = False, device=None,
-                 balancer_backend: str | None = "device_loop"):
+                 balancer_backend: str | None = "device_loop", mesh=None):
         if not members:
             raise ValueError("fleet has no members")
         self.members = list(members)
         on_device = [BACKENDS.get(m.backend) == "torch"
                      for m in self.members]
-        self.device = resolve_device(device) if any(on_device) else None
+        # every device member's ClusterState splits over this mesh
+        self.device, self.mesh = (mesh_for(device, mesh) if any(on_device)
+                                  else (None, None))
         self.balancer_backend = balancer_backend
         self.stack = knobs.get("CEPH_TPU_FLEET_STACK", "1") != "0"
         self.checkpoint_every = int(
@@ -164,7 +171,7 @@ class FleetSim:
         for m, dev_member, sl in zip(self.members, on_device, slices):
             sim = LifetimeSim(m.scenario, backend=m.backend,
                               device=self.device if dev_member else None,
-                              restore_state=sl)
+                              restore_state=sl, mesh=self.mesh)
             if dev_member and balancer_backend:
                 sim.balancer_options = {
                     "upmap_state_backend": balancer_backend}
@@ -254,9 +261,16 @@ class FleetSim:
             stats: dict[int, dict] = {}
             skeys: set = set()
             for pid in sorted(sim.m.pools):
-                # an injected device loss raises out of step()
-                faults.check("epoch_apply", qual=str(e))
-                lane, skey = sim._plan_pool(pid)
+                try:
+                    faults.check("epoch_apply", qual=str(e))
+                    lane, skey = sim._plan_pool(pid)
+                except Exception as exc:
+                    sim._degrade(e, pid, exc)
+                    stats[pid], skey = sim._account_pool(
+                        pid, force_host=True)
+                    skeys.add(skey)
+                    _inc("host_lanes")
+                    continue
                 skeys.add(skey)
                 if lane["cached"] is not None:
                     stats[pid] = sim._commit_pool(lane, None, None)
@@ -266,18 +280,31 @@ class FleetSim:
                     lanes.append((sim, lane))
             plans[id(sim)] = (stats, skeys)
         if lanes:
-            out, moved = lifetime._stats_lanes(
-                [lane["prev"] for _, lane in lanes],
-                [lane["rows"] for _, lane in lanes],
-                [lane["n"] for _, lane in lanes],
-                [lane["size"] for _, lane in lanes],
-                [lane["tol"] for _, lane in lanes])
-            rows_np = obs.timed_fetch(_L, "stack_stats", out)
-            _inc("stats_calls")
-            _inc("stacked_lanes", len(lanes))
-            for (sim, lane), row, mv in zip(lanes, rows_np.tolist(), moved):
-                plans[id(sim)][0][lane["pid"]] = sim._commit_pool(
-                    lane, row, mv)
+            try:
+                out, moved = lifetime._stats_lanes(
+                    [lane["prev"] for _, lane in lanes],
+                    [lane["rows"] for _, lane in lanes],
+                    [lane["n"] for _, lane in lanes],
+                    [lane["size"] for _, lane in lanes],
+                    [lane["tol"] for _, lane in lanes])
+                rows_np = obs.timed_fetch(_L, "stack_stats", out)
+            except Exception as exc:
+                # a whole-call device loss: on the host every lane it
+                # carried degrades to the bit-exact host path (same
+                # digest); on a card the first _degrade raises
+                for sim, lane in lanes:
+                    sim._degrade(sim.steps + 1, lane["pid"], exc)
+                    st, _ = sim._account_pool(lane["pid"],
+                                              force_host=True)
+                    plans[id(sim)][0][lane["pid"]] = st
+                    _inc("host_lanes")
+            else:
+                _inc("stats_calls")
+                _inc("stacked_lanes", len(lanes))
+                for (sim, lane), row, mv in zip(lanes, rows_np.tolist(),
+                                                moved):
+                    plans[id(sim)][0][lane["pid"]] = sim._commit_pool(
+                        lane, row, mv)
         for sim in stacked_sims:
             sim._prune_removed_pools()
         return {k: (st, frozenset(sk)) for k, (st, sk) in plans.items()}

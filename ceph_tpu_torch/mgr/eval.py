@@ -36,7 +36,6 @@ from ceph_tpu_torch.balancer.crush_analysis import (
 from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.crush import mapper_ref
 from ceph_tpu_torch.crush.types import ITEM_NONE
-from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import PgId
 
@@ -85,7 +84,8 @@ class MappingState:
     """
 
     def __init__(self, osdmap: OSDMap, pg_stats=None, desc: str = "",
-                 mapper: str = "torch", state=None, device=None):
+                 mapper: str = "torch", state=None, device=None,
+                 mesh=None):
         if mapper not in MAPPERS:
             raise ValueError(f"unknown mapper {mapper!r} "
                              f"(one of {', '.join(MAPPERS)})")
@@ -95,6 +95,10 @@ class MappingState:
         self.mapper = mapper
         self.state = state
         self.device = state.device if state is not None else device
+        # the standalone mapping path splits over `mesh` (default: the
+        # state's), as the state's own mappers do
+        self.mesh = mesh if mesh is not None \
+            else getattr(state, "mesh", None)
         self._up: dict[int, np.ndarray] = {}
         self._dev: dict[int, torch.Tensor] = {}
 
@@ -119,8 +123,8 @@ class MappingState:
         m = self.osdmap
         n = m.pools[pool_id].pg_num
         with obs.span("mgr.map_pool", pool=pool_id, pgs=n, mapper="torch"):
-            pm = PoolMapper(m, pool_id, resolve_device(self.device),
-                            overlays=False)
+            pm = PoolMapper(m, pool_id, self.device, overlays=False,
+                            mesh=self.mesh)
             rows = pm.map_all_device()
             seeds, fix = overlay_fixup_rows(m, pool_id, int(rows.shape[1]))
             if len(seeds):

@@ -22,7 +22,10 @@ module.py):
   CEPH_TPU_PLACEMENT_DIAG=1 in the environment it then diagnoses the
   plan's pools on the new map (`PoolMapper.diagnose`, the rule kernel's
   diagnostics variant) and books the summary under source "mgr.<plan>"
-  in `obs.placement`; a device error there raises.
+  in `obs.placement`.  On a state placed on the host a device loss there
+  skips the accounting and does not fail the execute whose Incremental
+  already landed (the JAX package's contract); on a card it raises, as
+  does any other error (`runtime.faults.degrade_or_raise`).
 
 Scores come from `mgr.eval.calc_eval`; return codes are the reference's
 negative errnos.
@@ -535,12 +538,14 @@ class Balancer:
         the diagnostics of the plan's pools on the map the plan just
         produced, booked under source "mgr.<plan>" (the JAX package's
         `_diagnose_executed`).  On the state's device and tables when the
-        state owns `m`, else on the plan's device.  A device error raises:
-        there is no host fallback."""
+        state owns `m`, else on the plan's device.  On the host a device
+        loss skips the accounting (the execute already landed); on a
+        card it raises, as does any other error."""
         if knobs.get("CEPH_TPU_PLACEMENT_DIAG", "0") != "1":
             return
         from ceph_tpu_torch.obs import placement
         from ceph_tpu_torch.osd.pipeline import PoolMapper
+        from ceph_tpu_torch.runtime import faults
 
         own = state is not None and state.m is m
         by_name = {v: k for k, v in m.pool_name.items()}
@@ -552,5 +557,13 @@ class Balancer:
         for pid in pids:
             pm = (PoolMapper(m, pid, state=state) if own
                   else PoolMapper(m, pid, device=plan.initial.device))
-            placement.fold_summary(agg, pm.diagnose(record=False))
+            # on the host, diagnostics never fail an execute whose
+            # incremental already landed (as ClusterSim._diagnose_epoch)
+            try:
+                placement.fold_summary(agg, pm.diagnose(record=False))
+            except Exception as e:
+                faults.degrade_or_raise(e, pm.device, book=False)
+                _log.warning("device lost diagnosing pool %d (%s); "
+                             "skipping placement accounting", pid, e)
+                return
         placement.record(f"mgr.{plan.name}", agg)

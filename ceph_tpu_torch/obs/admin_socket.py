@@ -3,8 +3,9 @@
 The port of `ceph_tpu/obs/admin_socket.py`: the same commands, protocol
 and server.  Every command answers from the port's modules; `cache dump`
 is the kernel registry (`obs.executables`: launches, enqueue quantiles,
-nvcc seconds and ptxas rows) and `runtime` the process's device and
-armed fault points (the backend ladder is not ported).  No command
+nvcc seconds and ptxas rows) and `runtime` the backend ladder's
+provenance and default ladder, the armed fault points and the process's
+device.  No command
 waits for the card: a live query answers while the device works.
 
 The reference exposes every daemon's internals on a UNIX stream socket
@@ -28,8 +29,8 @@ protocol here:
                                 42 of pool 1 (an explainer must have
                                 been registered by a PoolMapper of that
                                 pool in THIS process)
-    client: "runtime\\n"        server: the process's device + armed
-                                fault points
+    client: "runtime\\n"        server: backend provenance, default
+                                ladder, armed fault points, device
     client: "serve status\\n"   server: live placement-service status
                                 (epoch, queue depth, shed/degraded
                                 counters, swap-stall tail) per service
@@ -117,13 +118,15 @@ def handle_command(cmd: str) -> str:
     if cmd == "trace flush":
         return json.dumps({"path": trace.flush()})
     if cmd == "runtime":
-        # the live process's device + armed fault points (the JAX
-        # ladder's provenance fields come with runtime/ladder.py)
-        from ceph_tpu_torch.runtime import faults
+        # backend-acquisition provenance (None until something walked
+        # the ladder), the ladder, the armed fault points and the device
+        from ceph_tpu_torch import runtime
 
         return json.dumps({
+            "provenance": runtime.last_provenance(),
+            "default_ladder": runtime.default_ladder(),
+            "faults_armed": runtime.faults.active(),
             "device": _device_info(),
-            "faults_armed": faults.active(),
         }, indent=1, sort_keys=True)
     if cmd == "serve status":
         # the placement-serving daemon's live status (epoch, queue

@@ -48,8 +48,7 @@ from ceph_tpu_torch.utils.perf_counters import PerfCounters
 # The port's perf groups against the JAX package's, by design.  Absent:
 # every key a JitAccount books (one of JIT_SUFFIXES after one of the JAX
 # package's JitAccount keys: the port compiles nothing at call time) and
-# the other compile and cache keys; the `runtime` group's backend-ladder
-# keys, which come with runtime/ladder.py.  Added: the launch accounts
+# the other compile and cache keys.  Added: the launch accounts
 # of the hand kernels, and counts of the port's own device calls.
 JIT_KEYS = ("gf", "gf_batch", "fast", "loop", "diag", "scatter",
             "stack_stats", "epoch_stats", "traffic", "drain", "cand_score",
@@ -62,8 +61,6 @@ ABSENT: dict[str, tuple[str, ...]] = {
     "pipeline": ("pipe_cache_hits", "pipe_cache_misses"),
     "fleet": ("steady_compiles",),
     "serve": ("prewarmed_structures",),
-    "runtime": ("fallbacks", "init_attempts", "init_failures",
-                "init_seconds", "device_loss_fallbacks"),
 }
 ADDED: dict[str, tuple[str, ...]] = {
     "ec": ("gf_matmul_launches", "gf_matmul_launch_seconds",

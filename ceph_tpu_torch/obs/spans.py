@@ -16,7 +16,7 @@ Three kinds of entry:
   no static head and are exempt by construction.
 - `INSTANTS` / `COUNTERS`: zero-duration markers and counter tracks.
 - `PREFIXES`: allowed prefixes for dynamically built span names (the
-  JAX package's `stage.` belongs to its stage scheduler, not ported).
+  stage scheduler's `stage.<name>`).
 
 Spans time the host; `DISPATCH_SPANS` are the spans around launches
 (enqueue only), inside which nothing may wait for the card.
@@ -30,6 +30,9 @@ SPANS: dict[str, str] = {
                           "the pipeline's torch ops)",
     "pipeline.fetch": "d2h fetch of finished mapping results",
     "pipeline.diagnose": "launch of one diagnostics-kernel block",
+    # runtime/
+    "runtime.acquire_backend": "ladder descent to a healthy backend",
+    "runtime.probe": "one watchdogged device preflight probe",
     # obs/ itself
     "obs.exec_analyze": "kernel-registry analysis sweep",
     # balancer/
@@ -99,11 +102,15 @@ SPANS: dict[str, str] = {
 
 INSTANTS: dict[str, str] = {
     "fault.fired": "an armed fault point fired",
+    "stage.overrun": "a stage was abandoned by the watchdog",
+    "runtime.acquired": "backend acquisition finished",
+    "sharded.make_mesh": "device mesh construction",
     "sim.checkpoint": "a lifetime-sim checkpoint was flushed",
     "fleet.checkpoint": "a whole-stack fleet checkpoint was flushed",
     "serve.swap_applied": "an epoch swap flipped the active buffer",
     "serve.degraded": "serve dispatch lost the device; the batch was "
-                      "answered EFAULT",
+                      "answered EFAULT on a card, by the host mapper "
+                      "on the host",
     "serve.recovered": "serve dispatch returned to the device",
     "health.raised": "a health check transitioned OK -> raised",
     "health.cleared": "a health check transitioned raised -> OK",
@@ -115,7 +122,9 @@ COUNTERS: dict[str, str] = {
 }
 
 # f-string span names must start with one of these static heads
-PREFIXES: tuple[str, ...] = ()
+PREFIXES: tuple[str, ...] = (
+    "stage.",  # runtime/scheduler.py: f"stage.{stage_name}"
+)
 
 # spans that time launches only: no host sync inside their bodies
 DISPATCH_SPANS: tuple[str, ...] = (

@@ -29,6 +29,7 @@ kernel has no fast window to rescue from.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,6 +55,8 @@ from ceph_tpu_torch.osd.osdmap import (
     OSDMap,
 )
 from ceph_tpu_torch.osd.types import FLAG_HASHPSPOOL, PgId
+from ceph_tpu_torch.parallel.sharded import mesh_for
+from ceph_tpu_torch.runtime import faults
 
 _L = obs.logger_for("pipeline")
 _L.add_u64("pgs_mapped",
@@ -243,13 +246,23 @@ class PoolMapper:
     uploads nothing of its own; `refresh_dev` rebinds the vectors.  It
     always runs the primary-affinity stage (on an all-default vector it
     changes nothing), so a first affinity delta is an operand update.
+
+    `mesh` (a `parallel.sharded.Mesh`; default: the state's) splits every
+    mapping launch over the mesh's devices: each maps its contiguous
+    block of the seeds (one rule-kernel launch per block) with its own
+    copy of the operands, and the rows are gathered onto the mapper's
+    device, the mesh's first.  This is the only code that splits a
+    launch; the rows equal the unsplit mapper's.
     """
 
     def __init__(self, m: OSDMap, pool_id: int, device=None,
-                 overlays: bool = True, state=None):
+                 overlays: bool = True, state=None, mesh=None):
         self._state = state
-        self.device = (state.device if state is not None
-                       else resolve_device(device))
+        if state is not None:
+            self.device = state.device
+            self.mesh = mesh if mesh is not None else state.mesh
+        else:
+            self.device, self.mesh = mesh_for(device, mesh, default=False)
         self.m = m
         self.pool_id = pool_id
         if state is not None:
@@ -450,13 +463,59 @@ class PoolMapper:
             acting_primary = torch.where(pt >= 0, pt, up_primary)
         return up, up_primary, acting, acting_primary
 
+    def _replica(self, device: torch.device) -> "PoolMapper":
+        """This mapper with its operands (tables, per-OSD vectors,
+        overlays) copied to another device of its mesh."""
+        r = copy.copy(self)
+        r.device = device
+        r.tables = to_device(self.arrays, device)
+        r.dev = {k: v.to(device) for k, v in self.dev.items()}
+        r._ov = {k: v.to(device) for k, v in self._ov.items()}
+        return r
+
+    def mesh_blocks(self, fn, ps: torch.Tensor) -> list:
+        """fn(mapper, block) for each contiguous block of the seeds ps
+        on its mesh device: [(offset, fn's tuple of tensors)], left on
+        the block's device.  Without a mesh, one block on this mapper."""
+        if self.mesh is None or self.mesh.size == 1:
+            return [(0, tuple(fn(self, ps)))]
+        out = []
+        off = 0
+        for dev, blk in zip(self.mesh.devices,
+                            torch.tensor_split(ps, self.mesh.size)):
+            n = blk.numel()
+            if n:
+                pm = self if dev == self.device else self._replica(dev)
+                out.append((off, tuple(fn(pm, blk.to(dev)))))
+            off += n
+        return out
+
+    def _on_mesh(self, fn, ps: torch.Tensor) -> tuple:
+        """`mesh_blocks` gathered onto this mapper's device."""
+        parts = self.mesh_blocks(fn, ps)
+        if len(parts) == 1:
+            return parts[0][1]
+        return tuple(torch.cat([p[j].to(self.device) for _, p in parts])
+                     for j in range(len(parts[0][1])))
+
     def _map_block(self, ps: torch.Tensor, **span_args):
         """_rows(ps) as one accounted block (dispatch only: no host
         sync inside the span)."""
         n = ps.numel()
-        with obs.span("pipeline.map_block", pgs=n, **span_args), \
-                _L.time("map_block_seconds"):
-            out = tuple(t.to(torch.int32) for t in self._rows(ps))
+        faults.check("map_batch")
+        try:
+            with obs.span("pipeline.map_block", pgs=n, **span_args), \
+                    _L.time("map_block_seconds"):
+                out = tuple(t.to(torch.int32) for t in
+                            self._on_mesh(lambda pm, b: pm._rows(b), ps))
+        except Exception as e:
+            # a transport loss surfaces as DeviceLostError, the shape
+            # its callers degrade on (the `map_batch` point injects it)
+            if faults.looks_like_device_loss(e) and \
+                    not isinstance(e, faults.DeviceLostError):
+                raise faults.DeviceLostError(
+                    f"{type(e).__name__}: {e}"[:200]) from e
+            raise
         _L.inc("pgs_mapped", n)
         return out
 
@@ -487,7 +546,8 @@ class PoolMapper:
         ps = torch.arange(self.spec.pg_num, device=self.device)
         with obs.span("pipeline.map_block", pgs=ps.numel(),
                       device_resident=True), _L.time("map_block_seconds"):
-            up = self._up(ps, {})[0].to(torch.int32)
+            up = self._on_mesh(lambda pm, b: pm._up(b, {})[:1],
+                               ps)[0].to(torch.int32)
         _L.inc("pgs_mapped", ps.numel())
         return up
 
@@ -497,7 +557,8 @@ class PoolMapper:
         removal), NONE-padded."""
         ps = self._seeds(seeds)
         with obs.span("pipeline.map_block", pgs=ps.numel(), raw=True):
-            raw = self._raw(ps)[1].to(torch.int32)
+            raw = self._on_mesh(lambda pm, b: pm._raw(b)[1:],
+                                ps)[0].to(torch.int32)
         with obs.span("pipeline.fetch"):
             return raw.cpu().numpy()
 

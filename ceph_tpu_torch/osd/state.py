@@ -54,7 +54,6 @@ import torch
 
 from ceph_tpu_torch import obs
 from ceph_tpu_torch.crush.types import ITEM_NONE
-from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.osd.incremental import Incremental, apply_incremental
 from ceph_tpu_torch.osd.osdmap import (
     DEFAULT_PRIMARY_AFFINITY,
@@ -63,6 +62,8 @@ from ceph_tpu_torch.osd.osdmap import (
     OSDMap,
 )
 from ceph_tpu_torch.osd.types import PgId
+from ceph_tpu_torch.parallel.sharded import mesh_for
+from ceph_tpu_torch.runtime import faults
 from ceph_tpu_torch.utils import knobs
 from ceph_tpu_torch.utils.perf_counters import counters_attr
 
@@ -251,8 +252,12 @@ class ClusterState:
     `device` (None: the card; "cpu" runs the rule's plain version) is
     where the operands live."""
 
-    def __init__(self, m: OSDMap, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, m: OSDMap, device=None, mesh=None):
+        # PG-axis device mesh: None resolves the CEPH_TPU_MESH_DEVICES
+        # knob on a card (parallel.sharded.default_mesh); every mapper of
+        # this state splits its launches over it (PoolMapper(mesh=...))
+        self.device, self.mesh = mesh_for(device, mesh)
+        self._pending_rebuild = False
         self.m = m
         self.delta_enabled = knobs.get("CEPH_TPU_STATE_DELTA", "1") != "0"
         self._vec_ver = 0
@@ -269,6 +274,7 @@ class ClusterState:
             self._build_inner()
 
     def _build_inner(self) -> None:
+        self._pending_rebuild = False
         _inc("full_rebuilds")
         self.full_rebuilds += 1
         self._arrays: dict = {}   # ca_key -> CrushArrays
@@ -358,6 +364,8 @@ class ClusterState:
         corrections ride `rows()`)."""
         from ceph_tpu_torch.osd.pipeline import PoolMapper
 
+        if self._pending_rebuild:
+            self._build()
         pm = self._mappers.get(pid)
         if pm is None:
             pm = self._mappers[pid] = PoolMapper(
@@ -387,6 +395,8 @@ class ClusterState:
         """`up` rows [pg_num, W] int32 of one pool on the state's device,
         overlay PGs corrected, with the structure key and version tag.  A
         call whose tag is unchanged does no device work."""
+        if self._pending_rebuild:
+            self._build()
         tag = self.rows_tag(pid)
         ent = self._rows.get(pid)
         if ent is not None and ent[0] == tag:
@@ -507,7 +517,12 @@ class ClusterState:
         """Advance the host map and the device operands by one epoch
         delta.  Returns "delta" (value-only, O(delta) device work),
         "rebuild" (structural) or "forced_rebuild" (a value-only delta
-        rebuilt because CEPH_TPU_STATE_DELTA=0)."""
+        rebuilt because CEPH_TPU_STATE_DELTA=0, or after a lost device).
+        A device loss during the device portion raises on a card.  On a
+        state placed on the host it leaves the host map advanced and
+        defers the re-key to the next rows()/mapper() access
+        ("deferred"), as the JAX ClusterState does
+        (`faults.degrade_or_raise`)."""
         with obs.span("state.apply", epoch=inc.epoch), \
                 _L.time("apply_seconds"):
             return self._apply(inc)
@@ -518,14 +533,19 @@ class ClusterState:
         if m2 is not self.m:
             self.m = m2  # a full map decodes to a new map object
             kind = "rebuild"
-        if kind == "rebuild":
-            self._build()
-            return "rebuild"
-        if not self.delta_enabled:
-            self._build()
-            return "forced_rebuild"
-        if self._apply_delta(info):
-            return "rebuild"
+        try:
+            if kind == "rebuild":
+                self._build()
+                return "rebuild"
+            if not self.delta_enabled or self._pending_rebuild:
+                self._build()
+                return "forced_rebuild"
+            if self._apply_delta(info):
+                return "rebuild"
+        except Exception as e:
+            faults.degrade_or_raise(e, self.device, book=False)
+            self._pending_rebuild = True
+            return "deferred"
         _inc("delta_applies")
         self.delta_applies += 1
         return "delta"
@@ -675,6 +695,8 @@ class ClusterState:
                              "ClusterState")
         new = ClusterState.__new__(ClusterState)
         new.device = self.device
+        new.mesh = self.mesh
+        new._pending_rebuild = False
         new.delta_enabled = self.delta_enabled
         new.full_rebuilds = 0
         new.delta_applies = 0

@@ -370,12 +370,13 @@ class RecoveryQueue:
         if moved is not None:
             moved = np.asarray(moved)
         b_after, cap, slots, scalars = drain_pool_np(
-            self.backlog[pid], moved, rows, cap, slots,
+            self.host_backlog(pid), moved, rows, cap, slots,
             shard_bytes=self.shard_bytes(size),
             stream_bytes=self.stream_bytes(is_erasure),
             t_us=self.t_us, n=n, size=size, tol=tol)
         self.backlog[pid] = b_after
         self._dev.pop(pid, None)
+        self._stale.discard(pid)
         return cap, slots, scalars
 
     def book(self, pid: int, scalars: dict) -> bool:

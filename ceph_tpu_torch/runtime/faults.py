@@ -22,11 +22,11 @@ Actions:
     hang:<secs>   sleep that long
     stall:<secs>  sleep that long, then continue
     fail[:why]    raise FaultInjected(why)
-    lost[:why]    raise DeviceLostError(why).  The JAX package degrades
-                  to its host mapper on it; the port's placement service
-                  answers the batch it hits EFAULT and records the loss
-                  (`serve/service.py`), and everywhere else in the port
-                  it raises out of the caller
+    lost[:why]    raise DeviceLostError(why).  On a run placed on the
+                  host the port degrades to its host oracle as the JAX
+                  package does; on a card it raises (the placement
+                  service answers the batch EFAULT and records the
+                  loss): see `degrade_or_raise`
     exit[:code]   os._exit(code): a SIGKILL-grade death (no atexit, no
                   finally) for checkpoint/resume tests
     overrun:<s>   sleep
@@ -107,11 +107,8 @@ _DEVICE_LOSS_MARKERS = (
 def looks_like_device_loss(exc: BaseException) -> bool:
     """True when a raised exception is plausibly the device dying: an
     injected DeviceLostError, or a torch runtime error whose message
-    matches a known transport-loss shape.  The port degrades nowhere:
-    the placement service answers a lost dispatch EFAULT and records
-    the loss only where this is true (the rule kernel's own errors, a
-    builtin RuntimeError from its wrapper, answer EFAULT unrecorded);
-    the port's other callers raise."""
+    matches a known transport-loss shape.  A kernel wrapper's own
+    RuntimeError is not one."""
     if isinstance(exc, DeviceLostError):
         return True
     mod = type(exc).__module__ or ""
@@ -119,6 +116,27 @@ def looks_like_device_loss(exc: BaseException) -> bool:
         return False
     msg = str(exc).lower()
     return any(m in msg for m in _DEVICE_LOSS_MARKERS)
+
+
+def degrade_or_raise(exc: BaseException, device, book: bool = True) -> None:
+    """The port's one rule for an error caught around device work, called
+    from the caller's `except` block.  It returns only when `exc` is a
+    device loss (`looks_like_device_loss`) on a run placed on the host
+    (`device` of type "cpu"): the caller then answers from its host
+    oracle, as the JAX package degrades, and with `book` the loss is
+    counted in the `runtime` group's `device_loss_fallbacks` (a
+    degraded mapping pass, the JAX key's meaning).  Anything else
+    raises `exc`: every other error, and a device loss on a card, whose
+    work the port never moves to the host."""
+    if (not looks_like_device_loss(exc)
+            or str(device).split(":")[0] != "cpu"):
+        raise exc
+    if book:
+        L = logger_for("runtime")
+        L.add_u64("device_loss_fallbacks",
+                  "mapping passes degraded to the host mapper after a "
+                  "mid-batch device loss")
+        L.inc("device_loss_fallbacks")
 
 
 class _Fault:

@@ -1,17 +1,29 @@
-"""The canonical witness map of the serving buffer and its placement
-digest.
+"""Mesh bit-identity witness for the serving buffer.
 
-The port of `build_default` and `placement_digest` of
-`ceph_tpu/serve/meshcheck.py`.  The JAX module is also a worker that
-serves the map on 1, 2 or 8 forced devices and compares digests (the
-sharding bit-identity check); that leg waits for the port's multi-device
-layer.  Here the digest is the single-device witness: the same map
-served by the JAX service and by the port gives the same digest.
+The port of `ceph_tpu/serve/meshcheck.py`.  The serving buffer's
+ClusterState splits its launches over the `CEPH_TPU_MESH_DEVICES` mesh
+(`parallel.sharded`).  The contract is that splitting is a throughput
+decision with no semantic surface: answers are the same on 1, 2 or 8
+devices, and the same as the host-mapper oracle's.
+
+`python -m ceph_tpu_torch.serve.meshcheck` is the worker: it builds the
+canonical deterministic map, serves every PG of every pool through
+`query_block`, checks each answer against the host oracle in-process
+and prints one JSON line:
+
+    {"digest": ..., "oracle_match": true, "devices": N, "mesh": {...}}
+
+`--device cpu` runs on the host (the card is the default); `--split N`
+serves through a mesh of the one device repeated N times, the port's
+stand-in for XLA's forced host devices.  The JAX worker's digest of the
+default map is stored in tests/data/meshcheck.json: equal digests across
+packages and splits are the bit-identity proof.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 
 import numpy as np
 
@@ -57,3 +69,57 @@ def placement_digest(svc, m: OSDMap) -> tuple[str, bool]:
             and (r.acting == act).all()
             and (r.acting_primary == actp).all())
     return h.hexdigest(), oracle_ok
+
+
+def run(pgs: int = DEFAULT_PGS, osds: int = DEFAULT_OSDS, device=None,
+        split: int = 0) -> dict:
+    """Serve the witness map through `query_block` and return the
+    digest, the oracle verdict, the backend's device count and the
+    service's mesh status.  split > 1 serves through a mesh of the one
+    device repeated `split` times."""
+    import torch
+
+    from ceph_tpu_torch.device import resolve_device
+    from ceph_tpu_torch.parallel.sharded import Mesh
+    from ceph_tpu_torch.serve.service import PlacementService, ServeConfig
+
+    dev = resolve_device(device)
+    mesh = Mesh([dev] * split) if split > 1 else None
+    m = build_default(pgs, osds)
+    cfg = ServeConfig(block=128, bulk_max=pgs, max_queue=256,
+                      deadline_s=0)
+    svc = PlacementService(m, config=cfg, name="meshcheck", device=dev,
+                           mesh=mesh)
+    try:
+        digest, oracle_match = placement_digest(svc, m)
+        st = svc.status()
+        return {
+            "digest": digest,
+            "oracle_match": oracle_match,
+            "devices": (torch.cuda.device_count() if dev.type == "cuda"
+                        else 1),
+            "mesh": st["mesh"],
+        }
+    finally:
+        svc.close()
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="serve mesh bit-identity worker")
+    ap.add_argument("--pgs", type=int, default=DEFAULT_PGS)
+    ap.add_argument("--osds", type=int, default=DEFAULT_OSDS)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    ap.add_argument("--split", type=int, default=0,
+                    help="serve through a mesh of the device repeated N "
+                         "times")
+    args = ap.parse_args(argv)
+    print(json.dumps(run(args.pgs, args.osds, args.device, args.split)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

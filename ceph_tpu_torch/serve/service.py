@@ -40,12 +40,17 @@ Threading model (all bounded, all join-able):
   captured buffer holds is written after the flip (a fork copies the
   vectors before its scatter; tables are replaced, never written).
 
-Device loss: a dispatch error answers its lanes EFAULT.  Where
-`runtime.faults.looks_like_device_loss` is true (a torch transport
-error, or the `serve_dispatch` fault point's `lost`) the loss is also
-recorded in `fallback_events`/`provenance()`; the next batch goes to the
-device again, and its answer records the recovery
-(`device_recoveries`).  Nothing is answered by the host.  Queries are
+Device loss: a loss inside the dispatch (a torch transport error
+`runtime.faults.looks_like_device_loss` accepts, or the `serve_dispatch`
+fault point's `lost`) is recorded in `fallback_events`/`provenance()`,
+and the first device answer after it records the recovery
+(`device_recoveries`).  On a card the lost batch is answered EFAULT and
+the next batch goes to the device again: nothing is answered by the
+host.  On a service placed on the host (`device="cpu"`) it degrades as
+the JAX service does: the bit-exact host mapper answers that batch and
+the next `degraded_batches` batches (`degraded_answered` counts those
+lanes).  Any other dispatch error (a kernel wrapper's own RuntimeError
+included) answers its lanes EFAULT and degrades nothing.  Queries are
 answered, never dropped: every submitted request ends in exactly one
 reply (ok / EBUSY / ETIMEDOUT / ESHUTDOWN / EFAULT).
 
@@ -58,16 +63,19 @@ Differences by design from the JAX service: nothing is compiled, so
 there is no warm dispatch, no overlay-structure prewarm (no `prewarm`
 knob, no `prewarmed_structures` count), no staging thread (the JAX one
 also ran the prewarm compiles) and no cycle padding of lanes to a fixed
-shape; a device loss answers EFAULT where the JAX service answers
-through the host oracle for `degraded_batches` batches (no such knob,
-no `degraded_batches_left`; `degraded_answered` stays 0); a failed
+shape; on a card a device loss answers EFAULT where the JAX service
+answers through the host oracle (ROADMAP C.3); a failed
 stage is never served "without ClusterState": the first stage raises,
 a later one is a rejected swap.  The service books
 the JAX package's `serve` perf group (`dump()`; `COUNTERS` reads its
 counts) and spans (`serve.batch`, `serve.bulk`, `serve.swap`,
 `serve.background_balance`, the swap and device instants); the admin
-socket's `serve status` is `status_dump()`.  The device mesh is not
-ported.
+socket's `serve status` is `status_dump()`.
+
+Mesh: the serving buffer's ClusterState splits its launches over
+`mesh` (a `parallel.sharded.Mesh`; None resolves CEPH_TPU_MESH_DEVICES,
+as the JAX service does), and `status()["mesh"]` reports it with
+`last_mesh_provenance()`; answers are the same on any split.
 """
 
 from __future__ import annotations
@@ -86,11 +94,11 @@ import torch
 
 from ceph_tpu_torch import obs
 from ceph_tpu_torch.crush.types import ITEM_NONE
-from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.obs import health, quantiles, timeline
 from ceph_tpu_torch.osd.incremental import Incremental, apply_incremental
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import PgId
+from ceph_tpu_torch.parallel.sharded import mesh_for
 from ceph_tpu_torch.runtime import Checkpoint, faults
 from ceph_tpu_torch.serve.slo import SloEngine
 from ceph_tpu_torch.utils import knobs
@@ -99,8 +107,7 @@ from ceph_tpu_torch.utils.perf_counters import counters_attr
 _log = logging.getLogger("ceph_tpu_torch.serve")
 
 # the JAX package's `serve` perf group (the front's keys are declared in
-# front.py); `degraded_answered` stays 0 (a device loss answers EFAULT)
-# and `prewarmed_structures` is absent (nothing to pre-trace)
+# front.py); `prewarmed_structures` is absent (nothing to pre-trace)
 _L = obs.logger_for("serve")
 _L.add_u64("queries", "queries answered ok (device or degraded host path)")
 _L.add_u64("queries_shed",
@@ -110,8 +117,7 @@ _L.add_u64("queries_expired",
            "queries answered ETIMEDOUT (deadline budget spent before "
            "the reply; late results are discarded, never delivered)")
 _L.add_u64("degraded_answered",
-           "queries answered by the host mapper after a device loss "
-           "(always 0: the port answers such lanes EFAULT)")
+           "queries answered by the host mapper after a device loss")
 _L.add_u64("batches", "micro-batches dispatched to the mapper")
 _L.add_u64("epoch_swaps", "epoch swaps applied (staged + flipped)")
 _L.add_u64("swap_rejected",
@@ -208,6 +214,8 @@ class ServeConfig:
     fill: int = 4096          # stop collecting once this many queries wait
     max_queue: int = 256      # admission bound (pending requests)
     deadline_s: float = 0.25  # default per-request deadline (<=0 disables)
+    degraded_batches: int = 16  # host batches before re-trying the device
+    #                             (a service placed on the host only)
     checkpoint_every: int = 1   # flush every Nth accepted epoch
     bulk_max: int = 8192      # bulk sub-block width (deadline granularity)
 
@@ -221,6 +229,8 @@ class ServeConfig:
             max_queue=int(knobs.get("CEPH_TPU_SERVE_QUEUE", "256")),
             deadline_s=float(
                 knobs.get("CEPH_TPU_SERVE_DEADLINE_MS", "250")) / 1e3,
+            degraded_batches=int(knobs.get(
+                "CEPH_TPU_SERVE_DEGRADED_BATCHES", "16")),
             bulk_max=int(knobs.get("CEPH_TPU_SERVE_BULK_MAX", "8192")),
         )
 
@@ -234,8 +244,8 @@ REPLY_STATUSES: dict[str, str] = {
                  "are discarded, never delivered",
     "ESHUTDOWN": "service stopped before the reply",
     "EFAULT": "invalid request (unknown pool, empty batch) or a "
-              "dispatcher error (a device loss included) answered "
-              "loudly",
+              "dispatcher error (a device loss on a card included) "
+              "answered loudly",
 }
 
 # dense per-lane codes for the bulk path's status vector ("ok" == 0)
@@ -251,7 +261,7 @@ class Reply:
 
     status: str                      # ok|EBUSY|ETIMEDOUT|ESHUTDOWN|EFAULT
     epoch: int = 0
-    source: str = ""                 # "device" on "ok"
+    source: str = ""                 # "device" | "host" (degraded)
     up: np.ndarray | None = None          # [n, W] i32, NONE-padded
     up_primary: np.ndarray | None = None  # [n] i32
     acting: np.ndarray | None = None      # [n, W] i32
@@ -273,7 +283,7 @@ class BulkReply:
 
     statuses: np.ndarray                  # [n] uint8 -> STATUS_NAMES
     epoch: int = 0
-    source: str = ""                 # "device" when a lane was mapped
+    source: str = ""                 # "device" | "host" | "mixed"
     up: np.ndarray | None = None          # [n, W] i32, NONE-padded
     up_primary: np.ndarray | None = None  # [n] i32
     acting: np.ndarray | None = None      # [n, W] i32
@@ -407,15 +417,16 @@ class PlacementService:
     """See the module docstring.  `m` may be None with `resume=True` and
     a checkpoint that holds a serialized epoch.  `device` (None: the
     card, `device.resolve_device`; "cpu" runs the rule's plain version)
-    is where the ClusterState lives."""
+    is where the ClusterState lives; `mesh` (None: the
+    CEPH_TPU_MESH_DEVICES mesh) is what its launches split over."""
 
     def __init__(self, m: OSDMap | None = None,
                  config: ServeConfig | None = None,
                  checkpoint: str | None = None, resume: bool = False,
-                 name: str = "serve", device=None):
+                 name: str = "serve", device=None, mesh=None):
         self.config = config or ServeConfig.from_env()
         self.name = name
-        self.device = resolve_device(device)
+        self.device, self.mesh = mesh_for(device, mesh)
         self.ck = Checkpoint(checkpoint, resume=resume) \
             if checkpoint else None
         self.resumed_from: int | None = None
@@ -444,6 +455,7 @@ class PlacementService:
         self._batch_seq = 0
         self._bulk_inflight = 0  # lanes inside query_block calls
         self.fallback_events: list[str] = []
+        self._degraded_left = 0  # host batches left in a degraded spell
         self._swaps_since_ck = 0
         self.slo = SloEngine()
         self._slo_prev: dict = {}  # counter snapshot at last window sample
@@ -542,25 +554,42 @@ class PlacementService:
         with self._q_lock:
             self._bulk_inflight -= granted
 
-    def _device_rows(self, buf: _Buffer, pool: int, seeds: np.ndarray,
-                     qual: str):
-        """One pool's seeds through the mapper.  Every error raises, so
-        the caller answers the lanes EFAULT; a device loss is recorded
-        in `fallback_events` first, and the first answer after it
-        records the recovery.  `qual` qualifies the `serve_dispatch`
-        fault point."""
+    def _map_rows(self, buf: _Buffer, pool: int, seeds: np.ndarray,
+                  qual: str):
+        """One pool's seeds through the mapper: (rows, "device" | "host").
+        A device loss is recorded in `fallback_events`, and the first
+        device answer after it records the recovery.  On a card the loss
+        raises, as any other error does (the caller answers the lanes
+        EFAULT), and the next batch goes to the device again.  On a
+        service placed on the host the loss degrades as the JAX service
+        does (`faults.degrade_or_raise`): the host oracle answers the
+        batch and the next `degraded_batches` batches.  `qual`
+        qualifies the `serve_dispatch` fault point."""
+        with self._events_lock:
+            spell = self._degraded_left > 0
+            if spell:
+                self._degraded_left -= 1
+        if spell:
+            _inc("degraded_answered", len(seeds))
+            return buf.host_rows(pool, seeds), "host"
         try:
             faults.check("serve_dispatch", qual=qual)
             rows = buf.mapper(pool).map_batch(seeds)
         except Exception as e:
             if faults.looks_like_device_loss(e):
+                host = self.device.type == "cpu"
                 msg = (f"epoch {buf.epoch} pool {pool}: "
-                       f"{type(e).__name__}: {e}"[:200] + " -> EFAULT")
+                       f"{type(e).__name__}: {e}"[:200]
+                       + (" -> host mapper" if host else " -> EFAULT"))
                 with self._events_lock:
+                    if host:
+                        self._degraded_left = self.config.degraded_batches
                     self.fallback_events.append(msg)
                 _log.warning("device lost mid-serve; %s", msg)
                 obs.instant("serve.degraded", pool=pool)
-            raise
+            faults.degrade_or_raise(e, self.device, book=False)
+            _inc("degraded_answered", len(seeds))
+            return buf.host_rows(pool, seeds), "host"
         with self._events_lock:
             recovered = (bool(self.fallback_events)
                          and not self._recovered_logged())
@@ -570,7 +599,7 @@ class PlacementService:
         if recovered:
             _inc("device_recoveries")
             obs.instant("serve.recovered", pool=pool)
-        return rows
+        return rows, "device"
 
     def query_block(self, pool: int, seeds,
                     deadline_s: float | None = None) -> BulkReply:
@@ -609,6 +638,7 @@ class PlacementService:
         up, upp, act, actp = _empty_rows(n, buf.mapper(pool).spec.out_width)
         bmax = max(self.config.bulk_max, self.config.block)
         done = 0
+        sources: set[str] = set()
         try:
             with obs.span("serve.bulk", lookups=n, pool=pool):
                 while done < granted:
@@ -618,8 +648,9 @@ class PlacementService:
                         error = error or f"deadline spent after {done} lanes"
                         break
                     take = min(bmax, granted - done)
-                    rows = self._device_rows(
+                    rows, src = self._map_rows(
                         buf, pool, seeds[done:done + take], self.name)
+                    sources.add(src)
                     for dst, part in zip((up, upp, act, actp), rows):
                         dst[done:done + take] = part
                     done += take
@@ -638,7 +669,7 @@ class PlacementService:
         _inc("bulk_lookups", n)
         _L.observe("request_seconds", time.perf_counter() - t0)
         return BulkReply(statuses, epoch=buf.epoch,
-                         source="device" if done else "", up=up,
+                         source=_merged_source(sources), up=up,
                          up_primary=upp, acting=act, acting_primary=actp,
                          error=error)
 
@@ -751,7 +782,8 @@ class PlacementService:
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
         with ctx:
-            buf = _Buffer(ClusterState(m, device=self.device))
+            buf = _Buffer(ClusterState(m, device=self.device,
+                                       mesh=self.mesh))
             buf.warm()
         if stream is not None:
             stream.synchronize()
@@ -946,13 +978,13 @@ class PlacementService:
                 seeds = np.concatenate([r.seeds for r in reqs])
                 # the fault qualifier is the batch sequence number, so
                 # `exit`/`lost` can be aimed mid-serve deterministically
-                up, upp, act, actp = self._device_rows(
+                (up, upp, act, actp), source = self._map_rows(
                     buf, pool, seeds, str(self._batch_seq))
                 off = 0
                 for r in reqs:
                     n = len(r.seeds)
                     delivered = r.answer(Reply(
-                        "ok", epoch=buf.epoch, source="device",
+                        "ok", epoch=buf.epoch, source=source,
                         up=up[off:off + n], up_primary=upp[off:off + n],
                         acting=act[off:off + n],
                         acting_primary=actp[off:off + n],
@@ -1043,7 +1075,8 @@ class PlacementService:
         with self._events_lock:
             events = list(self.fallback_events)
         return {
-            "backend": "device",
+            "backend": "host-degraded" if self._degraded_left else
+                       "device",
             "device_loss_fallbacks": sum(
                 1 for e in events if not e.startswith("recovered")),
             "fallback_events": events[-8:],
@@ -1057,6 +1090,9 @@ class PlacementService:
         req = d["request_seconds"]
         fill = d["batch_fill_hist"]
         wl = obs.group_view("workload")
+        from ceph_tpu_torch.parallel.sharded import last_mesh_provenance
+
+        mesh = self._active.state.mesh
         out = {
             "epoch": self.epoch,
             "pools": sorted(self._active.m.pools),
@@ -1067,6 +1103,7 @@ class PlacementService:
             "queries_shed": d["queries_shed"],
             "queries_expired": d["queries_expired"],
             "degraded_answered": d["degraded_answered"],
+            "degraded_batches_left": self._degraded_left,
             "batches": d["batches"],
             "epoch_swaps": d["epoch_swaps"],
             "swap_rejected": d["swap_rejected"],
@@ -1080,8 +1117,11 @@ class PlacementService:
             "request_p99_s": req["p99"],
             "batch_fill_p50": fill["p50"],
             "batch_fill_p99": fill["p99"],
-            # one device: the mesh waits for the port's parallel layer
-            "mesh": {"devices": 1, "provenance": {}},
+            # the serving buffer's mesh (requested vs actual)
+            "mesh": {
+                "devices": mesh.size if mesh is not None else 1,
+                "provenance": last_mesh_provenance(),
+            },
             "health": health.status(),
             "slo": self.slo.status(),
             # the client-visible story the lifetime workload model tells
@@ -1122,6 +1162,14 @@ class PlacementService:
         self.close()
 
 
+def _merged_source(sources: set) -> str:
+    """A bulk reply's source: the one its parts share, "mixed" when the
+    device and the host oracle both answered, "" when nothing was
+    mapped."""
+    return sources.pop() if len(sources) == 1 else (
+        "mixed" if sources else "")
+
+
 def _merge(n: int, replies: list, epoch: int) -> BulkReply:
     """Scatter per-group bulk replies ((lane indices, BulkReply)) back to
     input order, rows at the widest group's width."""
@@ -1141,7 +1189,7 @@ def _merge(n: int, replies: list, epoch: int) -> BulkReply:
         if r.error:
             errors.append(r.error)
         epoch = max(epoch, r.epoch)
-    source = "device" if any(r.source for _, r in replies) else ""
-    return BulkReply(statuses, epoch=epoch, source=source,
+    return BulkReply(statuses, epoch=epoch, source=_merged_source(
+                         {r.source for _, r in replies if r.source}),
                      up=up, up_primary=upp, acting=act,
                      acting_primary=actp, error="; ".join(errors)[:200])

@@ -17,8 +17,13 @@ there (`diff_mappings`), fetching only the report's counts.  Backend
 numpy rows.  `thrash` is the OSDThrasher-style randomized fault injector
 (the qa harness pattern, reference qa/tasks/ceph_manager.py:185).
 
-There is no fallback: a device error raises (the JAX package's degradation
-to the host mapper after a lost device needs `runtime.faults`).
+A device loss while a pool maps (an error `runtime.faults.looks_like_
+device_loss` accepts, such as the `map_batch=lost` fault point) follows
+`runtime.faults.degrade_or_raise`: on a run placed on the host
+(`device="cpu"`) that pool maps through the host oracle, bit-exact with
+the device pipeline, and the descent is recorded in `fallback_events`,
+`provenance()` and the `runtime` group's `device_loss_fallbacks`, as in
+the JAX package; on a card it raises, as does every other error.
 """
 
 from __future__ import annotations
@@ -32,7 +37,11 @@ from ceph_tpu_torch.crush.types import ITEM_NONE
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import PgId
+from ceph_tpu_torch.runtime import faults
 from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.dout import subsys_logger
+
+_log = subsys_logger("sim")
 
 BACKENDS = {"torch": "torch", "jax": "torch", "ref": "ref"}
 
@@ -82,17 +91,30 @@ def _map_ref(m: OSDMap, pid: int) -> tuple:
     return (up, upp, acting, actp)
 
 
-def _map_all(m: OSDMap, backend: str, device=None) -> dict[int, tuple]:
+def _map_all(m: OSDMap, backend: str, device=None,
+             events: list[str] | None = None) -> dict[int, tuple]:
     """Every pool's (up, up_primary, acting, acting_primary): int32
-    tensors on `device` for "torch", numpy for "ref"."""
+    tensors on `device` for "torch", numpy for "ref" and for a pool
+    whose device pass was lost (recorded in `events`)."""
     from ceph_tpu_torch.osd.pipeline import PoolMapper
 
     out = {}
     for pid in sorted(m.pools):
         if BACKENDS[backend] == "torch":
-            out[pid] = PoolMapper(m, pid, device=device).map_all_tensors()
-        else:
-            out[pid] = _map_ref(m, pid)
+            try:
+                out[pid] = PoolMapper(m, pid,
+                                      device=device).map_all_tensors()
+                continue
+            except Exception as e:
+                # on the host, degrade: the host mapper is bit-exact with
+                # the device pipeline, so the placements are identical
+                faults.degrade_or_raise(e, device)
+                _log(1, f"device lost mapping pool {pid} ({e}); "
+                        "degrading to host mapper")
+                if events is not None:
+                    events.append(
+                        f"pool {pid} epoch {m.epoch}: {e} -> ref")
+        out[pid] = _map_ref(m, pid)
     return out
 
 
@@ -183,7 +205,10 @@ class ClusterSim:
             diagnostics = knobs.get("CEPH_TPU_PLACEMENT_DIAG", "0") == "1"
         self.diagnostics = diagnostics
         self.diag_history: list[tuple[str, dict]] = []
-        self.current = _map_all(m, backend, self.device)
+        # provenance of degraded mapping passes (device loss -> ref)
+        self.fallback_events: list[str] = []
+        self.current = _map_all(m, backend, self.device,
+                                self.fallback_events)
         self.history: list[tuple[str, MovementReport]] = []
         if self.diagnostics:
             self._diagnose_epoch("init")
@@ -195,10 +220,16 @@ class ClusterSim:
 
         agg: dict = {"epoch": int(self.epoch), "label": label}
         for pid in sorted(self.m.pools):
+            s = None
             if BACKENDS[self.backend] == "torch":
-                s = PoolMapper(self.m, pid,
-                               device=self.device).diagnose(record=False)
-            else:
+                try:
+                    s = PoolMapper(self.m, pid, device=self.device
+                                   ).diagnose(record=False)
+                except Exception as e:
+                    faults.degrade_or_raise(e, self.device, book=False)
+                    _log(1, f"device lost diagnosing pool {pid} ({e}); "
+                            "host bad-mapping counts only")
+            if s is None:
                 up = self.current[pid][0]
                 occupied = (np.asarray(up) != ITEM_NONE).sum(axis=1)
                 s = {"pgs": int(up.shape[0]),
@@ -211,18 +242,19 @@ class ClusterSim:
         return agg
 
     def provenance(self) -> dict:
-        """Which backend produced the placements.  The port has no
-        degradation, so there is never a fallback event."""
+        """Which backend produced the placements, and every degradation
+        that happened along the way."""
         return {
             "backend": self.backend,
-            "device_loss_fallbacks": 0,
-            "fallback_events": [],
+            "device_loss_fallbacks": len(self.fallback_events),
+            "fallback_events": list(self.fallback_events),
         }
 
     def _step(self, label: str) -> MovementReport:
         self.epoch += 1
         self.m.epoch = self.epoch
-        new = _map_all(self.m, self.backend, self.device)
+        new = _map_all(self.m, self.backend, self.device,
+                       self.fallback_events)
         rep = diff_mappings(self.current, new, self.m.pools)
         self.current = new
         self.history.append((label, rep))

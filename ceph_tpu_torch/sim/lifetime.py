@@ -46,10 +46,20 @@ port's subsystems into one long-running run:
   "lifetime_step.<e>=exit:9"` and `cli/sim.py --resume` are the kill
   test).
 
-There is no degradation to the host: a device error, real or injected
-through `runtime.faults` (`epoch_apply=lost`), raises out of `step()`,
-and `provenance()` always reports no fallback.  The port compiles
+**Device loss** (`runtime.faults.degrade_or_raise`): a loss, real (a
+torch error `runtime.faults.looks_like_device_loss` accepts) or injected
+(`epoch_apply=lost`, `recovery_step=lost`), raises out of `step()` on a
+card.  On a run placed on the host (`device="cpu"`) it degrades as the
+JAX package does: that pool's accounting, or the rest of the epoch's
+recovery drain, goes through the bit-exact host mapper and numpy
+mirrors with the digest unchanged, and every descent is booked in
+`fallback_events`, `provenance()` and the `runtime` group's
+`device_loss_fallbacks`.  Any other error raises.  The port compiles
 nothing per shape, so `trace_once`'s compile counts read 0.
+
+`mesh` (a `parallel.sharded.Mesh`; None resolves CEPH_TPU_MESH_DEVICES)
+splits the ClusterState's mapping launches over its devices: the same
+digests.
 
 Scenario syntax (`Scenario.parse`): comma-separated `key=value` pairs
 over the `Scenario` dataclass fields, e.g.
@@ -75,15 +85,18 @@ import torch
 from ceph_tpu_torch import obs
 from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.crush.types import ITEM_NONE
-from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.obs import health, timeline
 from ceph_tpu_torch.osd.incremental import Incremental, apply_incremental
 from ceph_tpu_torch.osd.osdmap import IN_WEIGHT, OSD_EXISTS, OSD_UP, OSDMap
 from ceph_tpu_torch.osd.types import PgId, PgPool, PoolType
+from ceph_tpu_torch.parallel.sharded import mesh_for
 from ceph_tpu_torch.runtime import Checkpoint, faults
 from ceph_tpu_torch.sim.failure import MovementReport, _map_ref
 from ceph_tpu_torch.utils import knobs
+from ceph_tpu_torch.utils.dout import subsys_logger
 from ceph_tpu_torch.utils.perf_counters import counters_attr
+
+_log = subsys_logger("sim")
 
 BACKENDS = {"torch": "torch", "jax": "torch", "ref": "ref"}
 
@@ -598,7 +611,8 @@ class LifetimeSim:
     def __init__(self, scenario: Scenario | str | None = None,
                  backend: str = "torch",
                  checkpoint: str | None = None, resume: bool = False,
-                 device=None, restore_state: dict | None = None):
+                 device=None, restore_state: dict | None = None,
+                 mesh=None):
         if isinstance(scenario, str) or scenario is None:
             scenario = Scenario.parse(scenario)
         if backend not in BACKENDS:
@@ -607,7 +621,10 @@ class LifetimeSim:
         self.scenario = scenario
         self.backend = backend
         self.on_device = BACKENDS[backend] == "torch"
-        self.device = resolve_device(device) if self.on_device else None
+        # PG-axis device mesh of the whole epoch loop: the ClusterState
+        # splits its launches over it; the digests are the same
+        self.device, self.mesh = (mesh_for(device, mesh) if self.on_device
+                                  else (None, None))
         self.steps = 0
         self.digest = hashlib.sha256(
             scenario.spec().encode()).hexdigest()
@@ -859,10 +876,19 @@ class LifetimeSim:
         if self.on_device:
             from ceph_tpu_torch.osd.state import ClusterState
 
-            self.state = ClusterState(self.m, device=self.device)
+            try:
+                self.state = ClusterState(self.m, device=self.device,
+                                          mesh=self.mesh)
+            except Exception as e:
+                self._degrade(0, "state", e)
         skeys = set()
         for pid in sorted(self.m.pools):
-            _, skey = self._account_pool(pid, baseline=True)
+            try:
+                _, skey = self._account_pool(pid, baseline=True)
+            except Exception as e:
+                self._degrade(0, pid, e)
+                _, skey = self._account_pool(pid, baseline=True,
+                                             force_host=True)
             skeys.add(skey)
         self._prev_skeys = frozenset(skeys)
 
@@ -924,16 +950,18 @@ class LifetimeSim:
     # (moved/remapped compare against prev rows: identical rows give 0)
     _ROW_STATS = ("degraded", "unmapped", "at_risk", "dup")
 
-    def _account_pool(self, pid: int, baseline: bool = False):
+    def _account_pool(self, pid: int, baseline: bool = False,
+                      force_host: bool = False):
         """Map one pool and reduce the epoch stats: torch ops on the
-        state's rows, or the host oracle and `_stats_np` on "ref".
+        state's rows, or the host oracle and `_stats_np` on "ref" or
+        when a device loss degraded this call (`force_host`).
 
         O(delta) steady path: when the pool's ClusterState version tag
         matches both the previous epoch's rows and the cached row-stats,
         the epoch does no device work for the pool: the rows are equal by
         the tag contract, so moved/remapped are 0 and the row-pure stats
         replay from the cache."""
-        if self.state is not None:
+        if self.state is not None and not force_host:
             lane, skey = self._plan_pool(pid)
             out = moved_rows = None
             if lane["cached"] is None:
@@ -957,7 +985,7 @@ class LifetimeSim:
         prev_np = rows if (
             prev is None
             or tuple(np.shape(prev[1])) != tuple(rows.shape)
-        ) else np.asarray(prev[1])
+        ) else _host(prev[1])
         self._prev_rows[pid] = (None, rows)
         self._stats_cache.pop(pid, None)
         if baseline:
@@ -999,6 +1027,9 @@ class LifetimeSim:
         elif (prev is None
                 or tuple(prev[1].shape) != tuple(rows.shape)):
             lane["prev"] = rows  # fresh/resized pool: self-compare
+        elif isinstance(prev[1], np.ndarray):
+            # host rows of an epoch a device loss degraded
+            lane["prev"] = torch.from_numpy(prev[1]).to(rows.device)
         else:
             lane["prev"] = prev[1]
         return lane, skey
@@ -1025,13 +1056,29 @@ class LifetimeSim:
         st["tol"] = lane["tol"]
         return st
 
+    def _degrade(self, e: int, pid, exc) -> None:
+        """Called from an `except` block around device work: raises
+        `exc` unless `faults.degrade_or_raise` lets a device loss degrade
+        (a run placed on the host), then records the descent; the caller
+        goes on through the host mapper and numpy mirrors."""
+        faults.degrade_or_raise(exc, self.device)
+        msg = f"epoch {e} pool {pid}: {exc} -> host mapper"
+        self.fallback_events.append(msg)
+        _log(1, "device lost mid-lifetime; degrading accounting to "
+                f"the bit-exact host mapper ({msg})")
+
     def _account_epoch(self, e: int):
         stats: dict[int, dict] = {}
         skeys = set()
         for pid in sorted(self.m.pools):
-            # an injected device loss raises out of step(): no fallback
-            faults.check("epoch_apply", qual=str(e))
-            st, skey = self._account_pool(pid)
+            try:
+                faults.check("epoch_apply", qual=str(e))
+                st, skey = self._account_pool(pid)
+            except Exception as exc:
+                # a device loss degrades on the host, raises on a card;
+                # any other error raises
+                self._degrade(e, pid, exc)
+                st, skey = self._account_pool(pid, force_host=True)
             stats[pid] = st
             skeys.add(skey)
         self._prune_removed_pools()
@@ -1578,6 +1625,7 @@ class LifetimeSim:
         )
 
         wl = self.workload
+        use_device = self.state is not None
         pids = sorted(self.m.pools)
         reqs = wl.pool_requests(e, pids)
         per_pool: dict[int, dict] = {}
@@ -1592,16 +1640,25 @@ class LifetimeSim:
                 self.recovery.ensure(pid, int(rows.shape[0]))
             kw = dict(n=pool.pg_num, size=pool.size, tol=tol,
                       DV=self._dv(), wq=wq)
-            if self.state is not None:
-                if self.recovery is not None:
-                    backlog = self.recovery.device_backlog(pid)
-                client, scal = wl.step_pool_device(
-                    e, pid, rows, backlog, **kw)
-            else:
+            on_dev = use_device and not isinstance(rows, np.ndarray)
+            if on_dev:
+                try:
+                    if self.recovery is not None:
+                        backlog = self.recovery.device_backlog(pid)
+                    client, scal = wl.step_pool_device(
+                        e, pid, rows, backlog, **kw)
+                except Exception as exc:
+                    self._degrade(e, "workload", exc)
+                    use_device = on_dev = False
+            if not on_dev:
                 if self.recovery is not None:
                     backlog = self.recovery.host_backlog(pid)
                 client, scal = wl.step_pool_host(
-                    e, pid, np.asarray(rows), backlog, **kw)
+                    e, pid, _host(rows), backlog, **kw)
+                if client_total is not None:
+                    client_total = _host(client_total)
+            elif isinstance(client_total, np.ndarray):
+                client = _host(client)
             wl.book(scal)
             per_pool[pid] = scal
             # a new sum each pool: the first client vector is not
@@ -1633,8 +1690,9 @@ class LifetimeSim:
         """One epoch of the recovery queue (ceph_tpu_torch.recovery):
         enqueue from the per-PG moved lanes, slot-limited priority drain
         against the per-OSD capacity clients left over, byte
-        conservation checked per pool.  A `recovery_step` fault raises
-        (no host degradation)."""
+        conservation checked per pool.  A device loss (real, or the
+        `recovery_step` fault) degrades the rest of the epoch to the
+        bit-exact host mirror: the digest is unchanged."""
         t0 = time.perf_counter()
         with obs.span("sim.recovery", epoch=e):
             out = self._recovery_body(e, stats)
@@ -1645,7 +1703,11 @@ class LifetimeSim:
     def _recovery_body(self, e: int, stats: dict) -> dict:
         rq = self.recovery
         use_device = self.state is not None
-        faults.check("recovery_step", qual=str(e))
+        try:
+            faults.check("recovery_step", qual=str(e))
+        except Exception as exc:
+            self._recovery_fallback(e, exc)
+            use_device = False
         cap = self._cap_rem
         _, slots = self._fresh_cap(use_device)
         if cap is None:
@@ -1669,14 +1731,23 @@ class LifetimeSim:
                 scal["risk_us"] = stats[pid]["at_risk"] * rq.t_us
             else:
                 moved = self._moved.get(pid)
-                if use_device:
-                    cap, slots, scal = rq.drain_device(
-                        pid, moved, rows, cap, slots, **kw)
-                else:
+                # the capacity vectors follow the pool: host rows (a
+                # degraded pool or epoch) drain on the host mirror
+                dev_pool = use_device and not isinstance(rows, np.ndarray)
+                if dev_pool:
+                    try:
+                        cap, slots, scal = rq.drain_device(
+                            pid, moved, rows,
+                            torch.as_tensor(cap, device=self.device),
+                            torch.as_tensor(slots, device=self.device),
+                            **kw)
+                    except Exception as exc:
+                        self._recovery_fallback(e, exc)
+                        use_device = dev_pool = False
+                if not dev_pool:
                     cap, slots, scal = rq.drain_host(
-                        pid, None if moved is None
-                        else np.asarray(moved),
-                        np.asarray(rows), cap, slots, **kw)
+                        pid, None if moved is None else _host(moved),
+                        _host(rows), _host(cap), _host(slots), **kw)
             if self.recovery_corrupt_hook is not None:
                 scal = self.recovery_corrupt_hook(pid, scal) or scal
             if not rq.book(pid, scal):
@@ -1689,6 +1760,11 @@ class LifetimeSim:
         total = rq.end_epoch()
         self._cap_rem = None
         return {"per_pool": per_pool, "backlog_total": total}
+
+    def _recovery_fallback(self, e: int, exc) -> None:
+        self._degrade(e, "recovery", exc)
+        self.recovery.fallback_epochs += 1
+        _recovery_counters().inc("fallbacks")
 
     # -- durability accounting (correlated model) --------------------------
 
@@ -2043,12 +2119,12 @@ class LifetimeSim:
         return self.summary()
 
     def provenance(self) -> dict:
-        """Which backend produced the accounting.  The port has no
-        degradation, so there is never a fallback."""
+        """Which backend produced the accounting, and every descent to
+        the host a device loss forced."""
         return {
             "backend": self.backend,
-            "device_loss_fallbacks": 0,
-            "fallback_events": [],
+            "device_loss_fallbacks": len(self.fallback_events),
+            "fallback_events": list(self.fallback_events),
         }
 
     def summary(self) -> dict:

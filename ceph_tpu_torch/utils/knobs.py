@@ -59,6 +59,30 @@ KNOBS: dict[str, str] = {
         "muted checks still evaluate and dump but stop contributing to "
         "the summarized HEALTH_OK/WARN/ERR status"
     ),
+    "CEPH_TPU_INIT_ATTEMPTS": (
+        "backend probe attempts per ladder rung before descending "
+        "(default 2)"
+    ),
+    "CEPH_TPU_INIT_BACKOFF": (
+        "base seconds of the exponential probe-retry backoff (default 1)"
+    ),
+    "CEPH_TPU_INIT_TIMEOUT": (
+        "watchdog timeout in seconds for one device preflight probe "
+        "(default 120)"
+    ),
+    "CEPH_TPU_LADDER": (
+        'degradation ladder override, e.g. "cuda,cpu,native" '
+        '(default "cuda": without a card the entry point raises; a '
+        "lower rung is used only when named here or by ladder=)"
+    ),
+    "CEPH_TPU_MESH_DEVICES": (
+        "shard the PG axis of the production pipeline over an N-device "
+        "mesh (parallel.sharded.default_mesh -> make_mesh): ClusterState "
+        "rows, balancer membership, mgr eval, lifetime accounting and "
+        "serve staging all partition over it; unset/<=1 = single-device. "
+        "Degrades to the available device count with requested-vs-actual "
+        "provenance (torch.cuda.device_count() devices on the card)"
+    ),
     "CEPH_TPU_PLACEMENT_DIAG": (
         "1 = run the instrumented placement-diagnostics pass (bad "
         "mappings, retry histograms) after every ClusterSim epoch and "
@@ -73,6 +97,10 @@ KNOBS: dict[str, str] = {
     "CEPH_TPU_SERVE_BLOCK": (
         "placement-service fixed dispatch block width in queries — "
         "batches cycle-pad to this shape (default 1024)"
+    ),
+    "CEPH_TPU_SERVE_DEGRADED_BATCHES": (
+        "host-mapper batches the placement service serves after a "
+        "device loss before re-trying the device (default 16)"
     ),
     "CEPH_TPU_SERVE_DEADLINE_MS": (
         "placement-service default per-request deadline budget in "

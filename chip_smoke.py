@@ -36,7 +36,7 @@ revived, a reweight, a balance round, each epoch's report held to a
 numpy diff and its rows to the host oracle), then the lifetime simulator
 (`lifetime_corpus`: every scenario of tests/data/lifetime_corpus.json on
 the card, digests and each epoch's launches equal to the corpus, a CLI
-run stopped and resumed, an injected device loss raising;
+run stopped and resumed;
 `lifetime_main`: 48 epochs at 10M PGs / 10k OSDs with the workload,
 correlated failures and the balancer, after measuring the EC 4+2 encode
 GB/s, each epoch's launches, program times and parts, four epochs'
@@ -56,9 +56,8 @@ members' rows to the host oracle, each epoch's launches held first at a
 small size to the CPU run's rule calls) and the placement service
 (`serve_corpus`: tests/test_torch_serve.py's scripts on the card, rows
 and sample digests equal to tests/data/serve_corpus.json, the JAX
-checkpoint resumed and the port's own, an injected device loss answered
-EFAULT, recorded and followed by a device answer, an admission burst
-shedding exactly 8;
+checkpoint resumed and the port's own, an admission burst shedding
+exactly 8;
 `serve_main`: at config 5 with bench.py::bench_serve's settings, one
 query_block of 2^20 seeds held to map_all_tensors() and the host
 oracle, 3 closed-loop clients through the micro-batcher while a
@@ -79,9 +78,17 @@ in two children on the card, each kernel launched and its registry count
 equal to its wrapper's, `bytes_encoded` equal to the JAX self-test's; a
 child mapping config 2 with `CEPH_TPU_ADMIN_SOCKET` set, queried through
 `--sock` while it maps; config 5's `map_all_device` with tracing off and
-on, the trace file parsed), through the entry points a user calls, and
-prints one JSON object per phase.  Any
-failure raises and exits non-zero.
+on, the trace file parsed) and the runtime and mesh slice
+(`runtime_main`: the backend ladder acquiring the card through its
+watchdogged probe, an armed descent to the CPU in a child, the stage
+scheduler killed after its second stage and resumed in children,
+config 5 through ShardedClusterMapper unsplit and split in 4 on the
+card with three rebalance steps held to the same torch ops on the CPU,
+the meshcheck digest against the JAX worker's, and an armed lifetime
+and serving device loss, which raise and answer EFAULT on the card),
+through the entry points a user calls, and prints one JSON object per
+phase.  No phase may book a descent to the host (`fallback_total`):
+on the card nothing degrades.  Any failure raises and exits non-zero.
 
 The line before the last is the kernels line (each kernel's launches on
 the main path, read from the kernel registry, its time, bound and
@@ -149,7 +156,7 @@ from ceph_tpu_torch.osd.state import ClusterState, value_copy_map
 from ceph_tpu_torch.osd.types import PgId, PgPool, PoolType
 from ceph_tpu_torch.recovery import DRAIN_KEYS
 from ceph_tpu_torch.recovery import queue as recovery_queue
-from ceph_tpu_torch.runtime import DeviceLostError, faults
+from ceph_tpu_torch.runtime import faults
 from ceph_tpu_torch.serve import PlacementService, ServeConfig
 from ceph_tpu_torch.sim import ClusterSim, LifetimeSim
 from ceph_tpu_torch.sim import lifetime as sim_lifetime
@@ -2349,8 +2356,8 @@ def phase_lifetime_corpus(dev) -> dict:
     launches of each epoch equal to the CPU run's rule calls (0 on every
     epoch in which no pool's rows tag changed), 0 compiles and no rebuild
     on a steady epoch.  Then one scenario stopped after epoch k and
-    resumed through `python -m ceph_tpu_torch.cli.sim`, and an injected
-    device loss, which must raise."""
+    resumed through `python -m ceph_tpu_torch.cli.sim`; the injected
+    device loss is `runtime_main`'s."""
     corpus = json.loads(LIFETIME_CORPUS.read_text())["scenarios"]
     res, launches_by = {}, {}
     for name, ent in sorted(corpus.items()):
@@ -2408,25 +2415,10 @@ def phase_lifetime_corpus(dev) -> dict:
               f"cli.sim --resume after {k}: digest == JAX's")
         resume_s = time.perf_counter() - t0
 
-    # no fallback: an injected device loss raises out of step()
-    faults.configure("epoch_apply.3=lost:injected x1")
-    try:
-        sim = LifetimeSim(corpus["tiny"]["spec"], backend="torch",
-                          device=dev)
-        raised = False
-        try:
-            sim.run()
-        except DeviceLostError:
-            raised = True
-    finally:
-        faults.disarm_all()
-    check(raised and sim.steps == 2 and sim.provenance()[
-        "device_loss_fallbacks"] == 0, "an injected device loss raises")
     fresh_observers()
     emit({"phase": "lifetime_corpus", "scenarios": res,
           "cli_resume": {"scenario": name, "stop_after": k,
-                         "digest_equal": True, "s": resume_s},
-          "device_loss_raises": True})
+                         "digest_equal": True, "s": resume_s}})
     return launches_by
 
 
@@ -3244,9 +3236,9 @@ def phase_fleet_main(dev, smi: str, peak: float) -> dict:
 
 SERVE_CORPUS = ROOT / "tests" / "data" / "serve_corpus.json"
 SERVE_PGS, SERVE_OSDS = 256, 16  # tests/test_torch_serve.py's map
-# bench.py::bench_serve's (:954), but its degraded_batches: the port
-# answers a lost dispatch EFAULT and has no host spell to size
-SERVE_MAIN_CFG = dict(block=2048, fill=8192, max_queue=64, deadline_s=2.0)
+# bench.py::bench_serve's (:954)
+SERVE_MAIN_CFG = dict(block=2048, fill=8192, max_queue=64, deadline_s=2.0,
+                      degraded_batches=2)
 SERVE_BULK_SEEDS = 1 << 20  # (a): one query_block
 SERVE_ORACLE = 256  # (a): lanes held to the host oracle
 SERVE_SCALAR_S, SERVE_SCALAR_CLIENTS, SERVE_SCALAR_BATCH = 10.0, 3, 1024
@@ -3264,7 +3256,7 @@ def serve_map(pgs: int = SERVE_PGS):
 def serve_cfg(**kw) -> ServeConfig:
     """tests/test_torch_serve.py's configuration."""
     base = dict(window_s=0.02, block=64, fill=512, max_queue=8,
-                deadline_s=5.0, bulk_max=256)
+                deadline_s=5.0, bulk_max=256, degraded_batches=1)
     base.update(kw)
     return ServeConfig(**base)
 
@@ -3313,11 +3305,10 @@ def phase_serve_corpus(dev) -> int:
     service's records (tests/data/serve_corpus.json): lookups, a bulk
     block, value-only, overlay, structural and adopted swaps, the
     two-pool map's mixed submit and placement digest, a front, the JAX
-    checkpoint resumed and the port's own; then an injected device loss
-    (EFAULT, the loss recorded, the next batch from the device with
-    equal rows, nothing from the host) and an admission
-    burst of max_queue + 8 (exactly 8 EBUSY).  Returns the rule
-    kernel's launches from 0, the injected loss excluded."""
+    checkpoint resumed and the port's own; then an admission burst of
+    max_queue + 8 (exactly 8 EBUSY).  Returns the rule kernel's
+    launches from 0, the burst excluded.  (The injected device loss is
+    runtime_main's.)"""
     from ceph_tpu_torch.serve import meshcheck, service
     from ceph_tpu_torch.serve.front import ServeFront
 
@@ -3477,32 +3468,10 @@ def phase_serve_corpus(dev) -> int:
     launches = mapper.crush_rule_cuda.launches
     check(launches > 0, "serve_corpus: the rule kernel launched")
 
-    # the injected device loss and the admission burst, outside the count
+    # the admission burst, outside the count
     svc = PlacementService(serve_map(), config=serve_cfg(), device=dev,
-                           name="chip.loss")
+                           name="chip.burst")
     try:
-        seeds = np.asarray([5, 9, 100, 200], np.uint32)
-        base = svc.lookup_batch(0, seeds)
-        device_only([base], "serve_corpus: before the loss")
-        d0 = service.dump()["degraded_answered"]
-        faults.arm("serve_dispatch", "lost", "chip smoke", 1)
-        try:
-            lost = [svc.lookup_batch(0, seeds) for _ in range(2)]
-        finally:
-            faults.disarm("serve_dispatch")
-        check(lost[0].status == "EFAULT" and lost[1].ok
-              and lost[1].source == "device"
-              and reply_rows(lost[1]) == reply_rows(base),
-              f"serve_corpus: a lost dispatch answered EFAULT, the next "
-              f"batch by the device with equal rows "
-              f"({[(r.status, r.source) for r in lost]})")
-        prov = svc.provenance()
-        check(prov["device_loss_fallbacks"] == 1
-              and prov["fallback_events"][-2].endswith("-> EFAULT")
-              and prov["fallback_events"][-1].startswith("recovered")
-              and service.dump()["degraded_answered"] == d0,
-              f"serve_corpus: the loss recorded, then the recovery, no "
-              f"lane from the host ({prov})")
         svc.pause()
         burst: list = []
         n = svc.config.max_queue + 8
@@ -4418,6 +4387,386 @@ def phase_obs_main(pms: dict, smi: str, timed_b: dict) -> dict:
     return res
 
 
+# -- the runtime and mesh slice ----------------------------------------------
+
+RUNTIME_CORPUS = ROOT / "tests" / "data" / "runtime_corpus.json"
+MESHCHECK_CORPUS = ROOT / "tests" / "data" / "meshcheck.json"
+MESH_SPLIT = 4  # config 5's blocks on one card (a Mesh of cuda:0 x 4)
+MESH_STEPS = 3  # rebalance steps fed back
+SCHED_KILL = "ec_encode"  # the second stage: stage_end.<it>=exit:3
+LADDER_CHILD = r"""
+import json, warnings
+from ceph_tpu_torch import runtime
+warnings.simplefilter("ignore")
+info = runtime.acquire_backend(watchdog=False, attempts=1)
+out = {"provenance": info.provenance()}
+try:
+    runtime.acquire_backend(watchdog=False, attempts=1, require="cuda")
+    out["require_raised"] = ""
+except runtime.RequiredBackendError as e:
+    out["require_raised"] = str(e)[:200]
+print(json.dumps(out))
+"""
+SCHED_CHILD = r"""
+import json, sys
+import chip_smoke
+out = chip_smoke.runtime_stages(sys.argv[1], sys.argv[2] == "1")
+print(json.dumps(out["stages_done"]))
+"""
+
+
+def fallback_total() -> int:
+    """Every descent to the host the process booked: the `runtime`
+    group's device_loss_fallbacks (ClusterSim, LifetimeSim, FleetSim)
+    and the lanes the placement service answered from the host."""
+    d = obs.perf_dump()
+    return (int((d.get("runtime") or {}).get("device_loss_fallbacks", 0))
+            + int((d.get("serve") or {}).get("degraded_answered", 0)))
+
+
+def runtime_stages(path: str, resume: bool) -> dict:
+    """The scheduler's three stages on the card, highest priority first:
+    config 2's map_all digest, the RS(8,4) parity of shape (a), one
+    rebalance_step of config 2; a `stage_end.<name>=exit:<rc>` armed in
+    the environment kills the process after that stage's checkpoint."""
+    from ceph_tpu_torch import runtime
+    from ceph_tpu_torch.parallel.sharded import Mesh, ShardedClusterMapper
+
+    dev = torch.device("cuda")
+
+    def map_config2(h):
+        up = PoolMapper(bench_map(*CONFIGS["config2"]), 0,
+                        device=dev).map_all_device()
+        return {"sha256": hashlib.sha256(
+            up.cpu().numpy().tobytes()).hexdigest()}
+
+    def ec_encode(h):
+        code = create_erasure_code({"plugin": "jax", "k": "8", "m": "4"},
+                                   device="cuda")
+        parity = code.encode_parity(rand_u8((8, 2 * MiB), 500, dev))
+        return {"sha256": hashlib.sha256(
+            parity.cpu().numpy().tobytes()).hexdigest()}
+
+    def rebalance(h):
+        scm = ShardedClusterMapper(bench_map(*CONFIGS["config2"]), 0,
+                                   Mesh([dev]))
+        new_w, sd, hist = scm.rebalance_step()
+        return {"new_w_sha256": hashlib.sha256(
+            new_w.cpu().numpy().tobytes()).hexdigest(),
+            "stddev": float(sd), "mapped": int(hist.sum())}
+
+    sched = runtime.StageScheduler(
+        runtime.Checkpoint(path, resume=resume), deadline_s=600)
+    for prio, name, fn in ((90, "map_config2", map_config2),
+                           (80, SCHED_KILL, ec_encode),
+                           (70, "rebalance", rebalance)):
+        sched.add(name, fn, priority=prio, est_s=5)
+    return sched.run()
+
+
+def _stage_results(data: dict) -> dict:
+    return {n: {k: v for k, v in data[n].items() if k != "perf"}
+            for n in data["stages_done"]}
+
+
+def _child(code: str, env_extra: dict, *argv, timeout=300):
+    env = dict(os.environ, **env_extra)
+    env.pop("CEPH_TPU_ADMIN_SOCKET", None)
+    return subprocess.run([sys.executable, "-c", code, *argv], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def phase_runtime_main(dev, pms: dict, smi: str, peak: float) -> dict:
+    """The runtime and mesh slice on the card.  (1) The ladder: one
+    watchdogged acquisition with the default ladder lands on cuda with
+    no fallback (the probe child's and the acquisition's seconds); a
+    child with `init.cuda` failing and CEPH_TPU_LADDER=cuda,cpu records
+    the descent, and its require="cuda" raises.  (2) The scheduler: a
+    child runs three stages on the card and is killed by
+    `stage_end.ec_encode=exit:3`; a second child resumes, skips the done
+    stages, and the results equal this process's uninterrupted run.
+    (3) Config 5 through ShardedClusterMapper on make_mesh(1) and on a
+    4-block split of cuda:0: rows == map_all_device, histograms == a
+    bincount, one rule launch per block, map_stats timed; three
+    rebalance_steps, new_w == the same torch ops on the CPU from the
+    same histograms, the step timed beside its byte bound;
+    CEPH_TPU_MESH_DEVICES=4 on one card is recorded degraded.  (4)
+    meshcheck's digest == the JAX worker's, unsplit and split.  (5) An
+    armed epoch_apply loss in a lifetime corpus scenario raises out of
+    that epoch, and a serve_dispatch loss in the service answers its
+    batch EFAULT and the next ones from the device with the rows of the
+    stored JAX replies: nothing degrades to the host on the card.
+    Returns the rule (and GF) launches by path."""
+    from ceph_tpu_torch import runtime
+    from ceph_tpu_torch.parallel import sharded
+    from ceph_tpu_torch.parallel.sharded import (
+        Mesh,
+        ShardedClusterMapper,
+        make_mesh,
+        rebalance_update,
+    )
+    from ceph_tpu_torch.runtime import preflight
+    from ceph_tpu_torch.serve import meshcheck
+
+    t_phase = time.perf_counter()
+    check(fallback_total() == 0,
+          f"every earlier phase: no descent to the host "
+          f"({fallback_total()})")
+    rule, gf = {}, {}
+
+    # (1) the ladder
+    probes = []
+    real_probe = preflight.probe
+
+    def recording(*a, **kw):
+        probes.append(real_probe(*a, **kw))
+        return probes[-1]
+
+    preflight.probe = recording
+    try:
+        info = runtime.acquire_backend()
+    finally:
+        preflight.probe = real_probe
+    check(info.backend == "cuda" and info.fallback_reason is None
+          and info.n_devices >= 1,
+          f"runtime_main: the default ladder lands on the card "
+          f"({info.provenance()})")
+    r = _child(LADDER_CHILD, {"CEPH_TPU_FAULTS": "init.cuda=fail:chip smoke",
+                              "CEPH_TPU_LADDER": "cuda,cpu"})
+    check(r.returncode == 0, f"ladder child: rc {r.returncode} "
+          f"{r.stderr[-2000:]}")
+    desc = json.loads(r.stdout.strip().splitlines()[-1])
+    check(desc["provenance"]["backend"] == "cpu"
+          and "chip smoke" in desc["provenance"]["fallback_reason"]
+          and desc["provenance"]["rungs_tried"] == ["cuda", "cpu"]
+          and "required backend 'cuda'" in desc["require_raised"],
+          f"runtime_main: the armed descent recorded, require raises "
+          f"({desc})")
+    ladder = {"provenance": info.provenance(),
+              "probe_s": probes[0].init_s,
+              "init_seconds": info.init_seconds,
+              "descent": desc["provenance"]}
+
+    # (2) the scheduler: kill after the second stage, resume
+    tmp = Path(tempfile.mkdtemp(prefix="runtime_main"))
+    ck = tmp / "stages.json"
+    t0 = time.perf_counter()
+    r1 = _child(SCHED_CHILD, {"CEPH_TPU_FAULTS":
+                              f"stage_end.{SCHED_KILL}=exit:3"},
+                str(ck), "0")
+    killed_s = time.perf_counter() - t0
+    check(r1.returncode == 3, f"scheduler child: killed with 3, got "
+          f"{r1.returncode} {r1.stderr[-2000:]}")
+    first = json.loads(ck.read_text())
+    check(first["stages_done"] == ["map_config2", SCHED_KILL],
+          f"the killed run checkpointed two stages ({first['stages_done']})")
+    t0 = time.perf_counter()
+    r2 = _child(SCHED_CHILD, {}, str(ck), "1")
+    resume_s = time.perf_counter() - t0
+    check(r2.returncode == 0, f"scheduler resume: rc {r2.returncode} "
+          f"{r2.stderr[-2000:]}")
+    resumed = json.loads(ck.read_text())
+    mapper.crush_rule_cuda.launches = 0
+    gf_matmul_cuda.launches = 0
+    straight = runtime_stages(str(tmp / "straight.json"), False)
+    torch.cuda.synchronize()
+    rule["runtime_main_scheduler"] = registry_launches(mapper.crush_rule_cuda)
+    gf["runtime_main_scheduler"] = registry_launches(gf_matmul_cuda)
+    check(resumed["stages_done"] == ["map_config2", SCHED_KILL, "rebalance"]
+          and resumed["resumed_stages"] == ["map_config2", SCHED_KILL]
+          and _stage_results(resumed) == _stage_results(straight),
+          f"the resumed run skips the done stages and equals the "
+          f"uninterrupted run ({resumed.get('resumed_stages')})")
+    sched = {"killed_s": killed_s, "resume_s": resume_s,
+             "stages": _stage_results(straight)}
+
+    # (3) the mesh at config 5
+    pm5 = pms["config5"]
+    m5 = pm5.m
+    want = pm5.map_all_device()
+    n = int(want.shape[0])
+    flat = want[want != ITEM_NONE].long()
+    first_lane = want[:, 0][want[:, 0] != ITEM_NONE].long()
+    mesh = {}
+    outs = {}
+    for label, msh in (("mesh1", make_mesh(1)),
+                       (f"split{MESH_SPLIT}", Mesh([dev] * MESH_SPLIT))):
+        scm = ShardedClusterMapper(m5, 0, msh)
+        torch.cuda.synchronize()
+        mapper.crush_rule_cuda.launches = 0
+        out = scm.map_stats()
+        torch.cuda.synchronize()
+        launches = registry_launches(mapper.crush_rule_cuda)
+        rule[f"runtime_main_{label}"] = launches
+        check(launches == msh.size,
+              f"{label}: one rule launch per block ({launches})")
+        DV = scm.DV
+        check(torch.equal(out["up"][:n], want)
+              and torch.equal(out["acting"][:n], want),
+              f"{label}: rows == map_all_device")
+        check(torch.equal(out["pgs_per_osd"].long(),
+                          torch.bincount(flat, minlength=DV)[:DV])
+              and torch.equal(out["first_per_osd"].long(),
+                              torch.bincount(first_lane, minlength=DV)[:DV])
+              and torch.equal(out["primary_per_osd"], out["first_per_osd"]),
+              f"{label}: histograms == bincount of the rows")
+        outs[label] = out
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            scm.map_stats()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        mesh[label] = {"blocks": msh.size, "launches": launches,
+                       "map_stats_ms": statistics.median(times)}
+    # three rebalance steps on the split, each held to the CPU ops
+    scm = ShardedClusterMapper(m5, 0, Mesh([dev] * MESH_SPLIT))
+    w = None
+    steps = []
+    for i in range(MESH_STEPS):
+        wt = scm.pm.dev["weight"] if w is None else w
+        new_w, sd, hist = scm.rebalance_step(w)
+        cw, csd = rebalance_update(hist.cpu(), wt.cpu(),
+                                   scm._target_w.cpu(), scm.pg_num, 3)
+        check(torch.equal(new_w.cpu(), cw),
+              f"rebalance step {i}: new_w == the CPU ops'")
+        steps.append({"stddev": float(sd), "cpu_stddev": float(csd),
+                      "changed": int((new_w != wt).sum())})
+        w = new_w
+    parts = scm._map_blocks(scm.pm)
+    W = int(parts[0][1][2].shape[1])
+
+    def step():
+        h = scm._hist_sum(parts, 2)
+        return rebalance_update(h, scm.pm.dev["weight"], scm._target_w,
+                                scm.pg_num, 3)
+
+    flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    step_ms = time_ms(step, flush, runs=10)
+    DV = scm.DV
+    step_bytes = scm.pg_padded * W * 4 + DV * (8 + 8 + 8 + 4) + 4
+    mesh["step"] = {"ms": step_ms, "bytes": step_bytes,
+                    "bound_ms": step_bytes / peak * 1e3,
+                    "bound_by": "bytes", "steps": steps}
+    del flush, outs, parts
+    old = os.environ.get("CEPH_TPU_MESH_DEVICES")
+    os.environ["CEPH_TPU_MESH_DEVICES"] = "4"
+    sharded._DEFAULT_MESH.clear()
+    try:
+        dm = sharded.default_mesh()
+        prov = sharded.last_mesh_provenance()
+    finally:
+        if old is None:
+            os.environ.pop("CEPH_TPU_MESH_DEVICES")
+        else:
+            os.environ["CEPH_TPU_MESH_DEVICES"] = old
+        sharded._DEFAULT_MESH.clear()
+    check(dm is not None and prov["requested"] == 4
+          and prov["actual"] == torch.cuda.device_count()
+          and prov["degraded"] is (torch.cuda.device_count() < 4),
+          f"CEPH_TPU_MESH_DEVICES=4 recorded degraded ({prov})")
+    mesh["knob_provenance"] = prov
+
+    # (4) meshcheck against the JAX worker's digest
+    mc_want = json.loads(MESHCHECK_CORPUS.read_text())["digest"]
+    mapper.crush_rule_cuda.launches = 0
+    mc = {split: meshcheck.run(device=dev, split=split)
+          for split in (0, MESH_SPLIT)}
+    torch.cuda.synchronize()
+    rule["runtime_main_meshcheck"] = registry_launches(mapper.crush_rule_cuda)
+    check(all(r["digest"] == mc_want and r["oracle_match"]
+              for r in mc.values()),
+          f"meshcheck digest == the JAX worker's ({mc})")
+
+    # (5) the armed device losses: on the card nothing degrades to the
+    # host.  The lifetime run raises out of the lost epoch; the service
+    # answers the lost batch EFAULT and the next ones from the device,
+    # with the rows of the JAX service's replies
+    stored = json.loads(RUNTIME_CORPUS.read_text())
+    life_corpus = json.loads(LIFETIME_CORPUS.read_text())["scenarios"]
+    arm = stored["lifetime"]["arm"]
+    lost_epoch = int(arm.split("=")[0].split(".")[1])
+    fresh_observers()
+    faults.configure(arm)
+    try:
+        sim = LifetimeSim(life_corpus[stored["lifetime"]["scenario"]]["spec"],
+                          backend="torch", device=dev)
+        raised = None
+        try:
+            sim.run()
+        except faults.DeviceLostError as e:
+            raised = e
+    finally:
+        faults.disarm_all()
+    check(raised is not None and sim.steps == lost_epoch - 1
+          and sim.provenance()["device_loss_fallbacks"] == 0,
+          f"lifetime under {arm}: the loss raises out of epoch "
+          f"{lost_epoch}, nothing degrades ({raised!r}, {sim.steps}, "
+          f"{sim.provenance()})")
+    fresh_observers()
+    seeds = np.asarray([5, 9, 100, 200], np.uint32)
+    d0 = dict(obs.group_view("serve"))
+    mapper.crush_rule_cuda.launches = 0
+    svc = PlacementService(serve_map(), config=serve_cfg(), device=dev,
+                           name="chip.loss")
+    try:
+        base = svc.lookup_batch(0, seeds)
+        faults.arm("serve_dispatch", "lost", "mid-traffic loss", 1)
+        try:
+            replies = [svc.lookup_batch(0, seeds) for _ in range(3)]
+            left = svc.status()["degraded_batches_left"]
+        finally:
+            faults.disarm("serve_dispatch")
+        prov = svc.provenance()
+    finally:
+        svc.close()
+    torch.cuda.synchronize()
+    rule["runtime_main_device_loss"] = registry_launches(
+        mapper.crush_rule_cuda)
+    d = obs.group_view("serve")
+    want = stored["serve"]["rows"][0]
+    rec = {
+        "statuses": [r.status for r in replies],
+        "sources": [base.source] + [r.source for r in replies],
+        "rows_equal_jax": [reply_rows(r) == want
+                           for r in [base] + replies[1:]],
+        "fallbacks": prov["device_loss_fallbacks"],
+        "events": [e.split(": ", 1)[-1] if e.startswith("recovered")
+                   else e.rsplit(" -> ", 1)[-1]
+                   for e in prov["fallback_events"]],
+        "backend": prov["backend"],
+        "degraded_answered": int(d["degraded_answered"])
+        - int(d0["degraded_answered"]),
+        "device_recoveries": int(d["device_recoveries"])
+        - int(d0["device_recoveries"]),
+        "left": left,
+    }
+    check(rec == {"statuses": ["EFAULT", "ok", "ok"],
+                  "sources": ["device", "", "device", "device"],
+                  "rows_equal_jax": [True, True, True],
+                  "fallbacks": 1,
+                  "events": ["EFAULT", "device dispatch healthy again"],
+                  "backend": "device", "degraded_answered": 0,
+                  "device_recoveries": 1, "left": 0},
+          f"serve under serve_dispatch=lost: EFAULT, then the device "
+          f"with the JAX rows ({rec})")
+    check(fallback_total() == 0,
+          f"runtime_main: no descent to the host ({fallback_total()})")
+    res = {"phase": "runtime_main", "nvidia_smi": smi,
+           "s": time.perf_counter() - t_phase, "ladder": ladder,
+           "scheduler": sched, "mesh": mesh,
+           "meshcheck": {str(k): v["digest"] for k, v in mc.items()},
+           "device_loss": {"lifetime_raised_at_epoch": lost_epoch,
+                           "serve": rec},
+           "launches": {"rule": rule, "gf": gf}}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4492,6 +4841,12 @@ def main() -> int:
         ores["daemon"]["launches"]["crush_rule_diag"]
     rule_paths["obs_main_trace"] = ores["trace"]["launches"]
 
+    # the runtime and mesh slice: the ladder, the stage scheduler, the
+    # mesh at config 5, meshcheck and the armed device losses
+    rt = phase_runtime_main(dev, pms, info["nvidia_smi"], info["peak_bw"])
+    rule_paths.update(rt["launches"]["rule"])
+    by_path.update(rt["launches"]["gf"])
+
     # the lifetime simulator: the corpus, then config 5's size
     del pms
     torch.cuda.empty_cache()
@@ -4514,10 +4869,16 @@ def main() -> int:
     # the placement service: the corpus scripts, then config 5's traffic
     torch.cuda.empty_cache()
     rule_paths["serve_corpus"] = phase_serve_corpus(dev)
+    # serve_main resets the serve group and checks its own lanes
+    check(fallback_total() == 0,
+          f"the phases after runtime_main: no descent to the host "
+          f"({fallback_total()})")
     serve = phase_serve_main(dev, info["nvidia_smi"])
     for part in ("bulk", "scalar", "structural", "front"):
         rule_paths[f"serve_main_{part}"] = serve[part]["launches"]
     torch.cuda.synchronize()
+    check(fallback_total() == 0 and serve["degraded_answered"] == 0,
+          "serve_main: no descent to the host")
 
     b, c5 = res["b"], pres["config5"]
     emit({"kernels": [{
@@ -4615,6 +4976,15 @@ def main() -> int:
             "cluster_epochs_per_s", "wall_s", "init_s", "launches",
             "stats_calls", "stats_ms_median", "stats_bound_ms_median",
             "peak_device_bytes")} for mode in ("stacked", "unstacked")},
+        # config 5 through ShardedClusterMapper as one block and as 4
+        # blocks of this card (one launch each), and B.14's step (torch
+        # ops, no hand kernel) beside its byte bound
+        "mesh_config5": {
+            "map_stats_ms": {k: rt["mesh"][k]["map_stats_ms"]
+                             for k in ("mesh1", f"split{MESH_SPLIT}")},
+            "step_ms": rt["mesh"]["step"]["ms"],
+            "step_bound_ms": rt["mesh"]["step"]["bound_ms"],
+            "step_bound_by": "bytes"},
         # the placement service at config 5: (a) one 2^20-lane block,
         # (b) the micro-batcher under value-only swaps, (c) the bulk edge
         # under a structural swap; (d) a 2-replica front on config 2

@@ -427,9 +427,17 @@ def test_overlay_free_mapper_and_fixups_equal_jax():
 
 
 def test_entry_point_refusals():
+    from ceph_tpu_torch.parallel.sharded import Mesh
+
     pm = carried(skewed(pg_num=64))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        calc_pg_upmaps(pm, backend="device", mesh=object(), device="cpu")
+    # a mesh is accepted since the runtime slice: the split plan is the
+    # unsplit one (tests/test_torch_multichip.py holds it to the JAX plan)
+    pm2 = carried(skewed(pg_num=64))
+    r1 = calc_pg_upmaps(pm, backend="device", device="cpu",
+                        rng=np.random.default_rng(1))
+    r2 = calc_pg_upmaps(pm2, backend="device", mesh=Mesh(["cpu"] * 2),
+                        rng=np.random.default_rng(1))
+    assert pm.pg_upmap_items == pm2.pg_upmap_items and r1.moves == r2.moves
     with pytest.raises(ValueError, match="backend"):
         calc_pg_upmaps(pm, backend="nope", device="cpu")
     if not torch.cuda.is_available():

@@ -452,13 +452,25 @@ def test_corpus_is_the_jax_clis(name, tmp_path, monkeypatch):
     assert file_hashes(name) == _stored_files().get(name, {})
 
 
-@pytest.mark.parametrize("name", sorted(corpus_commands()))
-def test_port_cli_prints_the_corpus(name, tmp_path, monkeypatch):
+# the config 2 cases (100k PGs: about 100-150 s each on one worker) run
+# from tests/test_torch_cli_config2_a.py and _b.py, two a file, so no
+# file holds a test worker for much longer than the others
+CONFIG2_FILES = {"a": ("config2", "config2_upmap"),
+                 "b": ("config2_health", "config2_health_down")}
+
+
+def port_cli_prints_the_corpus(name, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     got = corpus_stdout("port", corpus_commands()[name], maps=True,
                         rc=CORPUS_RC.get(name, 0))
     assert sha(got) == _stored()[name]
     assert file_hashes(name) == _stored_files().get(name, {})
+
+
+@pytest.mark.parametrize("name", sorted(
+    set(corpus_commands()) - {n for v in CONFIG2_FILES.values() for n in v}))
+def test_port_cli_prints_the_corpus(name, tmp_path, monkeypatch):
+    port_cli_prints_the_corpus(name, tmp_path, monkeypatch)
 
 
 def write_corpus() -> None:

@@ -9,8 +9,9 @@ same keys and the same u64 values, apart from the differences by design:
 - keys: the JAX JitAccount, compile and cache keys are absent, the
   launch accounts of the hand kernels added
   (`obs.cuda_accounting.absent_by_design`, `ADDED`); the `runtime`
-  group (the backend ladder's) is absent until runtime/ladder.py is
-  ported;
+  group (the backend ladder's) is absent: `--device cpu` asks for the
+  host, so no ladder is walked (the JAX self-test walks its ladder to
+  the pinned CPU);
 - values (VALUE_DIFFERENCES): the JAX CPU engine's default strategy is
   `xor` (schedule counts), the port's the kernel's plain version; the
   JAX fast window left three seeds to its exact loop (`unresolved_pgs`,
@@ -112,7 +113,7 @@ def test_perf_dump_groups_keys_and_values_equal_jax(dumps, masked):
     jax = CORPUS["perf"]
     assert "executables" in port
     port.pop("executables")
-    # the backend ladder's group comes with runtime/ladder.py
+    # `--device cpu` walks no backend ladder: no `runtime` group
     assert set(port) == set(jax) - {"runtime"}
     for g in sorted(port):
         want = {k for k in jax[g]

@@ -335,8 +335,8 @@ def test_port_imports_neither_jax_nor_ceph_tpu():
     assert not bad, bad
 
 
-# modules the walk below must reach (the placement CLIs' and the
-# placement service's slices among them)
+# modules the walk below must reach (the placement CLIs', the placement
+# service's and the runtime and mesh slices among them)
 PORT_MODULES = (
     "ceph_tpu_torch.cli.crushtool", "ceph_tpu_torch.cli.osdmaptool",
     "ceph_tpu_torch.core.reduce", "ceph_tpu_torch.crush.codec",
@@ -349,6 +349,8 @@ PORT_MODULES = (
     "ceph_tpu_torch.serve.meshcheck", "ceph_tpu_torch.cli.serve",
     "ceph_tpu_torch.obs.quantiles", "ceph_tpu_torch.ec.xor_schedule",
     "ceph_tpu_torch.native", "ceph_tpu_torch.native.mapper",
+    "ceph_tpu_torch.runtime.ladder", "ceph_tpu_torch.runtime.preflight",
+    "ceph_tpu_torch.utils.platform", "ceph_tpu_torch.parallel.sharded",
 )
 
 

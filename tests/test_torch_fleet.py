@@ -521,16 +521,55 @@ def test_small_fleet_rule_and_stats_calls():
     assert fleet.digests() == [solo_digest(m) for m in members]
 
 
-def test_device_loss_raises_out_of_step():
+@pytest.mark.parametrize("case", ["plan_stacked", "plan_unstacked",
+                                  "stats_call"])
+def test_device_loss_degrades_like_jax(case, monkeypatch):
+    """A device loss degrades the lanes it hits to the bit-exact host
+    path, as the JAX engine does: an armed `epoch_apply.3=lost` (through
+    the stacked plan, or each member's solo accounting with
+    CEPH_TPU_FLEET_STACK=0) records one fallback in the first member,
+    as the JAX fleet under the same fault does; a lost stats call
+    degrades every lane it carried.  The digests are the unarmed ones."""
+    from ceph_tpu.fleet.engine import FleetSim as JFleetSim
+    from ceph_tpu.fleet.spec import parse_fleet as jparse
+    from ceph_tpu.runtime import faults as jfaults
+
+    clean = port_fleet(UNSTACKED_SPEC)
+    clean.run()
+    if case == "plan_unstacked":
+        monkeypatch.setenv("CEPH_TPU_FLEET_STACK", "0")
     fleet = port_fleet(UNSTACKED_SPEC)
-    faults.configure("epoch_apply.3=lost:injected x1")
-    fleet.step()
-    fleet.step()
-    with pytest.raises(DeviceLostError):
-        fleet.step()
-    assert fleet.steps == 2
-    assert all(s.provenance()["device_loss_fallbacks"] == 0
-               for s in fleet.engines)
+    if case == "stats_call":
+        real = lifetime._stats_lanes
+        lost = {"left": 1}
+
+        def once(*a, **kw):
+            if lost["left"] and fleet.steps >= 2:
+                lost["left"] -= 1
+                raise DeviceLostError("stats call lost")
+            return real(*a, **kw)
+
+        monkeypatch.setattr(lifetime, "_stats_lanes", once)
+    else:
+        faults.configure("epoch_apply.3=lost:injected x1")
+    fleet.run()
+    assert fleet.digests() == clean.digests()
+    events = [s.provenance()["fallback_events"] for s in fleet.engines]
+    if case == "stats_call":
+        assert lost["left"] == 0
+        assert all(len(ev) >= 1 and "stats call lost" in ev[0]
+                   for ev in events)
+        return
+    jfaults.configure("epoch_apply.3=lost:injected x1")
+    try:
+        jfleet = JFleetSim(jparse(UNSTACKED_SPEC + ";backend=ref"))
+        jfleet.run()
+    finally:
+        jfaults.disarm_all()
+    assert fleet.digests() == jfleet.digests()
+    assert events == [s.provenance()["fallback_events"]
+                      for s in jfleet.engines]
+    assert [len(ev) for ev in events] == [1] + [0] * (len(events) - 1)
 
 
 def test_default_device_is_the_card(monkeypatch):

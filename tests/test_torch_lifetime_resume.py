@@ -9,8 +9,10 @@ negative controls, held against the JAX package.
   of `python -m ceph_tpu_torch.cli.sim run` and `--resume` give the
   uninterrupted digest; `--resume` without `--scenario` adopts the
   checkpoint's scenario;
-- `epoch_apply=lost` and `recovery_step=lost` raise out of `step()`: the
-  port has no host degradation;
+- on a run placed on the host, `epoch_apply=lost` and
+  `recovery_step=lost` degrade to the host mapper with the JAX engine's
+  digest and fallback events (on a card they raise:
+  tests/test_torch_runtime.py);
 - `DATA_LOSS` latches as in the JAX package;
 - `cli.sim digest` prints the JAX CLI's bytes, and `run` its lines but
   the ones that print wall-clock rates;
@@ -219,18 +221,39 @@ def test_cli_resume_adopts_checkpoint_scenario(tmp_path):
     assert _main_stdout(port_cli.main, ["digest", "--resume"]) == (2, "")
 
 
-# -- faults: a device error raises ------------------------------------------
+# -- faults: a device loss degrades to the host, as in the JAX package ------
 
-@pytest.mark.parametrize("point", ["epoch_apply.3", "recovery_step.3"])
-def test_device_loss_raises_out_of_step(point):
-    faults.configure(f"{point}=lost:chaos x1")
-    sim = lifetime.LifetimeSim(TINY, backend="torch", device="cpu")
-    with pytest.raises(DeviceLostError, match="chaos"):
-        sim.run()
-    assert sim.steps == 2
-    assert sim.provenance() == {"backend": "torch",
-                                "device_loss_fallbacks": 0,
-                                "fallback_events": []}
+@pytest.mark.parametrize("name, point", [
+    ("tiny", "epoch_apply.6"),     # tests/test_lifetime.py's arming
+    ("tiny", "recovery_step.3"),   # tests/test_recovery.py's arming
+    ("tiny_wl", "recovery_step.3"),
+    ("corr", "epoch_apply.4"),
+])
+def test_device_loss_degrades_like_jax(name, point):
+    """On a run placed on the host (device "cpu") an armed device loss
+    degrades that epoch's pool accounting (or the rest of its recovery
+    drain) to the host mapper: the port's digest,
+    fallback events and recovery fallback epochs equal the JAX engine's
+    under the same fault, and the digest equals the unarmed one."""
+    from ceph_tpu.runtime import faults as jfaults
+
+    spec = SCENARIOS[name][0]
+    arm = f"{point}=lost:chaos x1"
+    faults.configure(arm)
+    out = lifetime.LifetimeSim(spec, backend="torch", device="cpu").run()
+    jfaults.configure(arm)
+    jout = _jax_sim(spec, backend="ref").run()
+    assert out["digest"] == jout["digest"] == _corpus()[name]["digest"]
+    prov, jprov = out["provenance"], jout["provenance"]
+    assert prov["device_loss_fallbacks"] == jprov["device_loss_fallbacks"]
+    assert prov["device_loss_fallbacks"] == 1
+    assert prov["fallback_events"] == jprov["fallback_events"]
+    assert f"epoch {point.split('.')[1]}" in prov["fallback_events"][0]
+    assert prov["backend"] == "torch"
+    if "recovery" in out:
+        assert out["recovery"]["fallback_epochs"] == \
+            jout["recovery"]["fallback_epochs"]
+    assert out["invariant_violations"] == 0
     assert faults.COUNTERS["faults_fired"] >= 1
 
 

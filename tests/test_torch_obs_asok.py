@@ -59,7 +59,9 @@ def test_admin_socket_roundtrip(sock_dir):
         out = admin_socket.client_command(srv.path, "bogus")
         assert "unknown command" in json.loads(out)["error"]
         rt = json.loads(admin_socket.client_command(srv.path, "runtime"))
-        assert set(rt) == {"device", "faults_armed"}
+        assert set(rt) == {"provenance", "default_ladder", "faults_armed",
+                           "device"}
+        assert rt["default_ladder"] == ["cuda"]
         assert rt["device"]["cuda"] in (True, False)
         cd = json.loads(admin_socket.client_command(srv.path, "cache dump"))
         assert all(len(e["source_hash"]) == 16 for e in cd["entries"])
