@@ -9,12 +9,18 @@ helpers and reads a 1/q fraction of each (reference minimum_to_repair
 :325, get_repair_subchunks :360).
 
 - Chunks live as [sub_chunk_no, sc_size] arrays per node id of the padded
-  q*t grid (external chunk i <-> node i for data, i+nu for parity).
+  q*t grid (external chunk i <-> node i for data, i+nu for parity); a
+  layered decode keeps them, and the uncoupled symbols U, in a workspace
+  of its own, never in a caller's tensor.
 - The pair-wise coupling (the reference's "pft" k=2,m=2 code) is a (2,2)
   RS code over [c_lo, c_hi, u_lo, u_hi]: any two symbols give the rest.
 - The inner MDS across a plane is RS(k+nu, m), Vandermonde by default.
 - The layered decode walks planes in intersection-score order, the
-  reference's schedule (decode_layered :647).
+  reference's schedule (decode_layered :647).  Its products, and those of
+  a repair with aloof nodes, are planned once per erasure pattern, as
+  rows of the workspace, and cut into runs of independent products
+  (`_ProductPlan`); on the device engine each run is one grouped product,
+  one kernel launch (config 4's encode: 352 products in 3 launches).
 
 Where each product runs: every product goes through the engine, which is
 the Hopper kernel on a CUDA tensor and its plain version on a CPU tensor;
@@ -45,7 +51,12 @@ from ceph_tpu_torch.ec.interface import (
     _to_tensor,
 )
 from ceph_tpu_torch.ec.rs import DEFAULT_BACKEND, _concat, get_engine
-from ceph_tpu_torch.ec.torch_backend import TorchEngine
+from ceph_tpu_torch.ec.torch_backend import (
+    BASE1,
+    Product,
+    ProductList,
+    TorchEngine,
+)
 from ceph_tpu_torch.utils.perf_counters import counters_attr
 
 _L = obs.logger_for("ec")
@@ -74,10 +85,6 @@ def _zeros(shape, like):
     return np.zeros(tuple(shape), np.uint8)
 
 
-def _copy(x):
-    return x.clone() if _is_tensor(x) else np.array(x, np.uint8)
-
-
 def _numel(x) -> int:
     return x.numel() if _is_tensor(x) else np.asarray(x).size
 
@@ -98,6 +105,60 @@ def _put(A, idx, V) -> None:
         A[idx] = V
 
 
+def _cut_runs(products: list[tuple]) -> list[list[tuple]]:
+    """Products (M, input rows, output rows), in the order they must
+    appear to run, cut into runs that each run as one grouped product: a
+    product joins the first run after every run holding an earlier
+    product that writes a row it reads or writes, or reads a row it
+    writes.  So no row of a run is written by one of its products and
+    touched by another, and running the runs in turn gives the bytes of
+    running the products in order."""
+    written, read = {}, {}  # row -> the last run that writes / reads it
+    runs: list[list[tuple]] = []
+    for product in products:
+        _, ins, outs = product
+        r = max([written.get(row, -1) + 1 for row in ins]
+                + [max(written.get(row, -1), read.get(row, -1)) + 1
+                   for row in outs])
+        if r == len(runs):
+            runs.append([])
+        runs[r].append(product)
+        for row in ins:
+            read[row] = max(read.get(row, -1), r)
+        for row in outs:
+            written[row] = r
+    return runs
+
+
+class _ProductPlan:
+    """The products of a layered decode (`ClayCode._layered_products`) or
+    of a repair with aloof nodes (`ClayCode._aloof_products`), cut into
+    runs (`_cut_runs`), and each run as a `ProductList` of rows of sc
+    bytes, for the last few sub-chunk sizes it ran at."""
+
+    SIZES = 4  # sub-chunk sizes whose lists are kept
+
+    def __init__(self, products: list[tuple]):
+        self.runs = _cut_runs(products)
+        self._lists: dict[int, list[ProductList]] = {}
+
+    def lists(self, sc: int) -> list[ProductList]:
+        got = self._lists.get(sc)
+        if got is None:
+            if len(self._lists) >= self.SIZES:
+                del self._lists[next(iter(self._lists))]
+
+            def offsets(rows):
+                return tuple((row & BASE1) | (row & (BASE1 - 1)) * sc
+                             for row in rows)
+
+            got = self._lists[sc] = [
+                ProductList([Product(M, offsets(ins), offsets(outs), sc)
+                             for M, ins, outs in run])
+                for run in self.runs]
+        return got
+
+
 class _PairTransform:
     """(2,2) RS code over [c_lo, c_hi, u_lo, u_hi]; recovers any 2 missing
     symbols from the other 2 (the reference's pft scalar code).  Its
@@ -109,14 +170,6 @@ class _PairTransform:
 
     def matrix(self, present: list[int], want: list[int]) -> np.ndarray:
         return matrices.recover_matrix(self.C, present, want)
-
-    def recover(self, known: dict, want: list[int], product) -> list:
-        present = sorted(known)
-        R = self.matrix(present, want)
-        stack = _stack([known[i] for i in present[:2]], 0)
-        out = product(R, stack.reshape(2, -1))
-        shp = known[present[0]].shape
-        return [row.reshape(shp) for row in out]
 
 
 class ClayCode(ErasureCode):
@@ -134,6 +187,9 @@ class ClayCode(ErasureCode):
         self.engine = None
         # lost node -> product-matrix repair plan (see _repair_plan)
         self._repair_plans: dict[int, dict] = {}
+        # ("layered", erased nodes) or ("aloof", lost node, aloof nodes)
+        # -> the product plan of that decode or repair (see _plan)
+        self._plans: dict[tuple, _ProductPlan] = {}
 
     # -- profile -----------------------------------------------------------
     def parse(self, profile: dict) -> None:
@@ -171,6 +227,7 @@ class ClayCode(ErasureCode):
         self.engine = get_engine(profile.get("backend", DEFAULT_BACKEND),
                                  profile.get("strategy"), self.device)
         self._repair_plans.clear()  # geometry may have changed
+        self._plans.clear()
 
     def get_sub_chunk_count(self) -> int:
         return self.sub_chunk_no
@@ -212,21 +269,34 @@ class ClayCode(ErasureCode):
             return 1, 0, 3, 2
         return 0, 1, 2, 3
 
-    # -- inner MDS over a plane -------------------------------------------
-    def _mds_recover(self, U: dict, z: int, erased: set[int]) -> None:
-        """decode_uncoupled (reference :742): recover U[erased][z] from the
-        other nodes' U[z]."""
-        n = self.q * self.t
-        present = sorted(set(range(n)) - erased)[: self.k + self.nu]
-        missing = sorted(erased)
-        R = matrices.recover_matrix(self.mds_C, present, missing)
-        out = self.engine.matmul(R, _stack([U[i][z] for i in present], 0))
-        for row, i in zip(out, missing):
-            U[i][z] = row
-
     # -- layered decode (reference decode_layered :647) --------------------
-    def _decode_layered(self, erased: set[int], chunks: dict) -> None:
-        q, t, m = self.q, self.t, self.m
+    def _slot(self, node: int) -> int:
+        """node -> its chunk's place in a layered workspace: the external
+        chunks in order, then the nu virtual nodes."""
+        if node < self.k:
+            return node
+        if node < self.k + self.nu:
+            return self.k + self.m + node - self.k
+        return node - self.nu
+
+    def _plan(self, key: tuple) -> _ProductPlan:
+        plan = self._plans.get(key)
+        if plan is None:
+            make = (self._layered_products if key[0] == "layered"
+                    else self._aloof_products)
+            plan = self._plans[key] = _ProductPlan(make(*key[1:]))
+        return plan
+
+    def _layered_products(self, erased: frozenset) -> list[tuple]:
+        """The engine products of the reference's layered decode of the
+        erased nodes (decode_layered :647, decode_erasures :714,
+        decode_uncoupled :742, the pair operations :775-871), in its
+        order, as (M, input rows, output rows).  A row is sub-chunk z of a
+        node's coupled chunk (buffer 0, row slot * P + z) or of its
+        uncoupled symbols U (buffer 1, BASE1 | node * P + z).  Where z's
+        digit y is the node's x (a hole-dot position) U is the coupled
+        row itself: the reference copies one into the other there."""
+        q, t, m, P = self.q, self.t, self.m, self.sub_chunk_no
         n = q * t
         erased = set(erased)
         for i in range(self.k + self.nu, n):
@@ -234,105 +304,102 @@ class ClayCode(ErasureCode):
                 break
             erased.add(i)
         assert len(erased) == m
+        zvs = [self._z_vec(z) for z in range(P)]
 
-        U = {i: _zeros(chunks[0].shape, chunks[0]) for i in range(n)}
-        order = [0] * self.sub_chunk_no
-        for z in range(self.sub_chunk_no):
-            zv = self._z_vec(z)
-            order[z] = sum(1 for i in erased if i % q == zv[i // q])
-        max_score = max(order, default=0)
+        def C(node, z):
+            return self._slot(node) * P + z
 
-        for score in range(max_score + 1):
-            planes = [z for z in range(self.sub_chunk_no) if order[z] == score]
+        def U(node, z):
+            if zvs[z][node // q] == node % q:
+                return C(node, z)
+            return BASE1 | (node * P + z)
+
+        products = []
+
+        def pair(known: dict, want: list, outs: list):
+            present = sorted(known)
+            products.append((self.pft.matrix(present, want),
+                             [known[i] for i in present[:2]], outs))
+
+        order = [sum(1 for i in erased if i % q == zv[i // q]) for zv in zvs]
+        for score in range(max(order, default=0) + 1):
+            planes = [z for z in range(P) if order[z] == score]
+            for z in planes:  # decode_erasures
+                zv = zvs[z]
+                for x in range(q):
+                    for y in range(t):
+                        node_xy, node_sw = q * y + x, q * y + zv[y]
+                        if node_xy in erased or zv[y] == x or (
+                                zv[y] > x and node_sw not in erased):
+                            continue
+                        # uncoupled from coupled (reference :844)
+                        z_sw = self._z_sw(z, x, y, zv)
+                        c_xy, c_sw, u_xy, _ = self._pair_indices(x, zv[y])
+                        u = {u_xy: U(node_xy, z)}
+                        pair({c_xy: C(node_xy, z), c_sw: C(node_sw, z_sw)},
+                             [2, 3], [u.get(2, U(node_sw, z_sw)),
+                                      u.get(3, U(node_sw, z_sw))])
+                present = sorted(set(range(n)) - erased)[: self.k + self.nu]
+                missing = sorted(erased)
+                products.append((
+                    matrices.recover_matrix(self.mds_C, present, missing),
+                    [U(i, z) for i in present], [U(i, z) for i in missing]))
             for z in planes:
-                self._decode_erasures(erased, z, chunks, U)
-            for z in planes:
-                zv = self._z_vec(z)
+                zv = zvs[z]
                 for node_xy in sorted(erased):
                     x, y = node_xy % q, node_xy // q
                     node_sw = y * q + zv[y]
-                    if zv[y] != x:
-                        if node_sw not in erased:
-                            self._recover_type1(chunks, U, x, y, z, zv)
-                        elif zv[y] < x:
-                            self._coupled_from_uncoupled(
-                                chunks, U, x, y, z, zv
-                            )
-                    else:
-                        chunks[node_xy][z] = U[node_xy][z]
+                    if zv[y] == x:
+                        continue
+                    z_sw = self._z_sw(z, x, y, zv)
+                    if node_sw not in erased:
+                        # type 1 (reference :775): the erased coupled
+                        # symbol from its live partner and own uncoupled
+                        c_xy, c_sw, u_xy, _ = self._pair_indices(x, zv[y])
+                        pair({c_sw: C(node_sw, z_sw), u_xy: U(node_xy, z)},
+                             [c_xy], [C(node_xy, z)])
+                    elif zv[y] < x:
+                        # both coupled from both uncoupled (reference
+                        # :806; no index swap: zv[y] < x)
+                        pair({2: U(node_xy, z), 3: U(node_sw, z_sw)},
+                             [0, 1], [C(node_xy, z), C(node_sw, z_sw)])
+        return products
 
-    def _decode_erasures(self, erased: set[int], z: int, chunks: dict,
-                         U: dict) -> None:
-        """reference decode_erasures :714: fill U for live nodes, then MDS."""
-        q, t = self.q, self.t
-        zv = self._z_vec(z)
-        for x in range(q):
-            for y in range(t):
-                node_xy = q * y + x
-                node_sw = q * y + zv[y]
-                if node_xy in erased:
-                    continue
-                if zv[y] < x:
-                    self._uncoupled_from_coupled(chunks, U, x, y, z, zv)
-                elif zv[y] == x:
-                    U[node_xy][z] = chunks[node_xy][z]
-                elif node_sw in erased:
-                    self._uncoupled_from_coupled(chunks, U, x, y, z, zv)
-        self._mds_recover(U, z, erased)
+    def _run_plan(self, plan: _ProductPlan, B0, B1) -> None:
+        """A plan in place on its two buffers ([rows, sc] each): its runs,
+        one grouped product each on the device engine (one kernel launch
+        on the card), product by product on a host engine."""
+        sc = B0.shape[-1]
+        if isinstance(self.engine, TorchEngine):
+            for plist in plan.lists(sc):
+                self.engine.matmul_grouped(plist, B0, B1)
+            return
+        B0, B1 = B0.reshape(-1, sc), B1.reshape(-1, sc)
 
-    # the three pair operations (reference :775-871)
-    def _recover_type1(self, chunks, U, x, y, z, zv):
-        """erased coupled symbol from live partner + own uncoupled."""
-        q = self.q
-        node_xy, node_sw = y * q + x, y * q + zv[y]
-        z_sw = self._z_sw(z, x, y, zv)
-        c_xy, c_sw, u_xy, u_sw = self._pair_indices(x, zv[y])
-        known = {c_sw: chunks[node_sw][z_sw], u_xy: U[node_xy][z]}
-        (rec,) = self.pft.recover(known, [c_xy], self.engine.matmul)
-        chunks[node_xy][z] = rec
+        def at(row):
+            return (B1, row & (BASE1 - 1)) if row & BASE1 else (B0, row)
 
-    def _coupled_from_uncoupled(self, chunks, U, x, y, z, zv):
-        """both coupled symbols of the pair from both uncoupled."""
-        q = self.q
-        node_xy, node_sw = y * q + x, y * q + zv[y]
-        z_sw = self._z_sw(z, x, y, zv)
-        # no index swap here (reference get_coupled_from_uncoupled asserts
-        # zv[y] < x): position 0 <-> node_xy, 1 <-> node_sw
-        known = {2: U[node_xy][z], 3: U[node_sw][z_sw]}
-        rec0, rec1 = self.pft.recover(known, [0, 1], self.engine.matmul)
-        chunks[node_xy][z] = rec0
-        chunks[node_sw][z_sw] = rec1
+        for run in plan.runs:
+            for M, ins, outs in run:
+                out = self.engine.matmul(
+                    M, _stack([buf[i] for buf, i in map(at, ins)], 0))
+                for row, value in zip(outs, out):
+                    buf, i = at(row)
+                    buf[i] = value
 
-    def _uncoupled_from_coupled(self, chunks, U, x, y, z, zv):
-        """both uncoupled symbols of the pair from both coupled."""
-        q = self.q
-        node_xy, node_sw = y * q + x, y * q + zv[y]
-        z_sw = self._z_sw(z, x, y, zv)
-        c_xy, c_sw, u_xy, u_sw = self._pair_indices(x, zv[y])
-        known = {c_xy: chunks[node_xy][z], c_sw: chunks[node_sw][z_sw]}
-        rec_lo, rec_hi = self.pft.recover(known, [2, 3], self.engine.matmul)
-        rec = {2: rec_lo, 3: rec_hi}
-        U[node_xy][z] = rec[u_xy]
-        U[node_sw][z_sw] = rec[u_sw]
+    def _workspace(self, chunks: dict, sc: int, like):
+        """A layered plan's buffers: C (chunks, `_slot` order) and U, zeros
+        but for the given external chunks, copied into C."""
+        n, P = self.q * self.t, self.sub_chunk_no
+        C, U = _zeros((n, P, sc), like), _zeros((n, P, sc), like)
+        for i, c in chunks.items():
+            C[i] = c.reshape(P, sc)
+        return C, U
 
     # -- node/chunk plumbing ----------------------------------------------
     def _node(self, i: int) -> int:
         """external chunk id -> node id of the padded grid."""
         return i if i < self.k else i + self.nu
-
-    def _to_nodes(self, ext: dict, sc_size: int) -> dict:
-        """external chunk id -> padded node grid ([sub_chunk_no, sc])."""
-        like = next(iter(ext.values()))
-        shape = (self.sub_chunk_no, sc_size)
-        nodes = {}
-        for i in range(self.k + self.m):
-            nodes[self._node(i)] = (
-                _copy(ext[i].reshape(shape)) if i in ext
-                else _zeros(shape, like)
-            )
-        for i in range(self.k, self.k + self.nu):
-            nodes[i] = _zeros(shape, like)
-        return nodes
 
     # -- public API --------------------------------------------------------
     def encode_chunks(self, data):
@@ -350,13 +417,11 @@ class ClayCode(ErasureCode):
             )
         with obs.span("ec.clay_encode", k=k, m=m, d=self.d,
                       bytes=_numel(data)), _L.time("encode_seconds"):
-            nodes = self._to_nodes({i: data[i] for i in range(k)},
-                                   cs // self.sub_chunk_no)
-            self._decode_layered(
-                {self._node(i) for i in range(k, k + m)}, nodes)
-            out = _stack(
-                [nodes[self._node(i)].reshape(-1) for i in range(k + m)], 0
-            )
+            C, U = self._workspace({i: data[i] for i in range(k)},
+                                   cs // self.sub_chunk_no, data)
+            self._run_plan(self._plan(("layered", frozenset(
+                self._node(i) for i in range(k, k + m)))), C, U)
+            out = C[:k + m].reshape(k + m, cs)
         _L.inc("bytes_encoded", _numel(data))
         return out
 
@@ -373,14 +438,14 @@ class ClayCode(ErasureCode):
         with obs.span("ec.clay_decode", k=k, m=m, missing=len(erased),
                       bytes=len(erased) * chunk_size), \
                 _L.time("decode_seconds"):
-            nodes = self._to_nodes(
-                {i: _as_u8(c) for i, c in chunks.items()},
-                chunk_size // self.sub_chunk_no)
-            self._decode_layered(erased, nodes)
+            chunks = {i: _as_u8(c) for i, c in chunks.items()}
+            C, U = self._workspace(chunks, chunk_size // self.sub_chunk_no,
+                                   next(iter(chunks.values())))
+            self._run_plan(self._plan(("layered", frozenset(erased))), C, U)
             out = dict(chunks)
             for i in range(k + m):
                 if i not in out:
-                    out[i] = nodes[self._node(i)].reshape(-1)
+                    out[i] = C[i].reshape(-1)
         _L.inc("bytes_decoded", len(erased) * chunk_size)
         return out
 
@@ -476,7 +541,6 @@ class ClayCode(ErasureCode):
         repair_planes = [
             z for ind, cnt in sub_ind for z in range(ind, ind + cnt)
         ]
-        plane_pos = {z: j for j, z in enumerate(repair_planes)}
 
         # node-indexed helper data [repair_sub_count, sc]
         helpers: dict = {}
@@ -504,78 +568,88 @@ class ClayCode(ErasureCode):
             return {i: self._repair_batched(lost, helpers, sc,
                                             repair_planes).reshape(-1)}
 
-        recovered = _zeros((self.sub_chunk_no, sc), like)
-        U = {n: _zeros((self.sub_chunk_no, sc), like) for n in range(q * t)}
-        erasures = {lost - lost % q + x for x in range(q)} | aloof
+        # buffer 0: the rebuilt chunk's sub-chunks, then each node's
+        # repair sub-chunks; buffer 1: U
+        P, RP, n = self.sub_chunk_no, repair_sub_count, q * t
+        B, U = _zeros((P + n * RP, sc), like), _zeros((n * P, sc), like)
+        for nd, arr in helpers.items():
+            B[P + nd * RP:P + (nd + 1) * RP] = arr
+        self._run_plan(self._plan(("aloof", lost, frozenset(aloof))), B, U)
+        return {i: B[:P].reshape(-1)}
 
-        # order planes by intersection score over erasures+aloof
+    def _aloof_products(self, lost: int, aloof: frozenset) -> list[tuple]:
+        """The engine products of the reference's single-chunk repair with
+        aloof nodes (repair_one_lost_chunk :462-640), in its order, as
+        (M, input rows, output rows).  Buffer 0 holds the rebuilt chunk
+        (row z) and the helpers' repair sub-chunks (row P + node * RP +
+        position), buffer 1 U (BASE1 | node * P + z).  U at a hole-dot
+        position is a live node's helper row or, for the lost node, the
+        rebuilt row, as the reference copies them; a pair decoupling
+        computes only the one symbol the reference keeps of the two."""
+        q, t, P = self.q, self.t, self.sub_chunk_no
+        n = q * t
+        repair_planes = [z for ind, cnt in self.get_repair_subchunks(lost)
+                         for z in range(ind, ind + cnt)]
+        RP, pos = len(repair_planes), {z: j for j, z in
+                                       enumerate(repair_planes)}
+        erasures = {lost - lost % q + x for x in range(q)} | set(aloof)
+        zvs = [self._z_vec(z) for z in range(P)]
+
+        def H(node, z):
+            return P + node * RP + pos[z]
+
+        def U(node, z):
+            if zvs[z][node // q] == node % q:
+                if node == lost:
+                    return z
+                if node not in erasures:
+                    return H(node, z)
+            return BASE1 | (node * P + z)
+
+        def pair(known: dict, want: int, out: int):
+            present = sorted(known)
+            products.append((self.pft.matrix(present, [want]),
+                             [known[i] for i in present], [out]))
+
+        # planes by intersection score over the lost and aloof nodes
         ordered: dict[int, list[int]] = {}
         for z in repair_planes:
-            zv = self._z_vec(z)
-            score = sum(
-                1 for nd in ({lost} | aloof) if nd % q == zv[nd // q]
-            )
+            score = sum(1 for nd in {lost} | set(aloof)
+                        if nd % q == zvs[z][nd // q])
             assert score > 0
             ordered.setdefault(score, []).append(z)
-
+        products: list[tuple] = []
         for score in sorted(ordered):
             for z in ordered[score]:
-                zv = self._z_vec(z)
-                # phase 1: fill U for live nodes
+                zv = zvs[z]
+                # phase 1: U of the live nodes
                 for y in range(t):
                     for x in range(q):
-                        node_xy = y * q + x
-                        if node_xy in erasures:
+                        node_xy, node_sw = y * q + x, y * q + zv[y]
+                        if node_xy in erasures or (
+                                node_sw not in aloof and zv[y] == x):
                             continue
                         z_sw = self._z_sw(z, x, y, zv)
-                        node_sw = y * q + zv[y]
-                        c_xy, c_sw, u_xy, u_sw = self._pair_indices(
-                            x, zv[y]
-                        )
-                        if node_sw in aloof:
-                            # partner coupled unknown; use partner's U
-                            known = {
-                                c_xy: helpers[node_xy][plane_pos[z]],
-                                u_sw: U[node_sw][z_sw],
-                            }
-                            (rec,) = self.pft.recover(
-                                known, [u_xy], self.engine.matmul
-                            )
-                            U[node_xy][z] = rec
-                        elif zv[y] != x:
-                            known = {
-                                c_xy: helpers[node_xy][plane_pos[z]],
-                                c_sw: helpers[node_sw][plane_pos[z_sw]],
-                            }
-                            rec_lo, rec_hi = self.pft.recover(
-                                known, [2, 3], self.engine.matmul
-                            )
-                            U[node_xy][z] = {2: rec_lo, 3: rec_hi}[u_xy]
-                        else:
-                            U[node_xy][z] = helpers[node_xy][plane_pos[z]]
+                        c_xy, c_sw, u_xy, u_sw = self._pair_indices(x, zv[y])
+                        known = ({c_xy: H(node_xy, z), u_sw: U(node_sw, z_sw)}
+                                 if node_sw in aloof else
+                                 {c_xy: H(node_xy, z), c_sw: H(node_sw, z_sw)})
+                        pair(known, u_xy, U(node_xy, z))
                 # phase 2: MDS across the plane
-                assert len(erasures) <= self.m
-                self._mds_recover(U, z, erasures)
-                # phase 3: recover coupled symbols of erased nodes
-                for nd in sorted(erasures):
-                    if nd in aloof:
-                        continue
+                present = sorted(set(range(n)) - erasures)[: self.k + self.nu]
+                missing = sorted(erasures)
+                products.append((
+                    matrices.recover_matrix(self.mds_C, present, missing),
+                    [U(i, z) for i in present], [U(i, z) for i in missing]))
+                # phase 3: the coupled symbols of the lost column
+                for nd in sorted(erasures - set(aloof)):
                     x, y = nd % q, nd // q
-                    z_sw = self._z_sw(z, x, y, zv)
-                    c_xy, c_sw, u_xy, u_sw = self._pair_indices(x, zv[y])
-                    if x == zv[y]:  # hole-dot pair
-                        recovered[z] = U[nd][z]
-                    else:
-                        assert y * q + zv[y] == lost
-                        known = {
-                            c_xy: helpers[nd][plane_pos[z]],
-                            u_xy: U[nd][z],
-                        }
-                        (rec,) = self.pft.recover(
-                            known, [c_sw], self.engine.matmul
-                        )
-                        recovered[z_sw] = rec
-        return {i: recovered.reshape(-1)}
+                    if x == zv[y]:
+                        continue  # the rebuilt row is U's
+                    c_xy, c_sw, u_xy, _ = self._pair_indices(x, zv[y])
+                    pair({c_xy: H(nd, z), u_xy: U(nd, z)}, c_sw,
+                         self._z_sw(z, x, y, zv))
+        return products
 
     def _repair_batched(self, lost: int, helpers: dict, sc: int,
                         repair_planes: list[int]):

@@ -8,10 +8,10 @@ product parity = M·data, byte for byte; they differ in how it runs
 - `pallas`: `gf_matmul_cuda`, a CUDA kernel written for sm_90a
   (`ec/csrc/gf_matmul.cu`, in place of `gf_matmul_pallas`) on a CUDA
   tensor, and on a CPU tensor its plain version `gf_matmul_plain`, torch
-  table lookups.  The kernel takes an M of at most MAX_ROWS x MAX_COLS;
-  a larger M runs as one launch per block of that size
-  (`gf_matmul_tiled`), the partial products of a row block XORed
-  together (GF addition is XOR).  This is the engine's default.
+  table lookups.  One launch computes any M of up to KERNEL_COLS columns,
+  and one launch runs a whole list of products (`ProductList`,
+  `gf_grouped_cuda`; plain version `gf_grouped_plain`), which Clay's
+  layered plans use.  This is the engine's default.
 - `bitplane`, `logexp`, `xor`, `xor_cse`: the JAX package's XLA
   programs `_matmul_bitplane`, `_matmul_logexp` and `xor_schedule_fn`
   (over `ec/xor_schedule.py`), written as torch ops: no hand kernel, the
@@ -31,6 +31,7 @@ import ctypes
 import functools
 import math
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,10 +53,15 @@ from ceph_tpu_torch.ec.xor_schedule import (
 from ceph_tpu_torch.utils import knobs
 from ceph_tpu_torch.utils.perf_counters import counters_attr
 
-MAX_ROWS = 32  # the kernel's limits on M's shape (gf_matmul.cu)
+# the block shape of `matrix_blocks`: `gf_matmul_tiled` runs a wide M as
+# products of such blocks, the reference of the kernel's one-launch product
+MAX_ROWS = 32
 MAX_COLS = 64
+KERNEL_COLS = 256  # input rows of one product (gf_matmul.cuh kMaxCols)
+BASE1 = 1 << 62  # a row offset from a list's second buffer (kBase1)
 _ROWS_PER_GROUP = 4  # output rows packed in one table word
-_BLOCKS_PER_SM = 8
+_CHUNK = 4096  # bytes of a row per work item (kChunk)
+_FIELDS = 11  # columns of a product's descriptor row (kFields)
 # byte-axis tile of the bitplane strategy: its 8x bit expansion stays
 # O(_BIT_TILE) in memory (the JAX package's default tile)
 _BIT_TILE = 1 << 17
@@ -85,8 +91,8 @@ STRATEGIES = {
     ),
     "pallas": (
         "The hand kernel gf_matmul_cuda (ec/csrc/gf_matmul.cu) on a CUDA "
-        "tensor, tiled past 32 x 64; its plain version on a CPU tensor. "
-        "The default."
+        "tensor, one launch per product or list of products; its plain "
+        "version on a CPU tensor.  The default."
     ),
     "auto": (
         "Measured pick among the device type's candidates on a sample "
@@ -99,13 +105,14 @@ DEFAULT_STRATEGY = "pallas"
 
 _L = obs.logger_for("ec")
 _L.add_u64("autotunes", "measured strategy autotunes (one per matrix)")
+
+
 # the kernel's launches, enqueue times and first-call build
-def _gf_work(shape) -> tuple[int, int]:
-    """(bytes, operations) of one launch of shape (N, rows, S, L, table
-    bytes): data, tables and parity each moved once, and its GF(2^8)
-    multiply-accumulates."""
-    N, rows, S, L, tables = shape
-    return N * S * L + tables + N * rows * L, N * rows * S * L
+def _gf_work(work: tuple[int, int]) -> tuple[int, int]:
+    """(bytes, operations) of one launch: its list's, reckoned when the
+    list was packed (`_pack`): inputs, tables and outputs each moved once,
+    and its GF(2^8) multiply-accumulates."""
+    return work
 
 
 _GF_ACCT = obs.LaunchAccount(_L, "gf_matmul", "ec/csrc/gf_matmul.cu",
@@ -119,7 +126,9 @@ _AUTOTUNE: dict[tuple, dict] = {}
 def product_tables(M: np.ndarray) -> np.ndarray:
     """The kernel's tables of M u8[R, S]: u8[G, S, 256, 4] with
     [g, s, x, j] = mul(M[4g + j, s], x) (0 for rows past R), G = ceil(R/4).
-    The kernel reads them as little-endian uint32 words [G][S][256]."""
+    The kernel reads them as little-endian uint32 words [G][S][256], of
+    which it stages words x < 16 and x = 16 v in shared memory (its nibble
+    tables, gf_matmul.cuh)."""
     M = np.asarray(M, np.uint8)
     R, S = M.shape
     G = -(-R // _ROWS_PER_GROUP)
@@ -154,38 +163,272 @@ def gf_matmul_plain(M, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class Product(NamedTuple):
+    """One product of a launch's list: M u8[R, S] times its S input rows
+    into its R output rows, each row `length` bytes.  A row is a byte
+    offset from the first of the launch's two buffers, or with BASE1 set
+    from the second."""
+    M: np.ndarray
+    ins: tuple
+    outs: tuple
+    length: int
+
+
+def _pack(entries, table_bytes: int):
+    """The kernel's descriptor of a list: entries (R, S, table word index,
+    ins, outs, N, L, in_stride, out_stride) -> (desc int64 [P, _FIELDS],
+    rows int64, items, widest S, (bytes, operations)).  Columns as
+    gf_matmul.cuh's Field enum; `table_bytes`, the tables' bytes the
+    launch reads, count in its bytes.  A `ProductList`'s products are one
+    stripe each (N = 1); gf_matmul_cuda's one product has N stripes, its
+    rows in_stride and out_stride bytes on from one stripe to the next."""
+    desc, rows = [], []
+    items = max_cols = nbytes = ops = 0
+    for R, S, tab, ins, outs, N, L, in_stride, out_stride in entries:
+        chunks = -(-L // _CHUNK)
+        aligned = all(v % 16 == 0 for v in (L, in_stride, out_stride,
+                                            *(int(r) & (BASE1 - 1)
+                                              for r in (*ins, *outs))))
+        desc.append((items, R, S, N, L, in_stride, out_stride, len(rows),
+                     tab, chunks, int(aligned)))
+        rows.extend(ins)
+        rows.extend(outs)
+        items += -(-R // _ROWS_PER_GROUP) * N * chunks
+        max_cols = max(max_cols, S)
+        nbytes += N * (S + R) * L
+        ops += N * R * S * L
+    if items >= 1 << 31:
+        raise ValueError(f"a list of {items} items of {_CHUNK} bytes: the "
+                         f"kernel walks fewer than 2^31 in one launch")
+    return (np.asarray(desc, np.int64).reshape(-1, _FIELDS),
+            np.asarray(rows, np.int64), items, max_cols,
+            (nbytes + table_bytes, ops))
+
+
+def _row_spans(p: Product, rows):
+    """(buffer, start, end) of each row."""
+    for row in rows:
+        start = int(row) & (BASE1 - 1)
+        yield int(row) >> 62, start, start + p.length
+
+
+def _hazard(products: list[Product]) -> str | None:
+    """Where a product of the list touches bytes that it or another
+    product writes, or None: the kernel runs a list's products at once,
+    in no order."""
+    spans = []  # (buffer, start, end, writes, product)
+    for i, p in enumerate(products):
+        spans += [(*s, False, i) for s in _row_spans(p, p.ins)]
+        spans += [(*s, True, i) for s in _row_spans(p, p.outs)]
+    spans.sort()
+    ends = {}  # buffer -> (end of any span so far, of any write so far)
+    for buf, start, end, writes, i in spans:
+        any_end, write_end = ends.get(buf, (0, 0))
+        if start < write_end or (writes and start < any_end):
+            return f"product {i} at byte {start} of buffer {buf}"
+        ends[buf] = (max(any_end, end), max(write_end, end) if writes
+                     else write_end)
+    return None
+
+
+class ProductList:
+    """One launch's list of products (`Product`), packed once: its
+    descriptor, row offsets and tables (one copy per distinct M), and
+    their copies on each device they were used on (`on`).  The products
+    must be free of hazards (no bytes read or written by one product are
+    written by another), which is checked here: on the card they run at
+    once, in no order.  A caller that runs the same list again (Clay's
+    plans) keeps it; each run passes only the buffers."""
+
+    def __init__(self, products):
+        self.products = [p for p in products if p.length]
+        where = _hazard(self.products)
+        if where is not None:
+            raise ValueError(f"ProductList: a hazard: {where}")
+        words, tables, entries = {}, [], []
+        size = 0
+        for p in self.products:
+            M = np.asarray(p.M, np.uint8)
+            R, S = M.shape
+            if not (R >= 1 and 1 <= S <= KERNEL_COLS and len(p.ins) == S
+                    and len(p.outs) == R and p.length > 0):
+                raise ValueError(f"ProductList: a product of M {M.shape}, "
+                                 f"{len(p.ins)} inputs, {len(p.outs)} "
+                                 f"outputs of {p.length} bytes")
+            key = matrix_key(M)
+            if key not in words:
+                words[key] = size
+                tables.append(product_tables(M).view("<u4").reshape(-1))
+                size += tables[-1].size
+            entries.append((R, S, words[key], p.ins, p.outs, 1, p.length,
+                            0, 0))
+        self.tables = (np.concatenate(tables) if tables
+                       else np.zeros(1, np.uint32))
+        # the table words the kernel reads: 32 per (group, input row)
+        read = sum(-(-R // 4) * S * 128 for R, S, *_ in entries)
+        (self.desc, self.rows, self.items, self.max_cols,
+         self.work) = _pack(entries, read)
+        # bytes of each buffer the list reaches into, and whether it
+        # reaches into the second at all
+        self.extent = [0, 0]
+        for p in self.products:
+            for buf, _, end in _row_spans(p, (*p.ins, *p.outs)):
+                self.extent[buf] = max(self.extent[buf], end)
+        self._on: dict[torch.device, tuple] = {}
+
+    def on(self, device: torch.device) -> tuple:
+        """(desc, rows, tables) on `device`, uploaded at its first use."""
+        got = self._on.get(device)
+        if got is None:
+            got = self._on[device] = tuple(
+                torch.from_numpy(a).to(device)
+                for a in (self.desc, self.rows, self.tables))
+        return got
+
+
+def _buffers(plist: ProductList, b0: torch.Tensor, b1):
+    """The list's two buffers as flat u8 tensors, checked: on one device,
+    contiguous, long enough, and not overlapping when both are used."""
+    b1 = b0 if b1 is None else b1
+    for b in (b0, b1):
+        if b.dtype != torch.uint8 or not b.is_contiguous():
+            raise TypeError("gf grouped: contiguous uint8 buffers expected")
+    if b1.device != b0.device:
+        raise ValueError(f"gf grouped: buffers on {b0.device} and "
+                         f"{b1.device}")
+    b0, b1 = b0.reshape(-1), b1.reshape(-1)
+    if b0.numel() < plist.extent[0] or b1.numel() < plist.extent[1]:
+        raise ValueError(f"gf grouped: buffers of {b0.numel()} and "
+                         f"{b1.numel()} bytes, the list reaches "
+                         f"{plist.extent}")
+    if plist.extent[1] and b0.numel() and b1.numel():
+        p0, p1 = b0.data_ptr(), b1.data_ptr()
+        if p0 < p1 + b1.numel() and p1 < p0 + b0.numel():
+            raise ValueError("gf grouped: the two buffers overlap")
+    return b0, b1
+
+
+def _row_view(b0, b1, row: int, length: int):
+    """Row `row` of buffer b0 or b1 (BASE1), `length` bytes."""
+    start = int(row) & (BASE1 - 1)
+    return (b1 if int(row) & BASE1 else b0)[start:start + length]
+
+
+def _inputs(p: Product, b0, b1) -> torch.Tensor:
+    """A product's input rows as u8[1, S, L]."""
+    return torch.stack([_row_view(b0, b1, row, p.length)
+                        for row in p.ins])[None]
+
+
+def gf_grouped_plain(plist: ProductList, b0: torch.Tensor, b1=None,
+                     product=gf_matmul_plain) -> None:
+    """The plain version of a grouped launch, on any device: every
+    product of the list computed by `product(M, X)` (X u8[1, S, L] -> u8[1,
+    R, L]) from the buffers as they are, then every result written into
+    its rows, in list order.  A list whose products depend on one another
+    gives other bytes here than in order, as on the card."""
+    b0, b1 = _buffers(plist, b0, b1)
+    results = [product(p.M, _inputs(p, b0, b1)) for p in plist.products]
+    for p, Y in zip(plist.products, results):
+        for r, row in enumerate(p.outs):
+            _row_view(b0, b1, row, p.length).copy_(Y[0, r])
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _GF_ACCT.load(lambda: build.load("ec/csrc/gf_matmul.cu"))
+    p = ctypes.c_void_p
     lib.gf_matmul_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        p, p, p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, p, p,
+        ctypes.c_int, p,
     ]
     lib.gf_matmul_launch.restype = ctypes.c_int
+    lib.gf_matmul_prepare.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.gf_matmul_prepare.restype = ctypes.c_int
     lib.gf_matmul_error_string.argtypes = [ctypes.c_int]
     lib.gf_matmul_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().gf_matmul_error_string(rc).decode()
+        raise RuntimeError(f"gf_matmul kernel {what} failed: {msg}")
+
+
 @functools.cache
-def _max_blocks(device: torch.device) -> int:
-    props = torch.cuda.get_device_properties(device)
-    return props.multi_processor_count * _BLOCKS_PER_SM
+def _blocks(device: torch.device, max_cols: int) -> int:
+    """The blocks that fit on all the SMs of `device` at once, for a list
+    whose widest product has `max_cols` inputs."""
+    per_sm, sms = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _check(_lib().gf_matmul_prepare(max_cols, ctypes.byref(per_sm),
+                                        ctypes.byref(sms)), "prepare")
+    if per_sm.value < 1:
+        raise RuntimeError(f"gf_matmul kernel: no block of {max_cols} "
+                           f"input rows fits on an SM of {device}")
+    return per_sm.value * sms.value
+
+
+def _grid(device: torch.device, max_cols: int, items: int) -> int:
+    """The persistent grid of a list of `items` items: the blocks that
+    fit, or, where the items take more than one round of those, the
+    fewest blocks that take them in the same number of rounds, so that
+    every block takes as many items as the next (at (a), 512 items in 256
+    blocks of 2, not 396 blocks of which 116 take a second item alone)."""
+    rounds = max(1, -(-items // _blocks(device, max_cols)))
+    return max(1, -(-items // rounds))
+
+
+def _launch(desc, rows, tables, n_products: int, items: int,
+            max_cols: int, b0: torch.Tensor, b1: torch.Tensor,
+            work: tuple[int, int]) -> None:
+    lib = _lib()
+    with torch.cuda.device(b0.device):
+        rc = _GF_ACCT.launch(
+            lib.gf_matmul_launch, desc.data_ptr(), rows.data_ptr(),
+            tables.data_ptr(), n_products, items, max_cols, b0.data_ptr(),
+            b1.data_ptr(), _grid(b0.device, max_cols, items),
+            torch.cuda.current_stream().cuda_stream, shape=work)
+    _check(rc, "launch")
+
+
+def _single_desc(rows: int, S: int, N: int, L: int):
+    """The descriptor of gf_matmul_cuda's one product: input row s at s *
+    L of the data, output row r at r * L of the output (the second
+    buffer), stripes S * L and rows * L apart -> (desc, row offsets,
+    items, work)."""
+    desc, offs, items, _, work = _pack(
+        [(rows, S, 0, [s * L for s in range(S)],
+          [BASE1 | r * L for r in range(rows)], N, L, S * L, rows * L)],
+        -(-rows // 4) * S * 128)
+    return desc, offs, items, work
+
+
+@functools.lru_cache(maxsize=256)
+def _single(device: torch.device, rows: int, S: int, N: int, L: int):
+    """`_single_desc` on `device`."""
+    desc, offs, items, work = _single_desc(rows, S, N, L)
+    return (torch.from_numpy(desc).to(device),
+            torch.from_numpy(offs).to(device), items, work)
 
 
 def gf_matmul_cuda(
     tables: torch.Tensor, data: torch.Tensor, rows: int
 ) -> torch.Tensor:
-    """Launch the kernel: data u8[N, S, L] on the card -> u8[N, rows, L].
+    """Launch the kernel on one product: data u8[N, S, L] on the card ->
+    u8[N, rows, L], for any rows and S <= KERNEL_COLS (a list of one).
 
     `tables` is `product_tables(M)` as a u8 tensor on the same card.  The
     kernel runs on the current stream, unsynchronised.  Non-contiguous
     views are copied to contiguous memory first; unaligned ones run (the
-    kernel falls back to byte loads).  `gf_matmul_cuda.launches` counts
-    the launches: it is the kernel's count in the kernel registry
-    (`obs.executables`), which each launch books with its shape
-    (`_gf_work` reckons its bytes and operations)."""
+    kernel loads their rows byte by byte).  `gf_matmul_cuda.launches`
+    counts the launches of the kernel, this wrapper's and
+    `gf_grouped_cuda`'s: it is the kernel's count in the kernel registry
+    (`obs.executables`), which each launch books with its bytes and
+    operations."""
     if data.device.type != "cuda" or tables.device != data.device:
         raise ValueError(
             f"gf_matmul_cuda: data on {data.device}, tables on "
@@ -197,10 +440,10 @@ def gf_matmul_cuda(
         raise ValueError(f"gf_matmul_cuda: data [N, S, L] expected, got "
                          f"{tuple(data.shape)}")
     N, S, L = data.shape
-    if not (1 <= rows <= MAX_ROWS and 1 <= S <= MAX_COLS):
+    if not (rows >= 1 and 1 <= S <= KERNEL_COLS):
         raise ValueError(
             f"gf_matmul_cuda: {rows}x{S} matrix outside the kernel's "
-            f"limits (R <= {MAX_ROWS}, S <= {MAX_COLS})"
+            f"limits (S <= {KERNEL_COLS})"
         )
     groups = -(-rows // _ROWS_PER_GROUP)
     if tables.numel() != groups * S * 256 * 4 or not tables.is_contiguous():
@@ -209,22 +452,33 @@ def gf_matmul_cuda(
     out = torch.empty((N, rows, L), dtype=torch.uint8, device=data.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(data.device):
-        rc = _GF_ACCT.launch(
-            lib.gf_matmul_launch,
-            tables.data_ptr(), data.data_ptr(), out.data_ptr(), N, rows, S,
-            L, _max_blocks(data.device),
-            torch.cuda.current_stream().cuda_stream,
-            shape=(N, rows, S, L, tables.numel()),
-        )
-    if rc != 0:
-        msg = lib.gf_matmul_error_string(rc).decode()
-        raise RuntimeError(f"gf_matmul kernel launch failed: {msg}")
+    desc, offs, items, work = _single(data.device, rows, S, N, L)
+    _launch(desc, offs, tables, 1, items, S, data, out, work)
     return out
 
 
 gf_matmul_cuda = _GF_ACCT.entry(gf_matmul_cuda)
+
+
+def gf_grouped_cuda(plist: ProductList, b0: torch.Tensor,
+                    b1: torch.Tensor | None = None) -> None:
+    """Launch the kernel once on a list of products (`ProductList`), in
+    place on the buffers b0 and b1 (contiguous u8 on one card; b1 only
+    where the list uses it), on the current stream, unsynchronised.  The
+    list's descriptor and tables go to the card at its first launch
+    there.  Counted with gf_matmul_cuda's launches."""
+    if b0.device.type != "cuda":
+        raise ValueError(f"gf_grouped_cuda: buffers on {b0.device}; they "
+                         f"must be on a CUDA device")
+    b0, b1 = _buffers(plist, b0, b1)
+    if plist.items == 0:
+        return
+    desc, rows, tables = plist.on(b0.device)
+    _launch(desc, rows, tables, len(plist.products), plist.items,
+            plist.max_cols, b0, b1, plist.work)
+
+
+gf_grouped_cuda = _GF_ACCT.entry(gf_grouped_cuda)
 
 
 def matrix_blocks(M: np.ndarray):
@@ -240,9 +494,10 @@ def matrix_blocks(M: np.ndarray):
 def gf_matmul_tiled(M: np.ndarray, data: torch.Tensor, product):
     """M u8[R, S] x data u8[N, S, L] -> u8[N, R, L] through `product(Mb,
     db)`, which computes one block Mb (at most MAX_ROWS x MAX_COLS) times
-    db u8[N, cols, L].  An M inside the limits is one product call; a
-    larger one is one call per block: a row block's partial products are
-    XORed (exact: GF addition is XOR), the row blocks concatenated."""
+    db u8[N, cols, L]: the blocks' products XORed on the host (exact: GF
+    addition is XOR), the row blocks concatenated.  The reference a wide
+    product in one launch is held to; an M inside the block is one
+    product call."""
     R, S = M.shape
     if R <= MAX_ROWS and S <= MAX_COLS:
         return product(M, data)
@@ -382,6 +637,7 @@ class TorchEngine:
             )
         self.strategy = strategy
         self._resolved_strategy = strategy  # the last call's, for "auto"
+        self._list_pick: str | None = None  # the running list's strategy
         self.autotune: dict[tuple, dict] = {}  # matrix key -> record
         self._tables: dict[tuple, torch.Tensor] = {}
         self._bitmats: dict[tuple, torch.Tensor] = {}
@@ -414,8 +670,7 @@ class TorchEngine:
     def prepare(self, M: np.ndarray) -> None:
         """Profile-registration hook: build the matrix's constants for
         the engine's strategy (the XOR schedule, the bit-matrix, the
-        logexp rows; the kernel's tables, each block's past its limits,
-        on the card) once, before any stripe arrives.  Called at parse()
+        logexp rows; the kernel's tables on the card) once, before any stripe arrives.  Called at parse()
         time and for each new decode plan."""
         M = np.asarray(M, np.uint8)
         s = self.strategy
@@ -426,9 +681,7 @@ class TorchEngine:
         if s in ("logexp", "auto"):
             self._logexp_rows(M)
         if s in ("pallas", "auto") and self.device.type == "cuda":
-            for _, cols in matrix_blocks(M):
-                for _, Mb in cols:
-                    self._tables_for(Mb, self.device)
+            self._tables_for(M, self.device)
 
     # -- strategy resolution / autotune ---------------------------------
     @staticmethod
@@ -438,9 +691,12 @@ class TorchEngine:
         return ("pallas", "bitplane", "xor", "logexp")
 
     def _resolve(self, M: np.ndarray, d: torch.Tensor) -> str:
-        """The concrete strategy for this matrix (autotunes on 'auto')."""
+        """The concrete strategy for this matrix (autotunes on 'auto'),
+        or the one of the list being run (`matmul_grouped`)."""
         if self.strategy != "auto":
             return self.strategy
+        if self._list_pick is not None:
+            return self._list_pick
         key = (d.device.type, matrix_key(M))
         rec = _AUTOTUNE.get(key)
         if rec is None:
@@ -494,8 +750,8 @@ class TorchEngine:
         if strategy == "pallas":
             if d.device.type == "cpu":
                 return gf_matmul_plain(M, d)
-            return gf_matmul_tiled(M, d, lambda Mb, db: gf_matmul_cuda(
-                self._tables_for(Mb, d.device), db, Mb.shape[0]))
+            return gf_matmul_cuda(self._tables_for(M, d.device), d,
+                                  M.shape[0])
         if strategy == "bitplane":
             return self._bitplane(M, d)
         if strategy == "logexp":
@@ -544,3 +800,38 @@ class TorchEngine:
                 return self._run(M, data)
             out = self._run(M, _to_tensor(data, self.device))
         return obs.timed_fetch(_L, "gf_batch", out)
+
+    def matmul_grouped(self, plist: ProductList, base0: torch.Tensor,
+                       base1: torch.Tensor | None = None) -> None:
+        """Run a list of products (`ProductList`) in place on the buffers
+        base0 and base1 (contiguous u8 tensors, which stay on their
+        device), under one strategy (`list_strategy`).  With `pallas` on
+        the card it is one kernel launch (`gf_grouped_cuda`); otherwise
+        `gf_grouped_plain`, each product one call of this engine's product
+        under that strategy (`_run`: the kernel's plain version on the
+        CPU, the strategy's own product elsewhere)."""
+        strategy = self.list_strategy(plist, base0, base1)
+        if strategy == "pallas" and base0.device.type == "cuda":
+            self._resolved_strategy = strategy
+            with obs.span("ec.gf_dispatch", products=len(plist.products),
+                          strategy=strategy):
+                gf_grouped_cuda(plist, base0, base1)
+            return
+        self._list_pick = strategy
+        try:
+            gf_grouped_plain(plist, base0, base1, product=self._run)
+        finally:
+            self._list_pick = None
+
+    def list_strategy(self, plist: ProductList, base0: torch.Tensor,
+                      base1: torch.Tensor | None = None) -> str:
+        """The one strategy a list of products runs under: the engine's,
+        or under `auto` the one its largest product (most bytes times
+        coefficients) resolves to, autotuned once per matrix on that
+        product's rows.  So a list `auto` gives the kernel is one launch,
+        as under `pallas`."""
+        if self.strategy != "auto" or not plist.products:
+            return self.strategy
+        p = max(plist.products, key=lambda p: p.M.size * p.length)
+        b0, b1 = _buffers(plist, base0, base1)
+        return self._resolve(np.asarray(p.M, np.uint8), _inputs(p, b0, b1))

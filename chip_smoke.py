@@ -8,10 +8,11 @@ and the CUDA toolkit.  It builds every kernel from the sources in the
 checkout (one nvcc per source, all at once) and prints what ptxas
 reports of each, holds each kernel against its plain PyTorch version (the
 rule kernel both with the shared-memory staging its wrapper chooses and
-with none), drives the erasure-coding path (the RS corpus profiles,
+with none; the GF kernel on single products and on grouped lists),
+drives the erasure-coding path (the RS corpus profiles,
 RS(8,4) encode/decode at full size, the clay, shec and lrc corpus
-profiles, BASELINE config 4's Clay(8,4,11) encode and minimum-bandwidth
-repair of every chunk at a 4 MiB stripe, the benchmark CLI on RS, clay,
+profiles, BASELINE config 4's Clay(8,4,11) encode (its plan's grouped
+launches) and minimum-bandwidth repair of every chunk at a 4 MiB stripe, the benchmark CLI on RS, clay,
 shec and lrc, then every plugin through a profile that names no backend,
 whose default is the device engine, and the RS CLI lines on that default
 beside `backend=numpy`) and the
@@ -42,10 +43,11 @@ correlated failures and the balancer, after measuring the EC 4+2 encode
 GB/s, each epoch's launches, program times and parts, four epochs'
 programs held to numpy and 32 seeds a pool an epoch to the host oracle,
 then a forced expand and a forced remove epoch, each a ClusterState
-rebuild, held to the host oracle), then the GF(2^8) engine past the
-kernel's 32 x 64 limits (`ec_wide`: the tiled wrapper against the plain
-version, RS(70,4) and Clay(2,33,19) against tests/data/ec_wide.json,
-the JAX package's bytes) and the fleet simulator (`fleet_corpus`: the
+rebuild, held to the host oracle), then GF(2^8) products past the old
+32 x 64 tiling (`ec_wide`: one launch each against the plain version
+and the host-side tiling, RS(70,4) and Clay(2,33,19) against
+tests/data/ec_wide.json, the JAX package's bytes) and the fleet
+simulator (`fleet_corpus`: the
 JAX tests' four-member DIGEST_SPEC, digests equal to
 tests/data/fleet_corpus.json and to solo runs, launches and stats lanes
 equal to the CPU run's; `fleet_main`: the JAX bench's 16-combination
@@ -136,9 +138,13 @@ from ceph_tpu_torch.ec.torch_backend import (
     bit_matrix,
     gf_matmul_cuda,
     gf_matmul_plain,
+    BASE1,
+    Product,
+    ProductList,
+    gf_grouped_cuda,
+    gf_grouped_plain,
     gf_matmul_tiled,
     matmul_bitplane,
-    matrix_blocks,
     product_tables,
 )
 from ceph_tpu_torch.ec.xor_schedule import matrix_key
@@ -182,10 +188,12 @@ LAYERED_ENTRIES = ("clay_k4m2_d5", "shec_k4m3_c2", "lrc_k4m2_l3")
 # BASELINE config 4, Clay(8, 4, 11): q = 4, t = 3, 64 planes.  An encode
 # is 352 engine products (per plane 3 pair decouplings on average in the
 # two live columns, one inner-MDS solve, 1.5 pair recouplings in the
-# parity column); a single-chunk repair 13 (12 pair decouplings, one
-# product-matrix solve).  The JAX package's counts are the same.
-CLAY4_ENCODE_PRODUCTS = 352
-CLAY4_REPAIR_PRODUCTS = 13
+# parity column, as in the JAX package), which its plan runs as 3 grouped
+# launches (the decouplings, the solves, the recouplings); a
+# single-chunk repair 13 (12 pair decouplings, one product-matrix
+# solve).  The counts held on the card are the plan's, counted on the CPU
+# (`cpu_launches`); an encode may take at most this many.
+CLAY4_ENCODE_MAX_LAUNCHES = 16
 # peak HBM bandwidth of the one card the port is measured on (NVIDIA's
 # H100 SXM5 data sheet); its name as torch reports it
 H100_SXM = "NVIDIA H100 80GB HBM3"
@@ -261,30 +269,51 @@ def time_ms(fn, flush: torch.Tensor, runs: int = RUNS,
 
 
 @contextlib.contextmanager
-def engine_calls():
-    """Records each product the device engine runs, as (M, data) with data
-    u8[N, S, L]: yields the list.  On CPU tensors each is one call of the
-    plain version, on CUDA tensors one kernel launch."""
-    calls, real = [], TorchEngine._run
+def engine_launches():
+    """Records the kernel launches the device engine makes, on whatever
+    device it runs: yields the list.  A grouped product
+    (`TorchEngine.matmul_grouped`) is ("group", ProductList, b0, b1, the
+    strategy the list resolved to), one launch when that is `pallas`; any
+    other product is ("product", M, data u8[N, S, L], the strategy it
+    resolved to), a launch when that is `pallas`.  On CPU tensors each
+    runs its plain version."""
+    log, run, grouped = [], TorchEngine._run, TorchEngine.matmul_grouped
+    inside = [0]
 
-    def run(self, M, d):
-        calls.append((M, d))
-        return real(self, M, d)
+    def _run(self, M, d):
+        out = run(self, M, d)
+        if not inside[0]:
+            log.append(("product", M, d, self._resolved_strategy))
+        return out
 
-    TorchEngine._run = run
+    def _grouped(self, plist, b0, b1=None):
+        log.append(("group", plist, b0, b1,
+                    self.list_strategy(plist, b0, b1)))
+        inside[0] += 1
+        try:
+            return grouped(self, plist, b0, b1)
+        finally:
+            inside[0] -= 1
+
+    TorchEngine._run, TorchEngine.matmul_grouped = _run, _grouped
     try:
-        yield calls
+        yield log
     finally:
-        TorchEngine._run = real
+        TorchEngine._run, TorchEngine.matmul_grouped = run, grouped
 
 
-def cpu_products(fn) -> int:
-    """The device engine's products in fn(), run on the CPU (the plain
-    version): the launches the same calls make on the card."""
-    with engine_calls() as calls:
+def launches_of(log) -> int:
+    return sum(e[-1] == "pallas" for e in log)
+
+
+def cpu_launches(fn) -> int:
+    """The kernel launches fn() makes on the card, counted on the CPU (the
+    plain versions): one per grouped product, one per product resolved to
+    `pallas`."""
+    with engine_launches() as log:
         fn()
-    check(all(d.device.type == "cpu" for _, d in calls), "a CPU dry run")
-    return len(calls)
+    check(all(e[2].device.type == "cpu" for e in log), "a CPU dry run")
+    return launches_of(log)
 
 
 def device_ms(fn, flush: torch.Tensor, clock_hz: float,
@@ -355,7 +384,8 @@ def phase_build() -> dict:
     """Every kernel source, one nvcc each, started together; then what
     each kernel is built with: ptxas's registers, stack (local bytes),
     spills and static shared memory, the dynamic shared memory of a
-    block (gf_matmul: S KiB of tables, S = 8 at RS(8,4); crush_rule: the
+    block (gf_matmul: S / 4 KiB of tables, S = 8 at RS(8,4), a 32 KiB
+    ring and 32 KiB of output tiles; crush_rule: the
     crush_ln tables and 16 B per staged record, placement_main prints
     the total) and the rule kernel's launch plan (`mapper.launch_plan`)."""
     t0 = time.perf_counter()
@@ -370,7 +400,10 @@ def phase_build() -> dict:
                         for src, lib in libs.items()},
           "kernels": kernels, "crush_rule_plan": plan,
           "dynamic_smem_per_block": {
-              "gf_matmul_rs84": 8 * 256 * 4,
+              # 256 bytes of tables per input row of the widest product,
+              # the ring (2 stages of 4 rows x 4 KiB) and 2 output tiles
+              # (4 rows x 4 KiB)
+              "gf_matmul_rs84": 8 * 256 + 2 * 4 * 4096 + 2 * 4 * 4096,
               "crush_rule_tables": plan["table_bytes"],
               "crush_rule_per_staged_record": mapper.RECORD_BYTES}})
     return libs
@@ -411,6 +444,60 @@ def phase_kernel_vs_plain(dev) -> int:
     for R in (4, 2):
         M = rng.integers(0, 256, (R, 8)).astype(np.uint8)
         one(f"batched_R{R}", M, rand_u8((8192, 8, 4096), 300 + R, dev))
+
+    # grouped launches (gf_grouped_cuda) == the grouped plain version on
+    # the same buffers
+    def grouped(label, products, b0, b1):
+        nonlocal worst
+        plist = ProductList(products)
+        want0, want1 = b0.clone(), b1.clone()
+        gf_grouped_plain(plist, want0, want1)
+        gf_grouped_cuda(plist, b0, b1)
+        torch.cuda.synchronize()
+        err = max(int((b0.int() - want0.int()).abs().max()),
+                  int((b1.int() - want1.int()).abs().max()))
+        worst = max(worst, err)
+        equal = torch.equal(b0, want0) and torch.equal(b1, want1)
+        cases.append({"case": label, "products": len(plist.products),
+                      "items": plist.items, "equal": equal})
+        check(equal, f"grouped kernel == plain at {label}")
+
+    def products(shapes, b0_size, align):
+        """Products of shapes (R, S, L): inputs anywhere in b0 (at
+        multiples of `align`), outputs one after another in b1."""
+        out, at = [], 0
+        for R, S, L in shapes:
+            ins = rng.integers(0, (b0_size - L) // align, S) * align
+            outs = [BASE1 | (at + r * (L + align)) for r in range(R)]
+            at += R * (L + align)
+            out.append(Product(rng.integers(0, 256, (R, S), np.uint8),
+                               tuple(int(v) for v in ins), tuple(outs), L))
+        return out, at
+
+    mixed = [(4, 8, 8192), (1, 2, 8192), (2, 2, 8192), (4, 8, 1),
+             (6, 5, 12345), (1, 1, 4096), (32, 64, 700), (33, 3, 5000),
+             (4, 70, 4100), (2, 256, 513)]
+    for align in (16, 1):
+        plist, size = products(mixed, 1 << 20, align)
+        grouped(f"grouped_mixed_align{align}", plist,
+                rand_u8((1 << 20,), 400 + align, dev),
+                rand_u8((size,), 401 + align, dev))
+    # wide M: 130 and 70 input rows walked in slabs, 40 output rows in
+    # groups, each one product
+    plist, size = products([(40, 130, 65536), (4, 70, 4096)], 16 << 20, 16)
+    grouped("grouped_wide", plist, rand_u8((16 << 20,), 410, dev),
+            rand_u8((size,), 411, dev))
+    # Clay's pair transforms: hundreds of 2-row products of 8 KiB
+    plist, size = products([(1 + i % 2, 2, 8192) for i in range(384)],
+                           8 << 20, 8192)
+    grouped("grouped_clay_pairs", plist, rand_u8((8 << 20,), 420, dev),
+            rand_u8((size,), 421, dev))
+    # both buffers unaligned views: every row at an odd address
+    plist, size = products(mixed, 1 << 20, 16)
+    buf0, buf1 = rand_u8((3 + (1 << 20),), 430, dev), rand_u8((size + 5,),
+                                                             431, dev)
+    check(buf0[3:].data_ptr() % 16 == 3, "unaligned buffer")
+    grouped("grouped_unaligned_bases", plist, buf0[3:], buf1[5:])
     emit({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": worst})
     return worst
 
@@ -581,8 +668,8 @@ def phase_cli() -> dict:
               and float(fields[1]) == 16384 * iterations,
               f"CLI {workload}: {line}")
         lines[workload] = line
-    # the layered codes on the device engine; their launches are the
-    # products of the same command run on the CPU
+    # the layered codes on the device engine; their launches are those of
+    # the same command run on the CPU (`cpu_launches`)
     for name, argv in (
             ("clay_encode", ["--plugin", "clay", "-P", "k=8", "-P", "m=4",
                              "-P", "d=11", "--workload", "encode"]),
@@ -595,7 +682,7 @@ def phase_cli() -> dict:
                             "-P", "l=3", "--workload", "decode"])):
         argv = argv + ["-P", "backend=torch", "--size", str(4 * MiB),
                        "--iterations", str(iterations)]
-        expected = cpu_products(lambda: ec_benchmark.run(
+        expected = cpu_launches(lambda: ec_benchmark.run(
             ec_benchmark._parse(argv + ["--device", "cpu"]),
             out=io.StringIO()))
         buf = io.StringIO()
@@ -641,7 +728,7 @@ def phase_layered_corpus(dev) -> dict:
                   f"{name} decode {erased} digest")
 
     for name in LAYERED_ENTRIES:
-        expected = cpu_products(lambda: drive(name, "cpu"))
+        expected = cpu_launches(lambda: drive(name, "cpu"))
         _, launches[name] = counted(expected, f"corpus {name}",
                                     lambda: drive(name, dev))
         check(launches[name] > 0, f"{name}: the kernel ran")
@@ -665,18 +752,37 @@ def repair_helpers(code, enc, lost: int) -> dict:
     return out
 
 
+def replay(log, code, dev, plain=False):
+    """The launches of an engine_launches() log, as a function that runs
+    them again on the same tensors: the kernel's, or with plain=True their
+    plain versions (each grouped product's in list order)."""
+    tables = [code.engine._tables_for(e[1], dev) if e[0] == "product"
+              else None for e in log]
+
+    def run():
+        for e, t in zip(log, tables):
+            if e[0] == "group":
+                (gf_grouped_plain if plain else gf_grouped_cuda)(*e[1:4])
+            elif plain:
+                gf_matmul_plain(e[1], e[2])
+            else:
+                gf_matmul_cuda(t, e[2], e[1].shape[0])
+    return run
+
+
 def phase_clay_repair(dev, peak: float) -> dict:
     """BASELINE config 4, Clay(k=8, m=4, d=11) with backend=torch, at a
     4 MiB stripe (512 KiB chunks of 64 sub-chunks of 8 KiB) and at
     bench.py::bench_clay's 1 MiB chunks: the stripe's encode digest equal
     to the JAX package's (tests/data/clay_config4.json); on the 4 MiB
     stripe every lost chunk 0..11 repaired from its helpers' repair
-    sub-chunks (CUDA tensors) to the encoded chunk, each repair counted
-    from 0 (13 launches), and chunk 2's repair equal to the CPU's.
-    Then, for chunk 2 at both sizes and for the encode: wall ms (host
-    clock, synchronised), the kernels' own ms (CUDA events, launches back
-    to back), the same products through the plain version, and the
-    bytes bound."""
+    sub-chunks (CUDA tensors) to the encoded chunk, and chunk 2's repair
+    equal to the CPU's.  Each encode and repair is counted from 0 and held
+    to its plan's launches, counted on the same call on the CPU (an encode
+    at most CLAY4_ENCODE_MAX_LAUNCHES).  Then, for chunk 2 at both sizes
+    and for the encode: wall ms (host clock, synchronised), the kernels'
+    own ms (CUDA events, launches back to back), the same launches through
+    the plain versions, and the bytes bound."""
     stored = json.loads(CLAY_CONFIG4.read_text())
     code = create_erasure_code(dict(stored["profile"], backend="torch"),
                                device=dev)
@@ -690,10 +796,15 @@ def phase_clay_repair(dev, peak: float) -> dict:
     for si, stripe in enumerate(stored["stripes"]):
         Lc = stripe["chunk_bytes"]
         label = f"{Lc >> 10}KiB_chunks"
-        data = torch.from_numpy(np.random.default_rng(
-            stripe["seed"]).integers(0, 256, (k, Lc), dtype=np.uint8)).to(dev)
-        enc, enc_n = counted(CLAY4_ENCODE_PRODUCTS,
-                             f"config 4 encode {label}",
+        host = np.random.default_rng(stripe["seed"]).integers(
+            0, 256, (k, Lc), dtype=np.uint8)
+        data = torch.from_numpy(host).to(dev)
+        with engine_launches() as log:
+            cpu_enc = cpu.encode_chunks(torch.from_numpy(host))
+        plan_n = launches_of(log)
+        check(plan_n <= CLAY4_ENCODE_MAX_LAUNCHES,
+              f"config 4 encode: {plan_n} launches in its plan")
+        enc, enc_n = counted(plan_n, f"config 4 encode {label}",
                              lambda: code.encode_chunks(data))
         launches["encode"] += enc_n
         check(_digest(enc) == stripe["digest"],
@@ -701,8 +812,10 @@ def phase_clay_repair(dev, peak: float) -> dict:
         lost_all = range(k + m) if si == 0 else (2,)
         for lost in lost_all:
             helpers = repair_helpers(code, enc, lost)
-            got, n = counted(CLAY4_REPAIR_PRODUCTS,
-                             f"config 4 {label} repair {lost}",
+            cpu_helpers = {h: v.cpu() for h, v in helpers.items()}
+            expect = cpu_launches(lambda: cpu.repair({lost}, cpu_helpers,
+                                                     Lc))
+            got, n = counted(expect, f"config 4 {label} repair {lost}",
                              lambda: code.repair({lost}, helpers, Lc))
             launches["repair"] += n
             if lost == 2:
@@ -717,47 +830,42 @@ def phase_clay_repair(dev, peak: float) -> dict:
             check(torch.equal(code.repair({2}, helpers, Lc)[2].cpu(),
                               want[2]),
                   "config 4: chunk 2's repair == the CPU's")
+            check(torch.equal(enc.cpu(), cpu_enc),
+                  "config 4: the encode == the CPU's")
 
-        def replay(calls, plain=False):
-            tables = [code.engine._tables_for(M, dev) for M, _ in calls]
-
-            def run():
-                for (M, x), t in zip(calls, tables):
-                    if plain:
-                        gf_matmul_plain(M, x)
-                    else:
-                        gf_matmul_cuda(t, x, M.shape[0])
-            return run
-
-        # the products to replay, as (M, x); the launches are counted above
-        with engine_calls() as rep_calls:
+        # the launches to replay; they are counted above
+        with engine_launches() as rep_log:
             code.repair({2}, helpers, Lc)
-        with engine_calls() as enc_calls:
+        with engine_launches() as enc_log:
             code.encode_chunks(data)
-        check(len(rep_calls) == rep_n and len(enc_calls) == enc_n,
-              f"config 4 {label}: the replay holds the counted products")
+        check(launches_of(rep_log) == rep_n
+              and launches_of(enc_log) == enc_n,
+              f"config 4 {label}: the replay holds the counted launches")
         rep_bytes = read + Lc
         enc_bytes = (k + m) * Lc  # data read once, parity written once
         row = {
             "chunk_bytes": Lc, "sub_chunk_bytes": Lc // code.sub_chunk_no,
             "repair_launches": rep_n,
-            "repair_shapes": sorted({(int(M.shape[0]), int(M.shape[1]),
-                                      int(x.shape[-1]))
-                                     for M, x in rep_calls}),
+            "repair_shapes": sorted({(int(e[1].shape[0]),
+                                      int(e[1].shape[1]),
+                                      int(e[2].shape[-1]))
+                                     for e in rep_log if e[0] == "product"}),
             "repair_wall_ms": wall_ms(lambda: code.repair({2}, helpers, Lc),
                                       flush),
-            "repair_ms": device_ms(replay(rep_calls), flush, clock),
-            "repair_plain_ms": time_ms(replay(rep_calls, True), flush,
-                                       runs=5),
+            "repair_ms": device_ms(replay(rep_log, code, dev), flush, clock),
+            "repair_plain_ms": time_ms(replay(rep_log, code, dev, True),
+                                       flush, runs=5),
             "repair_bytes": rep_bytes,
             "repair_bound_ms": rep_bytes / peak * 1e3,
             "read_fraction": read / (k * Lc),
             "encode_launches": enc_n,
+            "encode_products": sum(len(e[1].products) for e in enc_log),
             "encode_wall_ms": wall_ms(lambda: code.encode_chunks(data),
                                       flush, runs=7),
-            "encode_ms": device_ms(replay(enc_calls), flush, clock, runs=7),
-            "encode_plain_ms": time_ms(replay(enc_calls, True), flush,
-                                       runs=3, warmup=1),
+            "encode_ms": device_ms(replay(enc_log, code, dev), flush, clock,
+                                   runs=7),
+            "encode_plain_ms": time_ms(replay(enc_log, code, dev, True),
+                                       flush, runs=3, warmup=1),
             "encode_bytes": enc_bytes,
             "encode_bound_ms": enc_bytes / peak * 1e3,
         }
@@ -773,7 +881,8 @@ def phase_clay_repair(dev, peak: float) -> dict:
               f"{row['repair_gb_per_s']:.3f} GB/s, read fraction "
               f"{row['read_fraction']:.6f}); encode wall "
               f"{row['encode_wall_ms']:.6f} ms ({row['encode_launches']} "
-              f"launches, kernels {row['encode_ms']:.6f} ms, bound "
+              f"launches of {row['encode_products']} products, kernels "
+              f"{row['encode_ms']:.6f} ms, bound "
               f"{row['encode_bound_ms']:.6f} ms)", flush=True)
     emit({"phase": "clay_repair", "profile": stored["profile"],
           "digests_equal": True, "repairs_equal": k + m + 1,
@@ -1653,7 +1762,7 @@ def phase_ec_defaults(dev) -> dict:
 
         want = drive(create_erasure_code(dict(prof, backend="numpy"),
                                          device=dev))
-        expected = cpu_products(lambda: drive(
+        expected = cpu_launches(lambda: drive(
             create_erasure_code(dict(prof), device="cpu")))
         got, launches[plugin] = counted(expected, f"{plugin} default",
                                         lambda: drive(code))
@@ -2804,7 +2913,7 @@ def forced_epochs(sim, dev, rng) -> dict:
     return out
 
 
-# -- erasure codes past the kernel's 32 x 64 limits ------------------------------
+# -- erasure codes past the old 32 x 64 tiling --------------------------------------
 
 # RS(70,4) (a [4, 70] matrix) and Clay(2,33,19) (324 sub-chunks, an
 # inner code of 33 parity rows): each profile's inputs beside the JAX
@@ -2845,44 +2954,33 @@ def run_wide(case: dict, device) -> dict:
     return out
 
 
-def cpu_blocks(fn) -> int:
-    """The kernel launches fn()'s device-engine products make on the card,
-    counted on the CPU (the plain version): one per block of each M
-    (`matrix_blocks`)."""
-    with engine_calls() as calls:
-        fn()
-    check(all(d.device.type == "cpu" for _, d in calls), "a CPU dry run")
-    return sum(len(cols) for M, _ in calls
-               for _, cols in matrix_blocks(np.asarray(M, np.uint8)))
-
-
 def phase_ec_wide(dev) -> dict:
-    """C.2: the tiled wrapper on products past the kernel's limits, each
-    block one launch, equal to the plain version (random M of 40 x 130,
-    33 x 3 and 4 x 70 on CUDA tensors); then RS(70,4) and Clay(2,33,19)
-    through create_erasure_code on the card, every chunk's SHA-256 equal
-    to tests/data/ec_wide.json (the JAX package's bytes, which the CPU
-    tests hold the plain version to), launches equal to the CPU run's
-    blocks."""
+    """C.2: products past the old 32 x 64 tiling, one launch each, equal
+    to the plain version and to the host-side tiling `gf_matmul_tiled`
+    (random M of 40 x 130, 33 x 3, 4 x 70 and 32 x 64 on CUDA tensors);
+    then RS(70,4) and Clay(2,33,19) through create_erasure_code on the
+    card, every chunk's SHA-256 equal to tests/data/ec_wide.json (the JAX
+    package's bytes, which the CPU tests hold the plain version to),
+    launches equal to the CPU run's (`cpu_launches`: Clay's grouped plan
+    launches)."""
     eng = TorchEngine(dev)
     rng = np.random.default_rng(70)
     tiles = {}
     for R, S in ((40, 130), (33, 3), (4, 70), (32, 64)):
         M = rng.integers(0, 256, (R, S), np.uint8)
         data = rand_u8((16, S, 4096), R * S, dev)
-        blocks = sum(len(c) for _, c in matrix_blocks(M))
-        got, n = counted(blocks, f"ec_wide tiled {R}x{S}",
+        got, n = counted(1, f"ec_wide {R}x{S}",
                          lambda: eng.matmul_batch(M, data))
         check(torch.equal(got, gf_matmul_plain(M, data)),
-              f"ec_wide tiled {R}x{S} == the plain version")
+              f"ec_wide {R}x{S} == the plain version")
         check(torch.equal(got, gf_matmul_tiled(
             M, data, lambda Mb, db: gf_matmul_plain(Mb, db))),
-            f"ec_wide tiled {R}x{S} == the plain version tiled")
+            f"ec_wide {R}x{S} == the plain version tiled")
         tiles[f"{R}x{S}"] = n
     cases = json.loads(EC_WIDE.read_text())
     res, launches = {}, {}
     for name, case in sorted(cases.items()):
-        expect = cpu_blocks(lambda: run_wide(case, "cpu"))
+        expect = cpu_launches(lambda: run_wide(case, "cpu"))
         t0 = time.perf_counter()
         got, n = counted(expect, f"ec_wide {name}",
                          lambda: run_wide(case, dev))
@@ -3887,40 +3985,24 @@ NATIVE_ONE_CORE_X = 1 << 18
 NATIVE_RUNS = 5  # timed runs of the native RS(8,4) encode / decode
 
 
-@contextlib.contextmanager
-def resolved_products():
-    """Records the strategy each device-engine product resolved to (the
-    pick of `auto`): yields the list."""
-    seen, real = [], TorchEngine._run
-
-    def run(self, M, d):
-        out = real(self, M, d)
-        seen.append(self._resolved_strategy)
-        return out
-
-    TorchEngine._run = run
-    try:
-        yield seen
-    finally:
-        TorchEngine._run = real
-
-
 def strategy_launches(what: str, fn, dev):
     """Run fn() with the GF kernel's count from 0 and hold its launches to
-    the products that resolved to `pallas`, plus the two (warm-up and
-    timed) of the `pallas` candidate in each autotune on the card: every
-    product here is inside the kernel's 32 x 64 limits, one launch
-    each."""
+    those its products make (`engine_launches`: a grouped product one
+    when its list resolved to `pallas`, under `auto` too, another product
+    one when it resolved to `pallas`), plus
+    the two (warm-up and timed) of the `pallas` candidate in each
+    autotune on the card."""
     tunes = counts("ec")["autotunes"]
     gf_matmul_cuda.launches = 0
-    with resolved_products() as seen:
+    with engine_launches() as log:
         out = fn()
     launches = gf_matmul_cuda.launches
     tunes = counts("ec")["autotunes"] - tunes
     per_tune = 2 if "pallas" in TorchEngine._candidates(dev) else 0
-    expected = seen.count("pallas") + per_tune * tunes
+    expected = launches_of(log) + per_tune * tunes
     check(launches == expected, f"{what}: {launches} kernel launches, "
-          f"expected {expected} ({len(seen)} products, {tunes} autotunes)")
+          f"expected {expected} ({len(log)} products and groups, {tunes} "
+          f"autotunes)")
     return out, launches, tunes
 
 
@@ -4021,19 +4103,32 @@ def phase_ec_strategies(dev, peak: float, main: dict) -> tuple[dict, dict]:
         paths[f"ec_strategies_{s}"] = n
         emit({"phase": "ec_strategies", "strategy": s, **out})
         torch.cuda.empty_cache()
-    # row 1's library time: (b) as one untiled bitplane product, a single
-    # torch.matmul over the whole batch's bit expansion (4 GiB of
-    # float16); the `bitplane` strategy above runs it in _BIT_TILE tiles
-    B = bit_matrix(C, dev)
-    check(torch.equal(matmul_bitplane(B, stripes), want["b"][:, k:]),
-          "untiled bitplane (b) == the kernel's")
-    untiled = time_ms(lambda: matmul_bitplane(B, stripes), flush,
-                      STRATEGY_RUNS)
-    res["bitplane"]["b"]["untiled_ms"] = untiled
-    emit({"phase": "ec_strategies", "bitplane_untiled_b_ms": untiled,
-          "bitplane_tiled_b_ms": res["bitplane"]["b"]["ms"],
-          "kernel_ms": main["b"]["ms"]})
-    del B
+    # row 1's library times: (a)-(c) each as one untiled bitplane
+    # product, a single torch.matmul over the whole input's bit expansion
+    # ((b), (c): 4 GiB of float16); the `bitplane` strategy above runs it
+    # in _BIT_TILE tiles
+    have = {i: want["b"][:, i] for i in range(k + m) if i not in lost}
+    use = sorted(have)[:k]
+    R = decode_plan(C, tuple(use), lost, codes["pallas"].engine)
+    inputs = {"a": (C, obj, want["a"]),
+              "b": (C, stripes, want["b"][:, k:]),
+              "c": (R, torch.stack([have[i] for i in use], dim=1),
+                    stripes[:, list(lost)])}
+    untiled = {}
+    for key, (M, x, out) in inputs.items():
+        B = bit_matrix(M, dev)
+        check(torch.equal(matmul_bitplane(B, x), out),
+              f"untiled bitplane ({key}) == the kernel's")
+        untiled[key] = time_ms(lambda: matmul_bitplane(B, x), flush,
+                               STRATEGY_RUNS)
+        res["bitplane"][key]["untiled_ms"] = untiled[key]
+        del B
+        torch.cuda.empty_cache()
+    del have, inputs
+    emit({"phase": "ec_strategies", "bitplane_untiled_ms": untiled,
+          "bitplane_tiled_ms": {key: res["bitplane"][key]["ms"]
+                                for key in untiled},
+          "kernel_ms": {key: main[key]["ms"] for key in untiled}})
     torch.cuda.empty_cache()
     for s in STRATEGIES:
         _, n, tunes = strategy_launches(
@@ -4042,6 +4137,13 @@ def phase_ec_strategies(dev, peak: float, main: dict) -> tuple[dict, dict]:
         paths[f"ec_strategies_corpus_{s}"] = n
         res[s]["corpus"] = {"entries": 7, "digests_equal": True,
                             "launches": n, "autotunes": tunes}
+    # `auto` runs each list under one strategy: a list it gives the
+    # kernel is one launch, as under `pallas`, never one per product
+    auto, pallas = res["auto"]["corpus"], res["pallas"]["corpus"]
+    check(auto["launches"] - 2 * auto["autotunes"] <= pallas["launches"],
+          f"ec_strategies corpus auto: {auto['launches']} launches "
+          f"({auto['autotunes']} autotunes) against pallas's "
+          f"{pallas['launches']}")
     emit({"phase": "ec_strategies_corpus",
           "launches": {s: res[s]["corpus"]["launches"] for s in STRATEGIES},
           "digests_equal": True})
@@ -4897,13 +4999,17 @@ def main() -> int:
         "bound_by": "bytes",
         # (b) as one untiled bitplane product: torch.matmul of the GF(2)
         # bit-matrix and the data's bit planes (float16, exact), mod 2;
-        # the `bitplane` strategy's tiled time beside it
+        # the `bitplane` strategy's tiled time beside it; (a) and (c)'s
+        # under "shapes"
         "library_ms": strat["bitplane"]["b"]["untiled_ms"],
         "library": "matmul_bitplane untiled (torch.matmul on the bit "
                    "expansion)",
         "bitplane_strategy_ms": strat["bitplane"]["b"]["ms"],
-        "shapes": {key: {f: r[f] for f in ("ms", "plain_ms", "copy_ms",
-                                           "bound_ms", "gb_per_s")}
+        # each shape beside its library time, the untiled bitplane
+        # product on the same inputs
+        "shapes": {key: dict({f: r[f] for f in (
+            "ms", "plain_ms", "copy_ms", "bound_ms", "gb_per_s")},
+            library_ms=strat["bitplane"][key]["untiled_ms"])
                    for key, r in res.items()},
         # every strategy's ms on (a)-(c), CUDA events, L2 flushed
         "strategies": {s: {key: r[key]["ms"] for key in ("a", "b", "c")}
@@ -4914,8 +5020,9 @@ def main() -> int:
             "repair_launches", "repair_shapes", "repair_ms",
             "repair_wall_ms", "repair_plain_ms", "repair_bound_ms",
             "repair_gb_per_s", "read_fraction", "encode_launches",
-            "encode_ms", "encode_wall_ms", "encode_plain_ms",
-            "encode_bound_ms")} for key, r in clay_rows.items()},
+            "encode_products", "encode_ms", "encode_wall_ms",
+            "encode_plain_ms", "encode_bound_ms")}
+            for key, r in clay_rows.items()},
     }, {
         "name": "crush_rule",
         "route": "cuda",
