@@ -13,25 +13,30 @@ one call per pool); the rest is O(changes) bookkeeping.
 
 Backends (`backend=`): "sets" (dict-of-sets, the reference's form),
 "device" (membership rows on the device, O(OSDs) on the host) and
-"device_loop" (the whole multi-round plan as torch ops on the device,
-one small flag read back per round).  `candidate_batch > 0` scores a
-batch of prospective changes per step.  Each makes exactly the decisions
-the JAX package's backend of the same name makes (tests/
-test_torch_balancer.py).  It books the JAX package's `balancer` perf
-group and spans (`balancer.round`, `balancer.score_candidates`,
-`balancer.device_loop`, `balancer.build_state`, the `balancer.stddev`
-counter track); `COUNTERS` reads the group's counts.
+"device_loop" (the whole multi-round plan on the device: one launch of
+the plan kernel, csrc/upmap_loop.cu, and one read back on a card; its
+plain version, torch ops with one small read a round, on the CPU).
+`candidate_batch > 0` scores a batch of prospective changes per step.
+Each makes exactly the decisions the JAX package's backend of the same
+name makes (tests/test_torch_balancer.py).  It books the JAX package's
+`balancer` perf group and spans (`balancer.round`,
+`balancer.score_candidates`, `balancer.device_loop`,
+`balancer.build_state`, the `balancer.stddev` counter track);
+`COUNTERS` reads the group's counts.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import threading
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from ceph_tpu_torch import obs
+from ceph_tpu_torch import build, obs
 from ceph_tpu_torch.balancer.crush_analysis import (
     get_parent_of_type,
     get_rule_weight_osd_map,
@@ -278,8 +283,9 @@ _L.add_u64("plan_readback_reverts",
            "device_loop moves rolled back at the readback (counted in "
            "changes_rejected too)")
 _L.add_u64("plan_host_syncs",
-           "device_loop reads from the device to the host (one per plan "
-           "round, one for the readback)")
+           "device_loop reads from the device to the host (on a card one "
+           "a plan, the readback; on the CPU one a plan round and the "
+           "readback)")
 __getattr__ = counters_attr("balancer", __name__, (
     "rounds", "changes_accepted", "changes_rejected", "candidate_batches",
     "candidates_scored", "candidate_conflicts", "plan_dispatches",
@@ -668,13 +674,16 @@ def _run_batched(m, st, res, osd_deviation, stddev,
 # backend="device_loop": the whole plan (each round's candidates from the
 # deviation vector on the device, the OSD-disjoint subset, the
 # multi-round loop with the float-tie guard and the max_deviation exit)
-# runs as torch ops on the membership rows' device.  A Python loop runs
-# the rounds and reads one small vector per round (its continue flag and
-# accept/reject counts); the candidate loop inside a round is ops on the
-# device with no read.  The changes buffer is read back once at the end.
-# The host then turns each (pg, frm, to) move into pg_upmap_items pairs
-# and checks that each PG's pair list gives the device row through the
-# host pipeline (OSDMap._apply_upmap) before it commits it.
+# runs on the membership rows' device.  On a card it is one launch of the
+# plan kernel (csrc/upmap_loop.cu, `upmap_loop_cuda`), whose output
+# buffer is read back once.  On the CPU it is the kernel's plain version,
+# `_loop_plan`: torch ops, a Python loop over the rounds that reads one
+# small vector per round (its continue flag and accept/reject counts),
+# and the changes buffer read back once at the end.  `loop_plan` chooses
+# by the rows' device.  The host then turns each (pg, frm, to) move into
+# pg_upmap_items pairs and checks that each PG's pair list gives the
+# device row through the host pipeline (OSDMap._apply_upmap) before it
+# commits it.
 #
 # The candidates are those of _classify_deviations/_gen_candidates: the
 # strict overfull set, with the more_overfull takeover when only
@@ -853,6 +862,199 @@ def _loop_plan(rows, pidx, movable, dom_tbl, tgt_ok, target, inw, counts,
     return (*out[:5], n_rej, rounds, out[5])
 
 
+# -- the plan kernel ----------------------------------------------------------
+
+_LOOP_SOURCE = "balancer/csrc/upmap_loop.cu"
+_LOOP_W_CAP = 32  # upmap_loop.cuh W_CAP: the widest row the kernel takes
+_LOOP_OUT_HEAD = 4  # upmap_loop.cuh OUT_HEAD: n_chg, n_rej, rounds, pad
+
+
+def _loop_work(shape) -> tuple[int, int]:
+    """(bytes, 0) of one plan launch of shape (npg, w, dv, npool, nbatch,
+    ncap): its first round's bytes, each input read once (the rows, the
+    movable mask, the pool positions, the per-pool tables, the per-OSD
+    vectors), the plan's copy of the rows and the output written once.
+    Each later round reads the rows and the mask again; how many rounds
+    run depends on the data.  The operations are not reckoned."""
+    npg, w, dv, npool, nbatch, ncap = shape
+    return (npg * (4 * w + 1 + 4) + npool * dv * 5 + dv * 24
+            + npg * 4 * w + 8 * (_LOOP_OUT_HEAD + ncap * (4 + w) + dv)), 0
+
+
+# the plan kernel's launches, enqueue times and first-call build, booked
+# into the kernel registry, which the `balancer` perf group reads; its
+# launch span is balancer.device_loop.launch
+_LOOP_ACCT = obs.LaunchAccount(_L, "upmap_loop", _LOOP_SOURCE,
+                               span="balancer.device_loop", work=_loop_work)
+_LOOP_LIBS: list = []  # the loaded library, once its signatures are set
+_LOOP_LOCK = threading.Lock()
+
+
+def _loop_lib():
+    if _LOOP_LIBS:
+        return _LOOP_LIBS[0]
+    with _LOOP_LOCK:
+        if _LOOP_LIBS:
+            return _LOOP_LIBS[0]
+        lib = _LOOP_ACCT.load(lambda: build.load(_LOOP_SOURCE))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.upmap_loop_launch.argtypes = (
+            [p] * 8 + [ll, i, i, i, i, i, ctypes.c_double, ll] + [p] * 3
+            + [i, p])
+        lib.upmap_loop_launch.restype = i
+        lib.upmap_loop_plan.argtypes = [p]
+        lib.upmap_loop_plan.restype = i
+        lib.upmap_loop_scratch_bytes.argtypes = [i, i]
+        lib.upmap_loop_scratch_bytes.restype = ll
+        lib.upmap_loop_error_string.argtypes = [i]
+        lib.upmap_loop_error_string.restype = ctypes.c_char_p
+        _LOOP_LIBS.append(lib)
+        return lib
+
+
+def _loop_check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _loop_lib().upmap_loop_error_string(rc).decode()
+        raise RuntimeError(f"upmap_loop {what} failed: {msg}")
+
+
+@dataclass(frozen=True)
+class LoopLaunchPlan:
+    """What the build and the card give the plan kernel, from
+    `upmap_loop_plan`."""
+
+    registers: int  # per thread
+    local_bytes: int  # per thread
+    static_smem: int  # per block
+    threads: int  # per block (the kernel's THREADS)
+    blocks_per_sm: int  # resident at that size
+    sms: int
+    cooperative: int  # the card takes cooperative launches
+
+    @property
+    def grid(self) -> int:
+        """The most blocks a cooperative launch may have."""
+        return self.blocks_per_sm * self.sms
+
+
+@functools.cache
+def loop_launch_plan(device_index: int) -> LoopLaunchPlan:
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device_index):
+        _loop_check(_loop_lib().upmap_loop_plan(ctypes.addressof(out)),
+                    "plan")
+    return LoopLaunchPlan(*out)
+
+
+_LOOP_TYPES = (("rows", torch.int32), ("pidx", torch.int32),
+               ("movable", torch.bool), ("dom_tbl", torch.int32),
+               ("tgt_ok", torch.bool), ("target", torch.float64),
+               ("inw", torch.float64), ("counts", torch.int64))
+
+
+def upmap_loop_cuda(rows, pidx, movable, dom_tbl, tgt_ok, target, inw,
+                    counts, max_dev: float, budget: int, nbatch: int,
+                    ncap: int) -> torch.Tensor:
+    """Launch the plan kernel once, on `_loop_plan`'s operands on one
+    card: the whole plan, every round, with no host read.  Returns its
+    int64 output buffer on the card, unsynchronised: n_chg, n_rej and
+    rounds (then a pad), then cpg, cfrm, cto and crnd (ncap each), the
+    final rows of the changes (ncap x w) and the final counts (dv); the
+    entries past n_chg are undefined.  The caller's rows are read, never
+    written: the plan writes a copy of its own.
+    `upmap_loop_cuda.launches` counts the launches (the kernel's count in
+    the kernel registry)."""
+    ops = (rows, pidx, movable, dom_tbl, tgt_ok, target, inw, counts)
+    dev = rows.device
+    for (name, dtype), t in zip(_LOOP_TYPES, ops):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"upmap_loop_cuda: {name} on {t.device}, rows "
+                             f"on {dev}; all must be on one CUDA device")
+        if t.dtype != dtype:
+            raise TypeError(f"upmap_loop_cuda: {name} is {t.dtype}, "
+                            f"{dtype} expected")
+        if not t.is_contiguous():
+            raise ValueError(f"upmap_loop_cuda: {name} is not contiguous")
+    npg, w = (int(x) for x in rows.shape)
+    dv = int(target.numel())
+    npool = int(dom_tbl.shape[0])
+    if not (1 <= w <= _LOOP_W_CAP and npg < 2 ** 31 - 1 and dv >= 1
+            and npool >= 1 and 1 <= nbatch <= dv and ncap >= 1):
+        raise ValueError(
+            f"upmap_loop_cuda: rows [{npg}, {w}] (1 <= w <= {_LOOP_W_CAP}),"
+            f" {dv} OSDs, {npool} pools, batch {nbatch}, cap {ncap}")
+    if (pidx.shape != (npg,) or movable.shape != (npg,)
+            or dom_tbl.shape != (npool, dv) or tgt_ok.shape != (npool, dv)
+            or inw.shape != (dv,) or counts.shape != (dv,)):
+        raise ValueError("upmap_loop_cuda: operand shapes do not match "
+                         f"rows [{npg}, {w}] and {dv} OSDs")
+    lib = _loop_lib()
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    plan = loop_launch_plan(index)
+    if not plan.cooperative or plan.grid < 1:
+        raise RuntimeError(f"upmap_loop_cuda: the card takes no cooperative "
+                           f"launch of this kernel ({plan})")
+    blocks = max(1, min(plan.grid, -(-npg // plan.threads)))
+    copy = torch.empty_like(rows)
+    out = torch.empty(_LOOP_OUT_HEAD + ncap * (4 + w) + dv,
+                      dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.upmap_loop_scratch_bytes(dv, nbatch),
+                          dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        rc = _LOOP_ACCT.launch(
+            lib.upmap_loop_launch, *(t.data_ptr() for t in ops), npg, w, dv,
+            npool, nbatch, ncap, float(max_dev), int(budget),
+            copy.data_ptr(), out.data_ptr(), scratch.data_ptr(), blocks,
+            torch.cuda.current_stream().cuda_stream,
+            shape=(npg, w, dv, npool, nbatch, ncap))
+        _loop_check(rc, "kernel launch")
+    return out
+
+
+upmap_loop_cuda = _LOOP_ACCT.entry(upmap_loop_cuda)
+
+
+def _loop_kernel(rows, pidx, movable, dom_tbl, tgt_ok, target, inw,
+                 counts, max_dev: float, budget: int, nbatch: int,
+                 ncap: int):
+    """The plan through the kernel: one launch, one read back to the
+    host.  Returns what `_loop_plan` returns."""
+    out = upmap_loop_cuda(rows, pidx, movable, dom_tbl, tgt_ok, target,
+                          inw, counts, max_dev, budget, nbatch, ncap)
+    o = out.cpu().numpy()
+    _inc("plan_host_syncs")
+    return unpack_loop_out(o, int(rows.shape[1]), int(target.numel()), ncap)
+
+
+def unpack_loop_out(o: np.ndarray, w: int, dv: int, ncap: int):
+    """The plan kernel's output buffer (int64, on the host) as
+    `_loop_plan`'s return: (cpg, cfrm, cto, crnd, crows, n_rej, rounds,
+    counts)."""
+    n_chg, n_rej, rounds = (int(x) for x in o[:3])
+    h = _LOOP_OUT_HEAD
+    cpg, cfrm, cto, crnd = (o[h + k * ncap:h + k * ncap + n_chg]
+                            for k in range(4))
+    crows = o[h + 4 * ncap:h + 4 * ncap + n_chg * w].reshape(n_chg, w)
+    return (cpg, cfrm, cto, crnd, crows.astype(np.int32), n_rej, rounds,
+            o[h + ncap * (4 + w):h + ncap * (4 + w) + dv])
+
+
+def loop_plan(rows, pidx, movable, dom_tbl, tgt_ok, target, inw, counts,
+              max_dev: float, budget: int, nbatch: int, ncap: int):
+    """The whole plan on the device of `rows`: one launch of the plan
+    kernel on a card, its plain version `_loop_plan` on the CPU.  Returns,
+    on the host, (cpg, cfrm, cto, crnd, crows) of the accepted changes in
+    order, the rejected count, the rounds and the final counts."""
+    args = (rows, pidx, movable, dom_tbl, tgt_ok, target, inw, counts,
+            max_dev, budget, nbatch, ncap)
+    if rows.device.type == "cpu":
+        return _loop_plan(*args)
+    if rows.device.type == "cuda":
+        return _loop_kernel(*args)
+    raise ValueError(f"device_loop: unsupported device {rows.device}")
+
+
 def _run_device_loop(m, fst, res, max_deviation, max_iter,
                      candidate_batch):
     """Host side of the device_loop backend: build the O(OSDs)
@@ -909,7 +1111,7 @@ def _run_device_loop(m, fst, res, max_deviation, max_iter,
     with obs.span("balancer.device_loop", pgs=int(fst.rows.shape[0]),
                   osds=dv, batch=B, budget=int(max_iter)):
         (cpg, cfrm, cto, crnd, crows, n_rej, rounds_d,
-         counts_np) = _loop_plan(
+         counts_np) = loop_plan(
             fst.rows, put(fst.pool_idx), put(movable), put(dom_tbl),
             put(tgt_ok), put(target), put(inw),
             put(st.counts.astype(np.int64)), float(max_deviation),
@@ -1012,7 +1214,8 @@ def calc_pg_upmaps(
     backend: "sets" (the reference's dict-of-sets, small maps), "device"
     (membership rows on the device, O(OSDs) host state: the
     10M-PG/10k-OSD form) or "device_loop" (the whole multi-round greedy
-    as torch ops on the device, its changes read back once).  All evolve
+    on the device: one launch of the plan kernel on a card, its plain
+    version on the CPU; its changes read back once).  All evolve
     the same bookkeeping as the JAX package's backends of the same names.
 
     candidate_batch: 0 = the reference's sequential greedy (one evaluated

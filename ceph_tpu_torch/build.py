@@ -32,7 +32,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE / "build"
 SOURCES = ("ec/csrc/gf_matmul.cu", "crush/csrc/crush_rule.cu",
-           "crush/csrc/crush_rule_diag.cu")
+           "crush/csrc/crush_rule_diag.cu", "balancer/csrc/upmap_loop.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -64,6 +64,7 @@ class ErasureCode:
         self.k = 0
         self.m = 0
         self.w = 8
+        self.chunk_mapping: list[int] = []
         self.profile: dict = {}
         self.device = None  # where the device engine runs; None: the card
 
@@ -80,6 +81,13 @@ class ErasureCode:
             raise ErasureCodeProfileError(f"k={self.k} must be >= 1")
         if self.m < 1:
             raise ErasureCodeProfileError(f"m={self.m} must be >= 1")
+        mapping = profile.get("mapping")
+        if mapping:
+            # 'D' positions first (data), then the rest, in order
+            # (reference src/erasure-code/ErasureCode.cc to_mapping)
+            self.chunk_mapping = [
+                i for i, c in enumerate(mapping) if c == "D"
+            ] + [i for i, c in enumerate(mapping) if c != "D"]
 
     # -- geometry ----------------------------------------------------------
     def get_chunk_count(self) -> int:
@@ -106,6 +114,12 @@ class ErasureCode:
         padded = object_size + (alignment - tail if tail else 0)
         return padded // self.k
 
+    # -- mapping -----------------------------------------------------------
+    def chunk_index(self, i: int) -> int:
+        """The position of chunk i under the profile's `mapping` (its data
+        positions first), or i without one."""
+        return self.chunk_mapping[i] if self.chunk_mapping else i
+
     # -- minimum sets ------------------------------------------------------
     def minimum_to_decode(
         self, want_to_read: set[int], available: set[int]
@@ -118,6 +132,14 @@ class ErasureCode:
                 f"need {self.k} chunks, only {len(available)} available"
             )
         return set(sorted(available)[: self.k])
+
+    def minimum_to_decode_with_cost(
+        self, want_to_read: set[int], available: dict[int, int]
+    ) -> set[int]:
+        """Cost-blind base version (reference ErasureCode.cc:122-133):
+        `minimum_to_decode` over the chunks `available` (chunk -> cost)
+        names."""
+        return self.minimum_to_decode(want_to_read, set(available))
 
     # -- encode ------------------------------------------------------------
     def encode_prepare(self, data):

@@ -141,6 +141,22 @@ def generator(C: np.ndarray) -> np.ndarray:
     return np.concatenate([np.eye(k, dtype=np.uint8), C], axis=0)
 
 
+def is_mds(C: np.ndarray) -> bool:
+    """Every k×k submatrix of [I;C] invertible (every choice of k chunks
+    decodes), checked directly: each of the C(k+m, k) row choices
+    inverted (the sizes here are small)."""
+    from itertools import combinations
+
+    m, k = C.shape
+    G = generator(C)
+    for rows in combinations(range(k + m), k):
+        try:
+            gf_invert_matrix(G[list(rows)])
+        except np.linalg.LinAlgError:
+            return False
+    return True
+
+
 def decode_matrix(C: np.ndarray, present_rows: list[int]) -> np.ndarray:
     """Inverse of the generator restricted to `present_rows` (chunk indices
     into [0,k+m)); multiplying it by the surviving chunks reconstructs the

@@ -116,6 +116,18 @@ _PLUGINS = {
 }
 
 
+def register_plugin(name: str, factory) -> None:
+    """Add (or replace) plugin `name`: factory(profile) -> an
+    ErasureCode, which create_erasure_code then places and inits."""
+    _PLUGINS[name] = factory
+
+
+def list_plugins() -> list[str]:
+    """The plugin names a profile may give, sorted (`jax` among them, the
+    device engine's RS plugin under the JAX package's name)."""
+    return sorted(_PLUGINS)
+
+
 def create_erasure_code(profile: dict, device=None) -> ErasureCode:
     """ErasureCodePluginRegistry::factory equivalent.  `device` (default
     `cuda`; raises without a card unless `"cpu"` is asked for) is where

@@ -30,6 +30,18 @@ def _ints(vals):
                        _IP)
 
 
+def available() -> bool:
+    """Whether the native mapper builds and loads here (crush.cpp, built
+    by $CXX at first use), as the JAX package's `available` answers: a
+    failed build is False.  It is a question for the caller; NativeMapper
+    itself raises with the compiler's stderr."""
+    try:
+        load_crush()
+    except RuntimeError:
+        return False
+    return True
+
+
 class NativeMapper:
     """Mirror a CrushMap into the C++ engine; map batches across threads.
 

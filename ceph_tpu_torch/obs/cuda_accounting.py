@@ -69,8 +69,11 @@ ADDED: dict[str, tuple[str, ...]] = {
                  "crush_rule_build_seconds", "crush_rule_diag_launches",
                  "crush_rule_diag_launch_seconds",
                  "crush_rule_diag_build_seconds"),
-    # the device plan loop's host reads (one per round, one readback)
-    "balancer": ("plan_host_syncs",),
+    # the plan kernel's launch account, and the device_loop plan's host
+    # reads (one a plan on a card; one a round and the readback on the
+    # CPU)
+    "balancer": ("upmap_loop_launches", "upmap_loop_launch_seconds",
+                 "upmap_loop_build_seconds", "plan_host_syncs"),
     # the epoch-stats torch-ops calls
     "sim": ("stats_calls",),
     "recovery": ("device_drains",),

@@ -3,8 +3,8 @@
 The port of `ceph_tpu/obs/executables.py`.  Where the JAX package keeps
 a record for each compiled executable of its trace-once caches, the
 port's unit of performance is a hand kernel that nvcc builds from one
-source (`ceph_tpu_torch/build.py`): `gf_matmul`, `crush_rule` and
-`crush_rule_diag`.  Each wrapper registers its kernel at import (through
+source (`ceph_tpu_torch/build.py`): `gf_matmul`, `crush_rule`,
+`crush_rule_diag` and `upmap_loop`.  Each wrapper registers its kernel at import (through
 `obs.cuda_accounting.LaunchAccount`); the registry only observes.  A
 record holds:
 

@@ -44,8 +44,10 @@ SPANS: dict[str, str] = {
                                  "evaluation over a batch of "
                                  "prospective upmap changes",
     "balancer.device_loop": "one whole-plan device-resident optimizer "
-                            "run (every round of the greedy as device "
-                            "ops)",
+                            "run (every round of the greedy in one "
+                            "launch of the upmap_loop kernel on a card, "
+                            "its plain torch ops on the CPU; and "
+                            "LaunchAccount base of that kernel)",
     # mgr/
     "mgr.map_pool": "eval distribution mapping pass for one pool",
     "mgr.pool_counts": "per-OSD pg/object/byte count reduction",

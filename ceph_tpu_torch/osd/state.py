@@ -40,9 +40,9 @@ seven counts) and spans (`state.apply`, `state.rebuild`, `state.rows`,
 CEPH_TPU_STATE_DELTA=0 in the environment makes every apply rebuild: the
 A/B lever of the delta-versus-rebuild tests.
 
-Not ported: the PG-axis device mesh (one device), the loop kernel's
-rescue-tier warm-up (the rule kernel is exact and has no tiers) and the
-deferred re-key after a lost device (a device error raises).
+Not ported: the loop kernel's rescue-tier warm-up (the rule kernel is
+exact and has no tiers) and the deferred re-key after a lost device (a
+device error raises).
 """
 
 from __future__ import annotations

@@ -60,7 +60,9 @@ _log = subsys_logger("runtime")
 # The declared fault points, as in the JAX package.  The port's lifetime
 # simulator checks `lifetime_step`, `epoch_apply`, `recovery_step` and
 # `hazard_decay`, the placement service `serve_dispatch` and
-# `epoch_swap`; the others belong to modules not ported yet.
+# `epoch_swap`, the backend preflight `init` (runtime/preflight.py), the
+# mapping pipeline `map_batch` (osd/pipeline.py) and the stage scheduler
+# `stage` and `stage_end` (runtime/scheduler.py).
 FAULT_POINTS: dict[str, str] = {
     "init": "backend preflight probe (qualifier: platform rung)",
     "map_batch": "mid-batch device dispatch in the mapping pipeline",

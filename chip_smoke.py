@@ -22,7 +22,12 @@ shape, then the placement CLIs `crushtool --test` and `osdmaptool
 --test-map-pgs` on configs 1, 2 and 5, and `osdmaptool --upmap` on config
 2) and the upmap balancer (`calc_pg_upmaps` on config 2 with every
 backend, then three device_loop rounds of config 5, the rebalance of
-BASELINE.json's north-star workload) and the mgr balancer on a
+BASELINE.json's north-star workload; each device_loop plan one launch of
+the plan kernel and one read back) and the plan kernel against its plain
+version on the card (`loop_vs_plain`: every device_loop case of the CPU
+tests from tests/data/upmap_loop_corpus.json, whose JAX digests they
+must give, config 2 and config 5's three rounds; outputs equal, their
+ms, launches and host reads a plan) and the mgr balancer on a
 ClusterState (`mgr_balancer`: config 5's eval, upmap plan and execute
 and two value-only Incrementals applied in O(delta), each step's rows
 held to a fresh state and the host oracle; crush-compat and the
@@ -176,6 +181,7 @@ PLACEMENT_CORPUS = ROOT / "tests" / "data" / "placement_corpus.json"
 LEGACY_CASES = ROOT / "tests" / "data" / "legacy_rule_cases.json"
 CLI_CORPUS = ROOT / "tests" / "data" / "cli_corpus.json"
 BALANCER_CORPUS = ROOT / "tests" / "data" / "balancer_corpus.json"
+UPMAP_LOOP_CORPUS = ROOT / "tests" / "data" / "upmap_loop_corpus.json"
 LEGACY_MAP = ROOT / "tests" / "data" / "legacy_crushmap.txt"
 CLAY_CONFIG4 = ROOT / "tests" / "data" / "clay_config4.json"
 RS_ENTRIES = (
@@ -387,7 +393,8 @@ def phase_build() -> dict:
     block (gf_matmul: S / 4 KiB of tables, S = 8 at RS(8,4), a 32 KiB
     ring and 32 KiB of output tiles; crush_rule: the
     crush_ln tables and 16 B per staged record, placement_main prints
-    the total) and the rule kernel's launch plan (`mapper.launch_plan`)."""
+    the total), the rule kernel's launch plan (`mapper.launch_plan`) and
+    the plan kernel's (`upmap.loop_launch_plan`: its cooperative grid)."""
     t0 = time.perf_counter()
     libs = build.build_all()
     seconds = time.perf_counter() - t0
@@ -395,10 +402,14 @@ def phase_build() -> dict:
     for src in libs:
         kernels.update(build.ptxas_report(src))
     plan = vars(mapper.launch_plan(torch.cuda.current_device()))
+    loop_plan = vars(upmap.loop_launch_plan(torch.cuda.current_device()))
+    check(loop_plan["cooperative"] == 1 and loop_plan["blocks_per_sm"] >= 1,
+          f"upmap_loop: a cooperative launch fits the card ({loop_plan})")
     emit({"phase": "build", "seconds": seconds,
           "libraries": {src: str(lib.relative_to(ROOT))
                         for src, lib in libs.items()},
           "kernels": kernels, "crush_rule_plan": plan,
+          "upmap_loop_plan": loop_plan,
           "dynamic_smem_per_block": {
               # 256 bytes of tables per input row of the widest product,
               # the ring (2 stages of 4 rows x 4 KiB) and 2 output tiles
@@ -1470,8 +1481,9 @@ def plan_digest(m) -> str:
 @contextlib.contextmanager
 def stage_times():
     """Times, with CUDA events, each DeviceState build and each
-    device_loop plan inside the calc_pg_upmaps calls of the block: yields
-    a dict of lists of ms, {"build": [...], "plan": [...]}."""
+    device_loop plan (`upmap.loop_plan`: on the card one launch of the
+    plan kernel and its readback) inside the calc_pg_upmaps calls of the
+    block: yields a dict of lists of ms, {"build": [...], "plan": [...]}."""
     times = {"build": [], "plan": []}
 
     def timed(key, fn):
@@ -1486,17 +1498,17 @@ def stage_times():
             return out
         return run
 
-    build_cls, plan_fn = state.DeviceState, upmap._loop_plan
+    build_cls, plan_fn = state.DeviceState, upmap.loop_plan
 
     class TimedDeviceState(build_cls):
         __init__ = timed("build", build_cls.__init__)
 
     state.DeviceState = TimedDeviceState
-    upmap._loop_plan = timed("plan", plan_fn)
+    upmap.loop_plan = timed("plan", plan_fn)
     try:
         yield times
     finally:
-        state.DeviceState, upmap._loop_plan = build_cls, plan_fn
+        state.DeviceState, upmap.loop_plan = build_cls, plan_fn
 
 
 def osd_targets(m):
@@ -1589,6 +1601,7 @@ def rebalance_config5(dev, c5: dict, check_each: bool):
     before = overlay_counts(m, dev) if check_each else None
     for entry in c5["rounds"]:
         c0 = counts("balancer")
+        upmap.upmap_loop_cuda.launches = 0
         with stage_times() as st:
             t0 = time.perf_counter()
             r, n = counted(1, f"config5 round rng {entry['rng']}",
@@ -1603,13 +1616,19 @@ def rebalance_config5(dev, c5: dict, check_each: bool):
             wall = time.perf_counter() - t0
         c1 = counts("balancer")
         delta = {k: c1[k] - c0[k] for k in c0}
+        plan_n = registry_launches(upmap.upmap_loop_cuda)
+        check(plan_n == delta["plan_dispatches"] == delta["plan_host_syncs"]
+              == 1, f"config5 round rng {entry['rng']}: one plan, one "
+              f"upmap_loop launch ({plan_n}) and one host read "
+              f"({delta['plan_host_syncs']})")
         digests.append(plan_digest(m))
         row = {"rng": entry["rng"], "wall_s": wall,
                "build_ms": st["build"], "plan_ms": st["plan"],
                # the rest of the round: host work around the two (the
                # rule weight map, the domain table, the readback)
                "other_ms": wall * 1e3 - sum(st["build"]) - sum(st["plan"]),
-               "launches": n, "loop_rounds": delta["rounds"],
+               "launches": n, "plan_launches": plan_n,
+               "loop_rounds": delta["rounds"],
                "host_syncs": delta["plan_host_syncs"],
                "changes": r.num_changed, "stddev": r.stddev,
                "max_deviation": r.max_deviation,
@@ -1643,11 +1662,14 @@ def phase_balancer_main(dev, peak: float) -> dict:
     nothing, and a second fresh run giving the same plan."""
     corpus = json.loads(BALANCER_CORPUS.read_text())
     launches, res = {}, {"config2": {}}
+    # the plan kernel's launches by path, each counted from 0
+    plan_paths = res["plan_paths"] = {}
     c2 = corpus["config2"]
     for name, entry in c2["backends"].items():
         m = reweighted(bench_map(c2["pgs"], c2["osds"]), c2["osds"],
                        c2["reweight_seed"])
         c0 = counts("balancer")
+        upmap.upmap_loop_cuda.launches = 0
         with stage_times() as st:
             t0 = time.perf_counter()
             r, n = counted(1, f"config2 {name}", lambda: calc_pg_upmaps(
@@ -1657,15 +1679,23 @@ def phase_balancer_main(dev, peak: float) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         digest = plan_digest(m)
+        plan_n = registry_launches(upmap.upmap_loop_cuda)
+        syncs = counts("balancer")["plan_host_syncs"] - c0["plan_host_syncs"]
+        check(plan_n == syncs == int(name == "device_loop"),
+              f"config2 {name}: {plan_n} upmap_loop launches and {syncs} "
+              f"host reads")
         check(digest == entry["digest"], f"config2 {name}: plan digest "
               f"{digest} != the JAX package's {entry['digest']}")
         check(r.num_changed == entry["num_changed"]
               and abs(r.stddev - entry["stddev"]) <= 1e-9,
               f"config2 {name}: changes and stddev == the JAX package's")
         launches[f"balancer_config2_{name}"] = n
+        if plan_n:
+            plan_paths[f"balancer_config2_{name}"] = plan_n
         res["config2"][name] = {
             "wall_s": wall, "build_ms": st["build"], "plan_ms": st["plan"],
-            "launches": n, "changes": r.num_changed, "stddev": r.stddev,
+            "launches": n, "plan_launches": plan_n,
+            "changes": r.num_changed, "stddev": r.stddev,
             "max_deviation": r.max_deviation, "digest": digest,
             "digest_equal": True,
             "counters": {k: v - c0[k] for k, v in counts("balancer").items()}}
@@ -1683,6 +1713,7 @@ def phase_balancer_main(dev, peak: float) -> dict:
               f"config5 round {i}: plan digest {row['digest']} != the JAX "
               f"package's {entry['digest']}")
         launches[f"balancer_config5_round{i}"] = row["launches"]
+        plan_paths[f"balancer_config5_round{i}"] = row["plan_launches"]
     for a, b in zip(rounds, rounds[1:]):
         check(b["stddev"] <= a["stddev"], "config5: stddev does not rise "
               "across rounds")
@@ -1693,6 +1724,8 @@ def phase_balancer_main(dev, peak: float) -> dict:
     _, again, digests2 = rebalance_config5(dev, c5, check_each=False)
     check(digests2 == digests, "config5: a second fresh run gives the "
           "same plans")
+    for i, row in enumerate(again):
+        plan_paths[f"balancer_config5_again_round{i}"] = row["plan_launches"]
     res["config5"] = {"pgs": c5["pgs"], "osds": c5["osds"],
                       "rounds": rounds, "second_run_wall_s":
                       [r["wall_s"] for r in again],
@@ -1710,6 +1743,188 @@ def phase_balancer_main(dev, peak: float) -> dict:
     print(f"config5 peak device memory {peak} bytes", flush=True)
     emit(dict(phase="balancer_main", **res))
     return launches, res
+
+
+# -- the plan kernel against its plain version ---------------------------------
+
+LOOP_RUNS = 10  # timed runs of the kernel on each plan's operands
+LOOP_PLAIN_RUNS = 3  # timed runs of the plain version
+
+
+def loop_digest(out) -> str:
+    """tests/test_torch_upmap_kernel_host.py::outputs_digest: sha256 (16
+    hex digits) of a plan's outputs (`upmap._loop_plan`'s return)."""
+    cpg, cfrm, cto, crnd, crows, n_rej, rounds, counts_f = out
+    data = [[int(x) for x in np.asarray(a).reshape(-1)]
+            for a in (cpg, cfrm, cto, crnd, crows, counts_f)]
+    return hashlib.sha256(json.dumps(
+        [data, int(n_rej), int(rounds)]).encode()).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def plans_seen():
+    """The arguments of every device_loop plan run in the block
+    (`upmap.loop_plan`'s, tensors on the plan's device); each plan runs
+    as it would.  Yields the list."""
+    seen, real = [], upmap.loop_plan
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    upmap.loop_plan = spy
+    try:
+        yield seen
+    finally:
+        upmap.loop_plan = real
+
+
+@contextlib.contextmanager
+def plan_path(paths: dict, name: str, need: bool = False):
+    """Counts the plan kernel's launches over the block from 0 (read from
+    the kernel registry just after) into paths[name], and checks that
+    every device_loop plan the block ran on the card was one launch and
+    one host read (`plan_host_syncs`); with need, at least one.  Plans a
+    phase runs on the CPU (its dry runs: the plain version) are not
+    counted."""
+    card, real = [], upmap.loop_plan
+
+    def spy(*args):
+        if args[0].device.type != "cuda":
+            return real(*args)
+        s0 = counts("balancer")["plan_host_syncs"]
+        out = real(*args)
+        card.append(counts("balancer")["plan_host_syncs"] - s0)
+        return out
+
+    upmap.loop_plan = spy
+    upmap.upmap_loop_cuda.launches = 0
+    try:
+        yield
+    finally:
+        upmap.loop_plan = real
+    n = registry_launches(upmap.upmap_loop_cuda)
+    check(n == len(card) and all(k == 1 for k in card),
+          f"{name}: {n} upmap_loop launches for {len(card)} device_loop "
+          f"plans on the card, host reads {card} (one each a plan)")
+    check(n >= 1 or not need, f"{name}: no device_loop plan ran")
+    paths[name] = n
+
+
+def batch_ms(fn, runs: int, batches: int = 5) -> float:
+    """Device ms of one fn() call: `runs` calls back to back between two
+    CUDA events (the host's enqueue of a call overlaps the card's work on
+    the one before), the median over `batches` batches."""
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / runs)
+    return statistics.median(times)
+
+
+def loop_checked(args, what: str, peak: float, want: str | None = None,
+                 plain_runs: int = LOOP_PLAIN_RUNS) -> dict:
+    """The plan kernel (one launch, one read back) and its plain version
+    (`_loop_plan`, torch ops on the card) on one plan's operands: every
+    output equal, and equal to the JAX plan's digest where one is given.
+    Then their ms (`batch_ms`): the kernel's launch alone, LOOP_RUNS
+    back to back, and the plain version whole, median of plain_runs;
+    and the bound, the rows and the movable mask read once a round."""
+    got = upmap._loop_kernel(*args)
+    plain = upmap._loop_plan(*args)
+    names = ("cpg", "cfrm", "cto", "crnd", "crows", "n_rej", "rounds",
+             "counts")
+    for key, a, b in zip(names, got, plain):
+        check(np.array_equal(np.asarray(a), np.asarray(b)),
+              f"loop_vs_plain {what}: the kernel's {key} == the plain "
+              f"version's")
+    digest = loop_digest(got)
+    if want is not None:
+        check(digest == want, f"loop_vs_plain {what}: plan digest "
+              f"{digest} == the JAX package's {want}")
+
+    upmap.upmap_loop_cuda(*args)  # warm
+    ms = batch_ms(lambda: upmap.upmap_loop_cuda(*args), LOOP_RUNS)
+    plain_ms = batch_ms(lambda: upmap._loop_plan(*args), 1,
+                        batches=plain_runs)
+    npg, w = (int(x) for x in args[0].shape)
+    rounds = int(got[6])
+    return {"pgs": npg, "w": w, "osds": int(args[5].numel()),
+            "rounds": rounds, "changes": len(got[0]),
+            "rejected": int(got[5]), "digest": digest,
+            "equal": True, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": rounds * plan_round_bytes(npg, w)[0] / peak * 1e3,
+            "bound_by": "bytes"}
+
+
+def phase_loop_vs_plain(dev, peak: float) -> dict:
+    """The plan kernel against its plain version on the card.  Every
+    device_loop case of the CPU tests (tests/data/upmap_loop_corpus.json:
+    each case's map and calls; each plan's digest the JAX package's),
+    config 2's device_loop plan and config 5's three rounds run through
+    calc_pg_upmaps on the card, each plan one launch of the kernel and
+    one host read; then the kernel and `_loop_plan` on each plan's
+    operands, every output equal, timed."""
+    loop_corpus = json.loads(UPMAP_LOOP_CORPUS.read_text())["cases"]
+
+    def mark_osd5_out(m):
+        m.osd_weight[5] = 0
+
+    then = {None: None, "mark_osd5_out": mark_osd5_out}
+    res, paths = {"cases": {}}, {}
+    for name, case in sorted(loop_corpus.items()):
+        m = osdmap_from_reference(case["map"])
+        rows = []
+        for i, call in enumerate(case["calls"]):
+            with plans_seen() as seen, plan_path(paths, f"{name}_{i}", True):
+                calc_pg_upmaps(m, rng=np.random.default_rng(call["rng"]),
+                               device=dev, **call["kwargs"])
+            check(len(seen) == 1, f"loop_vs_plain {name}: one plan a call")
+            rows.append(loop_checked(seen[0], f"{name} call {i}", peak,
+                                     want=call["digest"]))
+            if then[call["then"]] is not None:
+                then[call["then"]](m)
+        res["cases"][name] = rows
+
+    c2 = json.loads(BALANCER_CORPUS.read_text())["config2"]
+    entry = c2["backends"]["device_loop"]
+    m = reweighted(bench_map(c2["pgs"], c2["osds"]), c2["osds"],
+                   c2["reweight_seed"])
+    with plans_seen() as seen, plan_path(paths, "config2", True):
+        calc_pg_upmaps(m, max_deviation=c2["max_deviation"],
+                       max_iter=c2["max_iter"],
+                       rng=np.random.default_rng(c2["rng"]), device=dev,
+                       **entry["kwargs"])
+    check(plan_digest(m) == entry["digest"], "loop_vs_plain config2: the "
+          "JAX package's plan digest")
+    res["config2"] = loop_checked(seen[0], "config2", peak)
+
+    c5 = json.loads(BALANCER_CORPUS.read_text())["config5"]
+    # each round counted from 0 (one launch, one host read) by
+    # rebalance_config5 itself
+    with plans_seen() as seen:
+        _, rounds, digests = rebalance_config5(dev, c5, check_each=False)
+    check(digests == [r["digest"] for r in c5["rounds"]] and len(seen) == 3,
+          "loop_vs_plain config5: three plans, the JAX package's digests")
+    for i, r in enumerate(rounds):
+        paths[f"config5_round{i}"] = r["plan_launches"]
+    res["config5"] = [loop_checked(args, f"config5 round {i}", peak)
+                      for i, args in enumerate(seen)]
+    del seen
+    res["launches_by_path"] = paths
+    for key, r in [("config2", res["config2"])] + [
+            (f"config5 round {i}", r) for i, r in enumerate(res["config5"])]:
+        print(f"loop_vs_plain {key}: kernel {r['ms']:.6f} ms, plain "
+              f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms, "
+              f"{r['rounds']} rounds, {r['changes']} changes", flush=True)
+    emit(dict(phase="loop_vs_plain", **res))
+    return res
 
 
 # -- EC: every plugin's default engine ----------------------------------------
@@ -4904,12 +5119,21 @@ def main() -> int:
     pres = phase_placement_main(dev, pms, draws, info["peak_bw"])
     rule_paths.update({key: r["launches"] for key, r in pres.items()})
     lres = phase_legacy_main(dev, legacy, info["peak_bw"])
-    cres = phase_cli_placement(dev, pms)
+    # the plan kernel's launches by path: each path counted from 0 by
+    # plan_path (or by its phase), every device_loop plan one launch
+    plan_paths = {}
+    with plan_path(plan_paths, "cli_placement"):
+        cres = phase_cli_placement(dev, pms)
     rule_paths.update({f"cli_{key}": r["launches"]
                        for key, r in cres.items()})
     bal_paths, bres = phase_balancer_main(dev, info["peak_bw"])
     rule_paths.update(bal_paths)
-    mgr_paths, mres = phase_mgr_balancer(dev, info["nvidia_smi"])
+    plan_paths.update(bres["plan_paths"])
+    loop = phase_loop_vs_plain(dev, info["peak_bw"])
+    plan_paths.update({f"loop_vs_plain_{key}": n
+                       for key, n in loop["launches_by_path"].items()})
+    with plan_path(plan_paths, "mgr_balancer", need=True):
+        mgr_paths, mres = phase_mgr_balancer(dev, info["nvidia_smi"])
     rule_paths.update(mgr_paths)
 
     # placement diagnostics and the failure simulator: the diagnostics
@@ -4924,7 +5148,8 @@ def main() -> int:
                        for k, r in eres.items()})
     rule_paths["cli_config5_show_choose_tries"] = \
         eres["config5_show_choose_tries"]["rule_launches"]
-    fres = phase_failure_sim(dev, pms, info["nvidia_smi"])
+    with plan_path(plan_paths, "failure_sim", need=True):
+        fres = phase_failure_sim(dev, pms, info["nvidia_smi"])
     for i, e in enumerate(fres["epochs"]):
         diag_paths[f"sim_config5_{i}"] = e["diag_launches"]
         rule_paths[f"sim_config5_{i}"] = e["rule_launches"]
@@ -4952,9 +5177,12 @@ def main() -> int:
     # the lifetime simulator: the corpus, then config 5's size
     del pms
     torch.cuda.empty_cache()
-    rule_paths.update({f"lifetime_corpus_{name}": n for name, n in
-                       phase_lifetime_corpus(dev).items()})
-    life = phase_lifetime_main(dev, info["nvidia_smi"], info["peak_bw"])
+    with plan_path(plan_paths, "lifetime_corpus"):
+        rule_paths.update({f"lifetime_corpus_{name}": n for name, n in
+                           phase_lifetime_corpus(dev).items()})
+    with plan_path(plan_paths, "lifetime_main"):
+        life = phase_lifetime_main(dev, info["nvidia_smi"],
+                                   info["peak_bw"])
     rule_paths["lifetime_main"] = life["launches"]
     for kind, r in life["forced_epochs"].items():
         rule_paths[f"lifetime_main_{kind}"] = r["launches"]
@@ -4962,20 +5190,24 @@ def main() -> int:
 
     # the fleet simulator: the JAX digest corpus, then the bench's sweep
     torch.cuda.empty_cache()
-    rule_paths["fleet_corpus"] = phase_fleet_corpus(dev)
-    fleet = phase_fleet_main(dev, info["nvidia_smi"], info["peak_bw"])
+    with plan_path(plan_paths, "fleet_corpus"):
+        rule_paths["fleet_corpus"] = phase_fleet_corpus(dev)
+    with plan_path(plan_paths, "fleet_main", need=True):
+        fleet = phase_fleet_main(dev, info["nvidia_smi"], info["peak_bw"])
     rule_paths["fleet_main_small"] = sum(fleet["small"]["launches"])
     for mode in ("stacked", "unstacked"):
         rule_paths[f"fleet_main_{mode}"] = fleet[mode]["launches"]
 
     # the placement service: the corpus scripts, then config 5's traffic
     torch.cuda.empty_cache()
-    rule_paths["serve_corpus"] = phase_serve_corpus(dev)
+    with plan_path(plan_paths, "serve_corpus"):
+        rule_paths["serve_corpus"] = phase_serve_corpus(dev)
     # serve_main resets the serve group and checks its own lanes
     check(fallback_total() == 0,
           f"the phases after runtime_main: no descent to the host "
           f"({fallback_total()})")
-    serve = phase_serve_main(dev, info["nvidia_smi"])
+    with plan_path(plan_paths, "serve_main"):
+        serve = phase_serve_main(dev, info["nvidia_smi"])
     for part in ("bulk", "scalar", "structural", "front"):
         rule_paths[f"serve_main_{part}"] = serve[part]["launches"]
     torch.cuda.synchronize()
@@ -4983,6 +5215,7 @@ def main() -> int:
           "serve_main: no descent to the host")
 
     b, c5 = res["b"], pres["config5"]
+    c5_plan = loop["config5"][0]
     emit({"kernels": [{
         "name": "gf_matmul",
         "route": "cuda",
@@ -5137,6 +5370,28 @@ def main() -> int:
                                           "diag_launches")}
                         for e in fres["epochs"]],
         "failure_sim_peak_device_bytes": fres["peak_device_bytes"],
+    }, {
+        "name": "upmap_loop",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/balancer/csrc/upmap_loop.cu",
+        "replaces": "ceph_tpu/balancer/upmap.py:718::_loop_account (XLA "
+                    "lax.while_loop :867, no pallas_call)",
+        "equal": True,  # loop_vs_plain checked every output
+        "launches": sum(plan_paths.values()),
+        "launches_by_path": plan_paths,
+        "max_abs_err": 0,
+        # config 5's first rebalance round (10M PGs, 10k OSDs): the
+        # kernel's launch, the plain version on the card, the bytes bound
+        "ms": c5_plan["ms"],
+        "plain_ms": c5_plan["plain_ms"],
+        "bound_ms": c5_plan["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none: no PyTorch call computes an upmap plan",
+        "launches_per_plan": 1,
+        "host_syncs_per_plan": 1,
+        "shapes": {"config5": loop["config5"], "config2": loop["config2"],
+                   "cases": loop["cases"]},
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

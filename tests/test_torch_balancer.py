@@ -21,8 +21,10 @@ gives them.
 """
 
 import hashlib
+import inspect
 import json
 import sys
+import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -110,6 +112,53 @@ def piled_on_last_osd():
             m.pg_upmap_items[JaxPgId(0, ps)] = [(raw[0], last)]
         if len(m.pg_upmap_items) == 24:
             break
+    return m
+
+
+def drop_slots():
+    """flat(256) built so that each device_loop scatter's drop slot, moved
+    onto the last real slot, changes the plan.  OSD Y (the lowest id off
+    the last PG and off the last OSD's host) is the most overfull, every
+    PG on it frozen (a full remap), so it is the round's first candidate
+    and has no PG to move; OSD X (the last PG's first member) is next,
+    with the last PG its only movable PG; the last OSD is the most
+    underfull (12 PGs moved off it), X's best target.  A `used` scatter
+    whose dropped write landed on the last OSD would use it up at Y; a
+    row scatter whose dropped write landed on the last PG would rewrite
+    the row that X's move changes."""
+    m = flat(pg_num=256)
+
+    def host(o):
+        return jax_ca.get_parent_of_type(m.crush, o, 1, 0)
+
+    last, lastpg = m.max_osd - 1, 255
+    raws = {ps: list(m.pg_to_raw_osds(JaxPgId(0, ps))[0])
+            for ps in range(256)}
+    x = raws[lastpg][0]
+    y = next(o for o in range(m.max_osd)
+             if o not in raws[lastpg] and host(o) != host(last))
+    for ps, raw in raws.items():
+        if ps != lastpg and (x in raw or y in raw):
+            m.pg_upmap[JaxPgId(0, ps)] = list(raw)
+    free = [ps for ps, raw in raws.items() if ps != lastpg
+            and JaxPgId(0, ps) not in m.pg_upmap and last not in raw]
+    for osd, n in ((y, 20), (x, 6)):  # frozen PGs piled on y, then x
+        for ps in [ps for ps in free
+                   if host(osd) not in map(host, raws[ps][1:])][:n]:
+            m.pg_upmap[JaxPgId(0, ps)] = [osd] + raws[ps][1:]
+            free.remove(ps)
+    moved = 0
+    for ps, raw in raws.items():
+        if moved == 12:
+            break
+        if ps != lastpg and last in raw and JaxPgId(0, ps) not in m.pg_upmap:
+            hosts = {host(o) for o in raw if o != last}
+            spare = [o for o in range(m.max_osd) if host(o) not in hosts
+                     and o not in raw and o not in (x, y)
+                     and host(o) != host(last)]
+            m.pg_upmap_items[JaxPgId(0, ps)] = [(last,
+                                                 spare[moved % len(spare)])]
+            moved += 1
     return m
 
 
@@ -211,6 +260,9 @@ CASES = {
     "frozen_device_batched": (frozen, [
         (dict(SEQ, backend="device", candidate_batch=8), 3, None)]),
     "frozen_device_loop": (frozen, [(dict(LOOP, max_iter=24), 3, None)]),
+    # full remaps, like frozen: run with the pg_ps_alias fixture
+    "device_loop_drop_slots": (drop_slots, [(dict(LOOP, max_iter=24), 42,
+                                             None)]),
 }
 
 
@@ -284,6 +336,39 @@ def test_tie_order_mutation_is_caught(monkeypatch):
 
     monkeypatch.setattr(upmap, "_top_b", top_b_reversed)
     (want, got), = run_case("device_loop_equal_weights")
+    with pytest.raises(AssertionError):
+        assert_same_plan(want, got)
+
+
+def mutated_loop_plan(old: str, new: str):
+    """A copy of the plain plan `upmap._loop_plan` with `old` (once in
+    its source) replaced by `new`."""
+    src = textwrap.dedent(inspect.getsource(upmap._loop_plan))
+    assert src.count(old) == 1, old
+    ns = dict(vars(upmap))
+    exec(compile(src.replace(old, new), "<mutated _loop_plan>", "exec"), ns)
+    return ns["_loop_plan"]
+
+
+# each drop slot of the plain plan's scatters moved onto the last real
+# slot (the last OSD, the last PG)
+DROP_SLOT_MUTATIONS = {
+    "used_target": ("torch.where(cand_ok, t, dv)",
+                    "torch.where(cand_ok, t, dv - 1)"),
+    "used_from": ("torch.where(accept, frm, dv)",
+                  "torch.where(accept, frm, dv - 1)"),
+    "rows": ("rows_x.index_put_((apg, aslot)",
+             "rows_x.index_put_((apg.clamp(max=npg - 1), aslot)"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DROP_SLOT_MUTATIONS))
+def test_drop_slot_mutation_is_caught(name, monkeypatch, pg_ps_alias):
+    """With a scatter's drop slot on the last real slot, the drop-slot
+    case's plan differs from the JAX plan, and the comparison says so."""
+    monkeypatch.setattr(upmap, "_loop_plan",
+                        mutated_loop_plan(*DROP_SLOT_MUTATIONS[name]))
+    (want, got), = run_case("device_loop_drop_slots")
     with pytest.raises(AssertionError):
         assert_same_plan(want, got)
 
