@@ -867,18 +867,21 @@ def _loop_plan(rows, pidx, movable, dom_tbl, tgt_ok, target, inw, counts,
 _LOOP_SOURCE = "balancer/csrc/upmap_loop.cu"
 _LOOP_W_CAP = 32  # upmap_loop.cuh W_CAP: the widest row the kernel takes
 _LOOP_OUT_HEAD = 4  # upmap_loop.cuh OUT_HEAD: n_chg, n_rej, rounds, pad
+_LOOP_GROUP = 16  # upmap_loop.cuh GROUP: candidates resolved together
 
 
 def _loop_work(shape) -> tuple[int, int]:
     """(bytes, 0) of one plan launch of shape (npg, w, dv, npool, nbatch,
-    ncap): its first round's bytes, each input read once (the rows, the
-    movable mask, the pool positions, the per-pool tables, the per-OSD
-    vectors), the plan's copy of the rows and the output written once.
-    Each later round reads the rows and the mask again; how many rounds
-    run depends on the data.  The operations are not reckoned."""
+    ncap): its first round's bytes, each read once: the rows and the
+    movable mask, the changed-PG bits (zeroed, then read), the per-pool
+    tables and the per-OSD vectors; and the output written once.  Each
+    later round reads the rows, the mask and the bits again; how many
+    rounds run depends on the data, and the few PGs the candidates read
+    (their pool positions and rows) are not counted.  The operations are
+    not reckoned."""
     npg, w, dv, npool, nbatch, ncap = shape
-    return (npg * (4 * w + 1 + 4) + npool * dv * 5 + dv * 24
-            + npg * 4 * w + 8 * (_LOOP_OUT_HEAD + ncap * (4 + w) + dv)), 0
+    return (npg * (4 * w + 1) + 8 * (-(-npg // 32)) + npool * dv * 5
+            + dv * 24 + 8 * (_LOOP_OUT_HEAD + ncap * (4 + w) + dv)), 0
 
 
 # the plan kernel's launches, enqueue times and first-call build, booked
@@ -899,12 +902,12 @@ def _loop_lib():
         lib = _LOOP_ACCT.load(lambda: build.load(_LOOP_SOURCE))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.upmap_loop_launch.argtypes = (
-            [p] * 8 + [ll, i, i, i, i, i, ctypes.c_double, ll] + [p] * 3
+            [p] * 8 + [ll, i, i, i, i, i, ctypes.c_double, ll] + [p] * 2
             + [i, p])
         lib.upmap_loop_launch.restype = i
-        lib.upmap_loop_plan.argtypes = [p]
+        lib.upmap_loop_plan.argtypes = [p, i]
         lib.upmap_loop_plan.restype = i
-        lib.upmap_loop_scratch_bytes.argtypes = [i, i]
+        lib.upmap_loop_scratch_bytes.argtypes = [i, i, ll, i, i]
         lib.upmap_loop_scratch_bytes.restype = ll
         lib.upmap_loop_error_string.argtypes = [i]
         lib.upmap_loop_error_string.restype = ctypes.c_char_p
@@ -930,6 +933,7 @@ class LoopLaunchPlan:
     blocks_per_sm: int  # resident at that size
     sms: int
     cooperative: int  # the card takes cooperative launches
+    dynamic_smem: int  # per block, for the OSDs asked for
 
     @property
     def grid(self) -> int:
@@ -938,11 +942,13 @@ class LoopLaunchPlan:
 
 
 @functools.cache
-def loop_launch_plan(device_index: int) -> LoopLaunchPlan:
-    out = (ctypes.c_int * 7)()
+def loop_launch_plan(device_index: int, osds: int = 0) -> LoopLaunchPlan:
+    """The launch of a plan over `osds` OSDs on the card (phase (a) keeps
+    their deviations in shared memory where they fit)."""
+    out = (ctypes.c_int * 8)()
     with torch.cuda.device(device_index):
-        _loop_check(_loop_lib().upmap_loop_plan(ctypes.addressof(out)),
-                    "plan")
+        _loop_check(_loop_lib().upmap_loop_plan(ctypes.addressof(out),
+                                                osds), "plan")
     return LoopLaunchPlan(*out)
 
 
@@ -961,7 +967,7 @@ def upmap_loop_cuda(rows, pidx, movable, dom_tbl, tgt_ok, target, inw,
     rounds (then a pad), then cpg, cfrm, cto and crnd (ncap each), the
     final rows of the changes (ncap x w) and the final counts (dv); the
     entries past n_chg are undefined.  The caller's rows are read, never
-    written: the plan writes a copy of its own.
+    written, and not copied: the plan keeps the rows it changes apart.
     `upmap_loop_cuda.launches` counts the launches (the kernel's count in
     the kernel registry)."""
     ops = (rows, pidx, movable, dom_tbl, tgt_ok, target, inw, counts)
@@ -979,10 +985,12 @@ def upmap_loop_cuda(rows, pidx, movable, dom_tbl, tgt_ok, target, inw,
     dv = int(target.numel())
     npool = int(dom_tbl.shape[0])
     if not (1 <= w <= _LOOP_W_CAP and npg < 2 ** 31 - 1 and dv >= 1
-            and npool >= 1 and 1 <= nbatch <= dv and ncap >= 1):
+            and npool >= 1 and 1 <= nbatch <= dv and 1 <= ncap
+            and budget <= ncap):
         raise ValueError(
             f"upmap_loop_cuda: rows [{npg}, {w}] (1 <= w <= {_LOOP_W_CAP}),"
-            f" {dv} OSDs, {npool} pools, batch {nbatch}, cap {ncap}")
+            f" {dv} OSDs, {npool} pools, batch {nbatch}, cap {ncap} "
+            f"(budget {budget} <= cap)")
     if (pidx.shape != (npg,) or movable.shape != (npg,)
             or dom_tbl.shape != (npool, dv) or tgt_ok.shape != (npool, dv)
             or inw.shape != (dv,) or counts.shape != (dv,)):
@@ -991,21 +999,23 @@ def upmap_loop_cuda(rows, pidx, movable, dom_tbl, tgt_ok, target, inw,
     lib = _loop_lib()
     index = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    plan = loop_launch_plan(index)
+    plan = loop_launch_plan(index, dv)
     if not plan.cooperative or plan.grid < 1:
         raise RuntimeError(f"upmap_loop_cuda: the card takes no cooperative "
                            f"launch of this kernel ({plan})")
-    blocks = max(1, min(plan.grid, -(-npg // plan.threads)))
-    copy = torch.empty_like(rows)
+    # a block a PG's thread, and at least a block a candidate of a group
+    blocks = max(1, min(plan.grid, max(-(-npg // plan.threads),
+                                       min(nbatch, _LOOP_GROUP))))
     out = torch.empty(_LOOP_OUT_HEAD + ncap * (4 + w) + dv,
                       dtype=torch.int64, device=dev)
-    scratch = torch.empty(lib.upmap_loop_scratch_bytes(dv, nbatch),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.empty(
+        lib.upmap_loop_scratch_bytes(dv, nbatch, npg, w, ncap),
+        dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = _LOOP_ACCT.launch(
             lib.upmap_loop_launch, *(t.data_ptr() for t in ops), npg, w, dv,
             npool, nbatch, ncap, float(max_dev), int(budget),
-            copy.data_ptr(), out.data_ptr(), scratch.data_ptr(), blocks,
+            out.data_ptr(), scratch.data_ptr(), blocks,
             torch.cuda.current_stream().cuda_stream,
             shape=(npg, w, dv, npool, nbatch, ncap))
         _loop_check(rc, "kernel launch")

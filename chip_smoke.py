@@ -182,6 +182,7 @@ LEGACY_CASES = ROOT / "tests" / "data" / "legacy_rule_cases.json"
 CLI_CORPUS = ROOT / "tests" / "data" / "cli_corpus.json"
 BALANCER_CORPUS = ROOT / "tests" / "data" / "balancer_corpus.json"
 UPMAP_LOOP_CORPUS = ROOT / "tests" / "data" / "upmap_loop_corpus.json"
+UPMAP_PLAN_OSDS = 10_000  # config 5's OSDs: the plan kernel's launch plan
 LEGACY_MAP = ROOT / "tests" / "data" / "legacy_crushmap.txt"
 CLAY_CONFIG4 = ROOT / "tests" / "data" / "clay_config4.json"
 RS_ENTRIES = (
@@ -394,7 +395,8 @@ def phase_build() -> dict:
     ring and 32 KiB of output tiles; crush_rule: the
     crush_ln tables and 16 B per staged record, placement_main prints
     the total), the rule kernel's launch plan (`mapper.launch_plan`) and
-    the plan kernel's (`upmap.loop_launch_plan`: its cooperative grid)."""
+    the plan kernel's (`upmap.loop_launch_plan` at config 5's OSDs: its
+    cooperative grid and dynamic shared memory)."""
     t0 = time.perf_counter()
     libs = build.build_all()
     seconds = time.perf_counter() - t0
@@ -402,9 +404,13 @@ def phase_build() -> dict:
     for src in libs:
         kernels.update(build.ptxas_report(src))
     plan = vars(mapper.launch_plan(torch.cuda.current_device()))
-    loop_plan = vars(upmap.loop_launch_plan(torch.cuda.current_device()))
-    check(loop_plan["cooperative"] == 1 and loop_plan["blocks_per_sm"] >= 1,
-          f"upmap_loop: a cooperative launch fits the card ({loop_plan})")
+    # at config 5's OSDs, with phase (a)'s shared memory of 8 B an OSD
+    loop_plan = vars(upmap.loop_launch_plan(torch.cuda.current_device(),
+                                            UPMAP_PLAN_OSDS))
+    check(loop_plan["cooperative"] == 1 and loop_plan["blocks_per_sm"] >= 1
+          and loop_plan["dynamic_smem"] == 8 * UPMAP_PLAN_OSDS,
+          f"upmap_loop: a cooperative launch over {UPMAP_PLAN_OSDS} OSDs "
+          f"fits the card ({loop_plan})")
     emit({"phase": "build", "seconds": seconds,
           "libraries": {src: str(lib.relative_to(ROOT))
                         for src, lib in libs.items()},

@@ -7,14 +7,15 @@ drop-slot case included, and BASELINE config 2's device_loop plan, whose
 digest must be tests/data/balancer_corpus.json's.
 
 nvcc builds the same file into the one-launch kernel on the card; here a
-small shim runs its phases in the kernel's order: start_plan, then per
-round phase (a) over the PGs (dominant(), the lowest PG kept per OSD)
-and phase (b) (plan_round_b) in a "block" of one thread, then
-finish_plan.  The block's reductions are maxima, minima and "any", which
-no order of threads changes; the one float sum, the sum of squares, is
-taken in a fixed order whatever the block (`ordered_sum`, held here to
-a numpy rendering of that order).  Skips, with the reason, where g++ is
-missing.
+small shim runs the body's own schedule (`run_plan`) on `HostGrid`: the
+kernel's stages in its order (the start, phase (a) with block 0's top-B,
+each group's shortlists and the last block's resolve and apply, the
+finish), a grid of 1 or several blocks of one thread run one after
+another, each barrier's last-block section run once.  The outputs must
+not depend on the grid: the selections pick distinct keys, the counts
+are integers, and the one float sum, the sum of squares, is taken in a
+fixed order whatever the grid (`ordered_sum`, held here to a numpy
+rendering of that order).  Skips, with the reason, where g++ is missing.
 """
 
 import hashlib
@@ -48,29 +49,24 @@ from test_torch_pipeline import osdmap_dict  # noqa: E402
 CSRC = ROOT / "ceph_tpu_torch" / "balancer" / "csrc"
 LOOP_CORPUS = ROOT / "tests" / "data" / "upmap_loop_corpus.json"
 THREADS = 512  # upmap_loop.cuh THREADS: the lanes of the ordered sum
+GRIDS = (1, 3, 16)  # blocks of the host's grid
 
 SHIM = r"""
+#include <string.h>
+
 #include <vector>
 
 #include "upmap_loop.cuh"
 
-using upmap_loop::Best;
-
-// phase (b)'s block on the host: one thread
-struct HostBlock {
-    int tid() const { return 0; }
-    int size() const { return 1; }
-    void sync() const {}
-    bool any(bool v) const { return v; }
-    Best reduce(Best v, bool) const { return v; }
-};
-
-static upmap_loop::Plan make_plan(
+// the kernel's launch: its schedule (run_plan) on the host, as a grid of
+// nblk blocks of one thread run one after another a stage at a time; the
+// scratch starts as garbage but for the state, as on the card
+extern "C" void upmap_loop_host(
     const int32_t* rows_in, const int32_t* pidx, const uint8_t* movable,
     const int32_t* dom_tbl, const uint8_t* tgt_ok, const double* target,
     const double* inw, const int64_t* counts, long long npg, int w, int dv,
     int npool, int nbatch, int ncap, double max_dev, long long budget,
-    int32_t* rows, int64_t* out) {
+    int64_t* out, int nblk) {
     upmap_loop::Plan p{};
     p.rows_in = rows_in;
     p.pidx = pidx;
@@ -88,37 +84,14 @@ static upmap_loop::Plan make_plan(
     p.ncap = ncap;
     p.max_dev = max_dev;
     p.budget = budget;
-    p.rows = rows;
     p.out = out;
-    return p;
-}
-
-// the kernel's launch, its phases run in order on the host
-extern "C" void upmap_loop_host(
-    const int32_t* rows_in, const int32_t* pidx, const uint8_t* movable,
-    const int32_t* dom_tbl, const uint8_t* tgt_ok, const double* target,
-    const double* inw, const int64_t* counts, long long npg, int w, int dv,
-    int npool, int nbatch, int ncap, double max_dev, long long budget,
-    int32_t* rows, int64_t* out) {
-    upmap_loop::Plan p = make_plan(rows_in, pidx, movable, dom_tbl, tgt_ok,
-                                   target, inw, counts, npg, w, dv, npool,
-                                   nbatch, ncap, max_dev, budget, rows, out);
-    std::vector<uint64_t> scratch(
-        (upmap_loop::scratch_bytes(dv, nbatch) + 7) / 8);
+    const size_t n = upmap_loop::scratch_bytes(dv, nbatch, npg, w, ncap);
+    std::vector<uint64_t> scratch((n + 7) / 8);
+    memset(scratch.data(), 0xa5, n);
     upmap_loop::bind_scratch(p, scratch.data());
-    HostBlock b;
-    upmap_loop::start_plan(b, p);
-    for (int round = 0;; round++) {
-        const int32_t* src = round == 0 ? rows_in : rows;
-        int32_t* copy = round == 0 ? rows : nullptr;
-        for (long long g = 0; g < npg; g++) {
-            const int32_t d = upmap_loop::dominant(p, g, src, copy);
-            if (d < dv && g < p.pick[d]) p.pick[d] = (int32_t)g;
-        }
-        upmap_loop::plan_round_b(b, p);
-        if (!p.st->cont) break;
-    }
-    upmap_loop::finish_plan(b, p);
+    memset(p.st, 0, sizeof(upmap_loop::State));
+    upmap_loop::HostGrid grid{{}, nblk};
+    upmap_loop::run_plan(grid, p);
 }
 
 // the body's sum of x[d]^2 over d < n
@@ -127,7 +100,7 @@ extern "C" double ordered_sum_host(const double* x, int n) {
     p.dv = n;
     std::vector<double> part(upmap_loop::THREADS);
     p.part = part.data();
-    HostBlock b;
+    upmap_loop::HostBlock b;
     return upmap_loop::ordered_sum(b, p, x);
 }
 """
@@ -155,7 +128,7 @@ def body(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     so.upmap_loop_host.argtypes = ([p] * 8 + [ll, i, i, i, i, i,
-                                              ctypes.c_double, ll, p, p])
+                                              ctypes.c_double, ll, p, i])
     so.upmap_loop_host.restype = None
     so.ordered_sum_host.argtypes = [p, i]
     so.ordered_sum_host.restype = ctypes.c_double
@@ -168,10 +141,10 @@ OPERANDS = (("rows", np.int32), ("pidx", np.int32), ("movable", np.uint8),
             ("counts", np.int64))
 
 
-def run_body(so, args):
+def run_body(so, args, blocks: int = 1):
     """The host-built body on `loop_plan`'s arguments (CPU tensors or
-    arrays): `_loop_plan`'s return.  Checks that the caller's rows are
-    not written."""
+    arrays), as a grid of `blocks` blocks: `_loop_plan`'s return.  Checks
+    that the caller's rows are not written."""
     ops = [np.ascontiguousarray(np.asarray(a), dtype)
            for a, (_, dtype) in zip(args[:8], OPERANDS)]
     max_dev, budget, nbatch, ncap = args[8:]
@@ -179,11 +152,10 @@ def run_body(so, args):
     before = rows.copy()
     npg, w = rows.shape
     dv, npool = ops[5].shape[0], ops[3].shape[0]
-    copy = np.empty_like(rows)
     out = np.zeros(4 + ncap * (4 + w) + dv, np.int64)
     so.upmap_loop_host(*(a.ctypes.data for a in ops), npg, w, dv, npool,
                        nbatch, ncap, float(max_dev), int(budget),
-                       copy.ctypes.data, out.ctypes.data)
+                       out.ctypes.data, blocks)
     np.testing.assert_array_equal(rows, before)
     return upmap.unpack_loop_out(out, w, dv, ncap)
 
@@ -278,9 +250,12 @@ def test_body_equals_plain_and_jax(name, body, spies, pg_ps_alias):
         # the two packages hand their plans the same operands
         for (op, _), a, b in zip(OPERANDS, args[:8], jops):
             np.testing.assert_array_equal(a, b, err_msg=f"{what}: {op}")
-        got = run_body(body, args)
-        assert_same_outputs(plain, got, f"{what}, body against plain")
-        assert_same_outputs(jax, got, f"{what}, body against JAX")
+        for blocks in GRIDS:
+            got = run_body(body, args, blocks)
+            assert_same_outputs(plain, got,
+                                f"{what}, body of {blocks} against plain")
+            assert_same_outputs(jax, got,
+                                f"{what}, body of {blocks} against JAX")
         assert len(got[0]) > 0 or i > 0, what
         # the corpus chip_smoke.py holds the card to is the JAX package's
         entry = loop_corpus()["cases"][name]
@@ -297,7 +272,7 @@ def test_config2_plan_is_the_corpus(body, monkeypatch):
 
     def both(*args):
         want = plain(*args)
-        got = run_body(body, host_args(args))
+        got = run_body(body, host_args(args), 7)
         assert_same_outputs(want, got, "config 2")
         plans.append(got)
         return got
@@ -379,9 +354,10 @@ def test_plan_kernel_is_built_registered_and_accounted():
     assert keys <= set(cuda_accounting.ADDED["balancer"])
     assert keys <= set(obs.group_view("balancer"))
     assert spans.known("balancer.device_loop")
-    # a launch's first-round bytes: 10 PGs of 3, 4 OSDs, 1 pool
+    # a launch's first-round bytes: 10 PGs of 3 (rows, mask, one word of
+    # change bits zeroed and read), 4 OSDs, 1 pool, the output
     nbytes, ops = rec.work((10, 3, 4, 1, 2, 8))
-    assert nbytes == 10 * 17 + 4 * 5 + 4 * 24 + 10 * 12 \
+    assert nbytes == 10 * 13 + 8 + 4 * 5 + 4 * 24 \
         + 8 * (4 + 8 * 7 + 4) and ops == 0
 
 
