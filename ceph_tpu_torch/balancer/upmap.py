@@ -8,8 +8,8 @@ The port of `ceph_tpu/balancer/upmap.py`, the reference's greedy optimizer
 A host-side greedy loop drops or adds `pg_upmap_items` pairs one small
 change at a time, and accepts only changes that lower the PG-count
 deviation stddev.  The O(PGs) part, mapping every PG of every pool to
-build the membership state, runs through `PoolMapper` (the rule kernel,
-one call per pool); the rest is O(changes) bookkeeping.
+build the membership state, runs through `PoolMapper` (the pipeline
+kernel, one call per pool); the rest is O(changes) bookkeeping.
 
 Backends (`backend=`): "sets" (dict-of-sets, the reference's form),
 "device" (membership rows on the device, O(OSDs) on the host) and

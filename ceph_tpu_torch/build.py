@@ -4,8 +4,9 @@ Each kernel is one source `<module>/csrc/<name>.cu` of this package (see
 SOURCES), with a plain C interface and no PyTorch header, so a build
 takes seconds.  It is compiled, at first use, into
 `ceph_tpu_torch/build/lib<name>-<hash>.so`; the hash covers the source,
-the headers (`*.cuh`) beside it and the flags, so an edited source builds
-anew.  `build_all()` starts one nvcc per source at once and waits for
+every header it includes (`#include "..."`, followed through the headers
+it reaches, wherever they lie in the package) and the flags, so an edited
+source or header builds anew.  `build_all()` starts one nvcc per source at once and waits for
 them all.  ptxas reports each kernel's registers, stack, spills and
 static shared memory (-Xptxas=-v); the report is kept beside the library
 (`ptxas_report`).  Building and loading are thread-safe: one lock covers
@@ -32,7 +33,8 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE / "build"
 SOURCES = ("ec/csrc/gf_matmul.cu", "crush/csrc/crush_rule.cu",
-           "crush/csrc/crush_rule_diag.cu", "balancer/csrc/upmap_loop.cu")
+           "crush/csrc/crush_rule_diag.cu", "balancer/csrc/upmap_loop.cu",
+           "osd/csrc/pipeline.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -60,12 +62,31 @@ def nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def headers(source: str) -> list[Path]:
+    """The headers `source` includes with quotes, and those they include,
+    resolved against the including file's directory (as the compiler
+    resolves them), each once, in a fixed order."""
+    seen: list[Path] = []
+    todo = [PACKAGE / source]
+    while todo:
+        f = todo.pop()
+        for name in _INCLUDE.findall(f.read_text()):
+            h = (f.parent / name).resolve()
+            if h.exists() and h not in seen:
+                seen.append(h)
+                todo.append(h)
+    return sorted(seen)
+
+
 def library_path(source: str) -> Path:
     """Where `source` (a path under the package, e.g.
     "ec/csrc/gf_matmul.cu") builds to."""
     src = PACKAGE / source
     digest = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in headers(source):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"

@@ -21,7 +21,7 @@ src/tools/osdmaptool.cc), plus `--device cuda|cpu`.
 
 Map files are the reference binary wire format (JSON also read, see
 ceph_tpu_torch.osd.io).  `--test-map-pgs` maps each pool with one
-`PoolMapper` call (the rule kernel on the card, its plain version with
+`PoolMapper` call (the pipeline kernel on the card, its plain version with
 `--device cpu`; the ParallelPGMapper analogue, reference loop
 src/tools/osdmaptool.cc:630-755) and reduces the rows on the device to
 the per-OSD counts and the size histogram; `--backend ref` maps PG by PG

@@ -91,6 +91,14 @@ constexpr int HEADER_WORDS = 8;
 // then LL (256 entries, two a word)
 constexpr int LN_ROWS = 129, LL_WORDS = 128, LN_WORDS = LN_ROWS + LL_WORDS;
 
+// The element type of the OSD reweights: u32 here; the placement
+// pipeline kernel (osd/csrc/pipeline.cuh) defines it as int64_t before it
+// includes this file, to read its mapper's int64 vector (u32 values) in
+// place.
+#ifndef CRUSH_WEIGHT_T
+#define CRUSH_WEIGHT_T uint32_t
+#endif
+
 // The map, packed.  Slot b holds bucket id -1-b.  u32 fields are read as
 // their bit patterns.
 struct Map {
@@ -99,7 +107,7 @@ struct Map {
     const Record* staged;    // a copy of records[0, n_staged): shared memory
                              // on the card
     const int32_t* items;    // [sum of sizes]
-    const uint32_t* weight;  // [weight_len] OSD reweights (16.16)
+    const CRUSH_WEIGHT_T* weight;  // [weight_len] OSD reweights (16.16)
     const int64_t* rh_lh;    // [258] crush_ln tables
     const int64_t* ll;       // [256]
     int32_t n_staged, n_buckets, positions, max_devices, max_depth;

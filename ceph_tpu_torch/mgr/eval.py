@@ -8,7 +8,7 @@ metric) pair reduced to a score in [0, 1) (0 is a perfect distribution);
 the overall score is the mean over roots and metrics.
 
 The O(PGs) work runs on the device: each pool's `up` rows come from the
-rule kernel (`PoolMapper.map_all_device`, or a shared
+pipeline kernel (`PoolMapper.map_all_device`, or a shared
 `osd.state.ClusterState`), and the per-OSD counts are reduced where the
 rows are (`core.reduce`).  Only the O(OSDs) count vectors come to the
 host, and every score is computed there with numpy and `math` in the JAX

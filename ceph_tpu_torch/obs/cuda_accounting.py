@@ -68,7 +68,8 @@ ADDED: dict[str, tuple[str, ...]] = {
     "pipeline": ("crush_rule_launches", "crush_rule_launch_seconds",
                  "crush_rule_build_seconds", "crush_rule_diag_launches",
                  "crush_rule_diag_launch_seconds",
-                 "crush_rule_diag_build_seconds"),
+                 "crush_rule_diag_build_seconds", "pipeline_launches",
+                 "pipeline_launch_seconds", "pipeline_build_seconds"),
     # the plan kernel's launch account, and the device_loop plan's host
     # reads (one a plan on a card; one a round and the readback on the
     # CPU)

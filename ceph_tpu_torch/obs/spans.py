@@ -26,8 +26,10 @@ from __future__ import annotations
 
 SPANS: dict[str, str] = {
     # osd/pipeline.py - the batched mapping pipeline
-    "pipeline.map_block": "launch of one mapping block (rule kernel + "
-                          "the pipeline's torch ops)",
+    "pipeline.map_block": "launch of one mapping block (the pipeline "
+                          "kernel on the card, its plain torch-op chain "
+                          "on the CPU; and LaunchAccount base of the "
+                          "pipeline kernel)",
     "pipeline.fetch": "d2h fetch of finished mapping results",
     "pipeline.diagnose": "launch of one diagnostics-kernel block",
     # runtime/

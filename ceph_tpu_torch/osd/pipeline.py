@@ -3,18 +3,24 @@
 The port of `ceph_tpu/osd/pipeline_jax.py` (reference src/osd/OSDMap.cc:
 2435-2715):
 
-    ps ──stable_mod──► pps ──crush_rule kernel──► raw ──upmap──► up ──►
+    ps ──stable_mod──► pps ──CRUSH──► raw ──upmap──► up ──►
         primary affinity ──► (up, up_primary) ──pg_temp──► (acting, acting_primary)
 
-The rule runs in the hand-written kernel (`crush/csrc/crush_rule.cu`) on
-the card, or in its plain version on the CPU (`crush.mapper.map_rule`).
-Everything after it is torch ops on [N, W] rows (W = the pool's padded
-width), the same on both devices, computed as `compile_pipeline` computes
-it.  The sparse overrides (pg_upmap, pg_upmap_items, pg_temp,
-primary_temp) become dense per-PG tensors, uploaded once per mapper.
+On the card the whole chain is one hand-written kernel
+(`osd/csrc/pipeline.cu`, body `pipeline.cuh`, wrapper `pipeline_cuda`):
+one launch per block of up to `crush.mapper.BLOCK` seeds, in one of three
+modes (all four planes, `up` only, the raw rows), the rule run by the
+rule kernel's body.  On the CPU the same function is its plain version,
+`PoolMapper.pipeline_plain`: the rule's plain version
+(`crush.mapper.map_rule`) and torch ops on [N, W] rows (W = the pool's
+padded width), computed as `compile_pipeline` computes it.  `_raw`, `_up`
+and `_rows` dispatch on the seeds' device.  The sparse overrides
+(pg_upmap, pg_upmap_items, pg_temp, primary_temp) become dense per-PG
+int32 tensors, uploaded once per mapper and read at the seeds.
 
 Results equal `OSDMap.pg_to_up_acting_osds` of the JAX package for every
-PG, padded to the width with ITEM_NONE (tests/test_torch_pipeline.py).
+PG, padded to the width with ITEM_NONE (tests/test_torch_pipeline.py; the
+kernel's body built with g++: tests/test_torch_pipeline_kernel_host.py).
 
 `PoolMapper.diagnose` runs stages 1-2 through the rule kernel's
 diagnostics variant (`crush.mapper.diag_rule`) and reduces its decision
@@ -22,7 +28,8 @@ planes on the device to the JAX package's placement-diagnostics summary.
 
 The mapper books the JAX package's `pipeline` perf group (`pgs_mapped`,
 `map_block_seconds`: the host time of one block's enqueue) and spans
-(`pipeline.map_block`, `pipeline.diagnose`, `pipeline.fetch`).  Every
+(`pipeline.map_block`, `pipeline.diagnose`, `pipeline.fetch`), and the
+pipeline kernel's launch account (`pipeline_launches`, ...).  Every
 lane is exact, so `unresolved_pgs` and `rescue_invocations` stay 0: the
 kernel has no fast window to rescue from.
 """
@@ -30,21 +37,28 @@ kernel has no fast window to rescue from.
 from __future__ import annotations
 
 import copy
+import ctypes
+import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ceph_tpu_torch import obs
+from ceph_tpu_torch import build, obs
 from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.core.intmath import pg_mask_for, stable_mod
+from ceph_tpu_torch.core.lntable import LL_TBL, RH_LH_TBL, ln_tables
 from ceph_tpu_torch.core.rjenkins import M32, crush_hash32_2
 from ceph_tpu_torch.crush.mapper import (
     BLOCK,
+    RMAX_CAP,
+    LaunchPlan,
     compile_rule,
     diag_rule,
     find_rule,
     map_rule,
+    staged_records,
 )
 from ceph_tpu_torch.crush.soa import build_arrays, to_device
 from ceph_tpu_torch.crush.types import ITEM_NONE
@@ -224,6 +238,229 @@ def first_not_none(v: torch.Tensor) -> torch.Tensor:
     return torch.where(i < v.shape[1], _pick(v, i), -1)
 
 
+# -- the kernel ---------------------------------------------------------------
+
+MODES = {"rows": 0, "up": 1, "raw": 2}  # pipeline.cuh MODE_*
+
+
+class _Pipe(ctypes.Structure):
+    """pipeline.cuh Pipe: the pool's operands of one launch."""
+
+    _fields_ = (
+        [("ps", ctypes.c_void_p), ("n", ctypes.c_longlong)]
+        + [(k, ctypes.c_void_p) for k in (
+            "exists", "up", "weight", "affinity", "upmap_full", "upmap_len",
+            "upmap_pairs", "temp", "temp_len", "primary_temp", "up_out",
+            "up_primary_out", "acting_out", "acting_primary_out")]
+        + [(k, ctypes.c_uint32) for k in ("pool_id", "pgp_num",
+                                          "pgp_mask")]
+        + [(k, ctypes.c_int32) for k in (
+            "hashpspool", "can_shift", "has_rule", "with_affinity", "mode",
+            "max_osd", "width", "wu", "n_pairs", "wt")])
+
+
+def _pipeline_work(shape) -> tuple[int, int]:
+    """(bytes, 0) of one launch of shape (T, prog, n, dv, mode, width,
+    overlay words a PG): each input read once (seeds, the overlays at the
+    seeds, the four per-OSD vectors, the map's tables, the rule's steps,
+    the crush_ln tables), each output written once.  The operations are
+    not reckoned."""
+    T, prog, n, dv, mode, width, ov_words = shape
+    tables = sum(t.numel() * t.element_size() for t in (
+        T.headers, T.records, T.packed_items, T.nodes))
+    steps = prog.steps.nbytes if prog is not None else 0
+    out = 4 * n * (2 * width + 2 if mode == "rows" else width)
+    return (8 * n + 4 * n * ov_words + 18 * dv + tables + steps
+            + RH_LH_TBL.nbytes + LL_TBL.nbytes + out), 0
+
+
+# the kernel's launches, enqueue times and first-call build, booked into
+# the kernel registry, which the `pipeline` perf group reads
+_ACCT = obs.LaunchAccount(_L, "pipeline", "osd/csrc/pipeline.cu",
+                          work=_pipeline_work)
+_LIB: list[ctypes.CDLL] = []
+_LIB_LOCK = threading.Lock()
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, loaded and declared once; published only
+    once its signatures are set."""
+    if _LIB:
+        return _LIB[0]
+    with _LIB_LOCK:
+        if _LIB:
+            return _LIB[0]
+        lib = _ACCT.load(lambda: build.load("osd/csrc/pipeline.cu"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pipeline_launch.argtypes = [p] * 8 + [i] * 13 + [p, p]
+        lib.pipeline_launch.restype = i
+        lib.pipeline_plan.argtypes = [p]
+        lib.pipeline_plan.restype = i
+        lib.pipeline_error_string.argtypes = [i]
+        lib.pipeline_error_string.restype = ctypes.c_char_p
+        _LIB.append(lib)
+        return lib
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().pipeline_error_string(rc).decode()
+        raise RuntimeError(f"pipeline {what} failed: {msg}")
+
+
+@functools.cache
+def launch_plan(device_index: int) -> LaunchPlan:
+    """The kernel's LaunchPlan on one card (crush.mapper.LaunchPlan, from
+    this build's registers)."""
+    out = (ctypes.c_int * 10)()
+    with torch.cuda.device(device_index):
+        _check(_lib().pipeline_plan(ctypes.addressof(out)), "plan")
+    return LaunchPlan(*out)
+
+
+@functools.cache
+def _ln_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return ln_tables(device)
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def pipeline_cuda(pm: "PoolMapper", ps: torch.Tensor, mode: str = "rows",
+                  stage: int | None = None) -> tuple:
+    """Launch the pipeline kernel once: placement seeds ps int64 [N] on
+    the mapper's card -> int32 tensors, (up [N, W], up_primary [N],
+    acting [N, W], acting_primary [N]) for mode "rows", (up,) for "up"
+    (no overlay read) and (raw,) for "raw" (the rows before the
+    overlays), W = pm.spec.out_width.  Runs on the current stream,
+    unsynchronised.  With overlays in mode "rows" the seeds must lie in
+    [0, pg_num) (`PoolMapper._seeds` checks the caller's).  `stage` is
+    the number of records each block copies to shared memory (None:
+    `staged_records` of this kernel's plan; every choice gives the same
+    rows).  `pipeline_cuda.launches` counts the launches: the kernel's
+    count in the kernel registry (`_pipeline_work` reckons their bytes)."""
+    if mode not in MODES:
+        raise ValueError(f"pipeline_cuda: mode {mode!r} not in "
+                         f"{sorted(MODES)}")
+    spec, T, prog, vec = pm.spec, pm.tables, pm.prog, pm.dev
+    dev = T.device
+    if dev.type != "cuda" or ps.device != dev:
+        raise ValueError(f"pipeline_cuda: map on {dev}, seeds on "
+                         f"{ps.device}; both must be on one CUDA device")
+    if ps.dtype != torch.int64 or ps.dim() != 1 or not ps.is_contiguous():
+        raise ValueError("pipeline_cuda: contiguous int64 seeds [N] "
+                         "expected")
+    dtypes = {"exists": torch.bool, "up": torch.bool,
+              "weight": torch.int64, "primary_affinity": torch.int64}
+    dv = vec["weight"].numel()
+    for k, dt in dtypes.items():
+        t = vec[k]
+        if t.device != dev or t.dtype != dt or t.dim() != 1 \
+                or t.numel() != dv or not t.is_contiguous():
+            raise ValueError(f"pipeline_cuda: per-OSD vector {k!r} must "
+                             f"be a contiguous {dt} [{dv}] on {dev}")
+    if dv < max(spec.max_osd, T.max_devices, 1):
+        raise ValueError(f"pipeline_cuda: per-OSD vectors of {dv} do not "
+                         f"cover max_osd {spec.max_osd} and the map's "
+                         f"{T.max_devices} devices")
+    W = spec.out_width
+    if not spec.size <= W <= RMAX_CAP:
+        raise ValueError(f"pipeline_cuda: width {W} outside [{spec.size}, "
+                         f"{RMAX_CAP}], the kernel's rows")
+    ov = pm._ov if mode == "rows" else {}
+    for k, t in ov.items():
+        if t.device != dev or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError(f"pipeline_cuda: overlay {k!r} must be a "
+                             f"contiguous int32 tensor on {dev}")
+    out = _outputs(ps.numel(), W, mode, dev)
+    if ps.numel() == 0:
+        return out
+    rh_lh, ll = _ln_on(dev)
+    if T.records.data_ptr() % 16 or rh_lh.data_ptr() % 16 \
+            or ll.data_ptr() % 16:
+        raise ValueError("pipeline_cuda: records and crush_ln tables must "
+                         "be 16-byte aligned")
+    plan = launch_plan(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    n_staged = staged_records(T, plan) if stage is None else stage
+    if not 0 <= n_staged <= T.records.shape[0]:
+        raise ValueError(f"pipeline_cuda: stage {n_staged} outside "
+                         f"[0, {T.records.shape[0]}]")
+    args, pipe, shape = launch_operands(pm, ps, mode, out, n_staged,
+                                        plan.threads, rh_lh, ll)
+    with torch.cuda.device(dev):
+        rc = _ACCT.launch(_lib().pipeline_launch, *args,
+                          ctypes.addressof(pipe),
+                          torch.cuda.current_stream().cuda_stream,
+                          shape=shape)
+        _check(rc, "kernel launch")
+    return out
+
+
+def _outputs(n: int, width: int, mode: str, device) -> tuple:
+    """The int32 outputs of a launch in `mode`, uninitialised."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=device)
+    if mode == "rows":
+        return empty(n, width), empty(n), empty(n, width), empty(n)
+    return (empty(n, width),)
+
+
+def launch_operands(pm: "PoolMapper", ps: torch.Tensor, mode: str,
+                    out: tuple, n_staged: int, threads: int,
+                    rh_lh: torch.Tensor, ll: torch.Tensor):
+    """What `pipeline_launch` takes for seeds ps of mapper pm, checked by
+    the caller: (the rule's arguments, as crush_rule_launch's, through
+    `threads`; the pool's `_Pipe`; the launch's shape for
+    `_pipeline_work`).  The host build of the kernel's body
+    (tests/test_torch_pipeline_kernel_host.py) takes the same."""
+    spec, T, prog, vec = pm.spec, pm.tables, pm.prog, pm.dev
+    ov = pm._ov if mode == "rows" else {}
+    full, pairs, temp = (ov.get(k) for k in ("upmap_full", "upmap_pairs",
+                                              "temp"))
+    rows = mode == "rows"
+    pipe = _Pipe(
+        ps=ps.data_ptr(), n=ps.numel(), exists=_ptr(vec["exists"]),
+        up=_ptr(vec["up"]), weight=_ptr(vec["weight"]),
+        affinity=_ptr(vec["primary_affinity"]), upmap_full=_ptr(full),
+        upmap_len=_ptr(ov.get("upmap_len")), upmap_pairs=_ptr(pairs),
+        temp=_ptr(temp), temp_len=_ptr(ov.get("temp_len")),
+        primary_temp=_ptr(ov.get("primary_temp")),
+        up_out=out[0].data_ptr(),
+        up_primary_out=_ptr(out[1]) if rows else None,
+        acting_out=_ptr(out[2]) if rows else None,
+        acting_primary_out=_ptr(out[3]) if rows else None,
+        pool_id=spec.pool_id & M32, pgp_num=spec.pgp_num,
+        pgp_mask=pg_mask_for(spec.pgp_num), hashpspool=spec.hashpspool,
+        can_shift=spec.can_shift, has_rule=prog is not None,
+        with_affinity=pm.with_primary_affinity, mode=MODES[mode],
+        max_osd=spec.max_osd, width=spec.out_width,
+        wu=full.shape[1] if full is not None else 0,
+        n_pairs=pairs.shape[1] if pairs is not None else 0,
+        wt=temp.shape[1] if temp is not None else 0)
+    dv = vec["weight"].numel()
+    tunables = ((prog.choose_total_tries, prog.chooseleaf_descend_once,
+                 prog.chooseleaf_vary_r, prog.chooseleaf_stable)
+                if prog is not None else (0, 0, 0, 0))
+    args = [
+        T.headers.data_ptr(), T.records.data_ptr(),
+        T.packed_items.data_ptr(), T.nodes.data_ptr(),
+        vec["weight"].data_ptr(), rh_lh.data_ptr(), ll.data_ptr(),
+        _ptr(prog.steps_on(ps.device) if prog is not None else None),
+        T.n_buckets, T.positions, T.max_devices, T.max_depth,
+        min(T.max_devices, dv),
+        len(prog.steps) if prog is not None else 0, spec.size, *tunables,
+        n_staged, threads]
+    ov_words = sum(t[0].numel() for t in ov.values() if t.numel())
+    return args, pipe, (T, prog, ps.numel(), dv, mode, spec.out_width,
+                        ov_words)
+
+
+pipeline_cuda = _ACCT.entry(pipeline_cuda)
+
+
 class PoolMapper:
     """Batched mapper for one pool of one OSDMap, on one device.
 
@@ -281,7 +518,7 @@ class PoolMapper:
         self.tables = (state.device_tables_for(pool_id)
                        if state is not None
                        else to_device(self.arrays, self.device))
-        self._ov = {k: torch.from_numpy(v).long().to(self.device)
+        self._ov = {k: torch.from_numpy(v).to(self.device)
                     for k, v in vars(self.ov).items() if v is not None}
         self.with_primary_affinity = (m.osd_primary_affinity is not None
                                       or state is not None)
@@ -339,7 +576,44 @@ class PoolMapper:
         """The OSD reweights the rule reads (the first max_devices)."""
         return self.dev["weight"][:self.arrays.max_devices]
 
-    def _raw(self, ps: torch.Tensor):
+    def _pipeline(self, ps: torch.Tensor, mode: str) -> tuple:
+        """The pipeline for seeds ps in one of `MODES`: on the card one
+        `pipeline_cuda` launch per block of up to BLOCK seeds, int32; on
+        the CPU its plain version."""
+        if ps.device.type == "cuda":
+            ps = ps.contiguous()
+            blocks = [pipeline_cuda(self, ps[i:i + BLOCK], mode)
+                      for i in range(0, max(ps.numel(), 1), BLOCK)]
+            if len(blocks) == 1:
+                return blocks[0]
+            return tuple(torch.cat(p) for p in zip(*blocks))
+        return self.pipeline_plain(ps, mode)
+
+    def pipeline_plain(self, ps: torch.Tensor, mode: str = "rows") -> tuple:
+        """The kernel's plain version, on any device: the rule's rows
+        (`map_rule`; on the card the rule kernel) and the torch-op chain,
+        int64 tensors, in the tuple `pipeline_cuda` gives for `mode`."""
+        if mode == "raw":
+            return (self._raw_plain(ps)[1],)
+        if mode == "up":
+            return self._up_plain(ps, {})[:1]
+        if mode == "rows":
+            return self._rows_plain(ps)
+        raise ValueError(f"mode {mode!r} not in {sorted(MODES)}")
+
+    def _raw(self, ps: torch.Tensor) -> torch.Tensor:
+        """Stages 1-2 and _remove_nonexistent_osds: raw [N, W]."""
+        return self._pipeline(ps, "raw")[0]
+
+    def _up(self, ps: torch.Tensor) -> torch.Tensor:
+        """Stages 1-5 without the overlays: up [N, W]."""
+        return self._pipeline(ps, "up")[0]
+
+    def _rows(self, ps: torch.Tensor) -> tuple:
+        """(up, up_primary, acting, acting_primary) for seeds ps."""
+        return self._pipeline(ps, "rows")
+
+    def _raw_plain(self, ps: torch.Tensor):
         """Stages 1-2 and _remove_nonexistent_osds: (pps, raw [N, W])."""
         W = self.spec.out_width
         pps = self.placement_seeds(ps)
@@ -358,7 +632,7 @@ class PoolMapper:
             raw = torch.where(ok | (raw == ITEM_NONE), raw, ITEM_NONE)
         return pps, raw
 
-    def _up(self, ps: torch.Tensor, ov: dict):
+    def _up_plain(self, ps: torch.Tensor, ov: dict):
         """Stages 1-5: (up, up_primary) tensors for seeds ps, with the
         upmap overlays of `ov` (the mapper's dense overlays at ps)."""
         spec = self.spec
@@ -366,7 +640,7 @@ class PoolMapper:
         lane = torch.arange(W, device=ps.device)
         weight = self.dev["weight"]
         upb = self.dev["up"]
-        pps, raw = self._raw(ps)
+        pps, raw = self._raw_plain(ps)
 
         # -- stage 3: upmap (reference src/osd/OSDMap.cc:2465-2509)
         def marked_out(v):
@@ -429,14 +703,14 @@ class PoolMapper:
             up_primary = new_primary
         return up, up_primary
 
-    def _rows(self, ps: torch.Tensor):
+    def _rows_plain(self, ps: torch.Tensor):
         """(up, up_primary, acting, acting_primary) tensors for seeds ps."""
         spec = self.spec
         W = spec.out_width
         lane = torch.arange(W, device=ps.device)
         upb = self.dev["up"]
-        ov = {k: v[ps] for k, v in self._ov.items()}
-        up, up_primary = self._up(ps, ov)
+        ov = {k: v[ps].long() for k, v in self._ov.items()}
+        up, up_primary = self._up_plain(ps, ov)
 
         # -- pg_temp / primary_temp (reference src/osd/OSDMap.cc:2592)
         acting, acting_primary = up, up_primary
@@ -546,7 +820,7 @@ class PoolMapper:
         ps = torch.arange(self.spec.pg_num, device=self.device)
         with obs.span("pipeline.map_block", pgs=ps.numel(),
                       device_resident=True), _L.time("map_block_seconds"):
-            up = self._on_mesh(lambda pm, b: pm._up(b, {})[:1],
+            up = self._on_mesh(lambda pm, b: (pm._up(b),),
                                ps)[0].to(torch.int32)
         _L.inc("pgs_mapped", ps.numel())
         return up
@@ -557,7 +831,7 @@ class PoolMapper:
         removal), NONE-padded."""
         ps = self._seeds(seeds)
         with obs.span("pipeline.map_block", pgs=ps.numel(), raw=True):
-            raw = self._on_mesh(lambda pm, b: pm._raw(b)[1:],
+            raw = self._on_mesh(lambda pm, b: (pm._raw(b),),
                                 ps)[0].to(torch.int32)
         with obs.span("pipeline.fetch"):
             return raw.cpu().numpy()

@@ -29,8 +29,9 @@ operands and is shared by the mapper, the balancer and the mgr:
 - **structural changes** (bucket add/remove, pg_num splits, rule edits,
   max_osd growth) rebuild the operands, and `full_rebuilds` counts it.
 
-Overlay fixups take the raw rows of the overlay PGs from the rule kernel
-(`PoolMapper.raw_rows`, equal to `OSDMap._pg_to_raw_osds`), refetched only
+Overlay fixups take the raw rows of the overlay PGs from the pipeline
+kernel's raw mode (`PoolMapper.raw_rows`, equal to
+`OSDMap._pg_to_raw_osds`), refetched only
 when a descent input changed, and replay the cheap host steps (upmap, the
 up filter, primary affinity) on those few rows.
 

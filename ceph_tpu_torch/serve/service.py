@@ -2,8 +2,8 @@
 admission control, crash-restart.
 
 The port of `ceph_tpu/serve/service.py`.  Lookups run through
-`PoolMapper.map_batch` over a `ClusterState`: on the card the rule kernel
-(`crush/csrc/crush_rule.cu`), on the CPU (`device="cpu"`) its plain
+`PoolMapper.map_batch` over a `ClusterState`: on the card the pipeline
+kernel (`osd/csrc/pipeline.cu`), on the CPU (`device="cpu"`) its plain
 version.
 
 Threading model (all bounded, all join-able):

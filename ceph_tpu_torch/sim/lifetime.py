@@ -26,7 +26,7 @@ port's subsystems into one long-running run:
   and a PG wounded past its tolerance while un-drained is lost (the `|D`
   digest segment and the latched `DATA_LOSS` health check).
 - **Accounting stays on the device.**  A pool's rows are
-  `ClusterState.rows` (the rule kernel on the card), version-tagged: an
+  `ClusterState.rows` (the pipeline kernel on the card), version-tagged: an
   epoch that changed nothing feeding a pool's mapping skips its remap
   and its stats (equal tags guarantee equal rows).  The epoch stats
   (`_stats_torch`), the recovery drain (`recovery.queue`) and the client

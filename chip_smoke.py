@@ -8,7 +8,12 @@ and the CUDA toolkit.  It builds every kernel from the sources in the
 checkout (one nvcc per source, all at once) and prints what ptxas
 reports of each, holds each kernel against its plain PyTorch version (the
 rule kernel both with the shared-memory staging its wrapper chooses and
-with none; the GF kernel on single products and on grouped lists),
+with none; the GF kernel on single products and on grouped lists; the
+pipeline kernel, `pipeline_vs_plain`, in its three modes against the
+plain chain on the card on the placement corpus, the maps of
+tests/data/pipeline_kernel_cases.json and configs 2 and 5; every path
+through PoolMapper counts pipeline launches, crushtool --test the rule
+kernel's),
 drives the erasure-coding path (the RS corpus profiles,
 RS(8,4) encode/decode at full size, the clay, shec and lrc corpus
 profiles, BASELINE config 4's Clay(8,4,11) encode (its plan's grouped
@@ -394,7 +399,9 @@ def phase_build() -> dict:
     block (gf_matmul: S / 4 KiB of tables, S = 8 at RS(8,4), a 32 KiB
     ring and 32 KiB of output tiles; crush_rule: the
     crush_ln tables and 16 B per staged record, placement_main prints
-    the total), the rule kernel's launch plan (`mapper.launch_plan`) and
+    the total), the rule kernel's launch plan (`mapper.launch_plan`), the
+    pipeline kernel's (`pipeline.launch_plan`: the rule's body and staging
+    with the stages after it; its registers beside the rule kernel's) and
     the plan kernel's (`upmap.loop_launch_plan` at config 5's OSDs: its
     cooperative grid and dynamic shared memory)."""
     t0 = time.perf_counter()
@@ -404,6 +411,7 @@ def phase_build() -> dict:
     for src in libs:
         kernels.update(build.ptxas_report(src))
     plan = vars(mapper.launch_plan(torch.cuda.current_device()))
+    pipe_plan = vars(pipeline.launch_plan(torch.cuda.current_device()))
     # at config 5's OSDs, with phase (a)'s shared memory of 8 B an OSD
     loop_plan = vars(upmap.loop_launch_plan(torch.cuda.current_device(),
                                             UPMAP_PLAN_OSDS))
@@ -415,6 +423,16 @@ def phase_build() -> dict:
           "libraries": {src: str(lib.relative_to(ROOT))
                         for src, lib in libs.items()},
           "kernels": kernels, "crush_rule_plan": plan,
+          "pipeline_plan": pipe_plan,
+          # the fused kernel's registers and residency beside the rule
+          # kernel's: the stages after the rule must not cost the descent
+          # a resident warp
+          "registers": {"crush_rule": plan["registers"],
+                        "pipeline": pipe_plan["registers"]},
+          "resident_threads_per_sm": {
+              "crush_rule": plan["threads"] * plan["blocks_per_sm"],
+              "pipeline": pipe_plan["threads"]
+              * pipe_plan["blocks_per_sm"]},
           "upmap_loop_plan": loop_plan,
           "dynamic_smem_per_block": {
               # 256 bytes of tables per input row of the widest product,
@@ -907,7 +925,7 @@ def phase_clay_repair(dev, peak: float) -> dict:
     return launches, rows
 
 
-# -- placement: the rule kernel on the card ----------------------------------
+# -- placement: the rule kernel and the pipeline kernel on the card ---------
 
 CONFIGS = {
     # BASELINE.json configs 2 and 5, built as bench.py::build_map builds
@@ -997,6 +1015,78 @@ def phase_rule_vs_plain(dev, corpus: dict, pms: dict) -> tuple[int, dict]:
     return worst, draws, legacy
 
 
+PIPELINE_CASES = ROOT / "tests" / "data" / "pipeline_kernel_cases.json"
+PIPELINE_MODES = tuple(pipeline.MODES)
+
+
+def pipeline_checked(pm: PoolMapper, ps: torch.Tensor, what: str) -> int:
+    """pipeline_cuda on seeds ps in each mode, with the wrapper's staging
+    and with none, each output held element for element to the plain
+    chain on the card (`pipeline_plain`: the rule kernel and the torch
+    ops); returns the max abs error (0)."""
+    err = 0
+    for mode in PIPELINE_MODES:
+        want = pm.pipeline_plain(ps, mode)
+        for stage in (None, 0):
+            got = pipeline.pipeline_cuda(pm, ps, mode, stage=stage)
+            torch.cuda.synchronize()
+            check(len(got) == len(want), f"pipeline {mode} outputs")
+            for g, w in zip(got, want):
+                if g.numel():
+                    err = max(err, int((g.long() - w).abs().max()))
+                check(g.dtype == torch.int32 and torch.equal(g.long(), w),
+                      f"pipeline kernel == plain chain ({what}, {mode}, "
+                      f"stage {stage})")
+    return err
+
+
+def phase_pipeline_vs_plain(dev, corpus: dict, pms: dict) -> int:
+    """The pipeline kernel against the plain chain on the card, in its
+    three modes, with the wrapper's staging and with none: every
+    placement corpus map and every map of
+    tests/data/pipeline_kernel_cases.json (the 16 pipeline test cases and
+    two maps with every overlay at once and rows wider than the pool),
+    each with its overlays and without, its rows also held to the JAX
+    package's stored rows; config 2 whole, config 5's first PLAIN_BLOCK
+    PGs and, in `up` mode (map_all_device's), all of them."""
+    worst, cases = 0, []
+    maps = [(f"corpus_{name}", osdmap_from_reference(e["map"]),
+             e["pool_id"], None) for name, e in sorted(corpus.items())]
+    stored = json.loads(PIPELINE_CASES.read_text())["cases"]
+    maps += [(name, osdmap_from_reference(e["map"]), e["pool"], e["jax"])
+             for name, e in sorted(stored.items())]
+    for name, m, pid, jax in maps:
+        width = PoolMapper(m, pid, device=dev).spec.out_width
+        for ov in (True, False):
+            pm = PoolMapper(m, pid, device=dev, overlays=ov)
+            ps = torch.arange(pm.spec.pg_num, device=dev)
+            worst = max(worst, pipeline_checked(pm, ps, f"{name} {ov}"))
+            if jax is not None and ov:
+                got = pipeline.pipeline_cuda(pm, ps, "rows")
+                check(all(g.cpu().tolist() == w
+                          for g, w in zip(got, jax["rows"])),
+                      f"pipeline kernel == the JAX package's rows ({name})")
+        cases.append({"case": name, "pgs": pm.spec.pg_num,
+                      "width": width, "equal": True,
+                      "equal_to_jax_rows": jax is not None})
+    for name, n in (("config2", CONFIGS["config2"][0]),
+                    ("config5", PLAIN_BLOCK)):
+        pm = pms[name]
+        worst = max(worst, pipeline_checked(
+            pm, torch.arange(n, device=dev), f"{name}, {n} PGs"))
+        cases.append({"case": name, "pgs": n, "equal": True})
+    pm = pms["config5"]
+    ps = torch.arange(pm.spec.pg_num, device=dev)
+    got = pipeline.pipeline_cuda(pm, ps, "up")[0]
+    check(torch.equal(got.long(), pm.pipeline_plain(ps, "up")[0]),
+          "pipeline kernel == plain chain (config5, all PGs, up)")
+    cases.append({"case": "config5_up", "pgs": pm.spec.pg_num,
+                  "equal": True})
+    emit({"phase": "pipeline_vs_plain", "cases": cases,
+          "max_abs_err": worst})
+    return worst
+
+
 def placement_digest(rows) -> str:
     h = hashlib.sha256()
     for a in rows:
@@ -1006,7 +1096,8 @@ def placement_digest(rows) -> str:
 
 def phase_placement_corpus(dev, corpus: dict) -> int:
     """Every corpus entry's digest through PoolMapper.map_all() on the
-    card: one launch per entry (each pool has fewer than BLOCK PGs)."""
+    card: one pipeline launch per entry (each pool has fewer than BLOCK
+    PGs)."""
     maps = {name: osdmap_from_reference(e["map"])
             for name, e in corpus.items()}
 
@@ -1017,7 +1108,7 @@ def phase_placement_corpus(dev, corpus: dict) -> int:
                   f"placement digest {name}")
 
     _, n = counted(len(corpus), "placement corpus", drive,
-                   mapper.crush_rule_cuda)
+                   pipeline.pipeline_cuda)
     emit({"phase": "placement_corpus", "entries": sorted(corpus),
           "digests_equal": True, "launches": n})
     return n
@@ -1048,6 +1139,9 @@ DRAW_OPS = {
     "compare": 6,  # weight != 0; 64-bit compare (2); keep draw (2), index
 }
 OPS_PER_DRAW = sum(DRAW_OPS.values())
+# the placement seed's hash32_2 a PG in the pipeline kernel: seed^a^b,
+# 3 mixes of 9 steps (IADD3 + SHF + LOP3 each), counted as hash3 is
+HASH2_OPS = 1 + 3 * 9 * 3
 # A second reading beside the bound: hash3's IADD3/SHF/LOP3 alone, on the
 # 64 INT32 lanes per clock of an sm_90 SM (the bound prices them at the
 # issue rate of 128)
@@ -1130,9 +1224,13 @@ def all_draws(pm: PoolMapper, n: int, draws: torch.Tensor) -> torch.Tensor:
 
 def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
     """Config 2 through map_all, config 5 through map_all_device: each
-    entry point called once with the launch count from 0, checked, then
-    timed (kernel, entry point, plain version) with CUDA events.  The
-    issue bound counts the draws this run's PGs need, OPS_PER_DRAW each."""
+    entry point called once with the pipeline kernel's launch count from
+    0 (one launch per BLOCK seeds), checked, then timed with CUDA events:
+    the rule kernel alone, the pipeline kernel in the entry point's mode,
+    the entry point, the plain chain on the card (the torch ops around the
+    rule kernel) and the rule's plain version.  The issue bound counts the
+    draws this run's PGs need, OPS_PER_DRAW each (the pipeline's adds one
+    seed hash a PG, HASH2_OPS)."""
     flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
     clock = max_sm_clock_hz()
     issue_rate = H100_SMS * SCHEDULERS_PER_SM * WARP * clock
@@ -1140,13 +1238,16 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
     for name, (n_pgs, n_osds) in CONFIGS.items():
         pm = pms[name]
         expected = -(-n_pgs // mapper.BLOCK)
-        if name == "config2":
-            entry = pm.map_all
-            rows, n = counted(expected, name, entry, mapper.crush_rule_cuda)
-            up = torch.from_numpy(rows[0]).to(dev)
-        else:
-            entry = pm.map_all_device
-            up, n = counted(expected, name, entry, mapper.crush_rule_cuda)
+        entry, mode = ((pm.map_all, "rows") if name == "config2"
+                       else (pm.map_all_device, "up"))
+        # the entry point launches the pipeline kernel alone: no rule
+        # kernel, no diagnostics kernel
+        out, rule_n, diag_n, n = count_placement(entry)
+        check((rule_n, diag_n, n) == (0, 0, expected),
+              f"{name}: {n} pipeline, {rule_n} crush_rule and {diag_n} "
+              f"diag launches, expected {expected} pipeline launches only")
+        up = (torch.from_numpy(out[0]).to(dev) if name == "config2"
+              else out)
         check(tuple(up.shape) == (n_pgs, 3), f"{name}: up shape")
         stats = sanity(name, pm.m, up)
         x, w = rule_inputs(pm, n_pgs)
@@ -1155,14 +1256,15 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
             lambda: mapper.crush_rule_cuda(pm.tables, pm.prog, xb, wb),
             flush, runs=7)
         entry_ms = time_ms(entry, flush, runs=5)
-        # the entry point's first two stages on their own: the placement
-        # seeds, then map_rule (the kernel with its int32 conversions);
-        # the rest of entry_ms is the post-CRUSH stages (and, for
-        # map_all, the copy to the host)
+        # the entry point's kernel alone (the rest of entry_ms is the
+        # seeds' arange and, for map_all, the copy to the host), and the
+        # plain chain it replaced on the card: the seeds' and the stages'
+        # torch ops around the rule kernel
         ps = torch.arange(n_pgs, device=dev)
-        seeds_ms = time_ms(lambda: pm.placement_seeds(ps), flush, runs=5)
-        rule_ms = time_ms(
-            lambda: mapper.map_rule(pm.tables, pm.prog, x, w), flush, runs=5)
+        pipe_ms = time_ms(lambda: pipeline.pipeline_cuda(pm, ps, mode),
+                          flush, runs=7)
+        chain_ms = time_ms(lambda: pm.pipeline_plain(ps, mode), flush,
+                           runs=3)
         pn = draws[name].numel()  # the block the plain version was held to
         px, pw = rule_inputs(pm, pn)
         pxb = mapper.u32_bits(px)
@@ -1194,12 +1296,32 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
         nbytes = rule_bytes(pm.tables, pm.prog, pm.rule_weights().numel(),
                             n_pgs)
         bytes_ms = nbytes / peak * 1e3
+        pplan = pipeline.launch_plan(torch.cuda.current_device())
+        pipe_bytes = pipeline._pipeline_work((
+            pm.tables, pm.prog, n_pgs, pm.dev["weight"].numel(), mode,
+            pm.spec.out_width, 0))[0]
+        pipe_ops_ms = (ops + n_pgs * HASH2_OPS) / issue_rate * 1e3
+        pipe_bytes_ms = pipe_bytes / peak * 1e3
+        pipe_bound = max(pipe_ops_ms, pipe_bytes_ms)
         out = {
             "config": name, "pgs": n_pgs, "osds": n_osds, "launches": n,
-            "ms": kernel_ms, "entry_ms": entry_ms, "seeds_ms": seeds_ms,
-            "rule_ms": rule_ms,
+            "ms": kernel_ms, "entry_ms": entry_ms,
             "mappings_per_s": n_pgs / (kernel_ms * 1e-3),
             "entry_mappings_per_s": n_pgs / (entry_ms * 1e-3),
+            "pipeline_mode": mode, "pipeline_ms": pipe_ms,
+            "pipeline_over_rule": pipe_ms / kernel_ms,
+            "pipeline_mappings_per_s": n_pgs / (pipe_ms * 1e-3),
+            "plain_chain_ms": chain_ms,
+            "pipeline_ops_ms": pipe_ops_ms,
+            "pipeline_hbm_bytes": pipe_bytes,
+            "pipeline_bytes_ms": pipe_bytes_ms,
+            "pipeline_bound_ms": pipe_bound,
+            "pipeline_bound_by": "operations"
+            if pipe_ops_ms >= pipe_bytes_ms else "bytes",
+            "pipeline_bound_share": pipe_bound / pipe_ms,
+            "pipeline_threads": pplan.threads,
+            "pipeline_staged_records": mapper.staged_records(pm.tables,
+                                                             pplan),
             "plain_pgs": pn, "plain_ms": plain_ms, "block_ms": block_ms,
             "draws": n_draws, "draws_per_pg": draws_per_pg,
             "ops_per_draw": OPS_PER_DRAW, "draw_ops": DRAW_OPS,
@@ -1369,6 +1491,14 @@ def cli_counts(text: str, pattern: str) -> dict[int, int]:
     return {int(i): int(c) for i, c in re.findall(pattern, text)}
 
 
+def cli_kernel(tool):
+    """The kernel a placement CLI's mapping launches: `crushtool --test`
+    runs the rule alone (crush/tester.py, the rule kernel), osdmaptool
+    maps through PoolMapper (the pipeline kernel)."""
+    return mapper.crush_rule_cuda if tool is crushtool \
+        else pipeline.pipeline_cuda
+
+
 def phase_cli_placement(dev, pms: dict) -> dict:
     """The placement CLIs through their main(argv), on the card (their
     default device), each counted from 0: BASELINE config 1 (`crushtool
@@ -1379,7 +1509,8 @@ def phase_cli_placement(dev, pms: dict) -> dict:
     1 at HEALTH_WARN), each stdout's sha256 (and the upmap file's) equal
     to the JAX CLIs' (tests/data/cli_corpus.json); then config 5 through both, the
     per-OSD counts each prints equal to the osd_histogram of
-    map_all_device's rows.  One launch per (rule, numrep) pass or pool."""
+    map_all_device's rows.  One launch per (rule, numrep) pass (the rule
+    kernel) or pool (the pipeline kernel)."""
     corpus = json.loads(CLI_CORPUS.read_text())
     want, want_files = corpus["stdout_sha256"], corpus["file_sha256"]
     test1 = ["-i", "m", "--test", "--num-rep", "3", "--min-x", "0",
@@ -1391,9 +1522,10 @@ def phase_cli_placement(dev, pms: dict) -> dict:
     with tempfile.TemporaryDirectory() as d, contextlib.chdir(d):
         def hashed(name, setup, tool, argv, launches, pgs, want_rc=0):
             setup()
+            kernel = cli_kernel(tool)
             (text, sec), n = counted(launches, f"CLI {name}",
                                      lambda: run_cli(tool, argv, want_rc),
-                                     mapper.crush_rule_cuda)
+                                     kernel)
             digest = hashlib.sha256(text.encode()).hexdigest()
             check(digest == want[name], f"CLI {name}: stdout sha256 "
                   f"{digest} != the JAX CLI's {want[name]}")
@@ -1401,8 +1533,8 @@ def phase_cli_placement(dev, pms: dict) -> dict:
                 got = hashlib.sha256(Path(f).read_bytes()).hexdigest()
                 check(got == fsha, f"CLI {name}: {f} sha256 {got} != the "
                       f"JAX CLI's {fsha}")
-            res[name] = {"launches": n, "seconds": sec,
-                         "mappings_per_s": pgs / sec,
+            res[name] = {"launches": n, "kernel": kernel.record.name,
+                         "seconds": sec, "mappings_per_s": pgs / sec,
                          "sha256_equal": True,
                          "files_equal": sorted(want_files.get(name, {}))}
 
@@ -1451,15 +1583,15 @@ def phase_cli_placement(dev, pms: dict) -> dict:
                 ("config5_osdmaptool", osdmaptool,
                  ["c5", "--test-map-pgs", "--pool", "0"],
                  r"\nosd\.(\d+)\t(\d+)\t")):
+            kernel = cli_kernel(tool)
             (text, sec), n = counted(1, f"CLI {name}",
-                                     lambda: run_cli(tool, argv),
-                                     mapper.crush_rule_cuda)
+                                     lambda: run_cli(tool, argv), kernel)
             got = cli_counts(text, pattern)
             check(len(got) > 0 and all(hist[i] == c for i, c in got.items())
                   and sum(got.values()) == int(hist.sum()),
                   f"CLI {name}: per-OSD counts == map_all_device's")
-            res[name] = {"launches": n, "seconds": sec,
-                         "mappings_per_s": C5_X / sec,
+            res[name] = {"launches": n, "kernel": kernel.record.name,
+                         "seconds": sec, "mappings_per_s": C5_X / sec,
                          "osds_printed": len(got), "counts_equal": True}
     emit({"phase": "cli_placement", "commands": res})
     return res
@@ -1595,7 +1727,7 @@ def plan_round_bytes(n: int, w: int) -> tuple[int, int]:
 
 def rebalance_config5(dev, c5: dict, check_each: bool):
     """bench.py::bench_rebalance on config 5: three device_loop rounds
-    sharing one mapper cache.  Each round is counted from 0 (one rule
+    sharing one mapper cache.  Each round is counted from 0 (one pipeline
     kernel launch, the DeviceState build).  With check_each, each round
     is replayed against the counts of the map with its upmaps mapped on
     the card before and after (outside the counted window)."""
@@ -1617,7 +1749,7 @@ def rebalance_config5(dev, c5: dict, check_each: bool):
                                rng=np.random.default_rng(entry["rng"]),
                                device_cache=cache, device=dev,
                                **c5["kwargs"]),
-                           mapper.crush_rule_cuda)
+                           pipeline.pipeline_cuda)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         c1 = counts("balancer")
@@ -1681,7 +1813,7 @@ def phase_balancer_main(dev, peak: float) -> dict:
             r, n = counted(1, f"config2 {name}", lambda: calc_pg_upmaps(
                 m, max_deviation=c2["max_deviation"],
                 max_iter=c2["max_iter"], rng=np.random.default_rng(c2["rng"]),
-                device=dev, **entry["kwargs"]), mapper.crush_rule_cuda)
+                device=dev, **entry["kwargs"]), pipeline.pipeline_cuda)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         digest = plan_digest(m)
@@ -1740,7 +1872,7 @@ def phase_balancer_main(dev, peak: float) -> dict:
                       "peak_device_bytes": peak}
     for r in rounds:
         print(f"config5 round rng {r['rng']}: wall {r['wall_s']:.3f} s, "
-              f"build {r['build_ms']} ms ({r['launches']} crush_rule "
+              f"build {r['build_ms']} ms ({r['launches']} pipeline "
               f"launch), plan {r['plan_ms']} ms, other {r['other_ms']:.3f} "
               f"ms, {r['loop_rounds']} plan "
               f"rounds, {r['host_syncs']} host syncs, {r['changes']} "
@@ -2098,14 +2230,14 @@ def mgr_cli_cases(corpus: dict, tmp: Path, dev) -> dict:
 
 
 def timed(fn):
-    """fn() synchronised on both sides, with the rule kernel's launch
+    """fn() synchronised on both sides, with the pipeline kernel's launch
     count set to 0 just before and read just after: (out, s, launches)."""
     torch.cuda.synchronize()
-    mapper.crush_rule_cuda.launches = 0
+    pipeline.pipeline_cuda.launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, mapper.crush_rule_cuda.launches
+    return out, time.perf_counter() - t0, pipeline.pipeline_cuda.launches
 
 
 def state_rows_checked(st, step: str, seeds: np.ndarray, dev) -> dict:
@@ -2140,7 +2272,7 @@ def phase_mgr_balancer(dev, smi: str) -> dict:
     sampled seeds `host_up`.  Then crush-compat on config 2 with 25
     iterations, the balancer CLI on config 2 (optimize --plan-out, show,
     execute), and every entry of tests/data/mgr_corpus.json on the card.
-    Each step's rule kernel launches are counted from 0."""
+    Each step's pipeline kernel launches are counted from 0."""
     launches, steps = {}, {}
     torch.cuda.reset_peak_memory_stats()
     n_pgs, n_osds = CONFIGS["config5"]
@@ -2290,7 +2422,7 @@ def phase_mgr_balancer(dev, smi: str) -> dict:
     emit(dict(phase="mgr_balancer", **res))
     c5 = (f"config5: state {steps['state_build']['s'] * 1e3:.6f} ms, "
           f"first rows {steps['first_rows']['s'] * 1e3:.6f} ms "
-          f"({steps['first_rows']['launches']} crush_rule launch), eval "
+          f"({steps['first_rows']['launches']} pipeline launch), eval "
           f"{steps['eval']['s']:.6f} s ({steps['eval']['launches']}), "
           f"optimize {steps['optimize']['s']:.6f} s "
           f"({steps['optimize']['launches']}), execute "
@@ -2319,14 +2451,18 @@ DIAG_SAMPLE = 512  # config-5 seeds whose histogram is held to mapper_ref
 SIM_SAMPLE = 32  # seeds a failure_sim epoch holds to the host oracle
 
 
-def count_both(fn):
-    """fn() with both rule kernels' launch counts set to 0 just before and
-    read just after: (out, rule launches, diag launches)."""
-    mapper.crush_rule_cuda.launches = 0
-    mapper.crush_rule_diag_cuda.launches = 0
+PLACEMENT_KERNELS = (mapper.crush_rule_cuda, mapper.crush_rule_diag_cuda,
+                     pipeline.pipeline_cuda)
+
+
+def count_placement(fn):
+    """fn() with the three placement kernels' launch counts set to 0 just
+    before and read just after: (out, rule launches, diag launches,
+    pipeline launches)."""
+    for k in PLACEMENT_KERNELS:
+        k.launches = 0
     out = fn()
-    return (out, registry_launches(mapper.crush_rule_cuda),
-            registry_launches(mapper.crush_rule_diag_cuda))
+    return (out, *(registry_launches(k) for k in PLACEMENT_KERNELS))
 
 
 def diag_checked(T, prog, x, w, what: str) -> tuple[int, dict]:
@@ -2426,10 +2562,12 @@ def phase_diagnose_main(dev, pms: dict, n_draws: int, peak: float) -> dict:
                                         PoolMapper(pm.m, 0, state=state))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        s, rule_n, diag_n = count_both(lambda: mpr.diagnose(record=False))
+        s, rule_n, diag_n, pipe_n = count_placement(
+            lambda: mpr.diagnose(record=False))
         sec = time.perf_counter() - t0
-        check((rule_n, diag_n) == (0, 1),
-              f"diagnose ({label}): {rule_n} rule, {diag_n} diag launches")
+        check((rule_n, diag_n, pipe_n) == (0, 1, 0),
+              f"diagnose ({label}): {rule_n} rule, {diag_n} diag, "
+              f"{pipe_n} pipeline launches")
         check(s["pgs"] == n and s["diag_exact"] and s["unresolved"] == 0,
               f"diagnose ({label}) covers every PG")
         out[label] = {"s": sec, "diag_launches": diag_n, "summary": {
@@ -2508,7 +2646,7 @@ def phase_explain_cli(dev, pms: dict) -> dict:
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out), \
                     contextlib.redirect_stderr(err):
-                rc, rule_n, diag_n = count_both(
+                rc, rule_n, diag_n, pipe_n = count_placement(
                     lambda: crushtool.main(list(argv)))
             sec = time.perf_counter() - t0
             text = out.getvalue()
@@ -2517,8 +2655,9 @@ def phase_explain_cli(dev, pms: dict) -> dict:
             check(digest == case["sha256"], f"crushtool {name}: stdout "
                   f"sha256 {digest} != the JAX CLI's {case['sha256']}")
             want = 1 if "--locate-divergence" in argv else 0
-            check((rule_n, diag_n) == (0, want),
-                  f"crushtool {name}: {rule_n} rule, {diag_n} diag launches")
+            check((rule_n, diag_n, pipe_n) == (0, want, 0),
+                  f"crushtool {name}: {rule_n} rule, {diag_n} diag, "
+                  f"{pipe_n} pipeline launches")
             res[name] = {"rc": rc, "seconds": sec, "sha256_equal": True,
                          "diag_launches": diag_n}
         pm = pms["config5"]
@@ -2526,10 +2665,11 @@ def phase_explain_cli(dev, pms: dict) -> dict:
             f.write(encode_crushmap(pm.m.crush))
         argv = ["-i", "c5crush", "--test", "--num-rep", "3", "--min-x", "0",
                 "--max-x", str(PLAIN_BLOCK - 1), "--show-choose-tries"]
-        ((text, sec), rule_n, diag_n) = count_both(
+        ((text, sec), rule_n, diag_n, pipe_n) = count_placement(
             lambda: run_cli(crushtool, argv))
-        check((rule_n, diag_n) == (1, 1),
-              f"--show-choose-tries: {rule_n} rule, {diag_n} diag launches")
+        check((rule_n, diag_n, pipe_n) == (1, 1, 0),
+              f"--show-choose-tries: {rule_n} rule, {diag_n} diag, "
+              f"{pipe_n} pipeline launches")
         got = cli_counts(text, r"\n (\d+): (\d+)")
         x = torch.arange(PLAIN_BLOCK, device=dev)
         w = torch.full((pm.m.crush.max_devices,), 0x10000, device=dev)
@@ -2592,12 +2732,12 @@ def phase_failure_sim(dev, pms: dict, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim, rule_n, diag_n = count_both(
+    sim, rule_n, diag_n, pipe_n = count_placement(
         lambda: ClusterSim(m, diagnostics=True, device=dev))
     torch.cuda.synchronize()
     epochs = [{"event": "init", "s": time.perf_counter() - t0,
-               "rule_launches": rule_n, "diag_launches": diag_n}]
-    check((rule_n, diag_n) == (1, 1), "ClusterSim init launches")
+               "pipeline_launches": pipe_n, "diag_launches": diag_n}]
+    check((rule_n, diag_n, pipe_n) == (0, 1, 1), "ClusterSim init launches")
     rng = np.random.default_rng(5)
 
     def fetched(cur):
@@ -2608,13 +2748,14 @@ def phase_failure_sim(dev, pms: dict, smi: str) -> dict:
         kw = {"backend": "device_loop"} if method == "balance" else {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rep, rule_n, diag_n = count_both(
+        rep, rule_n, diag_n, pipe_n = count_placement(
             lambda: getattr(sim, method)(*args, **kw))
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        want_rule = 2 if method == "balance" else 1
-        check((rule_n, diag_n) == (want_rule, 1),
-              f"{method}{args}: {rule_n} rule, {diag_n} diag launches")
+        want_pipe = 2 if method == "balance" else 1
+        check((rule_n, diag_n, pipe_n) == (0, 1, want_pipe),
+              f"{method}{args}: {rule_n} rule, {diag_n} diag, {pipe_n} "
+              f"pipeline launches")
         after = fetched(sim.current[0])
         want = numpy_report(before, after, size)
         got = {k: getattr(rep, k) for k in want}
@@ -2628,7 +2769,7 @@ def phase_failure_sim(dev, pms: dict, smi: str) -> dict:
                   f"{method}{args}: seed {ps} == the host oracle")
         agg = sim.diag_history[-1][1]
         epochs.append({"event": f"{method}{args}", "s": sec,
-                       "rule_launches": rule_n, "diag_launches": diag_n,
+                       "pipeline_launches": pipe_n, "diag_launches": diag_n,
                        "report": dataclasses.asdict(rep),
                        "report_equal_numpy": True,
                        "checked_seeds": SIM_SAMPLE,
@@ -2682,7 +2823,7 @@ def fresh_observers() -> None:
 
 def phase_lifetime_corpus(dev) -> dict:
     """Every scenario of tests/data/lifetime_corpus.json on the card
-    (backend "torch"): the JAX digest and summary, the rule kernel's
+    (backend "torch"): the JAX digest and summary, the pipeline kernel's
     launches of each epoch equal to the CPU run's rule calls (0 on every
     epoch in which no pool's rows tag changed), 0 compiles and no rebuild
     on a steady epoch.  Then one scenario stopped after epoch k and
@@ -2693,16 +2834,16 @@ def phase_lifetime_corpus(dev) -> dict:
     for name, ent in sorted(corpus.items()):
         fresh_observers()
         t0 = time.perf_counter()
-        mapper.crush_rule_cuda.launches = 0
+        pipeline.pipeline_cuda.launches = 0
         sim = LifetimeSim(ent["spec"], backend="torch", device=dev)
-        init_n = mapper.crush_rule_cuda.launches
+        init_n = pipeline.pipeline_cuda.launches
         todo = ent["forced"] + [None] * (sim.scenario.epochs
                                          - len(ent["forced"]))
         per_epoch = []
         for ev in todo:
-            mapper.crush_rule_cuda.launches = 0
+            pipeline.pipeline_cuda.launches = 0
             sim.step(force_event=ev)
-            per_epoch.append(mapper.crush_rule_cuda.launches)
+            per_epoch.append(pipeline.pipeline_cuda.launches)
         out = sim.run()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
@@ -2929,7 +3070,7 @@ def phase_lifetime_main(dev, smi: str, peak: float) -> dict:
     2M EC 4+2) over 10k OSDs, 48 epochs with the workload, correlated
     failures and the queue model, the mgr balancer every 16 epochs, with
     ec_gbps measured on the card first.  Each epoch: its event, wall
-    seconds, rule launches (held to the map_all_device and raw_rows calls
+    seconds, pipeline launches (held to the map_all_device and raw_rows calls
     that make them: 0 on an epoch whose tags did not change), the
     CUDA-event ms of the stats, drain and traffic programs; the first
     LIFETIME_CHECKED epochs that ran the stats have every program's
@@ -2959,12 +3100,12 @@ def phase_lifetime_main(dev, smi: str, peak: float) -> dict:
         fresh_observers()
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
-        mapper.crush_rule_cuda.launches = 0
+        pipeline.pipeline_cuda.launches = 0
         t0 = time.perf_counter()
         sim = LifetimeSim(spec, backend="torch", device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        init_launches = mapper.crush_rule_cuda.launches
+        init_launches = pipeline.pipeline_cuda.launches
         clock.take_ms()
         parts = time_parts(sim)
         epochs, checked, check_s, oracle_s = [], {}, 0.0, 0.0
@@ -2974,13 +3115,13 @@ def phase_lifetime_main(dev, smi: str, peak: float) -> dict:
             capture = [] if len(checked) < LIFETIME_CHECKED else None
             clock.capture = capture
             torch.cuda.synchronize()
-            mapper.crush_rule_cuda.launches = 0
+            pipeline.pipeline_cuda.launches = 0
             parts.update(dict.fromkeys(parts, 0.0))
             t0 = time.perf_counter()
             r = sim.step()
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
-            n = mapper.crush_rule_cuda.launches
+            n = pipeline.pipeline_cuda.launches
             clock.capture = None
             changed = sorted(p for p, ent in sim._prev_rows.items()
                              if tags0.get(p) != ent[0])
@@ -3114,12 +3255,12 @@ def forced_epochs(sim, dev, rng) -> dict:
     for kind in ("expand", "remove"):
         rb0 = sim.state.full_rebuilds
         torch.cuda.synchronize()
-        mapper.crush_rule_cuda.launches = 0
+        pipeline.pipeline_cuda.launches = 0
         t0 = time.perf_counter()
         r = sim.step(force_event=kind)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        n = mapper.crush_rule_cuda.launches
+        n = pipeline.pipeline_cuda.launches
         check(r["event"].startswith(kind),
               f"forced {kind}: the event was {r['event'][:80]!r}")
         t1 = time.perf_counter()
@@ -3258,14 +3399,14 @@ def phase_fleet_corpus(dev) -> int:
     """tests/test_fleet.py's DIGEST_SPEC on the card: each member's digest
     == the JAX FleetSim's (tests/data/fleet_corpus.json) == a solo port
     run's; the loss member lost PGs and the DATA_LOSS latch holds; each
-    fleet epoch's rule launches == the CPU run's rule calls, and its stats
+    fleet epoch's pipeline launches == the CPU run's rule calls, and its stats
     call's lanes == the CPU run's."""
     want = json.loads(FLEET_CORPUS.read_text())["digest_spec"]
     fresh_observers()
     t0 = time.perf_counter()
-    mapper.crush_rule_cuda.launches = 0
+    pipeline.pipeline_cuda.launches = 0
     fleet = FleetSim(parse_fleet(want["spec"]), device=dev)
-    init_n = mapper.crush_rule_cuda.launches
+    init_n = pipeline.pipeline_cuda.launches
     lanes, real = [], sim_lifetime._stats_lanes
 
     def stats_lanes(prevs, rowss, *a):
@@ -3277,9 +3418,9 @@ def phase_fleet_corpus(dev) -> int:
     try:
         while fleet.live():
             lanes.append([])
-            mapper.crush_rule_cuda.launches = 0
+            pipeline.pipeline_cuda.launches = 0
             fleet.step()
-            per_epoch.append(mapper.crush_rule_cuda.launches)
+            per_epoch.append(pipeline.pipeline_cuda.launches)
     finally:
         sim_lifetime._stats_lanes = real
     out = fleet.summary()
@@ -3367,19 +3508,19 @@ class FleetRun:
             if self.cuda:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats(self.dev)
-            mapper.crush_rule_cuda.launches = 0
+            pipeline.pipeline_cuda.launches = 0
             t0 = time.perf_counter()
             fleet = FleetSim(parse_fleet(self.spec), device=self.dev)
             if self.cuda:
                 torch.cuda.synchronize()
             init_s = time.perf_counter() - t0
-            init = (mapper.crush_rule_cuda.launches if self.cuda
+            init = (pipeline.pipeline_cuda.launches if self.cuda
                     else n["rule"])
             epochs = []
             while fleet.live():
                 n.update(rule=0, map_all=0, raw=0)
                 stats.clear()
-                mapper.crush_rule_cuda.launches = 0
+                pipeline.pipeline_cuda.launches = 0
                 t0 = time.perf_counter()
                 recs = fleet.step()
                 if self.cuda:
@@ -3387,7 +3528,7 @@ class FleetRun:
                 sec = time.perf_counter() - t0
                 kinds = [r["event"].split(" ")[0].split("(")[0]
                          for r in recs]
-                launches = (mapper.crush_rule_cuda.launches if self.cuda
+                launches = (pipeline.pipeline_cuda.launches if self.cuda
                             else n["rule"])
                 balance = "balance" in kinds
                 if self.cuda:
@@ -3625,7 +3766,7 @@ def phase_serve_corpus(dev) -> int:
     block, value-only, overlay, structural and adopted swaps, the
     two-pool map's mixed submit and placement digest, a front, the JAX
     checkpoint resumed and the port's own; then an admission burst of
-    max_queue + 8 (exactly 8 EBUSY).  Returns the rule kernel's
+    max_queue + 8 (exactly 8 EBUSY).  Returns the pipeline kernel's
     launches from 0, the burst excluded.  (The injected device loss is
     runtime_main's.)"""
     from ceph_tpu_torch.serve import meshcheck, service
@@ -3635,7 +3776,7 @@ def phase_serve_corpus(dev) -> int:
     cases = corpus["cases"]
     fresh_observers()
     torch.cuda.synchronize()
-    mapper.crush_rule_cuda.launches = 0
+    pipeline.pipeline_cuda.launches = 0
     replies = []
     svc = PlacementService(serve_map(), config=serve_cfg(), device=dev,
                            name="chip.corpus")
@@ -3784,8 +3925,8 @@ def phase_serve_corpus(dev) -> int:
             svc.close()
     device_only(replies, "serve_corpus")
     torch.cuda.synchronize()
-    launches = mapper.crush_rule_cuda.launches
-    check(launches > 0, "serve_corpus: the rule kernel launched")
+    launches = pipeline.pipeline_cuda.launches
+    check(launches > 0, "serve_corpus: the pipeline kernel launched")
 
     # the admission burst, outside the count
     svc = PlacementService(serve_map(), config=serve_cfg(), device=dev,
@@ -3916,9 +4057,11 @@ def serve_rows_checked(svc, seeds: np.ndarray, what: str, dev) -> None:
 def sub_block_parts(pm, seeds: np.ndarray, runs: int = 20) -> dict:
     """Where one bulk sub-block's time goes (medians of `runs`, after the
     counted window): the whole `map_batch` (host clock), its rows left
-    on the card (`_rows`, synchronised), and the rule kernel alone on the
-    same placement seeds (CUDA events), held to its plain version, whose
-    draws give the issue bound of these lanes (OPS_PER_DRAW a draw)."""
+    on the card (`_rows`, synchronised), the pipeline kernel that computes
+    them and the rule kernel alone on the same seeds (CUDA events), the
+    rule kernel held to its plain version, whose draws give the issue
+    bound of these lanes (OPS_PER_DRAW a draw), the pipeline kernel to the
+    plain chain."""
     def median_s(fn):
         out = []
         for _ in range(runs):
@@ -3932,15 +4075,24 @@ def sub_block_parts(pm, seeds: np.ndarray, runs: int = 20) -> dict:
     ps = pm._seeds(seeds)
     x = mapper.u32_bits(pm.placement_seeds(ps))
     w = mapper.u32_bits(mapper._weight_vector(pm.rule_weights()))
-    kernel = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        mapper.crush_rule_cuda(pm.tables, pm.prog, x, w)
-        end.record()
-        end.synchronize()
-        kernel.append(start.elapsed_time(end))
+    def event_ms(fn):
+        out = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return statistics.median(out)
+
+    kernel_ms = event_ms(lambda: mapper.crush_rule_cuda(pm.tables, pm.prog,
+                                                        x, w))
+    pipe_ms = event_ms(lambda: pipeline.pipeline_cuda(pm, ps, "rows"))
+    check(all(torch.equal(g.long(), p) for g, p in zip(
+        pipeline.pipeline_cuda(pm, ps, "rows"), pm.pipeline_plain(ps))),
+        "serve_main (a): sub-block pipeline kernel == plain chain")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want, draws = mapper.crush_rule_plain(pm.tables, pm.prog, x, w)
@@ -3956,7 +4108,7 @@ def sub_block_parts(pm, seeds: np.ndarray, runs: int = 20) -> dict:
             "map_batch_ms": median_s(lambda: pm.map_batch(seeds)) * 1e3,
             "rows_on_device_ms": median_s(lambda: pm._rows(
                 pm._seeds(seeds))) * 1e3,
-            "kernel_ms": statistics.median(kernel)}
+            "pipeline_ms": pipe_ms, "kernel_ms": kernel_ms}
 
 
 def phase_serve_main(dev, smi: str) -> dict:
@@ -4034,7 +4186,7 @@ def phase_serve_main(dev, smi: str) -> dict:
                 0, g.integers(0, n_pgs, SERVE_SCALAR_BATCH))), SERVE_SEED)
         applies: list = []
         torch.cuda.synchronize()
-        mapper.crush_rule_cuda.launches = 0
+        pipeline.pipeline_cuda.launches = 0
         t0 = time.perf_counter()
         clients.start()
         next_swap = t0 + 1.0
@@ -4059,7 +4211,7 @@ def phase_serve_main(dev, smi: str) -> dict:
         stall = c1["swap_stall_seconds"]
         b.update(
             s=wall, qps=b["lookups"] / wall,
-            launches=mapper.crush_rule_cuda.launches, swaps=len(applies),
+            launches=pipeline.pipeline_cuda.launches, swaps=len(applies),
             apply_ms=[round(a * 1e3, 3) for a in applies],
             swap_stall_p99_s=stall["p99"], swap_stall_max_s=stall["max"],
             bytes_uploaded=st1["device_put_bytes"]
@@ -4091,7 +4243,7 @@ def phase_serve_main(dev, smi: str) -> dict:
                   if o not in act and m2.osd_weight[o])
         m2.pg_upmap_items[PgId(0, 1)] = [(act[0], to)]
         torch.cuda.synchronize()
-        mapper.crush_rule_cuda.launches = 0
+        pipeline.pipeline_cuda.launches = 0
         t0 = time.perf_counter()
         clients.start()
         time.sleep(SERVE_BULK_S / 2)
@@ -4111,7 +4263,7 @@ def phase_serve_main(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         c1 = service.dump()
         c.update(s=wall, lookups_per_s=c["lookups"] / wall,
-                 launches=mapper.crush_rule_cuda.launches,
+                 launches=pipeline.pipeline_cuda.launches,
                  stage_s=stage_s, flip_stall_s=swap["swap_stall_s"],
                  structural_swap_stalls=c1["structural_swap_stalls"]
                  - c0["structural_swap_stalls"],
@@ -4143,7 +4295,7 @@ def phase_serve_main(dev, smi: str) -> dict:
             np.uint32) for _ in range(SERVE_FRONT_BLOCKS)]
         f.query_block(0, blocks[0])  # both replicas' latency EWMA
         torch.cuda.synchronize()
-        mapper.crush_rule_cuda.launches = 0
+        pipeline.pipeline_cuda.launches = 0
         faults.arm("serve_dispatch.chip.front.r1", "stall", "0.4", 8)
         lat, replies = [], []
         try:
@@ -4154,7 +4306,7 @@ def phase_serve_main(dev, smi: str) -> dict:
         finally:
             faults.disarm("serve_dispatch.chip.front.r1")
         torch.cuda.synchronize()
-        launches = mapper.crush_rule_cuda.launches
+        launches = pipeline.pipeline_cuda.launches
         check(all(r.ok and r.source == "device" for r in replies),
               "serve_main (d): every lane ok from the device")
         want = PoolMapper(m, 0, device=dev)
@@ -4504,8 +4656,9 @@ OBS_CORPUS = ROOT / "tests" / "data" / "obs_corpus.json"
 PROM_LINE = re.compile(
     r"^[a-zA-Z_][a-zA-Z0-9_]*(\{[^}]*\})? (-?[0-9.e+-]+|NaN|\+Inf)$")
 # the daemon self-test's launches of each kernel: one RS(8,4) encode of
-# 8 x 4096 bytes, one map_batch of 256 PGs, one diagnose
-OBS_KERNELS = (("gf_matmul", "ec", 1), ("crush_rule", "pipeline", 1),
+# 8 x 4096 bytes, one map_batch of 256 PGs (the pipeline kernel), one
+# diagnose
+OBS_KERNELS = (("gf_matmul", "ec", 1), ("pipeline", "pipeline", 1),
                ("crush_rule_diag", "pipeline", 1))
 # a child mapping config 2 on the card in a loop while its admin socket
 # answers (CEPH_TPU_ADMIN_SOCKET); it stops itself after two minutes
@@ -4553,7 +4706,7 @@ def phase_obs_main(pms: dict, smi: str, timed_b: dict) -> dict:
     set, queried twice through `--sock perf dump`: pgs_mapped grows.
     (3) config 5's map_all_device, median of 5, tracing off and on
     (`set_trace_path`); the trace holds each run's pipeline.map_block
-    span and each rule launch's span.  (4) The GF(2^8) kernel's (b)
+    span and each pipeline launch's span.  (4) The GF(2^8) kernel's (b)
     time from `main_path` (CUDA events) booked into its registry
     record: `cache dump`'s achieved GB/s equals the phase's."""
     t_phase = time.perf_counter()
@@ -4666,20 +4819,20 @@ def phase_obs_main(pms: dict, smi: str, timed_b: dict) -> dict:
     off_ms = median_ms()
     path = tmp / "trace.json"
     obs.set_trace_path(str(path))
-    mapper.crush_rule_cuda.launches = 0
+    pipeline.pipeline_cuda.launches = 0
     try:
         on_ms = median_ms()
     finally:
         obs.set_trace_path(None)
-    launches = registry_launches(mapper.crush_rule_cuda)
+    launches = registry_launches(pipeline.pipeline_cuda)
     check(obs.flush(str(path)) == str(path), "obs_main: no trace written")
     events = json.loads(path.read_text())["traceEvents"]
     obs.trace.clear()
     names = [e["name"] for e in events]
     check(names.count("pipeline.map_block") == 5
-          and names.count("pipeline.crush_rule.launch") == launches > 0,
+          and names.count("pipeline.pipeline.launch") == launches > 0,
           f"obs_main: trace holds {names.count('pipeline.map_block')} "
-          f"map_block and {names.count('pipeline.crush_rule.launch')} "
+          f"map_block and {names.count('pipeline.pipeline.launch')} "
           f"launch spans, {launches} launches")
     res["trace"] = {"map_all_device_ms_off": off_ms,
                     "map_all_device_ms_on": on_ms,
@@ -4811,7 +4964,7 @@ def phase_runtime_main(dev, pms: dict, smi: str, peak: float) -> dict:
     stages, and the results equal this process's uninterrupted run.
     (3) Config 5 through ShardedClusterMapper on make_mesh(1) and on a
     4-block split of cuda:0: rows == map_all_device, histograms == a
-    bincount, one rule launch per block, map_stats timed; three
+    bincount, one pipeline launch per block, map_stats timed; three
     rebalance_steps, new_w == the same torch ops on the CPU from the
     same histograms, the step timed beside its byte bound;
     CEPH_TPU_MESH_DEVICES=4 on one card is recorded degraded.  (4)
@@ -4836,7 +4989,7 @@ def phase_runtime_main(dev, pms: dict, smi: str, peak: float) -> dict:
     check(fallback_total() == 0,
           f"every earlier phase: no descent to the host "
           f"({fallback_total()})")
-    rule, gf = {}, {}
+    pipe, gf = {}, {}
 
     # (1) the ladder
     probes = []
@@ -4890,11 +5043,11 @@ def phase_runtime_main(dev, pms: dict, smi: str, peak: float) -> dict:
     check(r2.returncode == 0, f"scheduler resume: rc {r2.returncode} "
           f"{r2.stderr[-2000:]}")
     resumed = json.loads(ck.read_text())
-    mapper.crush_rule_cuda.launches = 0
+    pipeline.pipeline_cuda.launches = 0
     gf_matmul_cuda.launches = 0
     straight = runtime_stages(str(tmp / "straight.json"), False)
     torch.cuda.synchronize()
-    rule["runtime_main_scheduler"] = registry_launches(mapper.crush_rule_cuda)
+    pipe["runtime_main_scheduler"] = registry_launches(pipeline.pipeline_cuda)
     gf["runtime_main_scheduler"] = registry_launches(gf_matmul_cuda)
     check(resumed["stages_done"] == ["map_config2", SCHED_KILL, "rebalance"]
           and resumed["resumed_stages"] == ["map_config2", SCHED_KILL]
@@ -4917,13 +5070,13 @@ def phase_runtime_main(dev, pms: dict, smi: str, peak: float) -> dict:
                        (f"split{MESH_SPLIT}", Mesh([dev] * MESH_SPLIT))):
         scm = ShardedClusterMapper(m5, 0, msh)
         torch.cuda.synchronize()
-        mapper.crush_rule_cuda.launches = 0
+        pipeline.pipeline_cuda.launches = 0
         out = scm.map_stats()
         torch.cuda.synchronize()
-        launches = registry_launches(mapper.crush_rule_cuda)
-        rule[f"runtime_main_{label}"] = launches
+        launches = registry_launches(pipeline.pipeline_cuda)
+        pipe[f"runtime_main_{label}"] = launches
         check(launches == msh.size,
-              f"{label}: one rule launch per block ({launches})")
+              f"{label}: one pipeline launch per block ({launches})")
         DV = scm.DV
         check(torch.equal(out["up"][:n], want)
               and torch.equal(out["acting"][:n], want),
@@ -4996,11 +5149,11 @@ def phase_runtime_main(dev, pms: dict, smi: str, peak: float) -> dict:
 
     # (4) meshcheck against the JAX worker's digest
     mc_want = json.loads(MESHCHECK_CORPUS.read_text())["digest"]
-    mapper.crush_rule_cuda.launches = 0
+    pipeline.pipeline_cuda.launches = 0
     mc = {split: meshcheck.run(device=dev, split=split)
           for split in (0, MESH_SPLIT)}
     torch.cuda.synchronize()
-    rule["runtime_main_meshcheck"] = registry_launches(mapper.crush_rule_cuda)
+    pipe["runtime_main_meshcheck"] = registry_launches(pipeline.pipeline_cuda)
     check(all(r["digest"] == mc_want and r["oracle_match"]
               for r in mc.values()),
           f"meshcheck digest == the JAX worker's ({mc})")
@@ -5033,7 +5186,7 @@ def phase_runtime_main(dev, pms: dict, smi: str, peak: float) -> dict:
     fresh_observers()
     seeds = np.asarray([5, 9, 100, 200], np.uint32)
     d0 = dict(obs.group_view("serve"))
-    mapper.crush_rule_cuda.launches = 0
+    pipeline.pipeline_cuda.launches = 0
     svc = PlacementService(serve_map(), config=serve_cfg(), device=dev,
                            name="chip.loss")
     try:
@@ -5048,8 +5201,8 @@ def phase_runtime_main(dev, pms: dict, smi: str, peak: float) -> dict:
     finally:
         svc.close()
     torch.cuda.synchronize()
-    rule["runtime_main_device_loss"] = registry_launches(
-        mapper.crush_rule_cuda)
+    pipe["runtime_main_device_loss"] = registry_launches(
+        pipeline.pipeline_cuda)
     d = obs.group_view("serve")
     want = stored["serve"]["rows"][0]
     rec = {
@@ -5085,7 +5238,7 @@ def phase_runtime_main(dev, pms: dict, smi: str, peak: float) -> dict:
            "meshcheck": {str(k): v["digest"] for k, v in mc.items()},
            "device_loss": {"lifetime_raised_at_epoch": lost_epoch,
                            "serve": rec},
-           "launches": {"rule": rule, "gf": gf}}
+           "launches": {"pipeline": pipe, "gf": gf}}
     emit(res)
     return res
 
@@ -5115,32 +5268,37 @@ def main() -> int:
     strat, strat_paths = phase_ec_strategies(dev, info["peak_bw"], res)
     by_path.update(strat_paths)
 
-    # placement: the same, for the rule kernel
+    # placement: the same, for the rule kernel and the pipeline kernel.
+    # crushtool --test runs the rule kernel (rule_paths); every path
+    # through PoolMapper runs the pipeline kernel (pipe_paths)
     corpus = {e["name"]: e for e in
               json.loads(PLACEMENT_CORPUS.read_text())["entries"]}
     pms = {name: PoolMapper(bench_map(*shape), 0, device=dev)
            for name, shape in CONFIGS.items()}
     rule_err, draws, legacy = phase_rule_vs_plain(dev, corpus, pms)
-    rule_paths = {"placement_corpus": phase_placement_corpus(dev, corpus)}
+    pipe_err = phase_pipeline_vs_plain(dev, corpus, pms)
+    rule_paths = {}
+    pipe_paths = {"placement_corpus": phase_placement_corpus(dev, corpus)}
     pres = phase_placement_main(dev, pms, draws, info["peak_bw"])
-    rule_paths.update({key: r["launches"] for key, r in pres.items()})
+    pipe_paths.update({key: r["launches"] for key, r in pres.items()})
     lres = phase_legacy_main(dev, legacy, info["peak_bw"])
     # the plan kernel's launches by path: each path counted from 0 by
     # plan_path (or by its phase), every device_loop plan one launch
     plan_paths = {}
     with plan_path(plan_paths, "cli_placement"):
         cres = phase_cli_placement(dev, pms)
-    rule_paths.update({f"cli_{key}": r["launches"]
-                       for key, r in cres.items()})
+    for key, r in cres.items():
+        paths = rule_paths if r["kernel"] == "crush_rule" else pipe_paths
+        paths[f"cli_{key}"] = r["launches"]
     bal_paths, bres = phase_balancer_main(dev, info["peak_bw"])
-    rule_paths.update(bal_paths)
+    pipe_paths.update(bal_paths)
     plan_paths.update(bres["plan_paths"])
     loop = phase_loop_vs_plain(dev, info["peak_bw"])
     plan_paths.update({f"loop_vs_plain_{key}": n
                        for key, n in loop["launches_by_path"].items()})
     with plan_path(plan_paths, "mgr_balancer", need=True):
         mgr_paths, mres = phase_mgr_balancer(dev, info["nvidia_smi"])
-    rule_paths.update(mgr_paths)
+    pipe_paths.update(mgr_paths)
 
     # placement diagnostics and the failure simulator: the diagnostics
     # kernel vs its plain version, then its paths, each counted from 0
@@ -5158,7 +5316,7 @@ def main() -> int:
         fres = phase_failure_sim(dev, pms, info["nvidia_smi"])
     for i, e in enumerate(fres["epochs"]):
         diag_paths[f"sim_config5_{i}"] = e["diag_launches"]
-        rule_paths[f"sim_config5_{i}"] = e["rule_launches"]
+        pipe_paths[f"sim_config5_{i}"] = e["pipeline_launches"]
 
     # the native host engines beside the kernels
     nat = phase_native_main(dev, pms, info["nvidia_smi"])
@@ -5169,45 +5327,45 @@ def main() -> int:
     # read from that process's kernel registry
     ores = phase_obs_main(pms, info["nvidia_smi"], res["b"])
     by_path["obs_main_daemon"] = ores["daemon"]["launches"]["gf_matmul"]
-    rule_paths["obs_main_daemon"] = ores["daemon"]["launches"]["crush_rule"]
+    pipe_paths["obs_main_daemon"] = ores["daemon"]["launches"]["pipeline"]
     diag_paths["obs_main_daemon"] = \
         ores["daemon"]["launches"]["crush_rule_diag"]
-    rule_paths["obs_main_trace"] = ores["trace"]["launches"]
+    pipe_paths["obs_main_trace"] = ores["trace"]["launches"]
 
     # the runtime and mesh slice: the ladder, the stage scheduler, the
     # mesh at config 5, meshcheck and the armed device losses
     rt = phase_runtime_main(dev, pms, info["nvidia_smi"], info["peak_bw"])
-    rule_paths.update(rt["launches"]["rule"])
+    pipe_paths.update(rt["launches"]["pipeline"])
     by_path.update(rt["launches"]["gf"])
 
     # the lifetime simulator: the corpus, then config 5's size
     del pms
     torch.cuda.empty_cache()
     with plan_path(plan_paths, "lifetime_corpus"):
-        rule_paths.update({f"lifetime_corpus_{name}": n for name, n in
+        pipe_paths.update({f"lifetime_corpus_{name}": n for name, n in
                            phase_lifetime_corpus(dev).items()})
     with plan_path(plan_paths, "lifetime_main"):
         life = phase_lifetime_main(dev, info["nvidia_smi"],
                                    info["peak_bw"])
-    rule_paths["lifetime_main"] = life["launches"]
+    pipe_paths["lifetime_main"] = life["launches"]
     for kind, r in life["forced_epochs"].items():
-        rule_paths[f"lifetime_main_{kind}"] = r["launches"]
+        pipe_paths[f"lifetime_main_{kind}"] = r["launches"]
     by_path["lifetime_ec_calibration"] = life["ec_calibration"]["launches"]
 
     # the fleet simulator: the JAX digest corpus, then the bench's sweep
     torch.cuda.empty_cache()
     with plan_path(plan_paths, "fleet_corpus"):
-        rule_paths["fleet_corpus"] = phase_fleet_corpus(dev)
+        pipe_paths["fleet_corpus"] = phase_fleet_corpus(dev)
     with plan_path(plan_paths, "fleet_main", need=True):
         fleet = phase_fleet_main(dev, info["nvidia_smi"], info["peak_bw"])
-    rule_paths["fleet_main_small"] = sum(fleet["small"]["launches"])
+    pipe_paths["fleet_main_small"] = sum(fleet["small"]["launches"])
     for mode in ("stacked", "unstacked"):
-        rule_paths[f"fleet_main_{mode}"] = fleet[mode]["launches"]
+        pipe_paths[f"fleet_main_{mode}"] = fleet[mode]["launches"]
 
     # the placement service: the corpus scripts, then config 5's traffic
     torch.cuda.empty_cache()
     with plan_path(plan_paths, "serve_corpus"):
-        rule_paths["serve_corpus"] = phase_serve_corpus(dev)
+        pipe_paths["serve_corpus"] = phase_serve_corpus(dev)
     # serve_main resets the serve group and checks its own lanes
     check(fallback_total() == 0,
           f"the phases after runtime_main: no descent to the host "
@@ -5215,7 +5373,7 @@ def main() -> int:
     with plan_path(plan_paths, "serve_main"):
         serve = phase_serve_main(dev, info["nvidia_smi"])
     for part in ("bulk", "scalar", "structural", "front"):
-        rule_paths[f"serve_main_{part}"] = serve[part]["launches"]
+        pipe_paths[f"serve_main_{part}"] = serve[part]["launches"]
     torch.cuda.synchronize()
     check(fallback_total() == 0 and serve["degraded_answered"] == 0,
           "serve_main: no descent to the host")
@@ -5281,8 +5439,7 @@ def main() -> int:
         "bound_by": c5["bound_by"],
         "library_ms": None,
         "shapes": {key: {f: r[f] for f in (
-            "pgs", "ms", "entry_ms", "seeds_ms", "rule_ms",
-            "mappings_per_s", "plain_pgs",
+            "pgs", "ms", "mappings_per_s", "plain_pgs",
             "plain_ms", "block_ms", "draws", "draws_per_pg", "ops_per_draw",
             "ops_ms", "int_pipe_ms", "bytes_ms", "bound_ms", "bound_by",
             "staged_records", "records", "ms_by_stage")}
@@ -5294,12 +5451,44 @@ def main() -> int:
             "bound_ms", "bound_by", "bound_share") if f in r}
                    for key, r in lres.items()},
         "cli": {key: {f: r[f] for f in ("seconds", "mappings_per_s")}
-                for key, r in cres.items()},
+                for key, r in cres.items() if r["kernel"] == "crush_rule"},
         # the native C++ mapper on config 5, one core (the first
         # NATIVE_ONE_CORE_X seeds) and all (NATIVE_X), beside this kernel
         # on the same seeds: CUDA-event kernel time against host wall
         # time, not crushtool end to end
         "native_config5": nat["config5"],
+    }, {
+        "name": "pipeline",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/osd/csrc/pipeline.cu",
+        "replaces": "ceph_tpu/osd/pipeline_jax.py:221::compile_pipeline "
+                    "(its fn :298 under jax.jit(jax.vmap(fn)) :699; XLA, "
+                    "no pallas_call)",
+        "equal": pipe_err == 0,
+        "launches": sum(pipe_paths.values()),
+        "launches_by_path": pipe_paths,
+        "max_abs_err": pipe_err,
+        # config 5 (10M PGs) in map_all_device's mode ("up"); plain_ms is
+        # the plain chain on the card (the rule kernel and the torch ops
+        # it replaced), beside the rule kernel alone and the entry point
+        "ms": c5["pipeline_ms"],
+        "plain_ms": c5["plain_chain_ms"],
+        "bound_ms": c5["pipeline_bound_ms"],
+        "bound_by": c5["pipeline_bound_by"],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes a placement",
+        "rule_kernel_ms": c5["ms"],
+        "entry_ms": c5["entry_ms"],
+        "shapes": {key: {f: r[f] for f in (
+            "pgs", "pipeline_mode", "pipeline_ms", "ms", "entry_ms",
+            "plain_chain_ms", "pipeline_over_rule",
+            "pipeline_mappings_per_s", "entry_mappings_per_s",
+            "pipeline_ops_ms", "pipeline_bytes_ms", "pipeline_bound_ms",
+            "pipeline_bound_by", "pipeline_bound_share",
+            "pipeline_threads", "pipeline_staged_records")}
+                   for key, r in pres.items()},
+        "cli": {key: {f: r[f] for f in ("seconds", "mappings_per_s")}
+                for key, r in cres.items() if r["kernel"] == "pipeline"},
         # the rebalance rounds of config 5: the launches of each round's
         # DeviceState build (one per pool) and the plan's host syncs
         "balancer_config5": [{f: r[f] for f in (
@@ -5372,7 +5561,7 @@ def main() -> int:
         "diagnose_ms": dres["diagnose_ms"],
         "diagnose_s": {k: dres[k]["s"] for k in ("mapper", "state")},
         "cli": {k: r["seconds"] for k, r in eres.items()},
-        "failure_sim": [{f: e[f] for f in ("event", "s", "rule_launches",
+        "failure_sim": [{f: e[f] for f in ("event", "s", "pipeline_launches",
                                           "diag_launches")}
                         for e in fres["epochs"]],
         "failure_sim_peak_device_bytes": fres["peak_device_bytes"],

@@ -140,6 +140,7 @@ def test_perf_dump_groups_keys_and_values_equal_jax(dumps, masked):
         len(CORPUS["unresolved_seeds"])
     # no kernel launches on the CPU: the plain versions ran
     assert port["pipeline"]["crush_rule_launches"] == 0
+    assert port["pipeline"]["pipeline_launches"] == 0
     assert port["ec"]["gf_matmul_launches"] == 0
 
 
@@ -177,7 +178,8 @@ def test_explain_equals_jax(dumps):
 def test_cache_dump_and_metrics(dumps):
     cache = json.loads(dumps["cache dump"])
     entries = {e["kernel"]: e for e in cache["entries"]}
-    assert set(entries) == {"gf_matmul", "crush_rule", "crush_rule_diag"}
+    assert set(entries) == {"gf_matmul", "crush_rule", "crush_rule_diag",
+                            "pipeline"}
     for e in entries.values():
         assert e["launches"] == 0 and len(e["source_hash"]) == 16
         assert e["enqueue_seconds"]["count"] == 0

@@ -115,21 +115,24 @@ def hier_map(rng, pool=None, n_host=8, osd_per_host=4, **kw):
     )
 
 
-def test_replicated_clean(rng):
-    check_pool(hier_map(rng), 0)
+# The maps of the 16 cases: name -> builder(rng) -> (ceph_tpu OSDMap, pool
+# id).  tests/test_torch_pipeline_kernel_host.py builds them too.
+
+def _replicated_clean(rng):
+    return hier_map(rng), 0
 
 
-def test_build_simple():
-    check_pool(build_simple(8, pg_bits=4), 1)
+def _build_simple(rng):
+    return build_simple(8, pg_bits=4), 1
 
 
-def test_replicated_down_out(rng):
+def _replicated_down_out(rng):
     m = hier_map(rng)
     for o in rng.choice(m.max_osd, 6, replace=False):
         m.mark_down(int(o))
     for o in rng.choice(m.max_osd, 5, replace=False):
         m.mark_out(int(o))
-    check_pool(m, 0)
+    return m, 0
 
 
 def _ec_map(rng, size, pg_num):
@@ -142,16 +145,16 @@ def _ec_map(rng, size, pg_num):
     return m
 
 
-def test_erasure_down_out(rng):
+def _erasure_down_out(rng):
     m = _ec_map(rng, 6, 128)
     for o in rng.choice(m.max_osd, 6, replace=False):
         m.mark_down(int(o))
     for o in rng.choice(m.max_osd, 4, replace=False):
         m.mark_out(int(o))
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_primary_affinity(rng):
+def _primary_affinity(rng):
     m = hier_map(rng)
     for o in range(m.max_osd):
         r = rng.integers(0, 4)
@@ -159,10 +162,10 @@ def test_primary_affinity(rng):
             m.set_primary_affinity(o, 0)
         elif r == 1:
             m.set_primary_affinity(o, int(rng.integers(0, 0x10000)))
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_upmap_full_and_items(rng):
+def _upmap_full_and_items(rng):
     m = hier_map(rng)
     pool = m.pools[0]
     for ps in rng.choice(pool.pg_num, 20, replace=False):
@@ -176,10 +179,10 @@ def test_upmap_full_and_items(rng):
             m.pg_upmap_items[PgId(0, ps)] = [(frm, to)]
     for o in rng.choice(m.max_osd, 4, replace=False):
         m.mark_out(int(o))
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_upmap_multi_pairs(rng):
+def _upmap_multi_pairs(rng):
     m = hier_map(rng)
     pool = m.pools[0]
     for ps in range(0, pool.pg_num, 3):
@@ -189,10 +192,10 @@ def test_upmap_multi_pairs(rng):
         to1 = int((raw[0] + 1) % m.max_osd)
         to2 = int((raw[1] + 7) % m.max_osd)
         m.pg_upmap_items[PgId(0, ps)] = [(raw[0], to1), (raw[1], to2)]
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_pg_temp_primary_temp(rng):
+def _pg_temp_primary_temp(rng):
     m = hier_map(rng)
     pool = m.pools[0]
     for ps in rng.choice(pool.pg_num, 24, replace=False):
@@ -209,10 +212,10 @@ def test_pg_temp_primary_temp(rng):
             m.primary_temp[PgId(0, ps)] = tgt[-1]
     for o in rng.choice(m.max_osd, 8, replace=False):
         m.mark_down(int(o))
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_ec_pg_temp(rng):
+def _ec_pg_temp(rng):
     m = _ec_map(rng, 4, 64)
     for ps in rng.choice(64, 10, replace=False):
         m.pg_temp[PgId(0, int(ps))] = [
@@ -220,10 +223,10 @@ def test_ec_pg_temp(rng):
         ]
     for o in rng.choice(m.max_osd, 6, replace=False):
         m.mark_down(int(o))
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_everything_at_once(rng):
+def _everything_at_once(rng):
     """All overlays + degraded cluster + affinity, replicated."""
     m = hier_map(rng, PgPool(pg_num=256, size=3), n_host=12, n_rack=3)
     pool = m.pools[0]
@@ -254,18 +257,18 @@ def test_everything_at_once(rng):
             ]
         else:
             m.primary_temp[PgId(0, ps)] = int(rng.integers(0, m.max_osd))
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_nonhashpspool(rng):
-    check_pool(hier_map(rng, PgPool(pg_num=64, size=3, flags=0)), 0)
+def _nonhashpspool(rng):
+    return hier_map(rng, PgPool(pg_num=64, size=3, flags=0)), 0
 
 
-def test_non_pow2_pg_num(rng):
-    check_pool(hier_map(rng, PgPool(pg_num=100, size=3, pgp_num=96)), 0)
+def _non_pow2_pg_num(rng):
+    return hier_map(rng, PgPool(pg_num=100, size=3, pgp_num=96)), 0
 
 
-def test_upmap_rejected_full_skips_items(rng):
+def _upmap_rejected_full_skips_items(rng):
     m = hier_map(rng)
     m.mark_out(1)
     for ps in range(0, 32):
@@ -273,17 +276,17 @@ def test_upmap_rejected_full_skips_items(rng):
         m.pg_upmap[PgId(0, ps)] = [0, 1, 2]  # osd.1 is out -> rejected
         if raw:
             m.pg_upmap_items[PgId(0, ps)] = [(raw[0], (raw[0] + 9) % 32)]
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_primary_temp_without_pg_temp(rng):
+def _primary_temp_without_pg_temp(rng):
     m = hier_map(rng)
     for ps in range(0, 64, 5):
         m.primary_temp[PgId(0, ps)] = int(rng.integers(0, m.max_osd))
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_choose_args_default_fallback(rng):
+def _choose_args_default_fallback(rng):
     m = hier_map(rng)
     ca = ChooseArgs()
     for bid, b in m.crush.buckets.items():
@@ -291,10 +294,10 @@ def test_choose_args_default_fallback(rng):
             [max(1, w // 2 + int(rng.integers(0, w + 1))) for w in b.weights]
         ]
     m.crush.choose_args[-1] = ca
-    check_pool(m, 0)
+    return m, 0
 
 
-def test_choose_args_positions_gt1_pipeline(rng):
+def _choose_args_positions_gt1(rng):
     m = hier_map(rng, pool=PgPool(pg_num=64, size=3), n_host=4)
     pid = sorted(m.pools)[0]
     ca = ChooseArgs()
@@ -304,7 +307,81 @@ def test_choose_args_positions_gt1_pipeline(rng):
             for _ in range(2)
         ]
     m.crush.choose_args[pid] = ca
-    pm = check_pool(m, pid)
+    return m, pid
+
+
+MAPS = {f.__name__[1:]: f for f in (
+    _replicated_clean, _build_simple, _replicated_down_out,
+    _erasure_down_out, _primary_affinity, _upmap_full_and_items,
+    _upmap_multi_pairs, _pg_temp_primary_temp, _ec_pg_temp,
+    _everything_at_once, _nonhashpspool, _non_pow2_pg_num,
+    _upmap_rejected_full_skips_items, _primary_temp_without_pg_temp,
+    _choose_args_default_fallback, _choose_args_positions_gt1)}
+
+
+def test_replicated_clean(rng):
+    check_pool(*MAPS["replicated_clean"](rng))
+
+
+def test_build_simple(rng):
+    check_pool(*MAPS["build_simple"](rng))
+
+
+def test_replicated_down_out(rng):
+    check_pool(*MAPS["replicated_down_out"](rng))
+
+
+def test_erasure_down_out(rng):
+    check_pool(*MAPS["erasure_down_out"](rng))
+
+
+def test_primary_affinity(rng):
+    check_pool(*MAPS["primary_affinity"](rng))
+
+
+def test_upmap_full_and_items(rng):
+    check_pool(*MAPS["upmap_full_and_items"](rng))
+
+
+def test_upmap_multi_pairs(rng):
+    check_pool(*MAPS["upmap_multi_pairs"](rng))
+
+
+def test_pg_temp_primary_temp(rng):
+    check_pool(*MAPS["pg_temp_primary_temp"](rng))
+
+
+def test_ec_pg_temp(rng):
+    check_pool(*MAPS["ec_pg_temp"](rng))
+
+
+def test_everything_at_once(rng):
+    """All overlays + degraded cluster + affinity, replicated."""
+    check_pool(*MAPS["everything_at_once"](rng))
+
+
+def test_nonhashpspool(rng):
+    check_pool(*MAPS["nonhashpspool"](rng))
+
+
+def test_non_pow2_pg_num(rng):
+    check_pool(*MAPS["non_pow2_pg_num"](rng))
+
+
+def test_upmap_rejected_full_skips_items(rng):
+    check_pool(*MAPS["upmap_rejected_full_skips_items"](rng))
+
+
+def test_primary_temp_without_pg_temp(rng):
+    check_pool(*MAPS["primary_temp_without_pg_temp"](rng))
+
+
+def test_choose_args_default_fallback(rng):
+    check_pool(*MAPS["choose_args_default_fallback"](rng))
+
+
+def test_choose_args_positions_gt1_pipeline(rng):
+    pm = check_pool(*MAPS["choose_args_positions_gt1"](rng))
     assert pm.arrays.positions == 2
 
 
