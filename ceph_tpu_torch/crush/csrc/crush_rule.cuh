@@ -24,6 +24,15 @@
 // wrapper's plan pass, crush/mapper.py::compile_rule, refuses those maps
 // before a launch).
 //
+// The walk is a template on G, the lanes that map one seed together (a
+// power of two, 1 to 32; the pipeline kernel, osd/csrc/pipeline.cu,
+// chooses it).  G = 1, the default, is the serial walk of one lane, and
+// the only one the rule kernel and its diagnostics variant instantiate.
+// At G > 1 every lane of the group runs the seed's whole control flow;
+// only the straw2 draw is split: lane g draws items g, g + G, ..., and a
+// butterfly over the group's lanes combines their first minima
+// (straw2_group).  The legacy draws stay whole in every lane.
+//
 // The diagnostics variant (crush_rule_diag.cu) defines CRUSH_RULE_DIAG
 // before it includes this file: the same walk, which also books each
 // placement's retry count, the collision, out-of-weight and skip tallies
@@ -357,6 +366,88 @@ CRUSH_HD inline int32_t straw2_choose(const Map& m, const Bucket& b,
     return item_at(m, b.offset + high);
 }
 
+// -- the straw2 draw split over a group of G lanes -------------------------
+// Lane g's partial: the first minimum of (q, index) over items g, g + G,
+// ... of the bucket (records from `base`), as straw2_choose's loop keeps
+// it; a lane without an item holds (UINT64_MAX, size).  straw2_choose
+// keeps its own loop, so that the rule kernel and its diagnostics
+// variant compile the code they compiled before the groups.
+CRUSH_HD inline void straw2_partial(const Map& m, int base, int size,
+                                    uint32_t x, int32_t r, int g, int G,
+                                    uint64_t& high_q, int& high) {
+    high = g < size ? g : size;
+    high_q = UINT64_MAX;
+    for (int i = g; i < size; i += G) {
+        const Record rec = record(m, base + i);
+        uint64_t q = UINT64_MAX;
+        if (rec.weight) {
+            const uint32_t u =
+                hash3(x, (uint32_t)rec.arg_id, (uint32_t)r) & 0xffff;
+            q = straw2_quotient(crush_ln(m, u), rec.magic);
+        }
+        const bool better = q < high_q;
+        high = better ? i : high;
+        high_q = better ? q : high_q;
+    }
+}
+
+// Two partials in (q, index) order: the lower index wins on equal q,
+// which is the serial loop's first minimum.  An order, so every lane of
+// the butterfly ends with the same winner.
+CRUSH_HD inline void straw2_combine(uint64_t& high_q, int& high,
+                                    uint64_t q, int i) {
+    const bool better = q < high_q || (q == high_q && i < high);
+    high = better ? i : high;
+    high_q = better ? q : high_q;
+}
+
+// straw2_choose over the G lanes of a group.  On the card each lane
+// computes its own partial and log2(G) shuffles over the group's mask
+// combine them (the group is G aligned lanes of one warp); on the host one
+// thread computes the G partials in turn and combines them in the
+// butterfly's order, step by step.
+template <int G>
+CRUSH_HD inline int32_t straw2_group(const Map& m, const Bucket& b,
+                                     uint32_t x, int32_t r, int position) {
+    static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0,
+                  "a group is 2 to 32 lanes, a power of two");
+    const int pos = position < m.positions - 1 ? position : m.positions - 1;
+    const int base = m.positions * b.offset + pos * b.size;
+#ifdef __CUDA_ARCH__
+    const unsigned lane = threadIdx.x & 31;
+    const unsigned mask = (0xffffffffu >> (32 - G)) << (lane & (32 - G));
+    uint64_t high_q;
+    int high;
+    straw2_partial(m, base, b.size, x, r, (int)(lane & (G - 1)), G, high_q,
+                   high);
+    for (int s = 1; s < G; s <<= 1) {
+        const uint64_t q = __shfl_xor_sync(mask, high_q, s);
+        const int i = __shfl_xor_sync(mask, high, s);
+        straw2_combine(high_q, high, q, i);
+    }
+#else
+    uint64_t qs[G];
+    int is[G];
+    for (int g = 0; g < G; g++)
+        straw2_partial(m, base, b.size, x, r, g, G, qs[g], is[g]);
+    for (int s = 1; s < G; s <<= 1) {
+        uint64_t nq[G];
+        int ni[G];
+        for (int g = 0; g < G; g++) {
+            nq[g] = qs[g];
+            ni[g] = is[g];
+            straw2_combine(nq[g], ni[g], qs[g ^ s], is[g ^ s]);
+        }
+        for (int g = 0; g < G; g++) {
+            qs[g] = nq[g];
+            is[g] = ni[g];
+        }
+    }
+    const int high = is[0];
+#endif
+    return item_at(m, b.offset + high);
+}
+
 // -- the legacy draws ------------------------------------------------------
 // They ignore choose_args and the position (reference src/crush/mapper.c
 // crush_bucket_choose passes a weight set to straw2 only), so they read
@@ -435,12 +526,15 @@ CRUSH_HD inline int32_t uniform_choose(const Map& m, const Bucket& b,
 }
 
 // crush_bucket_choose (reference src/crush/mapper.c:387-418) for bucket
-// `id` with header b
+// `id` with header b; straw2 split over the group's G lanes
+template <int G = 1>
 CRUSH_HD inline int32_t bucket_choose(const Map& m, const Bucket& b,
                                       int32_t id, uint32_t x, int32_t r,
                                       int position) {
     switch (b.alg) {
-    case ALG_STRAW2: return straw2_choose(m, b, x, r, position);
+    case ALG_STRAW2:
+        if constexpr (G > 1) return straw2_group<G>(m, b, x, r, position);
+        else return straw2_choose(m, b, x, r, position);
     case ALG_STRAW: return straw_choose(m, b, x, r);
     case ALG_LIST: return list_choose(m, b, id, x, r);
     case ALG_TREE: return tree_choose(m, b, id, x, r);
@@ -467,6 +561,7 @@ CRUSH_HD inline bool is_out(const Map& m, int32_t item, uint32_t x) {
 // An indep descent (numrep > 0) draws from a uniform bucket whose size
 // numrep divides with r_uniform in place of r (reference
 // src/crush/mapper.c:716-721); *r_last gets the r of the last draw.
+template <int G = 1>
 CRUSH_HD inline int descend(const Map& m, int32_t start, uint32_t x,
                             int32_t r, int position, int type,
                             int32_t* item, int numrep = 0,
@@ -479,7 +574,7 @@ CRUSH_HD inline int descend(const Map& m, int32_t start, uint32_t x,
                                    b.size % numrep == 0
                                ? r_uniform : r;
         if (r_last) *r_last = rb;
-        const int32_t it = bucket_choose(m, b, id, x, rb, position);
+        const int32_t it = bucket_choose<G>(m, b, id, x, rb, position);
         if (it >= m.max_devices) return SKIP;
         if (it >= 0) {
             if (type != 0) return SKIP;
@@ -500,13 +595,15 @@ CRUSH_HD inline int descend(const Map& m, int32_t start, uint32_t x,
 // chooseleaf firstn's inner pick (reference src/crush/mapper.c:573-588):
 // one device under `bucket`, colliding against out2[0, outpos).  DIAG:
 // *tries_at gets the retry count of the pick.
+template <int G = 1>
 CRUSH_HD inline bool leaf_firstn(const Map& m, int32_t bucket, uint32_t x,
                                  int32_t r0, int outpos, const int32_t* out2,
                                  int tries, int32_t* leaf
                                  DIAG_ARGS(Tally* t, int* tries_at)) {
     for (int ftotal = 0;;) {
         int32_t item;
-        const int st = descend(m, bucket, x, r0 + ftotal, outpos, 0, &item);
+        const int st =
+            descend<G>(m, bucket, x, r0 + ftotal, outpos, 0, &item);
         DIAG(if (st == SKIP) t->skip++;)
         if (st == SKIP) return false;
         if (st == FOUND) {
@@ -528,6 +625,7 @@ CRUSH_HD inline bool leaf_firstn(const Map& m, int32_t bucket, uint32_t x,
 // no local retries).  Returns the number of items placed in out[]; out2[]
 // holds the chooseleaf leaves beside them.  DIAG: lanes are this source's
 // tries lanes (numrep, then numrep more for chooseleaf's leaves).
+template <int G = 1>
 CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
                                   int numrep, int type, int32_t* out,
                                   int32_t* out2, int count, int tries,
@@ -539,7 +637,7 @@ CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
         for (int ftotal = 0;;) {
             const int32_t r = rep + ftotal;
             int32_t item;
-            const int st = descend(m, bucket, x, r, outpos, type, &item);
+            const int st = descend<G>(m, bucket, x, r, outpos, type, &item);
             DIAG(if (st == SKIP) t->skip++;)
             if (st == SKIP) break;
             bool fail = true;
@@ -552,10 +650,10 @@ CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
                 if (!collide && leafy && item < 0) {
                     const int32_t sub_r = vary_r ? (r >> (vary_r - 1)) : 0;
                     DIAG(int leaf_tries = -1;)
-                    reject = !leaf_firstn(m, item, x,
-                                          (stable ? 0 : outpos) + sub_r,
-                                          outpos, out2, recurse_tries, &leaf
-                                          DIAG_ARGS(t, &leaf_tries));
+                    reject = !leaf_firstn<G>(m, item, x,
+                                             (stable ? 0 : outpos) + sub_r,
+                                             outpos, out2, recurse_tries,
+                                             &leaf DIAG_ARGS(t, &leaf_tries));
                     // a leaf found is a placement: the outer item is a
                     // bucket, so no is_out check follows
                     DIAG(lanes[numrep + rep] = leaf_tries;)
@@ -583,15 +681,17 @@ CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
 // chooseleaf indep's inner pick (reference src/crush/mapper.c:784-798):
 // one device under `bucket` for slot `rep`; ITEM_NONE if none.  DIAG:
 // *rounds gets the rounds the inner crush_choose_indep call ran.
+template <int G = 1>
 CRUSH_HD inline int32_t leaf_indep(const Map& m, int32_t bucket, uint32_t x,
                                    int rep, int32_t parent_r, int numrep,
                                    int tries DIAG_ARGS(int* rounds)) {
     DIAG(*rounds = tries;)
     for (int ftotal = 0; ftotal < tries; ftotal++) {
         int32_t item;
-        const int st = descend(m, bucket, x, rep + parent_r + numrep * ftotal,
-                               rep, 0, &item, numrep,
-                               rep + parent_r + (numrep + 1) * ftotal);
+        const int st = descend<G>(m, bucket, x,
+                                  rep + parent_r + numrep * ftotal, rep, 0,
+                                  &item, numrep,
+                                  rep + parent_r + (numrep + 1) * ftotal);
         DIAG(if (st == SKIP || (st == FOUND && !is_out(m, item, x)))
                  *rounds = ftotal + 1;)
         if (st == SKIP) return ITEM_NONE;
@@ -604,6 +704,7 @@ CRUSH_HD inline int32_t leaf_indep(const Map& m, int32_t bucket, uint32_t x,
 // breadth-first over `left` positional slots, ITEM_NONE where none.
 // DIAG: lanes are this source's tries lanes (the rounds, then the leaf
 // calls by rep and round).
+template <int G = 1>
 CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
                                   int left, int numrep, int type,
                                   int32_t* out, int32_t* out2, int tries,
@@ -617,9 +718,9 @@ CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
         for (int rep = 0; rep < endpos; rep++) {
             if (out[rep] != ITEM_UNDEF) continue;
             int32_t item, r;
-            const int st = descend(m, bucket, x, rep + numrep * ftotal, 0,
-                                   type, &item, numrep,
-                                   rep + (numrep + 1) * ftotal, &r);
+            const int st = descend<G>(m, bucket, x, rep + numrep * ftotal, 0,
+                                      type, &item, numrep,
+                                      rep + (numrep + 1) * ftotal, &r);
             if (st == EMPTY) continue;
             if (st == SKIP) {
                 out[rep] = out2[rep] = ITEM_NONE;
@@ -634,9 +735,9 @@ CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
                 // a device is written to out2 before its is_out check
                 // (reference src/crush/mapper.c:799-801)
                 DIAG(int32_t* at = lanes + 1 + rep * tries + ftotal;)
-                out2[rep] = item < 0 ? leaf_indep(m, item, x, rep, r, numrep,
-                                                  recurse_tries
-                                                  DIAG_ARGS(at))
+                out2[rep] = item < 0 ? leaf_indep<G>(m, item, x, rep, r,
+                                                     numrep, recurse_tries
+                                                     DIAG_ARGS(at))
                                      : item;
                 if (out2[rep] == ITEM_NONE) continue;
             }
@@ -654,6 +755,7 @@ CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
 // crush_do_rule (reference src/crush/mapper.c:900-1105).  Writes up to
 // rule.result_max (<= RMAX_CAP) items to result; returns how many.
 // DIAG: books into *d.
+template <int G = 1>
 CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
                             int32_t* result DIAG_ARGS(Diag* d)) {
     const int result_max = rule.result_max;
@@ -715,17 +817,17 @@ CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
                         leaf_tries ? leaf_tries
                                    : (rule.chooseleaf_descend_once
                                           ? 1 : choose_tries);
-                    osize += choose_firstn(
+                    osize += choose_firstn<G>(
                         m, src, x, numrep, arg2, o + osize, leaves + osize,
                         result_max - osize, choose_tries, recurse_tries,
                         leafy, vary_r, stable DIAG_ARGS(&d->tally, lanes));
                 } else {
                     const int out_size = numrep < result_max - osize
                                              ? numrep : result_max - osize;
-                    choose_indep(m, src, x, out_size, numrep, arg2,
-                                 o + osize, leaves + osize, choose_tries,
-                                 leaf_tries ? leaf_tries : 1, leafy
-                                 DIAG_ARGS(lanes));
+                    choose_indep<G>(m, src, x, out_size, numrep, arg2,
+                                    o + osize, leaves + osize, choose_tries,
+                                    leaf_tries ? leaf_tries : 1, leafy
+                                    DIAG_ARGS(lanes));
                     osize += out_size;
                 }
             }

@@ -25,8 +25,25 @@
 //   row: no [N, W] intermediate reaches device memory, and the outputs are
 //   written once, as int32;
 // - what a launch computes is fixed at launch (the mode, the overlays
-//   present, affinity on or off), so a lane without an overlay reads none.
-// Divergence between lanes that retry is left as it is.
+//   present, affinity on or off), so a lane without an overlay reads none;
+// - a launch smaller than the card maps each PG with a group of G lanes
+//   (pipeline_kernel<G>).  A lane's serial descent is the whole
+//   critical path of such a launch: at config 5 a PG makes about 306
+//   straw2 draws (3 replicas of a root of 78 racks, a rack of 16 hosts, a
+//   host of 8 OSDs), each about 174 dependent instructions, and an 8192-PG
+//   launch fills 8 of the 132 SMs.  G is the largest power of two up to
+//   32 with n * G <= the G = 1 kernel's resident lanes (blocks per SM x
+//   threads x SMs, pipeline_plan): 1 at config 5 and config 2, 4 at a
+//   fleet member's 32 768 PGs, 16 at serving's 8192-lane sub-block, 32 at
+//   a micro-batch of 64.  The grid-stride loop counts PGs; every lane of
+//   a group runs the seed and the rule's control flow and the straw2
+//   draws are split over the group (crush_rule.cuh straw2_group: a
+//   strided partial per lane, a butterfly of shuffles); the group's first
+//   lane runs the stages after the rule.  Such a launch spreads its lanes over
+//   the SMs in blocks of at least MIN_GROUP_BLOCK threads.  G = 1 is one
+//   PG a thread and the serial straw2 loop (straw2_choose).
+// Divergence between groups (and, at G = 1, lanes) that retry is left as
+// it is.
 //
 // Prediction (written before this kernel's first run on the card; timed
 // with pipeline_ab.py against the plain chain in turns, NVIDIA H100 80GB
@@ -34,6 +51,17 @@
 // ms to about the rule kernel's 32.6-32.9 ms plus at most 1-2 ms (about
 // 280 M mappings/s); the kernel within about 5 % of the rule kernel on
 // the same PGs.
+//
+// Prediction for the groups (written before their first run on the card;
+// pipeline_ab.py, the parent tree and this one in turns, NVIDIA H100 80GB
+// HBM3), from the bucket sizes and about 174 instructions a draw: at
+// G = 16 a replica's 102 draws become 5 + 1 + 1 strided rounds and three
+// 4-step butterflies, so serving's 8192-lane sub-block of config 5 from
+// 0.642 ms to about 0.06-0.12 ms (map_batch from 0.99 ms to about 0.4-0.5
+// ms of host wall); a 64-lane batch (G = 32) from about 0.6 ms to under
+// 0.06 ms; a fleet member's 32 768-PG pool (G = 4, a root of 8 racks,
+// racks of 16 hosts, hosts of 8) about 3x shorter; config 5 and config 2
+// (G = 1) within 1 % of the parent.
 //
 // Plain C entry points, bound with ctypes (osd/pipeline.py).  The launch
 // runs on the caller's stream, does not synchronise and allocates
@@ -48,9 +76,8 @@ namespace {
 using crush_rule::crush_smem;
 using crush_rule::LN_WORDS;
 
-__global__ void pipeline_kernel(crush_rule::Map m, crush_rule::Rule rule,
-                                pipeline::Pipe p) {
-    // stage: the RH/LH rows, the LL entries, then records[0, n_staged)
+// stage: the RH/LH rows, the LL entries, then records[0, n_staged)
+__device__ __forceinline__ void stage(crush_rule::Map& m) {
     const uint4* rh_lh = reinterpret_cast<const uint4*>(m.rh_lh);
     const uint4* ll = reinterpret_cast<const uint4*>(m.ll);
     const uint4* rec = reinterpret_cast<const uint4*>(m.records);
@@ -62,29 +89,82 @@ __global__ void pipeline_kernel(crush_rule::Map m, crush_rule::Rule rule,
     __syncthreads();
     m.staged = reinterpret_cast<const crush_rule::Record*>(crush_smem +
                                                            LN_WORDS);
-
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         lane < p.n; lane += stride)
-        pipeline::map_pg(m, rule, p, lane);
 }
+
+// One PG a group of G aligned lanes (blockDim.x a multiple of 32 when
+// G > 1); G = 1 is one PG a thread.  The bound gives every G 64
+// registers and one block of 1024 threads an SM: with 1024 alone ptxas
+// takes 32 registers at G > 1 and spills.
+template <int G>
+__global__ void __launch_bounds__(1024, 1)
+    pipeline_kernel(crush_rule::Map m, crush_rule::Rule rule,
+                    pipeline::Pipe p) {
+    stage(m);
+    const int per_block = blockDim.x / G;
+    const long long stride = (long long)gridDim.x * per_block;
+    for (long long pg = (long long)blockIdx.x * per_block + threadIdx.x / G;
+         pg < p.n; pg += stride)
+        pipeline::map_pg<G>(m, rule, p, pg);
+}
+
+using Kernel = void (*)(crush_rule::Map, crush_rule::Rule, pipeline::Pipe);
+
+Kernel kernel_of(int group) {
+    switch (group) {
+    case 1: return pipeline_kernel<1>;
+    case 2: return pipeline_kernel<2>;
+    case 4: return pipeline_kernel<4>;
+    case 8: return pipeline_kernel<8>;
+    case 16: return pipeline_kernel<16>;
+    case 32: return pipeline_kernel<32>;
+    default: return nullptr;
+    }
+}
+
+// The smallest block of a group launch: every block stages the same
+// crush_ln tables and records, so a block of few threads stages them
+// slowly (512 against 256 and 1024 on the card: pipeline_ab.py).
+constexpr int MIN_GROUP_BLOCK = 512;
 
 size_t smem_bytes(int n_staged) {
     return (size_t)(LN_WORDS + n_staged) * sizeof(uint4);
+}
+
+// The group of a launch of n PGs at `threads` a block: the largest power
+// of two G <= 32 with n * G <= the G = 1 kernel's resident lanes there
+// (crush_ln tables staged, as pipeline_plan reckons them).
+cudaError_t group_for(long long n, int threads, int* group) {
+    int dev, sms, per_sm;
+    cudaError_t e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+        return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, pipeline_kernel<1>, threads, smem_bytes(0))) !=
+        cudaSuccess)
+        return e;
+    const long long resident = (long long)per_sm * threads * sms;
+    int g = 1;
+    while (g < 32 && n * 2 * g <= resident) g *= 2;
+    *group = g;
+    return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// crush_rule_plan's ten values for this kernel: registers per thread,
-// local bytes per thread, static shared bytes per block, the occupancy
-// calculator's block size (crush_ln tables staged), resident blocks per SM
-// at that size, shared memory per SM, shared memory a block may opt in
-// to, shared memory the system reserves per block, SMs, and the bytes of
-// shared memory a block holds before any record.
-int pipeline_plan(int* out) {
-    const auto k = pipeline_kernel;
+// crush_rule_plan's ten values for the kernel of group G (1: one PG a
+// thread; 2 to 32, a power of two): registers per thread, local bytes per
+// thread, static shared bytes per block, the occupancy calculator's block
+// size (crush_ln tables staged), resident blocks per SM at that size,
+// shared memory per SM, shared memory a block may opt in to, shared
+// memory the system reserves per block, SMs, and the bytes of shared
+// memory a block holds before any record.
+int pipeline_plan(int group, int* out) {
+    const Kernel k = kernel_of(group);
+    if (!k) return cudaErrorInvalidValue;
     cudaFuncAttributes fa;
     cudaError_t e = cudaFuncGetAttributes(&fa, k);
     if (e != cudaSuccess) return e;
@@ -112,11 +192,19 @@ int pipeline_plan(int* out) {
     return (int)cudaGetLastError();
 }
 
+// The group a launch of n PGs at `threads` a block runs with, into *group.
+int pipeline_group(long long n, int threads, int* group) {
+    if (n < 0 || threads < 1) return cudaErrorInvalidValue;
+    return (int)group_for(n, threads, group);
+}
+
 // The rule's arguments are crush_rule_launch's (the reweights as the
 // mapper's int64 vector); `pipe` is a host pointer to the pool's operands,
-// whose pointers are device pointers.  `threads` lanes a block; the grid
-// is as many blocks as fit on the card at once (at n_staged records a
-// block), and never more than the seeds need.
+// whose pointers are device pointers.  The group is pipeline_group's.
+// `threads` lanes a block (a multiple of 32), fewer in a group launch
+// that spreads over the SMs; the grid is as many blocks as fit on the
+// card at once (at n_staged records a block), and never more than the
+// PGs' groups need.
 int pipeline_launch(
     const int32_t* headers, const int32_t* records, const int32_t* items,
     const uint32_t* nodes, const int64_t* weight, const int64_t* rh_lh,
@@ -132,19 +220,32 @@ int pipeline_launch(
         threads < 1 || p.mode < pipeline::MODE_ROWS ||
         p.mode > pipeline::MODE_RAW)
         return cudaErrorInvalidValue;
-    const auto k = pipeline_kernel;
+    int group;
+    cudaError_t e = group_for(p.n, threads, &group);
+    if (e != cudaSuccess) return e;
+    if (group > 1 && threads % 32) return cudaErrorInvalidValue;
+    const Kernel k = kernel_of(group);
     const size_t smem = smem_bytes(n_staged);
-    cudaError_t e = cudaFuncSetAttribute(
+    e = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     int dev, sms, per_sm;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    // a group launch spreads its lanes over the SMs: blocks of its lanes
+    // an SM, a multiple of 32, at least MIN_GROUP_BLOCK and at most
+    // `threads`
+    if (group > 1) {
+        long long block = (p.n * group + sms - 1) / sms;
+        block = (block + 31) / 32 * 32;
+        if (block < MIN_GROUP_BLOCK) block = MIN_GROUP_BLOCK;
+        if (block < threads) threads = (int)block;
+    }
     if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &per_sm, k, threads, smem)) != cudaSuccess)
         return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long need = (p.n + threads - 1) / threads;
+    const long long need = (p.n * group + threads - 1) / threads;
     const long long resident = (long long)per_sm * sms;
     const unsigned blocks = (unsigned)(need < resident ? need : resident);
     crush_rule::Map m{headers,

@@ -26,6 +26,13 @@
 //   then pg_temp and primary_temp into acting and acting_primary.
 // Every per-OSD load checks 0 <= v < max_osd first: the vectors may be
 // longer than max_osd, and a NONE or an id past it is never a valid OSD.
+//
+// map_pg is a template on G, the lanes that map one PG together
+// (crush_rule.cuh: the straw2 draws split over the group).  Every lane of
+// a group runs the seed and the rule's whole control flow, so a group
+// never diverges within itself where it shuffles; its first lane alone
+// runs the stages after the rule, which shuffle nothing, and stores the
+// rows and the primaries.
 
 #pragma once
 
@@ -231,7 +238,21 @@ CRUSH_HD inline void apply_temp(const Pipe& p, long long s, long long lane,
     p.acting_primary_out[lane] = acting_primary;
 }
 
-// The whole pipeline for lane `lane` of the launch.
+// Whether this lane runs the stages after the rule and stores its group's
+// outputs: the group's first lane on the card (a group is G aligned lanes
+// of a warp), the one thread that runs the group on the host.
+template <int G>
+CRUSH_HD inline bool group_lead() {
+#ifdef __CUDA_ARCH__
+    return G == 1 || (threadIdx.x & (G - 1)) == 0;
+#else
+    return true;
+#endif
+}
+
+// The whole pipeline for lane `lane` of the launch (the PG of a group of
+// G lanes).
+template <int G = 1>
 CRUSH_HD inline void map_pg(const crush_rule::Map& m,
                             const crush_rule::Rule& rule, const Pipe& p,
                             long long lane) {
@@ -241,7 +262,10 @@ CRUSH_HD inline void map_pg(const crush_rule::Map& m,
 
     // stage 2 and _remove_nonexistent_osds (reference OSDMap.cc:2412)
     int32_t row[WMAX];
-    const int got = p.has_rule ? crush_rule::do_rule(m, rule, pps, row) : 0;
+    const int got =
+        p.has_rule ? crush_rule::do_rule<G>(m, rule, pps, row) : 0;
+    // no shuffle follows the rule: the group's other lanes are done
+    if (!group_lead<G>()) return;
     for (int i = got; i < w; i++) row[i] = ITEM_NONE;
     if (p.can_shift) {
         compact(p, row, w, p.exists);

@@ -10,7 +10,9 @@ On the card the whole chain is one hand-written kernel
 (`osd/csrc/pipeline.cu`, body `pipeline.cuh`, wrapper `pipeline_cuda`):
 one launch per block of up to `crush.mapper.BLOCK` seeds, in one of three
 modes (all four planes, `up` only, the raw rows), the rule run by the
-rule kernel's body.  On the CPU the same function is its plain version,
+rule kernel's body.  A launch smaller than the card maps each PG with a
+group of G lanes that split its straw2 draws (`group_size`: G from the
+launch's shape alone, 1 at the large ones).  On the CPU the same function is its plain version,
 `PoolMapper.pipeline_plain`: the rule's plain version
 (`crush.mapper.map_rule`) and torch ops on [N, W] rows (W = the pool's
 padded width), computed as `compile_pipeline` computes it.  `_raw`, `_up`
@@ -294,8 +296,10 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pipeline_launch.argtypes = [p] * 8 + [i] * 13 + [p, p]
         lib.pipeline_launch.restype = i
-        lib.pipeline_plan.argtypes = [p]
+        lib.pipeline_plan.argtypes = [i, p]
         lib.pipeline_plan.restype = i
+        lib.pipeline_group.argtypes = [ctypes.c_longlong, i, p]
+        lib.pipeline_group.restype = i
         lib.pipeline_error_string.argtypes = [i]
         lib.pipeline_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
@@ -308,14 +312,35 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"pipeline {what} failed: {msg}")
 
 
+GROUPS = (1, 2, 4, 8, 16, 32)  # the kernel's instantiations (pipeline.cu)
+
+
 @functools.cache
-def launch_plan(device_index: int) -> LaunchPlan:
-    """The kernel's LaunchPlan on one card (crush.mapper.LaunchPlan, from
-    this build's registers)."""
+def launch_plan(device_index: int, group: int = 1) -> LaunchPlan:
+    """The LaunchPlan (crush.mapper.LaunchPlan, from this build's
+    registers) on one card of the kernel that maps a PG with `group`
+    lanes; group 1's is every launch's block size."""
+    if group not in GROUPS:
+        raise ValueError(f"pipeline: group {group} not in {GROUPS}")
     out = (ctypes.c_int * 10)()
     with torch.cuda.device(device_index):
-        _check(_lib().pipeline_plan(ctypes.addressof(out)), "plan")
+        _check(_lib().pipeline_plan(group, ctypes.addressof(out)), "plan")
     return LaunchPlan(*out)
+
+
+def group_size(n: int, device_index: int | None = None) -> int:
+    """The lanes a launch of n PGs on the card maps each PG with: the
+    largest power of two G <= 32 with n * G <= the resident lanes of
+    `launch_plan(device_index)` (the launch itself computes it in the same
+    C function, from its shape alone)."""
+    if device_index is None:
+        device_index = torch.cuda.current_device()
+    plan = launch_plan(device_index)
+    out = ctypes.c_int()
+    with torch.cuda.device(device_index):
+        _check(_lib().pipeline_group(n, plan.threads, ctypes.addressof(out)),
+               "group")
+    return out.value
 
 
 @functools.cache
@@ -333,9 +358,10 @@ def pipeline_cuda(pm: "PoolMapper", ps: torch.Tensor, mode: str = "rows",
     the mapper's card -> int32 tensors, (up [N, W], up_primary [N],
     acting [N, W], acting_primary [N]) for mode "rows", (up,) for "up"
     (no overlay read) and (raw,) for "raw" (the rows before the
-    overlays), W = pm.spec.out_width.  Runs on the current stream,
-    unsynchronised.  With overlays in mode "rows" the seeds must lie in
-    [0, pg_num) (`PoolMapper._seeds` checks the caller's).  `stage` is
+    overlays), W = pm.spec.out_width; each PG mapped by `group_size(N)`
+    lanes.  Runs on the current stream, unsynchronised.  With overlays in
+    mode "rows" the seeds must lie in [0, pg_num) (`PoolMapper._seeds`
+    checks the caller's).  `stage` is
     the number of records each block copies to shared memory (None:
     `staged_records` of this kernel's plan; every choice gives the same
     rows).  `pipeline_cuda.launches` counts the launches: the kernel's

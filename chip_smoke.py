@@ -11,9 +11,12 @@ rule kernel both with the shared-memory staging its wrapper chooses and
 with none; the GF kernel on single products and on grouped lists; the
 pipeline kernel, `pipeline_vs_plain`, in its three modes against the
 plain chain on the card on the placement corpus, the maps of
-tests/data/pipeline_kernel_cases.json and configs 2 and 5; every path
-through PoolMapper counts pipeline launches, crushtool --test the rule
-kernel's),
+tests/data/pipeline_kernel_cases.json and configs 2 and 5, and at a
+number of lanes that gives each group size G from 1 to 32 on maps with
+every overlay, an EC map and config-5-shaped maps of legacy hosts; every
+path through PoolMapper counts pipeline launches, crushtool --test the
+rule kernel's; `placement_main` prints each timed launch's G, and the
+pipeline kernel's time and bound at 64 and 8192 lanes of config 5),
 drives the erasure-coding path (the RS corpus profiles,
 RS(8,4) encode/decode at full size, the clay, shec and lrc corpus
 profiles, BASELINE config 4's Clay(8,4,11) encode (its plan's grouped
@@ -166,7 +169,7 @@ from ceph_tpu_torch.mgr import Balancer, MappingState, synthetic_pg_stats
 from ceph_tpu_torch.osd.carry import crush_from_reference, osdmap_from_reference
 from ceph_tpu_torch.osd.incremental import Incremental, encode_incremental
 from ceph_tpu_torch.osd.io import save_osdmap
-from ceph_tpu_torch.osd.osdmap import OSD_UP, build_hierarchical
+from ceph_tpu_torch.osd.osdmap import OSD_UP, OSDMap, build_hierarchical
 from ceph_tpu_torch.osd.pipeline import PoolMapper
 from ceph_tpu_torch.osd.state import ClusterState, value_copy_map
 from ceph_tpu_torch.osd.types import PgId, PgPool, PoolType
@@ -412,6 +415,12 @@ def phase_build() -> dict:
         kernels.update(build.ptxas_report(src))
     plan = vars(mapper.launch_plan(torch.cuda.current_device()))
     pipe_plan = vars(pipeline.launch_plan(torch.cuda.current_device()))
+    # each instantiation of the pipeline kernel (a PG per group of G
+    # lanes): its registers, local bytes and the occupancy calculator's
+    # block (every launch runs group 1's block size)
+    group_plans = {
+        g: vars(pipeline.launch_plan(torch.cuda.current_device(), g))
+        for g in pipeline.GROUPS}
     # at config 5's OSDs, with phase (a)'s shared memory of 8 B an OSD
     loop_plan = vars(upmap.loop_launch_plan(torch.cuda.current_device(),
                                             UPMAP_PLAN_OSDS))
@@ -424,6 +433,10 @@ def phase_build() -> dict:
                         for src, lib in libs.items()},
           "kernels": kernels, "crush_rule_plan": plan,
           "pipeline_plan": pipe_plan,
+          "pipeline_group_plans": {
+              g: {k: p[k] for k in ("registers", "local_bytes", "threads",
+                                    "blocks_per_sm")}
+              for g, p in group_plans.items()},
           # the fused kernel's registers and residency beside the rule
           # kernel's: the stages after the rule must not cost the descent
           # a resident warp
@@ -1082,9 +1095,53 @@ def phase_pipeline_vs_plain(dev, corpus: dict, pms: dict) -> int:
           "pipeline kernel == plain chain (config5, all PGs, up)")
     cases.append({"case": "config5_up", "pgs": pm.spec.pg_num,
                   "equal": True})
+    # the groups: the kernel at every G, on maps with every overlay
+    # (replicated and EC) and on config-5-shaped maps of legacy hosts
+    sweep = group_sweep()
+    group_maps = [(name, osdmap_from_reference(stored[name]["map"]),
+                   stored[name]["pool"])
+                  for name in ("random_replicated", "random_ec")]
+    group_maps += [(f"legacy_{alg}", legacy_osdmap(alg), 0)
+                   for alg in LEGACY_ALGS]
+    for name, m, pid in group_maps:
+        pm = PoolMapper(m, pid, device=dev)
+        for g, n in sweep:
+            ps = torch.arange(n, device=dev) % pm.spec.pg_num
+            worst = max(worst, pipeline_checked(
+                pm, ps, f"{name}, {n} lanes, group {g}"))
+        cases.append({"case": f"groups_{name}", "pgs": pm.spec.pg_num,
+                      "lanes_by_group": sweep, "equal": True})
     emit({"phase": "pipeline_vs_plain", "cases": cases,
           "max_abs_err": worst})
     return worst
+
+
+def group_sweep() -> list[tuple[int, int]]:
+    """(G, n) for every group the launch chooses: the largest odd n (never
+    a multiple of the group) a launch maps with G lanes a PG, each held to
+    `pipeline.group_size`; and 1 and 63 lanes (G = 32)."""
+    plan = pipeline.launch_plan(torch.cuda.current_device())
+    resident = plan.blocks_per_sm * plan.threads * plan.sms
+    sweep = [(g, (resident // g - 1) | 1) for g in pipeline.GROUPS]
+    sweep += [(32, 1), (32, 63)]
+    for g, n in sweep:
+        check(pipeline.group_size(n) == g and n % 2 == 1,
+              f"pipeline: {n} lanes map with group {g} "
+              f"(group_size {pipeline.group_size(n)})")
+    return sweep
+
+
+def legacy_osdmap(alg: str):
+    """legacy_map(alg) as an OSDMap: every OSD up and in, one replicated
+    size-3 pool of 2^20 PGs on rule 0."""
+    m = OSDMap(legacy_map(alg))
+    m.set_max_osd(m.crush.max_devices)
+    for o in range(m.max_osd):
+        m.mark_up_in(o)
+    m.add_pool("rbd", PgPool(type=PoolType.REPLICATED, size=3,
+                             crush_rule=0, pg_num=1 << 20,
+                             pgp_num=1 << 20))
+    return m
 
 
 def placement_digest(rows) -> str:
@@ -1320,6 +1377,7 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
             if pipe_ops_ms >= pipe_bytes_ms else "bytes",
             "pipeline_bound_share": pipe_bound / pipe_ms,
             "pipeline_threads": pplan.threads,
+            "pipeline_group": pipeline.group_size(n_pgs),
             "pipeline_staged_records": mapper.staged_records(pm.tables,
                                                              pplan),
             "plain_pgs": pn, "plain_ms": plain_ms, "block_ms": block_ms,
@@ -1339,7 +1397,74 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
         }
         emit(dict(phase="placement_main", **out))
         res[name] = out
+    res["config5"]["small"] = small_launches(dev, pms["config5"],
+                                             draws["config5"], flush, clock,
+                                             issue_rate, peak)
     return res
+
+
+SMALL_LANES = (64, 8192)  # a micro-batch; serving's bulk sub-block
+
+
+def small_bytes(pm: PoolMapper, up: torch.Tensor) -> int:
+    """The bytes a rows-mode launch whose up rows are `up` [n, W] moves at
+    the least: its seeds read (8 B each) and its four planes written, the
+    rule's steps and the crush_ln tables read, and of the map only the
+    buckets above the OSDs of its rows (each header and its records once)
+    and those OSDs' exists and up flags and reweight.  A retry's other
+    buckets are not counted, so this is a floor.  _pipeline_work counts
+    the whole map, which a launch of a few PGs never reads."""
+    n, w = up.shape
+    parent = {it: bid for bid, b in pm.m.crush.buckets.items()
+              for it in b.items}
+    osds = {int(v) for v in up.flatten().tolist() if v != ITEM_NONE}
+    buckets, todo = set(), [parent[o] for o in osds if o in parent]
+    while todo:
+        bid = todo.pop()
+        if bid not in buckets:
+            buckets.add(bid)
+            todo += [parent[bid]] if bid in parent else []
+    rec = sum(soa.HEADER.itemsize + mapper.RECORD_BYTES
+              * len(pm.m.crush.buckets[b].items) for b in buckets)
+    return (8 * n + 4 * n * (2 * w + 2) + pm.prog.steps.nbytes
+            + (258 + 256) * 8 + rec + (1 + 1 + 8) * len(osds))
+
+
+def small_launches(dev, pm: PoolMapper, draws: torch.Tensor,
+                   flush: torch.Tensor, clock: float, issue_rate: float,
+                   peak: float) -> dict:
+    """The pipeline kernel on config 5's first n PGs (rows mode, as
+    map_batch), n in SMALL_LANES: each launch's group, its device time
+    with the L2 flushed and warm (device_ms: the stream held while the
+    host enqueues), its bound (the draws these lanes need, from phase 1's
+    plain version, and a seed hash a PG; the bytes of small_bytes: what
+    these lanes touch, not the whole map) and the plain chain's time."""
+    warm = torch.empty(1, dtype=torch.uint8, device=dev)
+    out = {}
+    for n in SMALL_LANES:
+        ps = torch.arange(n, device=dev)
+
+        def launch(ps=ps):
+            return pipeline.pipeline_cuda(pm, ps, "rows")
+
+        n_draws = int(draws[:n].sum())
+        ops_ms = (n_draws * OPS_PER_DRAW + n * HASH2_OPS) / issue_rate * 1e3
+        nbytes = small_bytes(pm, launch()[0])
+        bytes_ms = nbytes / peak * 1e3
+        bound = max(ops_ms, bytes_ms)
+        ms = device_ms(launch, flush, clock)
+        out[n] = {
+            "lanes": n, "group": pipeline.group_size(n), "ms": ms,
+            "warm_ms": device_ms(launch, warm, clock),
+            "plain_chain_ms": time_ms(lambda ps=ps: pm.pipeline_plain(
+                ps, "rows"), flush, runs=5),
+            "draws": n_draws, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_share": bound / ms}
+    emit({"phase": "placement_small", "config": "config5",
+          "launches": out})
+    return out
 
 
 # -- the legacy bucket draws --------------------------------------------------
