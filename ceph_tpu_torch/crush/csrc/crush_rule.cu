@@ -36,6 +36,8 @@
 // - a persistent grid: as many blocks as the card holds at once, with
 //   the block size the occupancy calculator picks from the build's
 //   registers, striding over the seeds;
+//   (the staging and the grid are launch.cuh's, shared with the
+//   diagnostics variant and the pipeline kernel)
 // - work vectors of RMAX_CAP entries in local memory (ptxas reports no
 //   spills from them; `-Xptxas=-v`, printed by chip_smoke.py).
 // Divergence between lanes that retry is left as it is.
@@ -47,36 +49,18 @@
 #include <cuda_runtime.h>
 
 #include "crush_rule.cuh"
+#include "launch.cuh"
 
 namespace {
-
-using crush_rule::crush_smem;
-using crush_rule::LN_WORDS;
 
 __global__ void crush_rule_kernel(crush_rule::Map m, crush_rule::Rule rule,
                                   const uint32_t* __restrict__ xs,
                                   long long n, int32_t* __restrict__ out) {
-    // stage: the RH/LH rows, the LL entries, then records[0, n_staged)
-    const uint4* rh_lh = reinterpret_cast<const uint4*>(m.rh_lh);
-    const uint4* ll = reinterpret_cast<const uint4*>(m.ll);
-    const uint4* rec = reinterpret_cast<const uint4*>(m.records);
-    const int words = LN_WORDS + m.n_staged;
-    for (int i = threadIdx.x; i < words; i += blockDim.x)
-        crush_smem[i] = i < crush_rule::LN_ROWS ? __ldg(rh_lh + i)
-                        : i < LN_WORDS ? __ldg(ll + i - crush_rule::LN_ROWS)
-                                       : __ldg(rec + i - LN_WORDS);
-    __syncthreads();
-    m.staged = reinterpret_cast<const crush_rule::Record*>(crush_smem +
-                                                           LN_WORDS);
-
+    crush_launch::stage(m);
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          lane < n; lane += stride)
         crush_rule::map_seed(m, rule, xs[lane], out + lane * rule.result_max);
-}
-
-size_t smem_bytes(int n_staged) {
-    return (size_t)(LN_WORDS + n_staged) * sizeof(uint4);
 }
 
 }  // namespace
@@ -91,32 +75,7 @@ extern "C" {
 // may opt in to, shared memory the system reserves per block, SMs, and
 // the bytes of shared memory a block holds before any record.
 int crush_rule_plan(int* out) {
-    const auto k = crush_rule_kernel;
-    cudaFuncAttributes fa;
-    cudaError_t e = cudaFuncGetAttributes(&fa, k);
-    if (e != cudaSuccess) return e;
-    int dev, min_grid, threads, blocks;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaOccupancyMaxPotentialBlockSize(&min_grid, &threads, k,
-                                                smem_bytes(0))) !=
-        cudaSuccess)
-        return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &blocks, k, threads, smem_bytes(0))) != cudaSuccess)
-        return e;
-    int per_sm, optin, reserved, sms;
-    cudaDeviceGetAttribute(&per_sm,
-                           cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    cudaDeviceGetAttribute(&reserved,
-                           cudaDevAttrReservedSharedMemoryPerBlock, dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int vals[10] = {fa.numRegs, (int)fa.localSizeBytes,
-                          (int)fa.sharedSizeBytes, threads, blocks, per_sm,
-                          optin, reserved, sms, (int)smem_bytes(0)};
-    for (int i = 0; i < 10; i++) out[i] = vals[i];
-    return (int)cudaGetLastError();
+    return crush_launch::plan_values(crush_rule_kernel, out);
 }
 
 // Pointers are device pointers, records and the crush_ln tables 16-byte
@@ -136,20 +95,10 @@ int crush_rule_launch(
         n_staged < 0 || threads < 1)
         return cudaErrorInvalidValue;
     const auto k = crush_rule_kernel;
-    const size_t smem = smem_bytes(n_staged);
-    cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    unsigned blocks;
+    const cudaError_t e = crush_launch::grid_for(
+        k, n, 1, crush_launch::smem_bytes(n_staged), &threads, &blocks);
     if (e != cudaSuccess) return e;
-    int dev, sms, per_sm;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, k, threads, smem)) != cudaSuccess)
-        return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long need = (n + threads - 1) / threads;
-    const long long resident = (long long)per_sm * sms;
-    const unsigned blocks = (unsigned)(need < resident ? need : resident);
     crush_rule::Map m{headers,
                       reinterpret_cast<const crush_rule::Record*>(records),
                       nullptr, items, weight, rh_lh, ll, n_staged,
@@ -158,7 +107,8 @@ int crush_rule_launch(
     crush_rule::Rule rule{steps, n_steps, result_max, choose_total_tries,
                           chooseleaf_descend_once, chooseleaf_vary_r,
                           chooseleaf_stable};
-    k<<<blocks, threads, smem, (cudaStream_t)stream>>>(m, rule, xs, n, out);
+    k<<<blocks, threads, crush_launch::smem_bytes(n_staged),
+        (cudaStream_t)stream>>>(m, rule, xs, n, out);
     return (int)cudaGetLastError();
 }
 

@@ -25,9 +25,9 @@
 // before a launch).
 //
 // The walk is a template on G, the lanes that map one seed together (a
-// power of two, 1 to 32; the pipeline kernel, osd/csrc/pipeline.cu,
-// chooses it).  G = 1, the default, is the serial walk of one lane, and
-// the only one the rule kernel and its diagnostics variant instantiate.
+// power of two, 1 to 32; the pipeline kernel, osd/csrc/pipeline.cu, and
+// the diagnostics variant choose it).  G = 1, the default, is the serial
+// walk of one lane, and the only one the rule kernel instantiates.
 // At G > 1 every lane of the group runs the seed's whole control flow;
 // only the straw2 draw is split: lane g draws items g, g + G, ..., and a
 // butterfly over the group's lanes combines their first minima
@@ -36,10 +36,13 @@
 // The diagnostics variant (crush_rule_diag.cu) defines CRUSH_RULE_DIAG
 // before it includes this file: the same walk, which also books each
 // placement's retry count, the collision, out-of-weight and skip tallies
-// of the draws it makes, and the work vector after each choose step (see
-// Diag).  What it adds is written with DIAG() and DIAG_ARGS(), which
-// expand to nothing in the rule kernel's build, so that build compiles
-// exactly the code it compiled before the variant existed.
+// of the draws it makes, and the work vector after each choose step into
+// a sink, the walk's template parameter D: Diag writes them as planes,
+// Summary folds them into a histogram and five counts.  A retry lane is
+// handed to the sink once, with its final value.  What the variant adds
+// is written with DIAG(), DIAG_ARGS() and DIAG_SINK, which expand to
+// nothing in the rule kernel's build, so that build compiles exactly the
+// code it compiled before the variant existed.
 
 #pragma once
 
@@ -50,9 +53,11 @@
 #ifdef CRUSH_RULE_DIAG
 #define DIAG(...) __VA_ARGS__
 #define DIAG_ARGS(...) , __VA_ARGS__
+#define DIAG_SINK , class D
 #else
 #define DIAG(...)
 #define DIAG_ARGS(...)
+#define DIAG_SINK
 #endif
 
 namespace crush_rule {
@@ -132,7 +137,7 @@ struct Rule {
 };
 
 #ifdef CRUSH_RULE_DIAG
-// The diagnostics of one lane (the planes of mapper_jax.compile_rule's
+// The diagnostics of one seed (the planes of mapper_jax.compile_rule's
 // with_diag, with mapper_ref's values).  plan[3 * s .. 3 * s + 2] is rule
 // step s's first tries lane, its lanes per source bucket and its row of
 // `steps` (-1: not a choose step the lane can reach); the wrapper's plan
@@ -140,22 +145,90 @@ struct Rule {
 // - choose firstn: one lane per rep, the retry count (ftotal) of its
 //   placement; chooseleaf firstn a second block of numrep lanes, the
 //   leaf recursion's count (reference src/crush/mapper.c:640-643 books
-//   both);
+//   both; the last leaf call of the rep is the one that stands);
 // - choose indep: one lane, the call's rounds (mapper.c:843); chooseleaf
 //   indep also one lane per (rep, round) for the leaf call of that round,
 //   which books its own rounds;
-// -1 where no placement (or call) was made.  coll, rej and skip count the
+// -1 where no placement (or call) was made.  Every lane but the indep
+// leaf calls' is a retry lane: its -1 is a placement that ran out of
+// retries (RuleProgram.diag_retry_lanes).  coll, rej and skip count the
 // firstn draws that collided, were out of weight or ended in a skip_rep;
 // the indep loops leave them alone, as the JAX package does.
+//
+// The walk hands each lane's final value to its sink once (lane()), each
+// choose step's work vector (step_row()) and each firstn draw that
+// collided, was out of weight or ended in a skip (collide(), reject(),
+// skip()).  `store` is false in the lanes of a group but its first: they
+// run the same walk and store nothing.
 struct Tally {
     int32_t coll, rej, skip;
 };
 
+// The planes: tries[diag_lanes] (-1 filled), steps[diag_steps, result_max]
+// (ITEM_NONE filled), written where the walk books them.
 struct Diag {
     const int32_t* plan;  // [n_steps, 3]
-    int32_t* tries;       // [diag_lanes], -1 filled
-    int32_t* steps;       // [diag_steps, result_max], ITEM_NONE filled
+    int32_t* tries;       // [diag_lanes]
+    int32_t* steps;       // [diag_steps, result_max]
     Tally tally;
+    bool store = true;
+
+    CRUSH_HD void lane(int i, int32_t v, bool /*retry*/) {
+        if (store) tries[i] = v;
+    }
+    CRUSH_HD void step_row(int row, const int32_t* w, int wsize,
+                           int result_max) {
+        if (store)
+            for (int j = 0; j < wsize; j++) steps[row * result_max + j] = w[j];
+    }
+    CRUSH_HD void collide() { tally.coll++; }
+    CRUSH_HD void reject() { tally.rej++; }
+    CRUSH_HD void skip() { tally.skip++; }
+};
+
+// The summary's counters beside the histogram, in this order, then the
+// histogram's first LOW_BINS bins (where nearly every booking falls).
+enum { SUM_COLL, SUM_REJ, SUM_SKIP, SUM_BAD, SUM_EXHAUSTED, N_SUMS };
+constexpr int LOW_BINS = 4;
+constexpr int N_COUNTS = N_SUMS + LOW_BINS;
+
+// The summary: each lane's value v books bin v of the histogram where
+// 0 <= v <= bound (the rest are dropped, not clamped: core/reduce.py
+// value_histogram); the tallies, the bad flags and the exhausted retry
+// lanes are added up beside it (a seed adds its n_retry retry lanes to
+// the exhausted count, and each retry lane given a value >= 0 takes one
+// back).  count[N_COUNTS] (strided by count_stride) holds the sums and
+// the low bins: on the card the lane's own slots in shared memory, so the
+// walk holds none of them in registers and a booking takes no atomic;
+// the bins from LOW_BINS up are `hist`, the block's shared counters, one
+// atomic add a booking, which only the store lane makes.  On the host
+// both are plain arrays.
+struct Summary {
+    const int32_t* plan;       // [n_steps, 3]
+    unsigned long long* hist;  // [bound + 1]; bins LOW_BINS.. booked here
+    uint32_t* count;           // [N_COUNTS]
+    int32_t count_stride, bound, n_retry;
+    bool store;
+
+    CRUSH_HD void add(int k, uint32_t v) { count[k * count_stride] += v; }
+    CRUSH_HD void lane(int /*i*/, int32_t v, bool retry) {
+        if (v >= 0 && retry) add(SUM_EXHAUSTED, (uint32_t)-1);
+        if (v >= 0 && v <= bound) {
+            if (v < LOW_BINS) {
+                add(N_SUMS + v, 1);
+            } else if (store) {
+#ifdef __CUDA_ARCH__
+                atomicAdd(hist + v, 1ULL);
+#else
+                hist[v]++;
+#endif
+            }
+        }
+    }
+    CRUSH_HD void step_row(int, const int32_t*, int, int) {}
+    CRUSH_HD void collide() { add(SUM_COLL, 1); }
+    CRUSH_HD void reject() { add(SUM_REJ, 1); }
+    CRUSH_HD void skip() { add(SUM_SKIP, 1); }
 };
 #endif
 
@@ -595,16 +668,16 @@ CRUSH_HD inline int descend(const Map& m, int32_t start, uint32_t x,
 // chooseleaf firstn's inner pick (reference src/crush/mapper.c:573-588):
 // one device under `bucket`, colliding against out2[0, outpos).  DIAG:
 // *tries_at gets the retry count of the pick.
-template <int G = 1>
+template <int G = 1 DIAG_SINK>
 CRUSH_HD inline bool leaf_firstn(const Map& m, int32_t bucket, uint32_t x,
                                  int32_t r0, int outpos, const int32_t* out2,
                                  int tries, int32_t* leaf
-                                 DIAG_ARGS(Tally* t, int* tries_at)) {
+                                 DIAG_ARGS(D* d, int* tries_at)) {
     for (int ftotal = 0;;) {
         int32_t item;
         const int st =
             descend<G>(m, bucket, x, r0 + ftotal, outpos, 0, &item);
-        DIAG(if (st == SKIP) t->skip++;)
+        DIAG(if (st == SKIP) d->skip();)
         if (st == SKIP) return false;
         if (st == FOUND) {
             bool collide = false;
@@ -615,7 +688,7 @@ CRUSH_HD inline bool leaf_firstn(const Map& m, int32_t bucket, uint32_t x,
                 DIAG(*tries_at = ftotal;)
                 return true;
             }
-            DIAG(if (collide) t->coll++; else t->rej++;)
+            DIAG(if (collide) d->collide(); else d->reject();)
         }
         if (++ftotal >= tries) return false;
     }
@@ -623,22 +696,23 @@ CRUSH_HD inline bool leaf_firstn(const Map& m, int32_t bucket, uint32_t x,
 
 // crush_choose_firstn from outpos 0 (reference src/crush/mapper.c:460-648;
 // no local retries).  Returns the number of items placed in out[]; out2[]
-// holds the chooseleaf leaves beside them.  DIAG: lanes are this source's
-// tries lanes (numrep, then numrep more for chooseleaf's leaves).
-template <int G = 1>
+// holds the chooseleaf leaves beside them.  DIAG: this source's tries
+// lanes are d's from lane0 (numrep, then numrep more for chooseleaf's
+// leaves); a rep's leaf lane is booked when the rep ends.
+template <int G = 1 DIAG_SINK>
 CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
                                   int numrep, int type, int32_t* out,
                                   int32_t* out2, int count, int tries,
                                   int recurse_tries, bool leafy, int vary_r,
-                                  int stable
-                                  DIAG_ARGS(Tally* t, int32_t* lanes)) {
+                                  int stable DIAG_ARGS(D* d, int lane0)) {
     int outpos = 0;
     for (int rep = 0; rep < numrep && count > 0; rep++) {
+        DIAG(int32_t leaf_lane = -1;)
         for (int ftotal = 0;;) {
             const int32_t r = rep + ftotal;
             int32_t item;
             const int st = descend<G>(m, bucket, x, r, outpos, type, &item);
-            DIAG(if (st == SKIP) t->skip++;)
+            DIAG(if (st == SKIP) d->skip();)
             if (st == SKIP) break;
             bool fail = true;
             int32_t leaf = item;
@@ -653,15 +727,16 @@ CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
                     reject = !leaf_firstn<G>(m, item, x,
                                              (stable ? 0 : outpos) + sub_r,
                                              outpos, out2, recurse_tries,
-                                             &leaf DIAG_ARGS(t, &leaf_tries));
+                                             &leaf
+                                             DIAG_ARGS(d, &leaf_tries));
                     // a leaf found is a placement: the outer item is a
                     // bucket, so no is_out check follows
-                    DIAG(lanes[numrep + rep] = leaf_tries;)
+                    DIAG(leaf_lane = leaf_tries;)
                 }
                 if (!collide && !reject && type == 0)
                     reject = is_out(m, item, x);
-                DIAG(if (collide) t->coll++;
-                     else if (reject && type == 0) t->rej++;)
+                DIAG(if (collide) d->collide();
+                     else if (reject && type == 0) d->reject();)
                 fail = collide || reject;
             }
             if (!fail) {
@@ -669,11 +744,12 @@ CRUSH_HD inline int choose_firstn(const Map& m, int32_t bucket, uint32_t x,
                 out2[outpos] = leaf;
                 outpos++;
                 count--;
-                DIAG(lanes[rep] = ftotal;)
+                DIAG(d->lane(lane0 + rep, ftotal, true);)
                 break;
             }
             if (++ftotal >= tries) break;
         }
+        DIAG(if (leafy) d->lane(lane0 + numrep + rep, leaf_lane, true);)
     }
     return outpos;
 }
@@ -702,19 +778,19 @@ CRUSH_HD inline int32_t leaf_indep(const Map& m, int32_t bucket, uint32_t x,
 
 // crush_choose_indep from outpos 0 (reference src/crush/mapper.c:655-843):
 // breadth-first over `left` positional slots, ITEM_NONE where none.
-// DIAG: lanes are this source's tries lanes (the rounds, then the leaf
-// calls by rep and round).
-template <int G = 1>
+// DIAG: this source's tries lanes are d's from lane0 (the rounds, booked
+// when the call ends, then the leaf calls by rep and round).
+template <int G = 1 DIAG_SINK>
 CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
                                   int left, int numrep, int type,
                                   int32_t* out, int32_t* out2, int tries,
                                   int recurse_tries, bool leafy
-                                  DIAG_ARGS(int32_t* lanes)) {
+                                  DIAG_ARGS(D* d, int lane0)) {
     const int endpos = left;
-    DIAG(lanes[0] = 0;)
+    DIAG(int32_t rounds = 0;)
     for (int rep = 0; rep < endpos; rep++) out[rep] = out2[rep] = ITEM_UNDEF;
     for (int ftotal = 0; left > 0 && ftotal < tries; ftotal++) {
-        DIAG(lanes[0]++;)
+        DIAG(rounds++;)
         for (int rep = 0; rep < endpos; rep++) {
             if (out[rep] != ITEM_UNDEF) continue;
             int32_t item, r;
@@ -734,11 +810,13 @@ CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
             if (leafy) {
                 // a device is written to out2 before its is_out check
                 // (reference src/crush/mapper.c:799-801)
-                DIAG(int32_t* at = lanes + 1 + rep * tries + ftotal;)
+                DIAG(int leaf_rounds = -1;)
                 out2[rep] = item < 0 ? leaf_indep<G>(m, item, x, rep, r,
                                                      numrep, recurse_tries
-                                                     DIAG_ARGS(at))
+                                                     DIAG_ARGS(&leaf_rounds))
                                      : item;
+                DIAG(if (item < 0) d->lane(lane0 + 1 + rep * tries + ftotal,
+                                           leaf_rounds, false);)
                 if (out2[rep] == ITEM_NONE) continue;
             }
             if (type == 0 && is_out(m, item, x)) continue;
@@ -750,14 +828,15 @@ CRUSH_HD inline void choose_indep(const Map& m, int32_t bucket, uint32_t x,
         if (out[rep] == ITEM_UNDEF) out[rep] = ITEM_NONE;
         if (out2[rep] == ITEM_UNDEF) out2[rep] = ITEM_NONE;
     }
+    DIAG(d->lane(lane0, rounds, true);)
 }
 
 // crush_do_rule (reference src/crush/mapper.c:900-1105).  Writes up to
 // rule.result_max (<= RMAX_CAP) items to result; returns how many.
-// DIAG: books into *d.
-template <int G = 1>
+// DIAG: books into the sink *d.
+template <int G = 1 DIAG_SINK>
 CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
-                            int32_t* result DIAG_ARGS(Diag* d)) {
+                            int32_t* result DIAG_ARGS(D* d)) {
     const int result_max = rule.result_max;
     int32_t buf_a[RMAX_CAP], buf_b[RMAX_CAP], leaves[RMAX_CAP];
     int32_t* w = buf_a;
@@ -810,8 +889,8 @@ CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
                 }
                 const int32_t src = w[i];
                 if (src >= 0 || -1 - src >= m.n_buckets) continue;
-                DIAG(int32_t* lanes =
-                         d->tries + d->plan[3 * s] + i * d->plan[3 * s + 1];)
+                DIAG(const int lane0 =
+                         d->plan[3 * s] + i * d->plan[3 * s + 1];)
                 if (firstn) {
                     const int recurse_tries =
                         leaf_tries ? leaf_tries
@@ -820,14 +899,14 @@ CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
                     osize += choose_firstn<G>(
                         m, src, x, numrep, arg2, o + osize, leaves + osize,
                         result_max - osize, choose_tries, recurse_tries,
-                        leafy, vary_r, stable DIAG_ARGS(&d->tally, lanes));
+                        leafy, vary_r, stable DIAG_ARGS(d, lane0));
                 } else {
                     const int out_size = numrep < result_max - osize
                                              ? numrep : result_max - osize;
                     choose_indep<G>(m, src, x, out_size, numrep, arg2,
                                     o + osize, leaves + osize, choose_tries,
                                     leaf_tries ? leaf_tries : 1, leafy
-                                    DIAG_ARGS(lanes));
+                                    DIAG_ARGS(d, lane0));
                     osize += out_size;
                 }
             }
@@ -837,8 +916,7 @@ CRUSH_HD inline int do_rule(const Map& m, const Rule& rule, uint32_t x,
             w = o;
             o = t;
             wsize = osize;
-            DIAG(for (int j = 0; j < wsize; j++)
-                     d->steps[d->plan[3 * s + 2] * result_max + j] = w[j];)
+            DIAG(d->step_row(d->plan[3 * s + 2], w, wsize, result_max);)
             break;
         }
         case OP_EMIT:
@@ -863,19 +941,24 @@ CRUSH_HD inline void map_seed(const Map& m, const Rule& rule, uint32_t x,
         row[j] = j < got ? res[j] : ITEM_NONE;
 }
 #else
-// map_seed with the diagnostics: d's tries lanes (n_lanes) and steps rows
-// (n_steps_rows) are filled here first; tally gets coll, rej, skip and
-// bad (1 when the row holds fewer than result_max items).
+// map_seed with the diagnostics planes: d's tries lanes (n_lanes) and
+// steps rows (n_steps_rows) are filled here first; tally gets coll, rej,
+// skip and bad (1 when the row holds fewer than result_max items).  Only
+// a lane whose d.store is set writes.
+template <int G = 1>
 CRUSH_HD inline void map_seed_diag(const Map& m, const Rule& rule,
                                    uint32_t x, int32_t* row, Diag& d,
                                    int n_lanes, int n_steps_rows,
                                    int32_t* tally) {
-    for (int j = 0; j < n_lanes; j++) d.tries[j] = -1;
-    for (int j = 0; j < n_steps_rows * rule.result_max; j++)
-        d.steps[j] = ITEM_NONE;
+    if (d.store) {
+        for (int j = 0; j < n_lanes; j++) d.tries[j] = -1;
+        for (int j = 0; j < n_steps_rows * rule.result_max; j++)
+            d.steps[j] = ITEM_NONE;
+    }
     d.tally = {0, 0, 0};
     int32_t res[RMAX_CAP];
-    const int got = do_rule(m, rule, x, res, &d);
+    const int got = do_rule<G>(m, rule, x, res, &d);
+    if (!d.store) return;
     int placed = 0;
     for (int j = 0; j < rule.result_max; j++) {
         row[j] = j < got ? res[j] : ITEM_NONE;
@@ -885,6 +968,20 @@ CRUSH_HD inline void map_seed_diag(const Map& m, const Rule& rule,
     tally[1] = d.tally.rej;
     tally[2] = d.tally.skip;
     tally[3] = placed < rule.result_max;
+}
+
+// One seed into a summary: its lanes into s.hist (the store lane's
+// bookings), its tallies, its bad flag and its exhausted retry lanes into
+// s.count.
+template <int G = 1>
+CRUSH_HD inline void summarize_seed(const Map& m, const Rule& rule,
+                                    uint32_t x, Summary& s) {
+    s.add(SUM_EXHAUSTED, (uint32_t)s.n_retry);
+    int32_t res[RMAX_CAP];
+    const int got = do_rule<G>(m, rule, x, res, &s);
+    int placed = 0;
+    for (int j = 0; j < got; j++) placed += res[j] != ITEM_NONE;
+    s.add(SUM_BAD, placed < rule.result_max);
 }
 #endif
 

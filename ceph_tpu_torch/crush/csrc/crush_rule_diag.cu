@@ -1,114 +1,253 @@
-// The CRUSH rule kernel's diagnostics variant for Hopper (sm_90a):
-//   out[n, 0:result_max] = crush_do_rule(map, rule, x[n], result_max, weight)
-// and beside each row the decision planes of one placement seed:
-//   tries[n, 0:n_lanes]              retry count of each placement, -1 none
-//   steps[n, 0:n_steps_rows, 0:RMAX] work vector after each choose step
-//   tally[n, 0:4]                    collisions, out-of-weight rejections,
-//                                    skips, bad (row shorter than RMAX)
-// one thread per PG lane.
+// The CRUSH rule kernel's diagnostics variant for Hopper (sm_90a): the
+// rule walk of crush_rule.cuh, built with CRUSH_RULE_DIAG, over a batch of
+// seeds, in one of two modes fixed at launch:
+//   planes   out[n, 0:result_max] = crush_do_rule(map, rule, x[n], ...)
+//            and beside each row the decision planes of its seed:
+//              tries[n, 0:n_lanes]              retry count of each
+//                                               placement, -1 none
+//              steps[n, 0:n_steps_rows, 0:RMAX] work vector after each
+//                                               choose step
+//              tally[n, 0:4]                    collisions, out-of-weight
+//                                               rejections, skips, bad
+//                                               (row shorter than RMAX)
+//   summary  no rows and no planes: summary[0:bound+1] the histogram of
+//            every tries lane's value in [0, bound] (the rest dropped),
+//            summary[bound+1:bound+6] the sums of coll, rej, skip, bad
+//            and the retry lanes left at -1 (exhausted); uint64, added to
+//            a zeroed buffer.
+// A seed is x[i] as given, or the placement seed of a PG computed in its
+// lane (osd/csrc/placement_seed.cuh: ceph_stable_mod, then hash32_2 with
+// the pool id) from ps[i], or from first + i where no ps is given.
 //
 // It replaces the instrumented XLA program of ceph_tpu/crush/mapper_jax.py
 // (compile_rule(..., with_diag=True) :1529, the diag tallies of
 // _choose_firstn_one_fast :1214-1283 and _choose_indep_one_fast
-// :1509-1525), which PoolMapper.diagnose, crush/explain.py's diag_batch
-// and `crushtool --test --show-choose-tries` run.  The JAX program
-// rebuilds the retry counts from its candidate window, so only the lanes
-// the window decides are exact; this kernel walks the C interpreter's
-// loops (crush_rule.cuh, built with CRUSH_RULE_DIAG) and every lane is
-// exact.  The lane layout is the wrapper's plan (`plan`, laid out by
+// :1509-1525), and the reduction of its planes in
+// ceph_tpu/osd/pipeline_jax.py::PoolMapper.diagnose (:781-850), which
+// computes the seed inside its program (compile_pipeline(...,
+// with_diag=True) :232).  The JAX program rebuilds the retry counts from
+// its candidate window, so only the lanes the window decides are exact;
+// this kernel walks the C interpreter's loops and every lane is exact.
+// The lane layout is the wrapper's plan (`plan`, laid out by
 // crush/mapper.py::compile_rule; see crush_rule.cuh Diag).
 //
-// The rows are the rule kernel's (crush_rule.cu): the same body, the same
-// staging of the crush_ln tables and the top records in shared memory, the
-// same persistent grid.  crush_rule.cu is left as it is, so the default
-// kernel's code does not change with this variant; the staging and grid
-// plumbing below is its copy.  What the variant adds is stores: about
-// 4 * (n_lanes + n_steps_rows * RMAX + 4) bytes a lane, written by the
-// lane that owns them, and a few registers of tallies.
+// What bounds it: the rule's draws, as the rule kernel (instructions; a
+// few hundred straw2 draws a PG at config 5).  What the design does:
+// - summary mode writes nothing a seed: each PG hands each tries lane to
+//   the sink once, with its final value (crush_rule.cuh Summary).  The
+//   tallies, the bad flag, the exhausted retry lanes and the histogram's
+//   first four bins (nearly every booking) go to counters of the lane's
+//   own in shared memory: no atomic, and no register held across the
+//   walk (in registers they made the walk spill 116 B at G = 1; with
+//   every bin a shared 64-bit atomic add, bin 0 taken by a whole warp
+//   at once, config 5 ran 3.3 % above the pipeline kernel, diag_ab.py).
+//   The higher bins are the block's uint64 counters after the staged
+//   records, one shared atomic a booking.  At the end each lane's counts
+//   are summed over the warp by shuffles, over the block in shared
+//   memory, and each of the bound + 6 counters is added to the output
+//   with one 64-bit atomic a block.  Integer sums: exact in any order.
+//   diagnose() makes one launch and reads bound + 6 integers a block of
+//   up to 2^24 PGs, where it had written and reduced 13 int32 a PG;
+// - planes mode writes the planes as the variant always did (the rows,
+//   -1 / ITEM_NONE filled, then the walk's values);
+// - the staging and the persistent grid are launch.cuh's, shared with the
+//   rule and pipeline kernels;
+// - a launch smaller than the card maps each PG with a group of G lanes
+//   (diag_kernel<G, MODE>), G by the pipeline's rule (launch.cuh
+//   group_for, on this kernel's one-lane instance): every lane of a group
+//   runs the seed and the walk on the same values, the straw2 draws split
+//   over the group (crush_rule.cuh straw2_group), so their tallies and
+//   lanes agree; the first lane alone books and stores (the sink's
+//   `store`), and no lane leaves the walk early, so the shuffles always
+//   find their group whole.
+// Divergence between groups that retry is left as it is.
+//
+// Prediction (written before this kernel's first run on the card;
+// diag_ab.py, the parent tree and this one in turns, NVIDIA H100 80GB
+// HBM3): config 5's diagnose() (10M PGs) from about 54 ms of entry to
+// near the pipeline kernel's 32.8 ms; the summary kernel within about 1 %
+// of the pipeline kernel on the same PGs; the 512-seed sample's launch
+// from about the one-lane time to under 0.05 ms; --show-choose-tries on
+// 2^20 seeds without its plane writes and reductions; planes mode at
+// config 5 within 1 % of the parent.
 //
 // Plain C entry points, bound with ctypes (ceph_tpu_torch/crush/mapper.py).
+// The launch runs on the caller's stream, does not synchronise and
+// allocates nothing; it returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #define CRUSH_RULE_DIAG
 #include "crush_rule.cuh"
+#include "launch.cuh"
+#include "../../osd/csrc/placement_seed.cuh"
+
+namespace crush_diag {
+
+enum { MODE_PLANES = 0, MODE_SUMMARY = 1 };
+constexpr int SUMS = crush_rule::N_SUMS;  // coll, rej, skip, bad, exhausted
+
+// One launch's operands (ctypes mirrors this layout: crush/mapper.py,
+// _DiagArgs).  Pointers are device pointers.
+struct DiagArgs {
+    const uint32_t* xs;  // [n] seeds as given, or null: placement seeds
+    const int64_t* ps;   // [n] PG seeds (u32 values), or null: first + i
+    long long first, n;
+    uint32_t pool_id, pgp_num, pgp_mask;
+    int32_t hashpspool;
+    const int32_t* plan;  // [n_steps, 3]
+    int32_t n_lanes, n_steps_rows, n_retry, bound, mode;
+    int32_t* out;    // planes: [n, result_max]
+    int32_t* tries;  // planes: [n, n_lanes]
+    int32_t* steps;  // planes: [n, n_steps_rows, result_max]
+    int32_t* tally;  // planes: [n, 4]
+    unsigned long long* summary;  // summary: [bound + 1 + SUMS], zeroed
+};
+
+}  // namespace crush_diag
 
 namespace {
 
+using crush_diag::DiagArgs;
+using crush_diag::MODE_PLANES;
+using crush_diag::MODE_SUMMARY;
+using crush_diag::SUMS;
 using crush_rule::crush_smem;
 using crush_rule::LN_WORDS;
 
-__global__ void crush_rule_diag_kernel(
-    crush_rule::Map m, crush_rule::Rule rule, const int32_t* __restrict__ plan,
-    int n_lanes, int n_steps_rows, const uint32_t* __restrict__ xs,
-    long long n, int32_t* __restrict__ out, int32_t* __restrict__ tries,
-    int32_t* __restrict__ steps, int32_t* __restrict__ tally) {
-    // stage: the RH/LH rows, the LL entries, then records[0, n_staged)
-    const uint4* rh_lh = reinterpret_cast<const uint4*>(m.rh_lh);
-    const uint4* ll = reinterpret_cast<const uint4*>(m.ll);
-    const uint4* rec = reinterpret_cast<const uint4*>(m.records);
-    const int words = LN_WORDS + m.n_staged;
-    for (int i = threadIdx.x; i < words; i += blockDim.x)
-        crush_smem[i] = i < crush_rule::LN_ROWS ? __ldg(rh_lh + i)
-                        : i < LN_WORDS ? __ldg(ll + i - crush_rule::LN_ROWS)
-                                       : __ldg(rec + i - LN_WORDS);
-    __syncthreads();
-    m.staged = reinterpret_cast<const crush_rule::Record*>(crush_smem +
-                                                           LN_WORDS);
+__device__ __forceinline__ uint32_t seed_at(const DiagArgs& a, long long i) {
+    if (a.xs) return __ldg(a.xs + i);
+    const uint32_t ps = a.ps ? (uint32_t)__ldg(a.ps + i)
+                             : (uint32_t)(a.first + i);
+    return placement::placement_seed(ps, a.pgp_num, a.pgp_mask,
+                                     a.hashpspool, a.pool_id);
+}
 
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long step_words = (long long)n_steps_rows * rule.result_max;
-    for (long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         lane < n; lane += stride) {
-        crush_rule::Diag d{plan, tries + lane * n_lanes,
-                           steps + lane * step_words, {0, 0, 0}};
-        crush_rule::map_seed_diag(m, rule, xs[lane],
-                                  out + lane * rule.result_max, d, n_lanes,
-                                  n_steps_rows, tally + 4 * lane);
+// Summary mode's dynamic shared memory after the staged records: the
+// histogram's uint64 counters (16-byte aligned), then each lane's
+// N_COUNTS uint32 counters (crush_rule.cuh Summary), counter k of lane t
+// at [k * threads + t].
+__host__ __device__ inline size_t hist_bytes(int bound) {
+    return ((size_t)(bound + 1) * 8 + 15) / 16 * 16;
+}
+
+inline size_t summary_bytes(int mode, int bound, int threads) {
+    return mode == MODE_SUMMARY
+               ? hist_bytes(bound) +
+                     (size_t)crush_rule::N_COUNTS * 4 * threads
+               : 0;
+}
+
+// One PG a group of G aligned lanes (blockDim.x a multiple of 32);
+// G = 1 is one PG a thread.  The bound, as the pipeline kernel's, gives
+// every instance 64 registers and one block of 1024 threads an SM.
+template <int G, int MODE>
+__global__ void __launch_bounds__(1024, 1)
+    diag_kernel(crush_rule::Map m, crush_rule::Rule rule, DiagArgs a) {
+    __shared__ unsigned long long sums[SUMS];
+    unsigned long long* hist =
+        reinterpret_cast<unsigned long long*>(crush_smem + LN_WORDS +
+                                              m.n_staged);
+    uint32_t* counts = reinterpret_cast<uint32_t*>(
+        reinterpret_cast<char*>(hist) + hist_bytes(a.bound)) + threadIdx.x;
+    if (MODE == MODE_SUMMARY) {
+        // zeroed before stage()'s barrier
+        for (int i = threadIdx.x; i <= a.bound; i += blockDim.x) hist[i] = 0;
+        for (int k = 0; k < crush_rule::N_COUNTS; k++)
+            counts[k * blockDim.x] = 0;
+        if (threadIdx.x < SUMS) sums[threadIdx.x] = 0;
+    }
+    crush_launch::stage(m);
+
+    const bool store = (threadIdx.x & (G - 1)) == 0;
+    const int per_block = blockDim.x / G;
+    const long long stride = (long long)gridDim.x * per_block;
+    crush_rule::Summary s{a.plan,  hist,      counts, (int)blockDim.x,
+                          a.bound, a.n_retry, store};
+    for (long long pg = (long long)blockIdx.x * per_block + threadIdx.x / G;
+         pg < a.n; pg += stride) {
+        const uint32_t x = seed_at(a, pg);
+        if constexpr (MODE == MODE_PLANES) {
+            const long long step_words =
+                (long long)a.n_steps_rows * rule.result_max;
+            crush_rule::Diag d{a.plan, a.tries + pg * a.n_lanes,
+                               a.steps + pg * step_words, {0, 0, 0}, store};
+            crush_rule::map_seed_diag<G>(m, rule, x,
+                                         a.out + pg * rule.result_max, d,
+                                         a.n_lanes, a.n_steps_rows,
+                                         a.tally + 4 * pg);
+        } else {
+            crush_rule::summarize_seed<G>(m, rule, x, s);
+        }
+    }
+    if constexpr (MODE == MODE_SUMMARY) {
+        // the lanes' counts (the store lanes'; the other lanes of a group
+        // counted the same): over the warp by shuffles, over the block in
+        // shared memory (the sums, and the low bins into the histogram),
+        // then one 64-bit atomic a counter a block
+        for (int k = 0; k < crush_rule::N_COUNTS; k++) {
+            unsigned long long v = store ? counts[k * blockDim.x] : 0;
+            for (int o = 16; o > 0; o >>= 1)
+                v += __shfl_xor_sync(0xffffffffu, v, o);
+            if ((threadIdx.x & 31) == 0 && v)
+                atomicAdd(k < SUMS ? sums + k : hist + (k - SUMS), v);
+        }
+        __syncthreads();
+        for (int i = threadIdx.x; i <= a.bound + SUMS; i += blockDim.x) {
+            const unsigned long long c =
+                i <= a.bound ? hist[i] : sums[i - a.bound - 1];
+            if (c) atomicAdd(a.summary + i, c);
+        }
     }
 }
 
-size_t smem_bytes(int n_staged) {
-    return (size_t)(LN_WORDS + n_staged) * sizeof(uint4);
+using Kernel = void (*)(crush_rule::Map, crush_rule::Rule, DiagArgs);
+
+template <int MODE>
+Kernel kernel_in(int group) {
+    switch (group) {
+    case 1: return diag_kernel<1, MODE>;
+    case 2: return diag_kernel<2, MODE>;
+    case 4: return diag_kernel<4, MODE>;
+    case 8: return diag_kernel<8, MODE>;
+    case 16: return diag_kernel<16, MODE>;
+    case 32: return diag_kernel<32, MODE>;
+    default: return nullptr;
+    }
+}
+
+Kernel kernel_of(int mode, int group) {
+    return mode == MODE_PLANES    ? kernel_in<MODE_PLANES>(group)
+           : mode == MODE_SUMMARY ? kernel_in<MODE_SUMMARY>(group)
+                                  : nullptr;
 }
 
 }  // namespace
 
 extern "C" {
 
-// crush_rule_plan's ten values (crush_rule.cu) for this kernel.
-int crush_rule_diag_plan(int* out) {
-    const auto k = crush_rule_diag_kernel;
-    cudaFuncAttributes fa;
-    cudaError_t e = cudaFuncGetAttributes(&fa, k);
-    if (e != cudaSuccess) return e;
-    int dev, min_grid, threads, blocks;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaOccupancyMaxPotentialBlockSize(&min_grid, &threads, k,
-                                                smem_bytes(0))) !=
-        cudaSuccess)
-        return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &blocks, k, threads, smem_bytes(0))) != cudaSuccess)
-        return e;
-    int per_sm, optin, reserved, sms;
-    cudaDeviceGetAttribute(&per_sm,
-                           cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    cudaDeviceGetAttribute(&reserved,
-                           cudaDevAttrReservedSharedMemoryPerBlock, dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int vals[10] = {fa.numRegs, (int)fa.localSizeBytes,
-                          (int)fa.sharedSizeBytes, threads, blocks, per_sm,
-                          optin, reserved, sms, (int)smem_bytes(0)};
-    for (int i = 0; i < 10; i++) out[i] = vals[i];
-    return (int)cudaGetLastError();
+// crush_rule_plan's ten values (launch.cuh plan_values) for the kernel of
+// `mode` (0 planes, 1 summary) and group G (1, 2, 4, ..., 32).
+int crush_rule_diag_plan(int mode, int group, int* out) {
+    const Kernel k = kernel_of(mode, group);
+    if (!k) return cudaErrorInvalidValue;
+    return crush_launch::plan_values(k, out);
 }
 
-// crush_rule_launch's arguments (crush_rule.cu), then the plan
-// ([n_steps, 3] int32, on the device), the planes' widths and the planes:
-// tries [n, n_lanes], steps [n, n_steps_rows, result_max], tally [n, 4].
+// The group a launch of n seeds in `mode` at `threads` a block runs with,
+// into *group (launch.cuh group_for on the mode's one-lane kernel).
+int crush_rule_diag_group(int mode, long long n, int threads, int* group) {
+    const Kernel k1 = kernel_of(mode, 1);
+    if (!k1 || n < 0 || threads < 1) return cudaErrorInvalidValue;
+    return (int)crush_launch::group_for(k1, n, threads, group);
+}
+
+// crush_rule_launch's arguments through `threads` (crush_rule.cu; `xs`
+// and the rows are in `args`), then a host pointer to the launch's
+// DiagArgs.  `threads` lanes a block, a multiple of 32 (fewer in a group
+// launch that spreads over the SMs); the grid is as many blocks as fit
+// on the card at once (at n_staged records and, in summary mode, the
+// histogram a block), and never more than the seeds' groups need.
 int crush_rule_diag_launch(
     const int32_t* headers, const int32_t* records, const int32_t* items,
     const uint32_t* nodes, const uint32_t* weight, const int64_t* rh_lh,
@@ -116,28 +255,27 @@ int crush_rule_diag_launch(
     int max_devices, int max_depth, int weight_len, int n_steps,
     int result_max, int choose_total_tries, int chooseleaf_descend_once,
     int chooseleaf_vary_r, int chooseleaf_stable, int n_staged, int threads,
-    const uint32_t* xs, long long n, int32_t* out, const int32_t* plan,
-    int n_lanes, int n_steps_rows, int32_t* tries, int32_t* step_rows,
-    int32_t* tally, void* stream) {
-    if (n <= 0) return cudaSuccess;
+    const DiagArgs* args, void* stream) {
+    const DiagArgs a = *args;
+    if (a.n <= 0) return cudaSuccess;
     if (result_max < 1 || result_max > crush_rule::RMAX_CAP ||
-        n_staged < 0 || threads < 1 || n_lanes < 0 || n_steps_rows < 0)
+        n_staged < 0 || threads < 1 || threads % 32 || a.n_lanes < 0 ||
+        a.n_steps_rows < 0 || a.n_retry < 0 || a.n_retry > a.n_lanes ||
+        (a.mode == MODE_SUMMARY && (a.bound < 0 || !a.summary)))
         return cudaErrorInvalidValue;
-    const auto k = crush_rule_diag_kernel;
-    const size_t smem = smem_bytes(n_staged);
-    cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const Kernel k1 = kernel_of(a.mode, 1);
+    if (!k1) return cudaErrorInvalidValue;
+    int group;
+    cudaError_t e = crush_launch::group_for(k1, a.n, threads, &group);
     if (e != cudaSuccess) return e;
-    int dev, sms, per_sm;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, k, threads, smem)) != cudaSuccess)
+    const Kernel k = kernel_of(a.mode, group);
+    // at the one-lane block, which a group launch's never exceeds
+    const size_t smem = crush_launch::smem_bytes(n_staged) +
+                        summary_bytes(a.mode, a.bound, threads);
+    unsigned blocks;
+    if ((e = crush_launch::grid_for(k, a.n, group, smem, &threads,
+                                    &blocks)) != cudaSuccess)
         return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long need = (n + threads - 1) / threads;
-    const long long resident = (long long)per_sm * sms;
-    const unsigned blocks = (unsigned)(need < resident ? need : resident);
     crush_rule::Map m{headers,
                       reinterpret_cast<const crush_rule::Record*>(records),
                       nullptr, items, weight, rh_lh, ll, n_staged,
@@ -146,9 +284,7 @@ int crush_rule_diag_launch(
     crush_rule::Rule rule{steps, n_steps, result_max, choose_total_tries,
                           chooseleaf_descend_once, chooseleaf_vary_r,
                           chooseleaf_stable};
-    k<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        m, rule, plan, n_lanes, n_steps_rows, xs, n, out, tries, step_rows,
-        tally);
+    k<<<blocks, threads, smem, (cudaStream_t)stream>>>(m, rule, a);
     return (int)cudaGetLastError();
 }
 

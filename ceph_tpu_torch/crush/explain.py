@@ -18,8 +18,9 @@ workflow:
    kernel drift from the reference.  The device half is one call (one
    launch per 2^24 seeds); only the step planes are fetched.
 
-`diag_batch` and `device_choose_tries` run the diagnostics variant for
-a CrushArrays; its records keep the JAX package's keys (`"jax"` is the
+`diag_batch` (the planes) and `device_choose_tries` (the summary mode:
+only the histogram leaves the launch) run the diagnostics variant for a
+CrushArrays; its records keep the JAX package's keys (`"jax"` is the
 device's work vector), so records and `crushtool` output compare equal.
 Every lane of the port's kernel is exact: nothing is flagged unresolved.
 """
@@ -29,7 +30,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.crush import mapper, mapper_ref
 from ceph_tpu_torch.crush.soa import to_device
 from ceph_tpu_torch.crush.types import CrushMap, ITEM_NONE, RuleOp
@@ -208,15 +208,13 @@ def diag_batch(A, ruleno: int, result_max: int, device=None):
     tables = to_device(A, device)
 
     def run(xs, weights):
-        x = torch.as_tensor(np.asarray(xs, np.int64) & 0xFFFFFFFF,
-                            device=device)
-        w = torch.as_tensor(np.asarray(weights, np.int64) & 0xFFFFFFFF,
-                            device=device)
+        x, w = _inputs(xs, weights, device)
         rows, planes = mapper.diag_rule(tables, prog, x, w)
         return rows, torch.zeros(x.numel(), dtype=torch.bool,
                                  device=device), planes
 
     run.prog = prog
+    run.tables = tables
     run.diag_exact = prog.diag_exact
     run.diag_tries_bound = prog.diag_tries_bound
     run.diag_steps = prog.diag_steps
@@ -225,17 +223,24 @@ def diag_batch(A, ruleno: int, result_max: int, device=None):
     return run
 
 
+def _inputs(xs, weights, device):
+    """Seeds and reweights (u32 values) as int64 tensors on `device`."""
+    return tuple(torch.as_tensor(np.asarray(v, np.int64) & 0xFFFFFFFF,
+                                 device=device) for v in (xs, weights))
+
+
 def device_choose_tries(A, ruleno: int, result_max: int, xs, weights,
                         hist_len: int, device=None):
     """The per-placement retry histogram of the seeds xs (`crushtool
-    --test --show-choose-tries`) from the diagnostics planes, reduced on
-    the device: only the hist_len counts are fetched.  Returns
+    --test --show-choose-tries`) from the diagnostics kernel's summary
+    mode (`mapper.diag_summary`; on the CPU its plain version): only the
+    hist_len counts and the five sums leave the device.  Returns
     (hist int64[hist_len], unresolved_idx int64[0]): every lane is exact,
     so no seed is left for the host."""
     run = diag_batch(A, ruleno, result_max, device)
-    _, _, planes = run(xs, weights)
-    hist = reduce.value_histogram(planes["tries"], hist_len - 1)
-    return hist.cpu().numpy(), np.zeros(0, np.int64)
+    x, w = _inputs(xs, weights, run.tables.device)
+    got = mapper.diag_summary(run.tables, run.prog, x, w, hist_len - 1)
+    return got[:hist_len].cpu().numpy(), np.zeros(0, np.int64)
 
 
 def first_divergence(

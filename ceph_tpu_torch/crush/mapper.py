@@ -22,14 +22,25 @@ not decide.  The port has one exact path:
 - `map_rule` dispatches on where the seeds lie: a CPU tensor goes to the
   plain version, a CUDA tensor to the kernel (or the call raises).
 
-The diagnostics (the JAX package's `compile_rule(..., with_diag=True)`):
-`crush_rule_diag_cuda` launches the kernel's diagnostics variant
-(`crush/csrc/crush_rule_diag.cu`), which returns, beside the rows, each
-lane's retry count of every placement (`tries`, the reference's
-choose_tries histogram before it is summed), its collision, out-of-weight
-and skip tallies, a bad-mapping flag and the work vector after each
-choose step; `diag_rule` dispatches it as `map_rule` does the rows.  The
-lane layout is the plan's (`RuleProgram.diag_plan`).  Unlike the JAX
+The diagnostics (the JAX package's `compile_rule(..., with_diag=True)`)
+are the kernel's diagnostics variant (`crush/csrc/crush_rule_diag.cu`),
+in one of two modes fixed at launch, each seed mapped by a group of
+`diag_group_size(N)` lanes (more than one when the launch is smaller than
+the card):
+
+- planes, `crush_rule_diag_cuda`: beside the rows, each lane's retry
+  count of every placement (`tries`, the reference's choose_tries
+  histogram before it is summed), its collision, out-of-weight and skip
+  tallies, a bad-mapping flag and the work vector after each choose step;
+  `diag_rule` dispatches it as `map_rule` does the rows;
+- summary, `crush_rule_diag_summary_cuda`: no rows and no planes, only
+  the histogram of the tries values over [0, bound] and five sums, added
+  up in the launch; its seeds may be PG seeds whose placement seeds the
+  kernel computes (`PoolSeeds`).  `diag_summary` dispatches it, and its
+  plain version is `diag_summary_plain` (the plain planes reduced by
+  `summary_of_planes`).
+
+The lane layout is the plan's (`RuleProgram.diag_plan`).  Unlike the JAX
 package's window reconstruction, every lane is exact on every plan.
 
 Inputs are u32 values: seeds and reweights may be given in any integer
@@ -39,6 +50,7 @@ padded with ITEM_NONE, as `compile_rule`'s fn returns them.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import threading
@@ -48,6 +60,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import build, obs
+from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.core.intmath import div_trunc_s64
 from ceph_tpu_torch.core.lntable import LL_TBL, RH_LH_TBL, crush_ln, ln_tables
 from ceph_tpu_torch.core.rjenkins import (
@@ -227,6 +240,12 @@ def _weight_vector(weight: torch.Tensor) -> torch.Tensor:
     if weight.numel() == 0:
         return torch.zeros(1, dtype=weight.dtype, device=weight.device)
     return weight
+
+
+def kernel_weights(weight: torch.Tensor) -> torch.Tensor:
+    """OSD reweights (u32 values, any integer dtype) as the kernels take
+    them: int32 bit patterns [D >= 1]."""
+    return u32_bits(_weight_vector(weight.reshape(-1)))
 
 
 # -- the plain version --------------------------------------------------------
@@ -748,6 +767,36 @@ def _empty_planes(prog: RuleProgram, device, n: int = 0) -> dict:
                    empty(n, prog.diag_steps, prog.result_max), empty(n, 4))
 
 
+SUMS = ("coll", "rej", "skip", "bad", "exhausted")  # a summary's tail
+# a lane's summary counters on the card: the sums and the histogram's
+# first 4 bins (crush_rule.cuh N_COUNTS)
+SUMMARY_COUNTS = len(SUMS) + 4
+
+
+def summary_of_planes(prog: RuleProgram, planes: dict,
+                      bound: int) -> torch.Tensor:
+    """A batch's planes reduced to the diagnostics summary, int64
+    [bound + 6] on their device: the histogram of every tries lane's value
+    in [0, bound] (`core/reduce.py::value_histogram`: the rest dropped,
+    not clamped), then the sums of coll, rej, skip and bad and the retry
+    lanes left at -1 (`RuleProgram.diag_retry_lanes`: exhausted)."""
+    tries = planes["tries"]
+    retry = torch.from_numpy(prog.diag_retry_lanes).to(tries.device)
+    return torch.cat([
+        reduce.value_histogram(tries, bound),
+        torch.stack([planes[k].long().sum() for k in SUMS[:4]]
+                    + [((tries < 0) & retry).sum()])])
+
+
+def diag_summary_plain(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
+                       weight: torch.Tensor, bound: int) -> torch.Tensor:
+    """The summary kernel's plain version, on any device: the planes of
+    `crush_rule_plain(..., diag=True)` on seeds x, reduced by
+    `summary_of_planes`: int64 [bound + 6]."""
+    _, _, planes = crush_rule_plain(T, prog, x, weight, diag=True)
+    return summary_of_planes(prog, planes, bound)
+
+
 # -- the kernel ---------------------------------------------------------------
 
 _LIBS: dict[bool, ctypes.CDLL] = {}
@@ -755,20 +804,31 @@ _LIBS: dict[bool, ctypes.CDLL] = {}
 # applier, may both be first)
 _LIB_LOCK = threading.Lock()
 
+DIAG_MODES = {"planes": 0, "summary": 1}  # crush_rule_diag.cu MODE_*
+GROUPS = (1, 2, 4, 8, 16, 32)  # the diagnostics kernel's instantiations
+# the diagnostics kernel's launches by instance, "<mode>_g<G>"; a caller
+# counting from 0 clears it with the kernel's registry count
+DIAG_LAUNCHES: collections.Counter = collections.Counter()
+
 
 def _rule_work(shape) -> tuple[int, int]:
-    """(bytes, 0) of one launch of shape (T, prog, n, reweights, diag):
-    each input read once (seeds, the map's headers, records, items and
-    tree nodes, reweights, steps, crush_ln tables), each output written
-    once (rows, and the planes).  The operations are not reckoned."""
-    T, prog, n, n_weights, diag = shape
-    nbytes = (4 * n + 4 * n_weights + prog.steps.nbytes + RH_LH_TBL.nbytes
-              + LL_TBL.nbytes + sum(t.numel() * t.element_size() for t in (
-                  T.headers, T.records, T.packed_items, T.nodes))
-              + 4 * n * prog.result_max)
-    if diag:
-        nbytes += 4 * n * (prog.diag_lanes
-                           + prog.diag_steps * prog.result_max + 4)
+    """(bytes, 0) of one launch of shape (T, prog, n, reweights, mode,
+    seed bytes, bound), mode None for the rule kernel, "planes" or
+    "summary": each input read once (seeds, the map's headers, records,
+    items and tree nodes, reweights, steps, crush_ln tables), each output
+    written once (rows and planes, or the summary's bound + 6 counters).
+    The operations are not reckoned."""
+    T, prog, n, n_weights, mode, seed_bytes, bound = shape
+    nbytes = (seed_bytes * n + 4 * n_weights + prog.steps.nbytes
+              + RH_LH_TBL.nbytes + LL_TBL.nbytes + sum(
+                  t.numel() * t.element_size() for t in (
+                      T.headers, T.records, T.packed_items, T.nodes)))
+    if mode == "summary":
+        return nbytes + prog.diag_plan.nbytes + 8 * (bound + 6), 0
+    nbytes += 4 * n * prog.result_max
+    if mode == "planes":
+        nbytes += prog.diag_plan.nbytes + 4 * n * (
+            prog.diag_lanes + prog.diag_steps * prog.result_max + 4)
     return nbytes, 0
 
 
@@ -779,6 +839,21 @@ _ACCTS = {
                             f"crush/csrc/{name}.cu", work=_rule_work)
     for diag, name in ((False, "crush_rule"), (True, "crush_rule_diag"))
 }
+
+
+class _DiagArgs(ctypes.Structure):
+    """crush_rule_diag.cu DiagArgs: one launch's seeds, plan and
+    outputs."""
+
+    _fields_ = (
+        [("xs", ctypes.c_void_p), ("ps", ctypes.c_void_p),
+         ("first", ctypes.c_longlong), ("n", ctypes.c_longlong)]
+        + [(k, ctypes.c_uint32) for k in ("pool_id", "pgp_num", "pgp_mask")]
+        + [("hashpspool", ctypes.c_int32), ("plan", ctypes.c_void_p)]
+        + [(k, ctypes.c_int32) for k in (
+            "n_lanes", "n_steps_rows", "n_retry", "bound", "mode")]
+        + [(k, ctypes.c_void_p) for k in (
+            "out", "tries", "steps", "tally", "summary")])
 
 
 def _lib(diag: bool = False) -> ctypes.CDLL:
@@ -796,11 +871,16 @@ def _lib(diag: bool = False) -> ctypes.CDLL:
             lambda: build.load(f"crush/csrc/{name}.cu"))
         p, i = ctypes.c_void_p, ctypes.c_int
         launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = ([p] * 8 + [i] * 13 + [p, ctypes.c_longlong, p]
-                           + ([p, i, i, p, p, p] if diag else []) + [p])
+        launch.argtypes = ([p] * 8 + [i] * 13
+                           + ([p] if diag else [p, ctypes.c_longlong, p])
+                           + [p])
         launch.restype = i
-        getattr(lib, f"{name}_plan").argtypes = [p]
-        getattr(lib, f"{name}_plan").restype = i
+        plan = getattr(lib, f"{name}_plan")
+        plan.argtypes = [i, i, p] if diag else [p]
+        plan.restype = i
+        if diag:
+            lib.crush_rule_diag_group.argtypes = [i, ctypes.c_longlong, i, p]
+            lib.crush_rule_diag_group.restype = i
         getattr(lib, f"{name}_error_string").argtypes = [i]
         getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
         _LIBS[diag] = lib
@@ -841,88 +921,115 @@ class LaunchPlan:
 
 
 @functools.cache
-def launch_plan(device_index: int, diag: bool = False) -> LaunchPlan:
-    """The kernel's (or its diagnostics variant's) LaunchPlan on one
-    card."""
+def launch_plan(device_index: int) -> LaunchPlan:
+    """The rule kernel's LaunchPlan on one card."""
     out = (ctypes.c_int * 10)()
-    name = "crush_rule_diag" if diag else "crush_rule"
     with torch.cuda.device(device_index):
-        _check(getattr(_lib(diag), f"{name}_plan")(ctypes.addressof(out)),
-               "plan", diag)
+        _check(_lib().crush_rule_plan(ctypes.addressof(out)), "plan")
     return LaunchPlan(*out)
 
 
-def staged_records(T: DeviceArrays, plan: LaunchPlan) -> int:
+@functools.cache
+def diag_launch_plan(device_index: int, mode: str = "planes",
+                     group: int = 1) -> LaunchPlan:
+    """The LaunchPlan on one card of the diagnostics kernel of `mode`
+    (DIAG_MODES) that maps a seed with `group` lanes (GROUPS); group 1's
+    is every launch's block size."""
+    if mode not in DIAG_MODES or group not in GROUPS:
+        raise ValueError(f"crush_rule_diag: mode {mode!r}, group {group}: "
+                         f"not in {sorted(DIAG_MODES)} x {GROUPS}")
+    out = (ctypes.c_int * 10)()
+    with torch.cuda.device(device_index):
+        _check(_lib(True).crush_rule_diag_plan(
+            DIAG_MODES[mode], group, ctypes.addressof(out)), "plan", True)
+    return LaunchPlan(*out)
+
+
+@functools.cache
+def diag_group_size(n: int, mode: str = "planes",
+                    device_index: int | None = None) -> int:
+    """The lanes a diagnostics launch of n seeds in `mode` maps each seed
+    with: the largest power of two G <= 32 with n * G <= the resident
+    lanes of the mode's one-lane kernel (the launch computes it in the
+    same C function, launch.cuh group_for, from its shape alone)."""
+    if device_index is None:
+        device_index = torch.cuda.current_device()
+    plan = diag_launch_plan(device_index, mode)
+    out = ctypes.c_int()
+    with torch.cuda.device(device_index):
+        _check(_lib(True).crush_rule_diag_group(
+            DIAG_MODES[mode], n, plan.threads, ctypes.addressof(out)),
+            "group", True)
+    return out.value
+
+
+def staged_records(T: DeviceArrays, plan: LaunchPlan,
+                   reserve: int = 0) -> int:
     """How many records (a prefix) a block stages in shared memory: all
-    of the map when they fit the plan's budget, else the most whole
-    breadth-first levels that do."""
+    of the map when they fit the plan's budget (less `reserve` bytes the
+    block keeps for itself), else the most whole breadth-first levels
+    that do."""
     total = T.records.shape[0]
-    budget = plan.stage_budget
+    budget = plan.stage_budget - -(-reserve // RECORD_BYTES)
     if total <= budget:
         return total
     return max((e for e in T.level_ends if e <= budget), default=0)
 
 
-def _launch(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
-            weight: torch.Tensor, stage: int | None, diag: bool):
-    """One launch of the rule kernel or of its diagnostics variant:
-    (rows, planes or None)."""
-    what = "crush_rule_diag_cuda" if diag else "crush_rule_cuda"
+def _checked_inputs(what: str, T: DeviceArrays, prog: RuleProgram,
+                    weight: torch.Tensor, seeds=(),
+                    seed_dtype=torch.int32) -> None:
+    """A launch's inputs: on T's card, int32 u32 bit patterns (seeds of
+    seed_dtype: int64 PG seeds for a placement-seed launch), contiguous,
+    rows the kernel holds."""
     dev = T.device
-    if dev.type != "cuda" or x.device != dev or weight.device != dev:
+    if dev.type != "cuda" or weight.device != dev or any(
+            x.device != dev for x in seeds):
         raise ValueError(
-            f"{what}: map on {dev}, seeds on {x.device}, weights "
-            f"on {weight.device}; all must be on one CUDA device")
-    if x.dtype != torch.int32 or weight.dtype != torch.int32:
-        raise TypeError(f"{what}: int32 seeds and weights expected "
-                        "(u32 bit patterns)")
-    if x.dim() != 1 or weight.dim() != 1 or weight.numel() == 0:
+            f"{what}: map on {dev}, seeds on "
+            f"{[str(x.device) for x in seeds]}, weights on {weight.device};"
+            " all must be on one CUDA device")
+    if weight.dtype != torch.int32 or any(
+            x.dtype != seed_dtype for x in seeds):
+        raise TypeError(f"{what}: {seed_dtype} seeds and int32 weights "
+                        "expected (u32 bit patterns; int64 PG seeds)")
+    if weight.dim() != 1 or weight.numel() == 0 or any(
+            x.dim() != 1 for x in seeds):
         raise ValueError(f"{what}: seeds [N] and weights [D >= 1] "
                          "expected")
-    if not (x.is_contiguous() and weight.is_contiguous()):
+    if not (weight.is_contiguous() and all(x.is_contiguous()
+                                           for x in seeds)):
         raise ValueError(f"{what}: contiguous tensors expected")
     if prog.result_max > RMAX_CAP:
         raise ValueError(f"{what}: result_max {prog.result_max} > "
                          f"{RMAX_CAP}, the kernel's longest row")
-    n = x.numel()
-    out = torch.empty((n, prog.result_max), dtype=torch.int32, device=dev)
-    planes = _empty_planes(prog, dev, n) if diag else None
-    if n == 0:
-        return out, planes
-    rh_lh, ll = ln_tables(dev)
+
+
+def _rule_args(T: DeviceArrays, prog: RuleProgram, weight: torch.Tensor,
+               n_staged: int, threads: int, what: str) -> list:
+    """crush_rule_launch's arguments through `threads`."""
+    rh_lh, ll = ln_tables(T.device)
     for t in (T.records, rh_lh, ll):
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: records and crush_ln tables "
                              "must be 16-byte aligned")
-    plan = launch_plan(dev.index if dev.index is not None
-                       else torch.cuda.current_device(), diag)
-    n_staged = staged_records(T, plan) if stage is None else stage
     if not 0 <= n_staged <= T.records.shape[0]:
         raise ValueError(f"{what}: stage {n_staged} outside "
                          f"[0, {T.records.shape[0]}]")
-    args = [
+    return [
         T.headers.data_ptr(), T.records.data_ptr(),
         T.packed_items.data_ptr(), T.nodes.data_ptr(),
         weight.data_ptr(), rh_lh.data_ptr(),
-        ll.data_ptr(), prog.steps_on(dev).data_ptr(), T.n_buckets,
+        ll.data_ptr(), prog.steps_on(T.device).data_ptr(), T.n_buckets,
         T.positions, T.max_devices, T.max_depth, weight.numel(),
         len(prog.steps), prog.result_max, prog.choose_total_tries,
         prog.chooseleaf_descend_once, prog.chooseleaf_vary_r,
-        prog.chooseleaf_stable, n_staged, plan.threads, x.data_ptr(), n,
-        out.data_ptr()]
-    if diag:
-        tally = planes["coll"]  # column 0 of the [n, 4] tally plane
-        args += [prog.diag_plan_on(dev).data_ptr(), prog.diag_lanes,
-                 prog.diag_steps, planes["tries"].data_ptr(),
-                 planes["steps"].data_ptr(), tally.data_ptr()]
-    with torch.cuda.device(dev):
-        launch = (_lib(True).crush_rule_diag_launch if diag
-                  else _lib().crush_rule_launch)
-        rc = _ACCTS[diag].launch(
-            launch, *args, torch.cuda.current_stream().cuda_stream,
-            shape=(T, prog, n, weight.numel(), diag))
-        _check(rc, "kernel launch", diag)
-    return out, planes
+        prog.chooseleaf_stable, n_staged, threads]
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None \
+        else torch.cuda.current_device()
 
 
 def crush_rule_cuda(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
@@ -936,25 +1043,147 @@ def crush_rule_cuda(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
     the launches: it is the kernel's count in the kernel registry
     (`obs.executables`), which each launch books with its shape
     (`_rule_work` reckons its bytes)."""
-    return _launch(T, prog, x, weight, stage, diag=False)[0]
+    what = "crush_rule_cuda"
+    _checked_inputs(what, T, prog, weight, (x,))
+    dev, n = T.device, x.numel()
+    out = torch.empty((n, prog.result_max), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    plan = launch_plan(_device_index(dev))
+    n_staged = staged_records(T, plan) if stage is None else stage
+    args = _rule_args(T, prog, weight, n_staged, plan.threads, what)
+    with torch.cuda.device(dev):
+        rc = _ACCTS[False].launch(
+            _lib().crush_rule_launch, *args, x.data_ptr(), n,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            shape=(T, prog, n, weight.numel(), None, 4, 0))
+        _check(rc, "kernel launch")
+    return out
 
 
 crush_rule_cuda = _ACCTS[False].entry(crush_rule_cuda)
 
 
+@dataclass(frozen=True)
+class PoolSeeds:
+    """What a diagnostics launch needs to compute a PG's placement seed in
+    its lane (osd/csrc/placement_seed.cuh; osd/pipeline.py PoolSpec):
+    ceph_stable_mod by pgp_num, then hash32_2 with the pool id (or the sum
+    without hashpspool)."""
+
+    pool_id: int
+    pgp_num: int
+    pgp_mask: int
+    hashpspool: bool
+
+
+def _diag_launch(T: DeviceArrays, prog: RuleProgram, weight: torch.Tensor,
+                 stage: int | None, mode: str, args: _DiagArgs, n: int,
+                 seed_bytes: int, what: str) -> None:
+    """One launch of the diagnostics kernel in `mode`, its seeds, plan
+    and outputs in `args` (filled here but for the seeds and outputs)."""
+    dev = T.device
+    idx = _device_index(dev)
+    plan = diag_launch_plan(idx, mode)
+    # summary mode's shared memory: the histogram (uint64, 16-byte
+    # aligned) and SUMMARY_COUNTS uint32 counters a lane
+    # (crush_rule_diag.cu)
+    reserve = (-(-8 * (args.bound + 1) // 16) * 16 + 4 * SUMMARY_COUNTS
+               * plan.threads if mode == "summary" else 0)
+    n_staged = staged_records(T, plan, reserve) if stage is None else stage
+    rule = _rule_args(T, prog, weight, n_staged, plan.threads, what)
+    args.n = n
+    args.plan = prog.diag_plan_on(dev).data_ptr()
+    args.n_lanes, args.n_steps_rows = prog.diag_lanes, prog.diag_steps
+    args.n_retry = int(prog.diag_retry_lanes.sum())
+    args.mode = DIAG_MODES[mode]
+    group = diag_group_size(n, mode, idx)
+    with torch.cuda.device(dev):
+        rc = _ACCTS[True].launch(
+            _lib(True).crush_rule_diag_launch, *rule,
+            ctypes.addressof(args), torch.cuda.current_stream().cuda_stream,
+            shape=(T, prog, n, weight.numel(), mode, seed_bytes, args.bound))
+        _check(rc, "kernel launch", True)
+    DIAG_LAUNCHES[f"{mode}_g{group}"] += 1
+
+
 def crush_rule_diag_cuda(T: DeviceArrays, prog: RuleProgram,
                          x: torch.Tensor, weight: torch.Tensor,
                          stage: int | None = None):
-    """Launch the diagnostics variant once, with crush_rule_cuda's
-    inputs, staging and grid: (rows int32 [N, result_max], planes), the
+    """Launch the diagnostics kernel once in planes mode, with
+    crush_rule_cuda's inputs, staging and grid (each seed mapped by
+    `diag_group_size(N)` lanes): (rows int32 [N, result_max], planes), the
     planes int32 on the card (`_planes`: tries [N, diag_lanes], coll,
     rej, skip and bad [N], steps [N, diag_steps, result_max]).  The rows
     are crush_rule_cuda's.  `crush_rule_diag_cuda.launches` counts the
-    launches (the registry's count, as crush_rule_cuda's)."""
-    return _launch(T, prog, x, weight, stage, diag=True)
+    launches of both modes (the registry's count, as crush_rule_cuda's);
+    DIAG_LAUNCHES counts them by instance."""
+    what = "crush_rule_diag_cuda"
+    _checked_inputs(what, T, prog, weight, (x,))
+    dev, n = T.device, x.numel()
+    out = torch.empty((n, prog.result_max), dtype=torch.int32, device=dev)
+    planes = _empty_planes(prog, dev, n)
+    if n == 0:
+        return out, planes
+    args = _DiagArgs(xs=x.data_ptr(), out=out.data_ptr(),
+                     tries=planes["tries"].data_ptr(),
+                     steps=planes["steps"].data_ptr(),
+                     # column 0 of the [n, 4] tally plane
+                     tally=planes["coll"].data_ptr())
+    _diag_launch(T, prog, weight, stage, "planes", args, n, 4, what)
+    return out, planes
 
 
 crush_rule_diag_cuda = _ACCTS[True].entry(crush_rule_diag_cuda)
+
+
+def crush_rule_diag_summary_cuda(T: DeviceArrays, prog: RuleProgram,
+                                 seeds, weight: torch.Tensor, bound: int,
+                                 pool: PoolSeeds | None = None,
+                                 stage: int | None = None) -> torch.Tensor:
+    """Launch the diagnostics kernel once in summary mode: no rows and no
+    planes, only the summary, int64 [bound + 6] on the card (the
+    histogram of every tries lane's value in [0, bound], then the sums of
+    SUMS; `diag_summary_plain`'s, exactly).  Without `pool`, seeds are
+    the seeds as given, int32 [N] (u32 bit patterns); with it, PG seeds
+    whose placement seeds the kernel computes in each lane: int64 [N]
+    (u32 values), or a `range` of them, which reads no tensor.  Runs on
+    the current stream, unsynchronised; counted as crush_rule_diag_cuda
+    is."""
+    what = "crush_rule_diag_summary_cuda"
+    if bound < 0:
+        raise ValueError(f"{what}: bound {bound} < 0")
+    args = _DiagArgs(bound=bound)
+    if isinstance(seeds, range):
+        if pool is None or seeds.step != 1 or seeds.start < 0:
+            raise ValueError(f"{what}: a range of PG seeds needs a pool "
+                             "and a step of 1 from 0 or above")
+        _checked_inputs(what, T, prog, weight)
+        n, seed_bytes = len(seeds), 0
+        args.first = seeds.start
+    else:
+        _checked_inputs(what, T, prog, weight, (seeds,),
+                        torch.int32 if pool is None else torch.int64)
+        n, seed_bytes = seeds.numel(), seeds.element_size()
+        if pool is None:
+            args.xs = seeds.data_ptr()
+        else:
+            args.ps = seeds.data_ptr()
+    if pool is not None:
+        args.pool_id = pool.pool_id & M32
+        args.pgp_num, args.pgp_mask = pool.pgp_num, pool.pgp_mask
+        args.hashpspool = bool(pool.hashpspool)
+    out = torch.zeros(bound + 6, dtype=torch.long, device=T.device)
+    if n == 0:
+        return out
+    args.summary = out.data_ptr()
+    _diag_launch(T, prog, weight, stage, "summary", args, n, seed_bytes,
+                 what)
+    return out
+
+
+crush_rule_diag_summary_cuda = _ACCTS[True].entry(
+    crush_rule_diag_summary_cuda)
 
 
 def map_rule(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
@@ -970,7 +1199,7 @@ def map_rule(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     x = u32_bits(x.reshape(-1))
-    weight = u32_bits(_weight_vector(weight.reshape(-1)))
+    weight = kernel_weights(weight)
     blocks = [crush_rule_cuda(T, prog, x[i:i + BLOCK], weight)
               for i in range(0, max(x.numel(), 1), BLOCK)]
     return blocks[0] if len(blocks) == 1 else torch.cat(blocks)
@@ -978,9 +1207,10 @@ def map_rule(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
 
 def diag_rule(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
               weight: torch.Tensor):
-    """`map_rule` with the diagnostics: (rows, planes) for seeds x on
-    T's device.  On the card, one launch of the diagnostics variant per
-    block of up to BLOCK seeds; on the CPU, the plain version."""
+    """`map_rule` with the diagnostics planes: (rows, planes) for seeds x
+    on T's device.  On the card, one planes-mode launch of the
+    diagnostics kernel per block of up to BLOCK seeds; on the CPU, the
+    plain version."""
     if x.device != T.device or weight.device != T.device:
         raise ValueError(f"seeds on {x.device}, weights on {weight.device}, "
                          f"map on {T.device}")
@@ -990,10 +1220,32 @@ def diag_rule(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     x = u32_bits(x.reshape(-1))
-    weight = u32_bits(_weight_vector(weight.reshape(-1)))
+    weight = kernel_weights(weight)
     blocks = [crush_rule_diag_cuda(T, prog, x[i:i + BLOCK], weight)
               for i in range(0, max(x.numel(), 1), BLOCK)]
     if len(blocks) == 1:
         return blocks[0]
     return (torch.cat([b[0] for b in blocks]),
             {k: torch.cat([b[1][k] for b in blocks]) for k in blocks[0][1]})
+
+
+def diag_summary(T: DeviceArrays, prog: RuleProgram, x: torch.Tensor,
+                 weight: torch.Tensor, bound: int) -> torch.Tensor:
+    """The diagnostics summary of seeds x on T's device, int64 [bound + 6]
+    (`diag_summary_plain`'s layout).  On the card, one summary-mode
+    launch per block of up to BLOCK seeds, the blocks' summaries added on
+    the card; on the CPU, the plain version."""
+    if x.device != T.device or weight.device != T.device:
+        raise ValueError(f"seeds on {x.device}, weights on {weight.device}, "
+                         f"map on {T.device}")
+    if x.device.type == "cpu":
+        return diag_summary_plain(T, prog, x, weight, bound)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x = u32_bits(x.reshape(-1))
+    weight = kernel_weights(weight)
+    out = crush_rule_diag_summary_cuda(T, prog, x[:BLOCK], weight, bound)
+    for i in range(BLOCK, x.numel(), BLOCK):
+        out += crush_rule_diag_summary_cuda(T, prog, x[i:i + BLOCK], weight,
+                                            bound)
+    return out

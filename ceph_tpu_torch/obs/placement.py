@@ -5,9 +5,10 @@ The port of `ceph_tpu/obs/placement.py`.  The rule kernel fuses millions
 of `crush_do_rule` calls into one launch, and every decision inside it
 (retries, collisions, out-of-weight rejections, bad mappings) is
 invisible from the outside.  The kernel's diagnostics variant
-(`crush/mapper.py::diag_rule`) re-exposes them as device planes, and
-`PoolMapper.diagnose` reduces them to a summary; this module is where
-those summaries become operator-visible state:
+re-exposes them, as device planes (`crush/mapper.py::diag_rule`) or
+added up into a summary inside the launch
+(`crush_rule_diag_summary_cuda`, which `PoolMapper.diagnose` runs);
+this module is where those summaries become operator-visible state:
 
 - the JAX package's `placement` perf group: the decision tallies summed
   over every recorded summary and the `choose_tries` histogram (bucket

@@ -70,26 +70,9 @@
 #include <cuda_runtime.h>
 
 #include "pipeline.cuh"
+#include "../../crush/csrc/launch.cuh"
 
 namespace {
-
-using crush_rule::crush_smem;
-using crush_rule::LN_WORDS;
-
-// stage: the RH/LH rows, the LL entries, then records[0, n_staged)
-__device__ __forceinline__ void stage(crush_rule::Map& m) {
-    const uint4* rh_lh = reinterpret_cast<const uint4*>(m.rh_lh);
-    const uint4* ll = reinterpret_cast<const uint4*>(m.ll);
-    const uint4* rec = reinterpret_cast<const uint4*>(m.records);
-    const int words = LN_WORDS + m.n_staged;
-    for (int i = threadIdx.x; i < words; i += blockDim.x)
-        crush_smem[i] = i < crush_rule::LN_ROWS ? __ldg(rh_lh + i)
-                        : i < LN_WORDS ? __ldg(ll + i - crush_rule::LN_ROWS)
-                                       : __ldg(rec + i - LN_WORDS);
-    __syncthreads();
-    m.staged = reinterpret_cast<const crush_rule::Record*>(crush_smem +
-                                                           LN_WORDS);
-}
 
 // One PG a group of G aligned lanes (blockDim.x a multiple of 32 when
 // G > 1); G = 1 is one PG a thread.  The bound gives every G 64
@@ -99,7 +82,7 @@ template <int G>
 __global__ void __launch_bounds__(1024, 1)
     pipeline_kernel(crush_rule::Map m, crush_rule::Rule rule,
                     pipeline::Pipe p) {
-    stage(m);
+    crush_launch::stage(m);
     const int per_block = blockDim.x / G;
     const long long stride = (long long)gridDim.x * per_block;
     for (long long pg = (long long)blockIdx.x * per_block + threadIdx.x / G;
@@ -121,36 +104,6 @@ Kernel kernel_of(int group) {
     }
 }
 
-// The smallest block of a group launch: every block stages the same
-// crush_ln tables and records, so a block of few threads stages them
-// slowly (512 against 256 and 1024 on the card: pipeline_ab.py).
-constexpr int MIN_GROUP_BLOCK = 512;
-
-size_t smem_bytes(int n_staged) {
-    return (size_t)(LN_WORDS + n_staged) * sizeof(uint4);
-}
-
-// The group of a launch of n PGs at `threads` a block: the largest power
-// of two G <= 32 with n * G <= the G = 1 kernel's resident lanes there
-// (crush_ln tables staged, as pipeline_plan reckons them).
-cudaError_t group_for(long long n, int threads, int* group) {
-    int dev, sms, per_sm;
-    cudaError_t e;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-        return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, pipeline_kernel<1>, threads, smem_bytes(0))) !=
-        cudaSuccess)
-        return e;
-    const long long resident = (long long)per_sm * threads * sms;
-    int g = 1;
-    while (g < 32 && n * 2 * g <= resident) g *= 2;
-    *group = g;
-    return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -165,37 +118,14 @@ extern "C" {
 int pipeline_plan(int group, int* out) {
     const Kernel k = kernel_of(group);
     if (!k) return cudaErrorInvalidValue;
-    cudaFuncAttributes fa;
-    cudaError_t e = cudaFuncGetAttributes(&fa, k);
-    if (e != cudaSuccess) return e;
-    int dev, min_grid, threads, blocks;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaOccupancyMaxPotentialBlockSize(&min_grid, &threads, k,
-                                                smem_bytes(0))) !=
-        cudaSuccess)
-        return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &blocks, k, threads, smem_bytes(0))) != cudaSuccess)
-        return e;
-    int per_sm, optin, reserved, sms;
-    cudaDeviceGetAttribute(&per_sm,
-                           cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    cudaDeviceGetAttribute(&reserved,
-                           cudaDevAttrReservedSharedMemoryPerBlock, dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int vals[10] = {fa.numRegs, (int)fa.localSizeBytes,
-                          (int)fa.sharedSizeBytes, threads, blocks, per_sm,
-                          optin, reserved, sms, (int)smem_bytes(0)};
-    for (int i = 0; i < 10; i++) out[i] = vals[i];
-    return (int)cudaGetLastError();
+    return crush_launch::plan_values(k, out);
 }
 
 // The group a launch of n PGs at `threads` a block runs with, into *group.
 int pipeline_group(long long n, int threads, int* group) {
     if (n < 0 || threads < 1) return cudaErrorInvalidValue;
-    return (int)group_for(n, threads, group);
+    return (int)crush_launch::group_for(pipeline_kernel<1>, n, threads,
+                                        group);
 }
 
 // The rule's arguments are crush_rule_launch's (the reweights as the
@@ -221,33 +151,16 @@ int pipeline_launch(
         p.mode > pipeline::MODE_RAW)
         return cudaErrorInvalidValue;
     int group;
-    cudaError_t e = group_for(p.n, threads, &group);
+    cudaError_t e =
+        crush_launch::group_for(pipeline_kernel<1>, p.n, threads, &group);
     if (e != cudaSuccess) return e;
     if (group > 1 && threads % 32) return cudaErrorInvalidValue;
     const Kernel k = kernel_of(group);
-    const size_t smem = smem_bytes(n_staged);
-    e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    int dev, sms, per_sm;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    // a group launch spreads its lanes over the SMs: blocks of its lanes
-    // an SM, a multiple of 32, at least MIN_GROUP_BLOCK and at most
-    // `threads`
-    if (group > 1) {
-        long long block = (p.n * group + sms - 1) / sms;
-        block = (block + 31) / 32 * 32;
-        if (block < MIN_GROUP_BLOCK) block = MIN_GROUP_BLOCK;
-        if (block < threads) threads = (int)block;
-    }
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, k, threads, smem)) != cudaSuccess)
+    const size_t smem = crush_launch::smem_bytes(n_staged);
+    unsigned blocks;
+    if ((e = crush_launch::grid_for(k, p.n, group, smem, &threads,
+                                    &blocks)) != cudaSuccess)
         return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long need = (p.n * group + threads - 1) / threads;
-    const long long resident = (long long)per_sm * sms;
-    const unsigned blocks = (unsigned)(need < resident ? need : resident);
     crush_rule::Map m{headers,
                       reinterpret_cast<const crush_rule::Record*>(records),
                       nullptr, items, weight, rh_lh, ll, n_staged,

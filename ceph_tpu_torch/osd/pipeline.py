@@ -25,8 +25,10 @@ PG, padded to the width with ITEM_NONE (tests/test_torch_pipeline.py; the
 kernel's body built with g++: tests/test_torch_pipeline_kernel_host.py).
 
 `PoolMapper.diagnose` runs stages 1-2 through the rule kernel's
-diagnostics variant (`crush.mapper.diag_rule`) and reduces its decision
-planes on the device to the JAX package's placement-diagnostics summary.
+diagnostics variant in summary mode (`crush.mapper.
+crush_rule_diag_summary_cuda`): the placement seed, the walk and the
+reduction to the JAX package's placement-diagnostics summary in one
+launch per block, no plane written.
 
 The mapper books the JAX package's `pipeline` perf group (`pgs_mapped`,
 `map_block_seconds`: the host time of one block's enqueue) and spans
@@ -48,7 +50,6 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import build, obs
-from ceph_tpu_torch.core import reduce
 from ceph_tpu_torch.core.intmath import pg_mask_for, stable_mod
 from ceph_tpu_torch.core.lntable import LL_TBL, RH_LH_TBL, ln_tables
 from ceph_tpu_torch.core.rjenkins import M32, crush_hash32_2
@@ -56,9 +57,12 @@ from ceph_tpu_torch.crush.mapper import (
     BLOCK,
     RMAX_CAP,
     LaunchPlan,
+    PoolSeeds,
     compile_rule,
-    diag_rule,
+    crush_rule_diag_summary_cuda,
+    diag_summary_plain,
     find_rule,
+    kernel_weights,
     map_rule,
     staged_records,
 )
@@ -598,6 +602,13 @@ class PoolMapper:
             return crush_hash32_2(ps2, pid)
         return (ps2 + pid) & M32
 
+    def pool_seeds(self) -> PoolSeeds:
+        """Stage 1's inputs, for a kernel that computes the placement seed
+        in the PG's lane."""
+        spec = self.spec
+        return PoolSeeds(spec.pool_id, spec.pgp_num,
+                         pg_mask_for(spec.pgp_num), spec.hashpspool)
+
     def rule_weights(self) -> torch.Tensor:
         """The OSD reweights the rule reads (the first max_devices)."""
         return self.dev["weight"][:self.arrays.max_devices]
@@ -865,14 +876,17 @@ class PoolMapper:
     def diagnose(self, ps=None, source: str | None = None,
                  record: bool = True) -> dict:
         """Run the rule's diagnostics over the placement seeds of `ps`
-        (default: every PG) and reduce the per-PG decision planes on the
-        device into the JAX package's placement-diagnostics summary: the
-        per-placement retry histogram (the reference collect_choose_tries
-        shape), collision / out-of-weight-rejection / skip tallies, the
-        bad mappings (CRUSH rows shorter than the pool size) and the
-        placements that ran out of retries.  Only the O(tries bound)
-        histogram and five sums are fetched, never the planes.  Every
-        lane is exact: `diag_exact` is True and `unresolved` 0.
+        (default: every PG) into the JAX package's placement-diagnostics
+        summary: the per-placement retry histogram (the reference
+        collect_choose_tries shape), collision / out-of-weight-rejection /
+        skip tallies, the bad mappings (CRUSH rows shorter than the pool
+        size) and the placements that ran out of retries.  On the card,
+        one summary-mode launch of the diagnostics kernel per block of up
+        to BLOCK PGs (`crush_rule_diag_summary_cuda`: the placement seed
+        and the reductions in the launch, no rows or planes) and one read
+        of the bound + 6 counters; on the CPU, its plain version
+        (`diag_summary_plain` on `placement_seeds`).  Every lane is
+        exact: `diag_exact` is True and `unresolved` 0.
 
         The summary lands in `obs.placement` (source `source`, default
         "pool<id>") with this mapper's explainer unless record=False."""
@@ -880,35 +894,28 @@ class PoolMapper:
 
         PL = obs.logger_for("placement")
 
-        if ps is None:
-            ps = torch.arange(self.spec.pg_num, device=self.device)
-        else:
+        if ps is not None:
             ps = self._seeds(ps)
-        n = ps.numel()
+        n = self.spec.pg_num if ps is None else ps.numel()
         prog = self.prog
         bound = min(prog.diag_tries_bound if prog else 0,
                     len(placement.TRIES_BOUNDS) - 1)
-        hist = torch.zeros(bound + 1, dtype=torch.long, device=self.device)
-        sums = torch.zeros(5, dtype=torch.long, device=self.device)
+        total = torch.zeros(bound + 6, dtype=torch.long, device=self.device)
         if prog is not None:
-            retry = torch.from_numpy(prog.diag_retry_lanes).to(self.device)
             for i in range(0, n, BLOCK):
                 with obs.span("pipeline.diagnose",
                               pgs=min(BLOCK, n - i)), \
                         PL.time("diagnose_seconds"):
-                    pps = self.placement_seeds(ps[i:i + BLOCK])
-                    _, dg = diag_rule(self.tables, prog, pps,
-                                      self.rule_weights())
-                hist += reduce.value_histogram(dg["tries"], bound)
-                sums += torch.stack([
-                    dg["coll"].long().sum(), dg["rej"].long().sum(),
-                    dg["skip"].long().sum(), dg["bad"].long().sum(),
-                    ((dg["tries"] < 0) & retry).sum()])
+                    # every PG: a range, which reads no seed tensor
+                    total += self._diag_block(
+                        range(i, min(i + BLOCK, n)) if ps is None
+                        else ps[i:i + BLOCK], bound)
         else:  # no rule: every PG trivially bad, nothing decided
-            sums[3] = n
+            total[bound + 4] = n
         with obs.span("pipeline.fetch"):
-            hist_v = hist.cpu().tolist()
-            coll, rej, skip, bad, exhausted = sums.cpu().tolist()
+            got = total.cpu().tolist()
+        hist_v = got[:bound + 1]
+        coll, rej, skip, bad, exhausted = got[bound + 1:]
         summary = {
             "pgs": n,
             "pool_id": self.pool_id,
@@ -928,6 +935,21 @@ class PoolMapper:
             placement.register_explainer(f"pool{self.pool_id}",
                                          self._explain_seed)
         return summary
+
+    def _diag_block(self, ps, bound: int) -> torch.Tensor:
+        """One block's diagnostics summary, int64 [bound + 6]: on the
+        card one summary-mode launch on the PG seeds ps (a tensor, or a
+        range), on the CPU the plain version on their placement seeds."""
+        if self.device.type == "cuda":
+            return crush_rule_diag_summary_cuda(
+                self.tables, self.prog, ps,
+                kernel_weights(self.rule_weights()), bound,
+                self.pool_seeds())
+        if isinstance(ps, range):
+            ps = torch.arange(ps.start, ps.stop, device=self.device)
+        return diag_summary_plain(self.tables, self.prog,
+                                  self.placement_seeds(ps),
+                                  self.rule_weights(), bound)
 
     def _explain_seed(self, seed: int) -> dict:
         """Host-oracle replay of one placement seed of this pool (the

@@ -406,7 +406,9 @@ def phase_build() -> dict:
     pipeline kernel's (`pipeline.launch_plan`: the rule's body and staging
     with the stages after it; its registers beside the rule kernel's) and
     the plan kernel's (`upmap.loop_launch_plan` at config 5's OSDs: its
-    cooperative grid and dynamic shared memory)."""
+    cooperative grid and dynamic shared memory) and each instance of the
+    diagnostics kernel (`mapper.diag_launch_plan`: planes and summary at
+    every group)."""
     t0 = time.perf_counter()
     libs = build.build_all()
     seconds = time.perf_counter() - t0
@@ -421,6 +423,12 @@ def phase_build() -> dict:
     group_plans = {
         g: vars(pipeline.launch_plan(torch.cuda.current_device(), g))
         for g in pipeline.GROUPS}
+    # the diagnostics kernel's instances: a mode (planes, summary) and a
+    # group each, all built from one source
+    diag_plans = {
+        f"{mode}_g{g}": vars(mapper.diag_launch_plan(
+            torch.cuda.current_device(), mode, g))
+        for mode in mapper.DIAG_MODES for g in mapper.GROUPS}
     # at config 5's OSDs, with phase (a)'s shared memory of 8 B an OSD
     loop_plan = vars(upmap.loop_launch_plan(torch.cuda.current_device(),
                                             UPMAP_PLAN_OSDS))
@@ -437,6 +445,10 @@ def phase_build() -> dict:
               g: {k: p[k] for k in ("registers", "local_bytes", "threads",
                                     "blocks_per_sm")}
               for g, p in group_plans.items()},
+          "diag_plans": {
+              key: {k: p[k] for k in ("registers", "local_bytes", "threads",
+                                      "blocks_per_sm")}
+              for key, p in diag_plans.items()},
           # the fused kernel's registers and residency beside the rule
           # kernel's: the stages after the rule must not cost the descent
           # a resident warp
@@ -1406,15 +1418,12 @@ def phase_placement_main(dev, pms: dict, draws: dict, peak: float) -> dict:
 SMALL_LANES = (64, 8192)  # a micro-batch; serving's bulk sub-block
 
 
-def small_bytes(pm: PoolMapper, up: torch.Tensor) -> int:
-    """The bytes a rows-mode launch whose up rows are `up` [n, W] moves at
-    the least: its seeds read (8 B each) and its four planes written, the
-    rule's steps and the crush_ln tables read, and of the map only the
-    buckets above the OSDs of its rows (each header and its records once)
-    and those OSDs' exists and up flags and reweight.  A retry's other
-    buckets are not counted, so this is a floor.  _pipeline_work counts
-    the whole map, which a launch of a few PGs never reads."""
-    n, w = up.shape
+def touched_bytes(pm: PoolMapper, up: torch.Tensor) -> tuple[int, int]:
+    """(bytes, OSDs) of the map a launch whose rows are `up` [n, W] reads
+    at the least: the rule's steps and the crush_ln tables, and of the map
+    only the buckets above the OSDs of its rows (each header and its
+    records once); and those OSDs, whose per-OSD entries it reads.  A
+    retry's other buckets are not counted, so this is a floor."""
     parent = {it: bid for bid, b in pm.m.crush.buckets.items()
               for it in b.items}
     osds = {int(v) for v in up.flatten().tolist() if v != ITEM_NONE}
@@ -1426,8 +1435,18 @@ def small_bytes(pm: PoolMapper, up: torch.Tensor) -> int:
             todo += [parent[bid]] if bid in parent else []
     rec = sum(soa.HEADER.itemsize + mapper.RECORD_BYTES
               * len(pm.m.crush.buckets[b].items) for b in buckets)
-    return (8 * n + 4 * n * (2 * w + 2) + pm.prog.steps.nbytes
-            + (258 + 256) * 8 + rec + (1 + 1 + 8) * len(osds))
+    return pm.prog.steps.nbytes + (258 + 256) * 8 + rec, len(osds)
+
+
+def small_bytes(pm: PoolMapper, up: torch.Tensor) -> int:
+    """The bytes a rows-mode launch whose up rows are `up` [n, W] moves at
+    the least: its seeds read (8 B each) and its four planes written, and
+    what touched_bytes reckons of the map, with those OSDs' exists and up
+    flags and reweight.  _pipeline_work counts the whole map, which a
+    launch of a few PGs never reads."""
+    n, w = up.shape
+    touched, n_osds = touched_bytes(pm, up)
+    return 8 * n + 4 * n * (2 * w + 2) + touched + (1 + 1 + 8) * n_osds
 
 
 def small_launches(dev, pm: PoolMapper, draws: torch.Tensor,
@@ -2573,29 +2592,62 @@ def phase_mgr_balancer(dev, smi: str) -> dict:
 
 EXPLAIN_CORPUS = ROOT / "tests" / "data" / "explain_corpus.json"
 DIAG_SAMPLE = 512  # config-5 seeds whose histogram is held to mapper_ref
+PLANE_FREE = 1 * MiB  # the most diagnose() may take beyond its start
 SIM_SAMPLE = 32  # seeds a failure_sim epoch holds to the host oracle
 
 
 PLACEMENT_KERNELS = (mapper.crush_rule_cuda, mapper.crush_rule_diag_cuda,
                      pipeline.pipeline_cuda)
+# the diagnostics kernel's launches by instance ("<mode>_g<G>") over every
+# run count_placement counts
+DIAG_INSTANCES: dict[str, int] = {}
+DIAG_SMALL = (64, 512, 8192)  # config-5 seeds of the small planes launches
 
 
 def count_placement(fn):
     """fn() with the three placement kernels' launch counts set to 0 just
     before and read just after: (out, rule launches, diag launches,
-    pipeline launches)."""
+    pipeline launches); the diagnostics launches by instance are added to
+    DIAG_INSTANCES."""
     for k in PLACEMENT_KERNELS:
         k.launches = 0
+    mapper.DIAG_LAUNCHES.clear()
     out = fn()
+    for key, n in mapper.DIAG_LAUNCHES.items():
+        DIAG_INSTANCES[key] = DIAG_INSTANCES.get(key, 0) + n
     return (out, *(registry_launches(k) for k in PLACEMENT_KERNELS))
 
 
-def diag_checked(T, prog, x, w, what: str) -> tuple[int, dict]:
-    """crush_rule_diag_cuda on seeds x (the wrapper's staging and none)
-    against the plain version, plane for plane, and its rows against
-    crush_rule_cuda's: (max abs error, the plain planes)."""
+def summary_checked(T, prog, want: dict, runs: dict, what: str) -> int:
+    """Each summary-mode launch of `runs` (label -> fn(bound, stage)), with
+    the wrapper's staging and with none, at the plan's bound and at bound
+    1, equal to the plain planes `want` reduced (summary_of_planes):
+    integer sums, so equal, not close.  Returns the max abs error (0)."""
+    err = 0
+    for bound in (prog.diag_tries_bound, 1):
+        plain = mapper.summary_of_planes(prog, want, bound)
+        for label, fn in runs.items():
+            for stage in (None, 0):
+                got = fn(bound, stage)
+                torch.cuda.synchronize()
+                err = max(err, int((got - plain).abs().max()))
+                check(torch.equal(got, plain),
+                      f"diag summary == plain ({what}, {label}, bound "
+                      f"{bound}, stage {stage}): {got.tolist()} != "
+                      f"{plain.tolist()}")
+    return err
+
+
+def diag_checked(T, prog, x, w, what: str, pm: PoolMapper | None = None
+                 ) -> tuple[int, dict]:
+    """The diagnostics kernel on seeds x against its plain version: planes
+    mode (the wrapper's staging and none) plane for plane, its rows
+    against crush_rule_cuda's; summary mode on the seeds as given and,
+    for a pool's first PGs (pm: x their placement seeds), on the PG seeds
+    as a tensor and as a range, the placement seed computed in the lane
+    (summary_checked).  Returns (max abs error, the plain planes)."""
     rows, _, want = mapper.crush_rule_plain(T, prog, x, w, diag=True)
-    xb, wb = mapper.u32_bits(x), mapper.u32_bits(w)
+    xb, wb = mapper.u32_bits(x), mapper.kernel_weights(w)
     default = mapper.crush_rule_cuda(T, prog, xb, wb)
     err = 0
     for stage in (None, 0):
@@ -2609,30 +2661,86 @@ def diag_checked(T, prog, x, w, what: str) -> tuple[int, dict]:
                 err = max(err, int((got[k].long() - v.long()).abs().max()))
             check(torch.equal(got[k], v),
                   f"diag plane {k} == plain ({what}, stage {stage})")
+    runs = {"seeds": lambda b, st: mapper.crush_rule_diag_summary_cuda(
+        T, prog, xb, wb, b, stage=st)}
+    if pm is not None:
+        ps = torch.arange(x.numel(), device=x.device)
+        runs["pg_seeds"] = lambda b, st: mapper.crush_rule_diag_summary_cuda(
+            T, prog, ps, wb, b, pm.pool_seeds(), stage=st)
+        runs["pg_range"] = lambda b, st: mapper.crush_rule_diag_summary_cuda(
+            T, prog, range(x.numel()), wb, b, pm.pool_seeds(), stage=st)
+    err = max(err, summary_checked(T, prog, want, runs, what))
     return err, want
 
 
-def phase_diag_vs_plain(dev, corpus: dict, pms: dict) -> tuple[int, dict]:
-    """The diagnostics kernel against its plain version, every plane
-    element-exact, on every placement corpus map, every legacy case, the
-    diag cases of tests/data/explain_corpus.json (an indep EC rule, and
-    the cases the JAX plan leaves inexact: 2 hosts for size 3, vary_r=0
-    and stable=0, leafy indep, two weight-set positions) and config 5's
-    first 2^20 PGs (timed: the plain version against the kernel)."""
+def diag_group_sweep() -> list[tuple[int, int]]:
+    """(G, n) for every group a diagnostics launch chooses: the largest
+    odd n a launch maps with G lanes a seed, in both modes, each held to
+    `mapper.diag_group_size`."""
+    plan = mapper.diag_launch_plan(torch.cuda.current_device())
+    resident = plan.blocks_per_sm * plan.threads * plan.sms
+    sweep = [(g, (resident // g - 1) | 1) for g in mapper.GROUPS]
+    for g, n in sweep:
+        for mode in mapper.DIAG_MODES:
+            check(mapper.diag_group_size(n, mode) == g,
+                  f"crush_rule_diag: {n} seeds in {mode} map with group "
+                  f"{g} ({mapper.diag_group_size(n, mode)})")
+    return sweep
+
+
+def diag_small_bytes(pm: PoolMapper, rows: torch.Tensor, mode: str,
+                     seed_bytes: int, bound: int) -> int:
+    """The bytes a diagnostics launch of n seeds whose rows are `rows`
+    moves at the least: its seeds, its outputs (planes mode: the rows and
+    planes; summary mode: bound + 6 counters), the plan, and what
+    touched_bytes reckons of the map with those OSDs' reweights."""
+    n = rows.shape[0]
+    touched, n_osds = touched_bytes(pm, rows)
+    out = (plane_bytes(pm.prog, n) + 4 * n * pm.prog.result_max
+           if mode == "planes" else 8 * (bound + 6))
+    return (seed_bytes * n + out + pm.prog.diag_plan.nbytes + touched
+            + 4 * n_osds)
+
+
+def bound_of(ops: float, nbytes: int, issue_rate: float,
+             peak: float) -> dict:
+    """A launch's bound: the larger of its operations over the issue rate
+    and its bytes over the HBM rate."""
+    ops_ms, bytes_ms = ops / issue_rate * 1e3, nbytes / peak * 1e3
+    return {"ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_diag_vs_plain(dev, corpus: dict, pms: dict, draws: torch.Tensor,
+                        peak: float) -> tuple[int, dict]:
+    """The diagnostics kernel against its plain version, in both modes
+    (diag_checked: every plane element-exact, every summary equal), on
+    every placement corpus map, every legacy case, the diag cases of
+    tests/data/explain_corpus.json (an indep EC rule, and the cases the
+    JAX plan leaves inexact: 2 hosts for size 3, vary_r=0 and stable=0,
+    leafy indep, two weight-set positions), config 5's first 2^20 PGs
+    (timed: the plain version against the kernel in both modes), and
+    config 5's first n PGs for every group a launch chooses and n in
+    DIAG_SMALL, each checked in both modes and timed (device_ms: the
+    stream held while the host enqueues, L2 flushed; warm beside it)
+    against its bound (`draws`: the plain rule's draws of config 5's
+    first PGs, phase 1's) and the plain version on the card."""
     worst, cases = 0, []
 
-    def case(name, T, prog, x, w):
+    def case(name, T, prog, x, w, pm=None):
         nonlocal worst
-        err, _ = diag_checked(T, prog, x, w, name)
+        err, _ = diag_checked(T, prog, x, w, name, pm)
         worst = max(worst, err)
         cases.append({"case": name, "seeds": x.numel(),
+                      "group": mapper.diag_group_size(x.numel()),
                       "lanes": prog.diag_lanes, "steps": prog.diag_steps})
 
     for name, entry in corpus.items():
         pm = PoolMapper(osdmap_from_reference(entry["map"]),
                         entry["pool_id"], device=dev)
         case(f"placement_{name}", pm.tables, pm.prog,
-             *rule_inputs(pm, pm.spec.pg_num))
+             *rule_inputs(pm, pm.spec.pg_num), pm)
     stored = [("legacy", e) for e in
               json.loads(LEGACY_CASES.read_text())["cases"]]
     stored += [("diag", e) for e in
@@ -2645,25 +2753,80 @@ def phase_diag_vs_plain(dev, corpus: dict, pms: dict) -> tuple[int, dict]:
              torch.tensor(e["xs"], dtype=torch.long, device=dev),
              torch.tensor(e["weights"], dtype=torch.long, device=dev))
     pm = pms["config5"]
+    T, prog = pm.tables, pm.prog
     x, w = rule_inputs(pm, PLAIN_BLOCK)
-    err, _ = diag_checked(pm.tables, pm.prog, x, w, "config5 block")
+    err, want = diag_checked(T, prog, x, w, "config5 block", pm)
     worst = max(worst, err)
     flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
-    xb, wb = mapper.u32_bits(x), mapper.u32_bits(w)
+    warm = torch.empty(1, dtype=torch.uint8, device=dev)
+    xb, wb = mapper.u32_bits(x), mapper.kernel_weights(w)
+    bound = min(prog.diag_tries_bound, 63)  # diagnose()'s
     block = {
         "pgs": PLAIN_BLOCK,
+        "group": mapper.diag_group_size(PLAIN_BLOCK),
         "plain_ms": time_ms(lambda: mapper.crush_rule_plain(
-            pm.tables, pm.prog, x, w, diag=True), flush, runs=1, warmup=0),
+            T, prog, x, w, diag=True), flush, runs=1, warmup=0),
         "ms": time_ms(lambda: mapper.crush_rule_diag_cuda(
-            pm.tables, pm.prog, xb, wb), flush, runs=7),
+            T, prog, xb, wb), flush, runs=7),
+        "summary_ms": time_ms(lambda: mapper.crush_rule_diag_summary_cuda(
+            T, prog, range(PLAIN_BLOCK), wb, bound, pm.pool_seeds()),
+            flush, runs=7),
     }
     cases.append({"case": "config5_block", "seeds": PLAIN_BLOCK, **block})
+
+    # every group a launch chooses, and the small shapes: both modes ==
+    # the 2^20 block's plain planes on their prefix
+    clock = max_sm_clock_hz()
+    issue_rate = H100_SMS * SCHEDULERS_PER_SM * WARP * clock
+    small = {}
+    sweep = diag_group_sweep()
+    for g, n in sweep + [(mapper.diag_group_size(n), n) for n in DIAG_SMALL]:
+        sub = {k: v[:n] for k, v in want.items()}
+        rows, got = mapper.crush_rule_diag_cuda(T, prog, xb[:n], wb)
+        for k, v in sub.items():
+            check(torch.equal(got[k], v),
+                  f"diag plane {k} == plain (config 5's first {n}, G {g})")
+        err = summary_checked(T, prog, sub, {
+            "pg_range": lambda b, st, n=n: mapper.crush_rule_diag_summary_cuda(
+                T, prog, range(n), wb, b, pm.pool_seeds(), stage=st)},
+            f"config 5's first {n}, G {g}")
+        worst = max(worst, err)
+        if n not in DIAG_SMALL:
+            continue
+        n_draws = int(draws[:n].sum())
+        for mode in mapper.DIAG_MODES:
+            if mode == "planes":
+                def launch(n=n):
+                    return mapper.crush_rule_diag_cuda(T, prog, xb[:n], wb)
+
+                def plain(n=n):
+                    return mapper.crush_rule_plain(T, prog, x[:n], w,
+                                                   diag=True)
+                ops = n_draws * OPS_PER_DRAW
+                nbytes = diag_small_bytes(pm, rows, mode, 4, bound)
+            else:
+                def launch(n=n):
+                    return mapper.crush_rule_diag_summary_cuda(
+                        T, prog, range(n), wb, bound, pm.pool_seeds())
+
+                def plain(n=n):
+                    return mapper.diag_summary_plain(T, prog, x[:n], w,
+                                                     bound)
+                ops = n_draws * OPS_PER_DRAW + n * HASH2_OPS
+                nbytes = diag_small_bytes(pm, rows, mode, 0, bound)
+            ms = device_ms(launch, flush, clock)
+            b = bound_of(ops, nbytes, issue_rate, peak)
+            small[f"{mode}_{n}"] = {
+                "mode": mode, "pgs": n, "group": g, "ms": ms,
+                "warm_ms": device_ms(launch, warm, clock),
+                "plain_ms": time_ms(plain, flush, runs=1, warmup=1),
+                "draws": n_draws, "hbm_bytes": nbytes, **b,
+                "bound_share": b["bound_ms"] / ms}
     emit({"phase": "diag_vs_plain", "cases": cases, "max_abs_err": worst,
-          "equal": True, "ptxas": build.ptxas_report(
-              "crush/csrc/crush_rule_diag.cu"),
-          "plan": vars(mapper.launch_plan(torch.cuda.current_device(),
-                                          True))})
-    return worst, block
+          "equal": True, "group_sweep": sweep, "small": small,
+          "ptxas": build.ptxas_report("crush/csrc/crush_rule_diag.cu"),
+          "plan": vars(mapper.diag_launch_plan(torch.cuda.current_device()))})
+    return worst, {"block": block, "small": small}
 
 
 def plane_bytes(prog, n: int) -> int:
@@ -2673,36 +2836,56 @@ def plane_bytes(prog, n: int) -> int:
 
 def phase_diagnose_main(dev, pms: dict, n_draws: int, peak: float) -> dict:
     """PoolMapper.diagnose() over all of config 5's PGs, without and with
-    a ClusterState, each counted from 0 (one diagnostics launch): the
-    histogram's total equal to the placements the planes book, and, over
-    512 sampled seeds, the histogram equal to the host oracle's; the diag
-    kernel's time beside the default kernel's on the same seeds (CUDA
-    events, L2 flushed) and diagnose's entry time on the host clock."""
+    a ClusterState, each counted from 0 (one summary-mode diagnostics
+    launch, no rule or pipeline launch) with the device memory it takes
+    beyond what it started with (no plane: under PLANE_FREE bytes, beside
+    the planes' plane_bytes); the two summaries equal, and equal to the
+    planes of a planes-mode pass over every PG reduced (the two modes of
+    the kernel at full size); over 512 sampled seeds, the histogram equal
+    to the host oracle's.  Timed (CUDA events, L2 flushed): the summary
+    kernel as diagnose() launches it, the planes kernel, the default rule
+    kernel and the pipeline kernel (mode up, row 6) on the same PGs, and
+    the 512-seed sample's launch (device_ms); diagnose's entry on the host
+    clock, all of the pool and the sample."""
     pm = pms["config5"]
     n = pm.spec.pg_num
     flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
-    out = {"pgs": n}
+    out = {"pgs": n, "plane_bytes": plane_bytes(pm.prog, n)}
     state = ClusterState(pm.m, device=dev)
     for label, mpr in (("mapper", pm), ("state",
                                         PoolMapper(pm.m, 0, state=state))):
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         s, rule_n, diag_n, pipe_n = count_placement(
             lambda: mpr.diagnose(record=False))
         sec = time.perf_counter() - t0
+        extra = torch.cuda.max_memory_allocated(dev) - base
         check((rule_n, diag_n, pipe_n) == (0, 1, 0),
               f"diagnose ({label}): {rule_n} rule, {diag_n} diag, "
               f"{pipe_n} pipeline launches")
         check(s["pgs"] == n and s["diag_exact"] and s["unresolved"] == 0,
               f"diagnose ({label}) covers every PG")
-        out[label] = {"s": sec, "diag_launches": diag_n, "summary": {
-            k: v for k, v in s.items() if k != "tries_histogram"},
-            "tries_histogram_head": s["tries_histogram"][:8]}
+        check(extra < PLANE_FREE,
+              f"diagnose ({label}) allocates no plane: {extra} bytes "
+              f"beyond its start (the planes: {out['plane_bytes']})")
+        out[label] = {"s": sec, "diag_launches": diag_n,
+                      "extra_device_bytes": extra, "summary": {
+                          k: v for k, v in s.items()
+                          if k != "tries_histogram"},
+                      "tries_histogram_head": s["tries_histogram"][:8]}
         out.setdefault("summary", s)
         check(s == out["summary"], "diagnose with a ClusterState == without")
     s = out["summary"]
+    bound = s["tries_bound"]
     x, w = rule_inputs(pm, n)
     _, planes = mapper.diag_rule(pm.tables, pm.prog, x, w)
+    got = mapper.summary_of_planes(pm.prog, planes, bound).tolist()
+    check(got == s["tries_histogram"] + [
+        s[k] for k in ("collisions", "rejections", "skips", "bad_mappings",
+                       "retry_exhausted")],
+          "diagnose's summary == the planes of every PG, reduced")
     booked = int((planes["tries"] >= 0).sum())
     check(sum(s["tries_histogram"]) == booked,
           "the histogram's total == the placements the planes book")
@@ -2715,36 +2898,64 @@ def phase_diagnose_main(dev, pms: dict, n_draws: int, peak: float) -> dict:
     crush = pm.m.crush
     crush.choose_tries_histogram = [0] * (crush.tunables.choose_total_tries
                                           + 1)
-    pps = pm.placement_seeds(torch.from_numpy(sample).to(dev)).cpu()
+    sample_ps = torch.from_numpy(sample).to(dev)
+    pps = pm.placement_seeds(sample_ps)
     weights = pm.rule_weights().cpu().tolist()
     t0 = time.perf_counter()
-    for xv in pps.tolist():
+    for xv in pps.cpu().tolist():
         mapper_ref.do_rule(crush, pm.spec.ruleno, xv, 3, weights,
                            collect_choose_tries=True)
     host_s = time.perf_counter() - t0
     check(got == crush.choose_tries_histogram[:len(got)],
           f"diagnose histogram == mapper_ref's over {DIAG_SAMPLE} seeds")
     crush.choose_tries_histogram = None
-    xb, wb = mapper.u32_bits(x), mapper.u32_bits(w)
-    out["ms"] = time_ms(lambda: mapper.crush_rule_diag_cuda(
+    xb, wb = mapper.u32_bits(x), mapper.kernel_weights(w)
+    ps = torch.arange(n, device=dev)
+    out["ms"] = time_ms(lambda: mapper.crush_rule_diag_summary_cuda(
+        pm.tables, pm.prog, range(n), wb, bound, pm.pool_seeds()), flush,
+        runs=7)
+    out["planes_ms"] = time_ms(lambda: mapper.crush_rule_diag_cuda(
         pm.tables, pm.prog, xb, wb), flush, runs=7)
     out["default_ms"] = time_ms(lambda: mapper.crush_rule_cuda(
         pm.tables, pm.prog, xb, wb), flush, runs=7)
+    out["pipeline_ms"] = time_ms(lambda: pipeline.pipeline_cuda(
+        pm, ps, "up"), flush, runs=7)
     out["diagnose_ms"] = wall_ms(lambda: pm.diagnose(record=False), flush,
                                  runs=5)
     clock = max_sm_clock_hz()
+    issue_rate = H100_SMS * SCHEDULERS_PER_SM * WARP * clock
+    # the sample's launch, as diagnose(sample) makes it
+    _, sample_draws = mapper.crush_rule_plain(pm.tables, pm.prog, pps, w)
+
+    def sample_launch():
+        return mapper.crush_rule_diag_summary_cuda(
+            pm.tables, pm.prog, sample_ps, wb, bound, pm.pool_seeds())
+
+    sample_rows = mapper.crush_rule_cuda(pm.tables, pm.prog,
+                                         mapper.u32_bits(pps), wb)
+    out["sample_launch"] = {
+        "pgs": DIAG_SAMPLE, "group": mapper.diag_group_size(
+            DIAG_SAMPLE, "summary"),
+        "ms": device_ms(sample_launch, flush, clock),
+        "diagnose_ms": wall_ms(lambda: pm.diagnose(sample, record=False),
+                               flush, runs=9),
+        **bound_of(int(sample_draws.sum()) * OPS_PER_DRAW
+                   + DIAG_SAMPLE * HASH2_OPS,
+                   diag_small_bytes(pm, sample_rows, "summary", 8, bound),
+                   issue_rate, peak)}
     # the default kernel's draws on these seeds (placement_main counts
-    # them): the variant makes the same draws
-    ops_ms = (n_draws * OPS_PER_DRAW
-              / (H100_SMS * SCHEDULERS_PER_SM * WARP * clock) * 1e3)
-    nbytes = (rule_bytes(pm.tables, pm.prog, w.numel(), n)
-              + plane_bytes(pm.prog, n))
-    bytes_ms = nbytes / peak * 1e3
+    # them): the variant makes the same draws; summary mode adds the seed
+    # hash a PG and writes bound + 6 counters, planes mode writes planes
+    summary_bytes = (rule_bytes(pm.tables, pm.prog, w.numel(), n)
+                     - 4 * n * (1 + pm.prog.result_max) + 8 * (bound + 6))
+    planes_bytes = (rule_bytes(pm.tables, pm.prog, w.numel(), n)
+                    + plane_bytes(pm.prog, n))
     out.update({
-        "draws": n_draws, "ops_ms": ops_ms, "hbm_bytes": nbytes,
-        "plane_bytes": plane_bytes(pm.prog, n), "bytes_ms": bytes_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "draws": n_draws, "hbm_bytes": summary_bytes,
+        **bound_of(n_draws * OPS_PER_DRAW + n * HASH2_OPS, summary_bytes,
+                   issue_rate, peak),
+        "planes": {"hbm_bytes": planes_bytes, **bound_of(
+            n_draws * OPS_PER_DRAW, planes_bytes, issue_rate, peak)},
         "sample": DIAG_SAMPLE, "sample_host_s": host_s,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
     })
@@ -5427,7 +5638,8 @@ def main() -> int:
 
     # placement diagnostics and the failure simulator: the diagnostics
     # kernel vs its plain version, then its paths, each counted from 0
-    diag_err, dblock = phase_diag_vs_plain(dev, corpus, pms)
+    diag_err, dsmall = phase_diag_vs_plain(dev, corpus, pms,
+                                           draws["config5"], info["peak_bw"])
     dres = phase_diagnose_main(dev, pms, pres["config5"]["draws"],
                                info["peak_bw"])
     diag_paths = {"diagnose_config5": dres["mapper"]["diag_launches"],
@@ -5667,24 +5879,46 @@ def main() -> int:
         "route": "cuda",
         "source": "ceph_tpu_torch/crush/csrc/crush_rule_diag.cu",
         "replaces": "ceph_tpu/crush/mapper_jax.py:1529::compile_rule("
-                    "with_diag=True) (XLA)",
+                    "with_diag=True) (XLA), reduced by "
+                    "ceph_tpu/osd/pipeline_jax.py:781::PoolMapper.diagnose",
         "equal": diag_err == 0,
         "launches": sum(diag_paths.values()),
         "launches_by_path": diag_paths,
+        # in-process paths only: the daemon's launch is its child's
+        "launches_by_instance": DIAG_INSTANCES,
         "max_abs_err": diag_err,
-        # config 5 (10M PGs) beside the default kernel on the same seeds;
-        # plain_ms on the first plain_pgs PGs, beside the kernel's time on
-        # the same block (block_ms)
+        # config 5 (10M PGs), summary mode as diagnose() launches it,
+        # beside the planes mode, the default kernel and the pipeline
+        # kernel (row 6, mode up) on the same PGs; plain_ms on the first
+        # plain_pgs PGs (planes, the plain version on the card), beside
+        # the kernel's time on the same block in both modes
         "ms": dres["ms"],
-        "default_ms": dres["default_ms"],
-        "plain_ms": dblock["plain_ms"],
-        "plain_pgs": dblock["pgs"],
-        "block_ms": dblock["ms"],
+        "plain_ms": dsmall["block"]["plain_ms"],
+        "plain_pgs": dsmall["block"]["pgs"],
+        "block_ms": dsmall["block"]["ms"],
+        "block_summary_ms": dsmall["block"]["summary_ms"],
         "bound_ms": dres["bound_ms"],
         "bound_by": dres["bound_by"],
         "library_ms": None,
+        "library": "none: no PyTorch call computes CRUSH",
+        "modes": {
+            "summary": {"ms": dres["ms"], "bound_ms": dres["bound_ms"],
+                        "bound_by": dres["bound_by"]},
+            "planes": {"ms": dres["planes_ms"],
+                       "bound_ms": dres["planes"]["bound_ms"],
+                       "bound_by": dres["planes"]["bound_by"]}},
+        "default_ms": dres["default_ms"],
+        "pipeline_ms": dres["pipeline_ms"],
         "diagnose_ms": dres["diagnose_ms"],
         "diagnose_s": {k: dres[k]["s"] for k in ("mapper", "state")},
+        "diagnose_extra_device_bytes": {
+            k: dres[k]["extra_device_bytes"] for k in ("mapper", "state")},
+        "plane_bytes": dres["plane_bytes"],
+        # the 512-seed sample's summary launch (G from its size), and the
+        # small launches of config 5's first PGs in both modes: ms
+        # (device_ms, L2 flushed), bound and the plain version's ms
+        "sample_launch": dres["sample_launch"],
+        "small": dsmall["small"],
         "cli": {k: r["seconds"] for k, r in eres.items()},
         "failure_sim": [{f: e[f] for f in ("event", "s", "pipeline_launches",
                                           "diag_launches")}
