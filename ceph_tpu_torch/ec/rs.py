@@ -262,7 +262,9 @@ class RSErasureCode(ErasureCode):
         with obs.span("ec.encode_batch", k=self.k, m=self.m,
                       stripes=int(np.shape(data)[0]), bytes=nbytes), \
                 _L.time("encode_seconds"):
-            out = _concat(data, self.engine.matmul_batch(self.C, data), 1)
+            parity = self.engine.matmul_batch(self.C, data)
+            with obs.span("ec.concat"):
+                out = _concat(data, parity, 1)
         _L.inc("bytes_encoded", nbytes)
         return out
 
@@ -289,7 +291,8 @@ class RSErasureCode(ErasureCode):
             if missing:
                 R = decode_plan(self.C, tuple(use), tuple(missing),
                                 self.engine)
-                stack = _stack([chunks[i] for i in use], 1)  # [N, k, cs]
+                with obs.span("ec.stack"):
+                    stack = _stack([chunks[i] for i in use], 1)  # [N, k, cs]
                 if hasattr(self.engine, "matmul_batch"):
                     rebuilt = self.engine.matmul_batch(R, stack)
                 else:

@@ -1,9 +1,9 @@
 """Span registry — the single authoritative list of trace event names.
 
 The port of `ceph_tpu/obs/spans.py`, limited to the names the port
-emits.  Every name is the JAX registry's, with the JAX meaning: a trace
-of either package reads the same in Perfetto.  Every literal
-`obs.span("...")` / `obs.instant("...")` / `obs.counter("...")` name in
+emits.  Every name but `ADDED`'s is the JAX registry's, with the JAX
+meaning: a trace of either package reads the same in Perfetto.  Every
+literal `obs.span("...")` / `obs.instant("...")` / `obs.counter("...")` name in
 `ceph_tpu_torch` is declared here (tests/test_torch_obs.py scans the
 package); a typo'd name would silently orphan its events.
 
@@ -18,8 +18,13 @@ Three kinds of entry:
 - `PREFIXES`: allowed prefixes for dynamically built span names (the
   stage scheduler's `stage.<name>`).
 
+`ADDED` holds the port's own span names, which the JAX package has
+no counterpart for (like `cuda_accounting.ADDED` for perf keys).
+
 Spans time the host; `DISPATCH_SPANS` are the spans around launches
-(enqueue only), inside which nothing may wait for the card.
+(enqueue only), inside which nothing may wait for the card.  While a
+torch profiler records, every span is also a range of its trace, so the
+device work a span launches is put down to it there.
 """
 
 from __future__ import annotations
@@ -104,6 +109,15 @@ SPANS: dict[str, str] = {
     "daemon.selftest": "daemon CLI miniature workload",
 }
 
+# the port's own spans: around the batched EC entries' copies, so the
+# profiler's trace tells their device work from the GF kernel's
+ADDED: dict[str, str] = {
+    "ec.concat": "encode_batch's join of data and parity into [N, k+m, "
+                 "cs] (a copy on the device)",
+    "ec.stack": "decode_batch's stack of the k survivors into [N, k, cs] "
+                "(a copy on the device)",
+}
+
 INSTANTS: dict[str, str] = {
     "fault.fired": "an armed fault point fired",
     "stage.overrun": "a stage was abandoned by the watchdog",
@@ -141,6 +155,7 @@ DISPATCH_SPANS: tuple[str, ...] = (
 def known(name: str) -> bool:
     """True if `name` is a declared event name or matches a dynamic
     prefix."""
-    if name in SPANS or name in INSTANTS or name in COUNTERS:
+    if name in SPANS or name in ADDED or name in INSTANTS or \
+            name in COUNTERS:
         return True
     return any(name.startswith(p) for p in PREFIXES)

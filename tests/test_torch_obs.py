@@ -13,7 +13,12 @@
 - static scans of `ceph_tpu_torch/**`: every `CEPH_TPU_*` read goes
   through `knobs.get` and is registered, every registered knob is read;
   every literal span / instant / counter name is declared in the port's
-  `spans.py` and is a JAX name;
+  `spans.py` and is a JAX name, or one of the port's own (`ADDED`, none
+  of them a JAX name);
+- spans in the profiler's trace: nested `user_annotation` ranges while a
+  torch profiler records, no `record_function` while it does not, the
+  Chrome file's events unchanged by it; the batched EC entries' copies
+  in spans of their own;
 - the perf groups: each group's key set after importing every module
   is the JAX group's less the keys absent by design, plus the added
   ones; a port `Checkpoint`'s `"perf"` has the JAX layout;
@@ -304,6 +309,149 @@ def test_trace_off_records_nothing_and_shares_the_null_span():
     assert trace.n_events() == 0 and trace.flush() is None
 
 
+def _profiled(fn, tmp_path) -> list:
+    """The `user_annotation` events of fn() run under a CPU torch
+    profiler, from its Chrome export."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+
+
+def _inside(inner: dict, outer: dict) -> bool:
+    return (inner["tid"] == outer["tid"] and outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+def test_spans_are_nested_ranges_of_the_profilers_trace(tmp_path):
+    trace.set_trace_path(None)
+
+    def script():
+        with obs.span("sim.epoch", epoch=3):
+            with obs.span("state.apply"):
+                with obs.span("state.rebuild"):
+                    pass
+            with obs.span("state.rows"):
+                pass
+
+    ev = {e["name"]: e for e in _profiled(script, tmp_path)}
+    assert set(ev) == {"sim.epoch", "state.apply", "state.rebuild",
+                       "state.rows"}
+    assert _inside(ev["state.apply"], ev["sim.epoch"])
+    assert _inside(ev["state.rebuild"], ev["state.apply"])
+    assert _inside(ev["state.rows"], ev["sim.epoch"])
+    assert not _inside(ev["state.rows"], ev["state.apply"])
+    assert trace.n_events() == 0  # no trace file asked for: no event
+
+
+@pytest.mark.parametrize("profiling", [False, True])
+def test_span_calls_record_function_only_while_profiling(monkeypatch,
+                                                         profiling):
+    import torch
+
+    trace.set_trace_path(None)
+    calls = []
+    real = torch.profiler.record_function
+
+    def counting(name, *a, **kw):
+        calls.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        counting)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    if profiling:
+        prof.__enter__()
+    try:
+        spans_made = [obs.span("pipeline.map_block", pgs=4),
+                      obs.span("ec.concat")]
+        for sp in spans_made:
+            with sp:
+                pass
+    finally:
+        if profiling:
+            prof.__exit__(None, None, None)
+    if profiling:
+        assert calls == ["pipeline.map_block", "ec.concat"]
+    else:  # the shared no-op, and no range made
+        assert calls == []
+        assert all(sp is trace._NULL for sp in spans_made)
+        assert trace.n_events() == 0
+
+
+def test_trace_file_events_equal_jax_while_profiling(both_tracers,
+                                                    tmp_path):
+    """A profiler recording changes nothing in the Chrome file: the same
+    script gives the JAX tracer's events, as it does with none."""
+    import torch
+
+    paths = []
+    for tr in both_tracers:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            trace_script(tr)
+        paths.append(Path(tr.flush()))
+    (pe, _), (je, _) = (_events(p) for p in paths)
+    assert pe == je
+    doc = json.loads(paths[0].read_text())["traceEvents"]
+    assert {e["cat"] for e in doc} == {"ceph_tpu"}
+
+
+def _ec_calls():
+    """encode_batch and decode_batch of RS(4, 2) on the CPU engine."""
+    import torch
+
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+
+    code = create_erasure_code({"plugin": "jerasure",
+                                "technique": "reed_sol_van", "k": "4",
+                                "m": "2"}, device="cpu")
+    assert hasattr(code.engine, "matmul_batch")  # the batched path
+    data = torch.randint(0, 256, (3, 4, 64), dtype=torch.uint8)
+
+    def run():
+        out = code.encode_batch(data)
+        chunks = {i: out[:, i] for i in (0, 2, 3, 5)}
+        got = code.decode_batch({0, 1, 2, 3}, chunks, 64)
+        assert torch.equal(got[1], data[:, 1])
+
+    return run
+
+
+def _assert_copies_inside_entries(ev: list) -> None:
+    by = {n: [e for e in ev if e["name"] == n]
+          for n in ("ec.encode_batch", "ec.concat", "ec.decode_batch",
+                    "ec.stack")}
+    assert all(len(v) == 1 for v in by.values()), by
+    assert _inside(by["ec.concat"][0], by["ec.encode_batch"][0])
+    assert _inside(by["ec.stack"][0], by["ec.decode_batch"][0])
+    assert not _inside(by["ec.concat"][0], by["ec.decode_batch"][0])
+
+
+def test_ec_batch_copies_have_spans_in_the_trace_file(tmp_path,
+                                                      monkeypatch):
+    monkeypatch.setattr(trace, "_events", deque(maxlen=1000))
+    trace.set_trace_path(str(tmp_path / "ec.json"))
+    try:
+        _ec_calls()()
+        doc = json.loads(Path(trace.flush()).read_text())["traceEvents"]
+    finally:
+        trace.set_trace_path(None)
+    _assert_copies_inside_entries(doc)
+
+
+def test_ec_batch_copies_have_spans_in_the_profilers_trace(tmp_path):
+    trace.set_trace_path(None)
+    _assert_copies_inside_entries(_profiled(_ec_calls(), tmp_path))
+
+
 def test_trace_thread_safety(both_tracers, monkeypatch):
     tr = both_tracers[0]
     n_threads, per = 8, 200
@@ -491,7 +639,8 @@ def test_every_knob_read_is_registered_and_every_knob_is_read():
 def test_every_span_name_is_declared_and_a_jax_name():
     from ceph_tpu.obs import spans as jspans
 
-    declared = set(spans.SPANS) | set(spans.INSTANTS) | set(spans.COUNTERS)
+    declared = (set(spans.SPANS) | set(spans.INSTANTS)
+                | set(spans.COUNTERS) | set(spans.ADDED))
     used: set[str] = set()
     for path, tree in _port_sources():
         for node in ast.walk(tree):
@@ -514,8 +663,14 @@ def test_every_span_name_is_declared_and_a_jax_name():
                           (spans.INSTANTS, jspans.INSTANTS),
                           (spans.COUNTERS, jspans.COUNTERS)):
         assert set(table) <= set(jtable), set(table) - set(jtable)
+    # the port's own names: emitted, and none of them a JAX name
+    jdeclared = set(jspans.SPANS) | set(jspans.INSTANTS) | set(jspans.COUNTERS)
+    assert set(spans.ADDED) <= used
+    assert not set(spans.ADDED) & jdeclared, set(spans.ADDED) & jdeclared
+    assert not set(spans.ADDED) & set(spans.SPANS)
     assert set(spans.DISPATCH_SPANS) <= set(jspans.DISPATCH_SPANS)
     assert spans.known("pipeline.map_block") and not spans.known("x.y")
+    assert spans.known("ec.concat") and spans.known("ec.stack")
 
 
 # -- perf groups and the checkpoint ---------------------------------------------------
